@@ -2,17 +2,30 @@
 
     python3 chip_smoke.py [--rows N]
 
-Builds the package's CUDA kernels from the sources in this checkout, holds
-each against its plain PyTorch version on the card, then drives the
-BASELINE workload (bench.py's inner join of two int64 {k, payload} tables,
-seed 42, keys uniform in [0, 0.9 n), then a groupby-sum on the join key)
-through the package's public entry points — at 1M rows per side and at
-``--rows`` per side (default 125M) — and checks every result against a
-numpy oracle.  Prints one JSON line per phase, then the kernel summary
-line, then the card's name and power limit as nvidia-smi reports them, and
-last ``{"ok": true, "device": {...}}``.  Any failure raises: the script
-exits nonzero without the last line.  It needs a CUDA device and fails
-without one.
+Builds the package's CUDA kernels from the sources in this checkout (one
+nvcc per source, all at once), holds each against its plain PyTorch
+version on the card, then drives the BASELINE workload (bench.py's inner
+join of two int64 {k, payload} tables, seed 42, keys uniform in
+[0, 0.9 n), then a groupby-sum on the join key) through the package's
+public entry points and checks every result against a numpy oracle:
+
+* the monolithic route, ``join_tables`` -> ``groupby_aggregate``, at 1M
+  rows per side and at ``--rows`` per side (default 125M);
+* bench.py's pipelined route at ``--rows`` per side on the same tables:
+  ``GroupBySink`` + ``pipelined_join(n_chunks=max(2, ceil(rows / 21M)))``
+  + ``finalize``, whose splitter probe is K2 and whose pieces' run-start
+  gather is K1.
+
+Each kernel is also held against its plain version on the inputs its
+routes handed it, captured in one more run of each: K1 at the monolithic
+route's gather and at one pipelined piece's, K2 at the pipelined probe.
+
+Each route's kernel counts are set to 0 just before it and read just
+after.  Prints one JSON line per phase, then the kernel summary line, then
+the card's name and power limit as nvidia-smi reports them, and last
+``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
+nonzero without the last line.  It needs a CUDA device and fails without
+one.
 """
 
 from __future__ import annotations
@@ -30,8 +43,15 @@ from cylon_tpu_torch.utils.host import sync_pull
 
 #: published HBM3 bandwidth of one H100 SXM (NVIDIA data sheet), bytes/s
 HBM_BYTES_PER_S = 3.35e12
+#: published non-tensor-core float32 rate of one H100 SXM, operations/s:
+#: the table's nearest rate for K2's 32-bit integer compares
+SCALAR_OPS_PER_S = 67e12
 K1_SOURCE = "cylon_tpu_torch/kernels/windowed_gather.cu"
 K1_REPLACES = "cylon_tpu/ops/pallas_gather.py:161"
+K2_SOURCE = "cylon_tpu_torch/kernels/splitter_probe.cu"
+K2_REPLACES = "cylon_tpu/ops/pallas_probe.py:136"
+#: bench.py's rows per range piece of the pipelined route
+PIECE_ROWS = 21_000_000
 
 
 def emit(obj) -> None:
@@ -106,6 +126,149 @@ def small_cases(rng, n_rows, n_lanes, seg, pattern, dev):
             torch.from_numpy(idx).to(dev))
 
 
+def k2_check(sp, label, ops, sops, timed=False):
+    """K2 vs its plain version on the same card inputs: bit-equal counts.
+    With ``timed``, also the library yardstick: one ``torch.searchsorted``
+    over the key tuple packed into one int64 word (K <= 2; the packing
+    pass is not timed), itself checked equal."""
+    from cylon_tpu_torch.ops import pack
+    got = sp.count_ge_splitters(ops, sops)
+    want = sp.count_ge_splitters_plain(ops, sops)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"K2 {label}: kernel and plain version differ")
+    cap, S, K = ops[0].shape[0], sops[0].shape[0], len(ops)
+    rec = {"phase": "k2", "case": label, "K": K, "S": S, "cap": cap,
+           "widths": [str(o.dtype) for o in ops], "bit_equal": True,
+           "max_abs_err": int((got.to(torch.int64)
+                               - want.to(torch.int64)).abs().max())}
+    del got, want
+    if timed:
+        nbytes = (sum(o.numel() * o.element_size() for o in ops)
+                  + sum(so.numel() * so.element_size() for so in sops)
+                  + 4 * cap)
+        n_ops = 2 * K * S * cap          # one > and one == per operand
+        rec.update(
+            ms=time_ms(lambda: sp.count_ge_splitters(ops, sops)),
+            plain_ms=time_ms(lambda: sp.count_ge_splitters_plain(ops, sops)),
+            bytes=nbytes, bound_ms=max(nbytes / HBM_BYTES_PER_S,
+                                       n_ops / SCALAR_OPS_PER_S) * 1e3,
+            bytes_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+            ops_bound_ms=n_ops / SCALAR_OPS_PER_S * 1e3,
+            bound_by="bytes" if nbytes / HBM_BYTES_PER_S
+            >= n_ops / SCALAR_OPS_PER_S else "operations",
+            library_ms=None)
+        kinds = ("i",) * K
+        words = pack.sort_words(pack.KeyOps(tuple(ops), kinds))
+        swords = pack.sort_words(pack.KeyOps(tuple(sops), kinds))
+        if len(words) == 1:
+            rw, sw = words[0][0], swords[0][0]
+            lib = torch.searchsorted(sw, rw, right=True)
+            if not torch.equal(lib.to(torch.int32),
+                               sp.count_ge_splitters(ops, sops)):
+                raise AssertionError(f"K2 {label}: searchsorted yardstick "
+                                     "differs")
+            del lib
+            rec["library_ms"] = time_ms(
+                lambda: torch.searchsorted(sw, rw, right=True))
+            rec["library"] = ("torch.searchsorted(right=True) over one "
+                              "packed int64 word per row; packing not timed")
+        del words, swords
+    return rec
+
+
+def k2_cases(sp, dev):
+    """K2 against its plain version: the operand shapes of the pipelined
+    join (tests/test_torch_splitter_probe.py's cases) at 1M rows, built by
+    the package's own key_operands from seeded numpy keys."""
+    from cylon_tpu_torch.ops import pack
+    rng = np.random.default_rng(7)
+    cap = 1 << 20
+
+    def operands(cols, valids, narrow, live):
+        mask = torch.arange(cap, device=dev) < live
+        ko = pack.key_operands(
+            [torch.from_numpy(c).to(dev) for c in cols],
+            [None if v is None else torch.from_numpy(v).to(dev)
+             for v in valids], row_mask=mask, pad_key=4,
+            need_null_flags=tuple(v is not None for v in valids),
+            narrow32=narrow)
+        return ko.ops
+
+    def splitters(ops, n_split, n_sent=0, rows=()):
+        # rows of the table (so some rows equal a splitter; ``rows`` among
+        # them), then repeats of the +inf sentinel slot (liveness = pad key)
+        order = torch.from_numpy(np.sort(np.concatenate([rng.integers(
+            0, cap, n_split - n_sent - len(rows)),
+            np.asarray(rows, np.int64)]))).to(dev)
+        return tuple(torch.cat([o[order], torch.full(
+            (n_sent,), 4 if j == 0 else 0, dtype=o.dtype, device=dev)])
+            for j, o in enumerate(ops))
+
+    narrow = operands([rng.integers(0, 900_000, cap)], [None], (True,),
+                      cap - 4099)
+    hi = rng.integers(-3, 3, cap).astype(np.int64)
+    lo = rng.integers(0, 1 << 32, cap, dtype=np.uint64).astype(np.int64)
+    lo[:4096] = 0x80000000
+    lo[4096:8192] = 0x7FFFFFFF
+    wide = operands([(hi << 32) | lo], [None], (False,), cap)
+    nullable = operands([rng.integers(-50, 50, cap).astype(np.int32)],
+                        [rng.random(cap) > 0.2], (False,), cap - 1)
+    many = operands([rng.integers(-2**40, 2**40, cap) for _ in range(4)],
+                    [rng.random(cap) > 0.1 for _ in range(4)],
+                    (False,) * 4, cap - 17)
+    f64 = rng.normal(size=cap)
+    f64[rng.integers(0, cap, 4096)] = np.nan
+    f64[rng.integers(0, cap, 4096)] = -0.0
+    f64[rng.integers(0, cap, 4096)] = 0.0
+    f64[rng.integers(0, cap, 1024)] = np.inf
+    f64[rng.integers(0, cap, 1024)] = -np.inf
+    fvalid = rng.random(cap) > 0.1
+    floats = operands([f64], [fvalid], (False,), cap - 3)
+    # splitter rows holding NaN, +inf, -inf and -0.0
+    special = np.array([np.flatnonzero(fvalid & m)[0] for m in (
+        np.isnan(f64), f64 == np.inf, f64 == -np.inf,
+        (f64 == 0) & np.signbit(f64))], np.int64)
+    yield k2_check(sp, "narrow_K2_S5", narrow, splitters(narrow, 5, 1))
+    yield k2_check(sp, "wide_K3_S13_lo_across_2^31", wide,
+                   splitters(wide, 13, 1))
+    yield k2_check(sp, "nullable_K3_S7", nullable,
+                   splitters(nullable, 7, 1))
+    yield k2_check(sp, "narrow_S1", narrow, splitters(narrow, 1))
+    yield k2_check(sp, "narrow_S128_dup_sentinel", narrow,
+                   splitters(narrow, 128, 9))
+    yield k2_check(sp, "wide_S128", wide, splitters(wide, 128, 2))
+    yield k2_check(sp, "many_K13_S31", many, splitters(many, 31, 3))
+    yield k2_check(sp, "narrow_S600", narrow, splitters(narrow, 600, 1))
+    yield k2_check(sp, "nullable_f64_K3_S9_nan_zeros_inf", floats,
+                   splitters(floats, 9, 1, special))
+    yield k2_check(sp, "nullable_f64_S128", floats,
+                   splitters(floats, 128, 2, special))
+    # an f64 operand as the kernel may meet it unbuilt: both zero signs and
+    # NaNs of both signs, among rows and splitters alike
+    pool = np.array([-0.0, 0.0, np.nan, -np.nan, np.inf, -np.inf, 1.0, -1.0])
+    raw = (torch.from_numpy(rng.choice(pool, cap)).to(dev),)
+    yield k2_check(sp, "raw_f64_K1_signed_zeros_and_nans", raw,
+                   (torch.from_numpy(pool[[0, 1, 3, 2, 7, 4]]).to(dev),))
+    ragged = tuple(o[:cap - 333] for o in narrow)
+    yield k2_check(sp, "ragged_cap", ragged, splitters(ragged, 5, 1))
+    # splitter images beyond shared memory: the wrapper raises, it never
+    # computes the plain version on the card
+    from cylon_tpu_torch.status import KernelError
+    before = sp.COUNTS["launches"]
+    try:
+        sp.count_ge_splitters(
+            (torch.zeros(1024, dtype=torch.int32, device=dev),),
+            (torch.zeros(1 << 16, dtype=torch.int32, device=dev),))
+    except KernelError as e:
+        if sp.COUNTS["launches"] != before:
+            raise AssertionError("K2 at S=65536 counted a launch") from e
+        yield {"phase": "k2", "case": "S65536_beyond_shared_memory",
+               "raised": type(e).__name__, "message": str(e)}
+    else:
+        raise AssertionError("K2 at S=65536: no error raised")
+
+
 def baseline_inputs(n: int, seed: int = 42, unique: float = 0.9):
     """bench.py's BASELINE tables (same generator, same draw order)."""
     rng = np.random.default_rng(seed)
@@ -160,7 +323,24 @@ def step(ct, lt, rt, times=None):
     return g
 
 
-def profile_step(ct, lt, rt, top: int = 12) -> dict:
+def pipelined_step(ct, lt, rt, n_chunks, times=None):
+    """bench.py's pipelined BASELINE iteration through the public entry
+    points: GroupBySink + pipelined_join + finalize."""
+    t0 = time.perf_counter()
+    sink = ct.GroupBySink("k", [("a", "sum"), ("b", "sum")])
+    ct.pipelined_join(lt, rt, "k", "k", how="inner", n_chunks=n_chunks,
+                      sink=sink)
+    t1 = time.perf_counter()
+    g = sink.finalize()
+    sync_pull(g.column("k").data)
+    t2 = time.perf_counter()
+    if times is not None:
+        times.append({"join_and_sink_s": t1 - t0, "finalize_s": t2 - t1,
+                      "total_s": t2 - t0})
+    return g
+
+
+def profile_step(ct, lt, rt, top: int = 12, step_fn=None) -> dict:
     """One BASELINE iteration under torch.profiler: device time by kernel
     and by aten op, and the device's busy share of the step's wall time."""
     from torch.profiler import ProfilerActivity, profile
@@ -177,7 +357,7 @@ def profile_step(ct, lt, rt, top: int = 12) -> dict:
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        step(ct, lt, rt)
+        (step_fn or step)(ct, lt, rt)
     wall_s = time.perf_counter() - t0
     evs = prof.key_averages()
     kern = [e for e in evs if str(getattr(e, "device_type", "")).endswith(
@@ -206,7 +386,9 @@ def main() -> int:
         return 1
     import cylon_tpu_torch as ct
     from cylon_tpu_torch import kernels
+    from cylon_tpu_torch.ops import splitter_probe as sp
     from cylon_tpu_torch.ops import windowed_gather as wg
+    from cylon_tpu_torch.utils import timing
     from torch.utils import cpp_extension
 
     dev = torch.device("cuda:0")
@@ -249,6 +431,11 @@ def main() -> int:
     emit(k1_check(wg, "baseline_shaped", mat, idx, wg.pick_window(0.2),
                   True, timed=True))
     del mat, idx
+    torch.cuda.empty_cache()
+
+    # -- K2 against its plain version on the card -------------------------
+    for rec in k2_cases(sp, dev):
+        emit(rec)
     torch.cuda.empty_cache()
 
     env = ct.CylonEnv()
@@ -309,7 +496,60 @@ def main() -> int:
     except Exception as e:  # noqa: BLE001 — report and carry on
         emit({"phase": "profile", "error": f"{type(e).__name__}: {e}"})
 
-    # -- K1 at the main path's own inputs ----------------------------------
+    # -- pipelined path: bench.py's route, the same tables, counted ---------
+    n_chunks = max(2, -(-n // PIECE_ROWS))
+    del g
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    wg.reset_counts()
+    sp.reset_counts()
+    times = []
+    g = pipelined_step(ct, lt, rt, n_chunks, times)      # warm-up
+    for _ in range(3):
+        g = pipelined_step(ct, lt, rt, n_chunks, times)
+    pipe_counts = {"splitter_probe": dict(sp.COUNTS),
+                   "windowed_gather": dict(wg.COUNTS)}
+    pipe_peak = torch.cuda.max_memory_allocated()
+    n_groups = check_groupby(g, orc, "pipelined path")
+    # K1 serves a piece only at a segment space of 2^20 groups or more
+    # (relational/fused._win_size): from about 16M rows per side on, at
+    # bench.py's piece size; the default 125M run must launch it
+    need_k1 = n >= 16_000_000
+    if pipe_counts["splitter_probe"]["launches"] < 1 \
+            or (need_k1 and pipe_counts["windowed_gather"]["launches"] < 1):
+        raise AssertionError(f"pipelined path kernel counts {pipe_counts}: "
+                             "expected K2 launched, and K1 at >= 16M rows")
+    del g
+    # phase split: one more iteration with a device wait at the end of
+    # every phase (this serializes the phases, so it is not a timed run)
+    timing.enable("block")
+    timing.reset()
+    t0 = time.perf_counter()
+    check_groupby(pipelined_step(ct, lt, rt, n_chunks), orc,
+                  "attribution run")
+    attributed_s = time.perf_counter() - t0
+    phases = timing.snapshot()
+    timing.enable(None)
+    pbest = min(t["total_s"] for t in times[1:])
+    emit({"phase": "pipelined_path", "rows_per_side": n, "n_chunks": n_chunks,
+          "groups": n_groups, "iterations": times, "best_s": pbest,
+          "rows_per_s": 2 * n / pbest, "peak_mem_bytes": pipe_peak,
+          "oracle": "equal", "kernel_counts": pipe_counts,
+          "phase_split_s": phases, "phase_split_total_s": attributed_s})
+
+    try:
+        prof = profile_step(
+            ct, lt, rt,
+            step_fn=lambda c, a, b: pipelined_step(c, a, b, n_chunks))
+        prof["phase"] = "profile_pipelined"
+        prof["device_idle_share_of_best"] = \
+            1.0 - prof["device_busy_s"] / pbest
+        emit(prof)
+    except Exception as e:  # noqa: BLE001 — report and carry on
+        emit({"phase": "profile_pipelined",
+              "error": f"{type(e).__name__}: {e}"})
+
+    # -- K1 at the main path's own inputs (captured in one more run) -------
     captured = {}
     launch = wg.windowed_take_t
 
@@ -319,22 +559,68 @@ def main() -> int:
 
     wg.windowed_take_t = capture
     try:
-        del g
         check_groupby(step(ct, lt, rt), orc, "capture run")
     finally:
         wg.windowed_take_t = launch
+
+    # -- K2, and K1 on one piece, at the pipelined path's own inputs -------
+    probe = sp.count_ge_splitters
+
+    def capture_k2(ops, sops):
+        captured.update(ops=ops, sops=sops)
+        return probe(ops, sops)
+
+    def capture_piece(mat_t, idx, window):
+        captured.setdefault("piece", (mat_t, idx, window))   # the first
+        return launch(mat_t, idx, window)
+
+    sp.count_ge_splitters = capture_k2
+    wg.windowed_take_t = capture_piece
+    try:
+        check_groupby(pipelined_step(ct, lt, rt, n_chunks), orc,
+                      "K2 capture run")
+    finally:
+        sp.count_ge_splitters = probe
+        wg.windowed_take_t = launch
     del lt, rt
     torch.cuda.empty_cache()
+
     rec = k1_check(wg, "main_path", captured["mat_t"], captured["idx"],
                    captured["window"], True, timed=True)
     emit(rec)
+    del captured["mat_t"], captured["idx"]
+    torch.cuda.empty_cache()
+    piece = None
+    if "piece" in captured:
+        piece = k1_check(wg, "pipelined_piece", *captured.pop("piece"),
+                         timed=True)
+        emit(piece)
+    elif need_k1:
+        raise AssertionError("K1 capture run: no piece launched K1")
+    torch.cuda.empty_cache()
+    rec2 = k2_check(sp, "main_path", captured["ops"], captured["sops"],
+                    timed=True)
+    emit(rec2)
     emit({"kernels": [{
         "name": "windowed_gather", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES, "launches": counts["launches"],
         "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
         "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
-        "redispatches": counts["redispatches"]}]})
+        "redispatches": counts["redispatches"],
+        "pipelined_launches": pipe_counts["windowed_gather"]["launches"],
+        "pipelined_redispatches":
+            pipe_counts["windowed_gather"]["redispatches"],
+        "pipelined_piece": None if piece is None else {
+            key: piece[key] for key in ("M", "S", "window", "max_abs_err",
+                                        "ms", "plain_ms", "bound_ms",
+                                        "library_ms")}}, {
+        "name": "splitter_probe", "route": "cuda", "source": K2_SOURCE,
+        "replaces": K2_REPLACES,
+        "launches": pipe_counts["splitter_probe"]["launches"],
+        "max_abs_err": rec2["max_abs_err"], "ms": rec2["ms"],
+        "plain_ms": rec2["plain_ms"], "bound_ms": rec2["bound_ms"],
+        "bound_by": rec2["bound_by"], "library_ms": rec2["library_ms"]}]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

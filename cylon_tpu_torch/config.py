@@ -1,9 +1,19 @@
 """Configuration for cylon_tpu_torch: the subset of ``cylon_tpu/config.py``
-that the join→fused-groupby path reads, under ``CYLON_TPU_TORCH_*``
-environment names.
+that the join→fused-groupby path and the range-partitioned pipeline read,
+under ``CYLON_TPU_TORCH_*`` environment names.
 
 PyTorch holds int64/float64 natively, so there is no x64 switch: device
-columns always keep their 64-bit types.
+columns always keep their 64-bit types.  The reference's
+``DONATE_BUFFERS`` and ``PREWARM_PIECE_PROGRAMS`` have no counterpart: they
+steer XLA buffer donation and AOT compilation, while here dropping the last
+reference (``del``) returns a block to the caching allocator and nothing
+is compiled ahead.  The reference's ``PACKED_PIECES``, ``PACKED_OVERLAP``
+and ``PALLAS_PROBE`` switches select second paths of the pipelined join
+(materialized pieces, a pull per setup phase, XLA instead of the probe
+kernel); the port keeps one path each — packed pieces, one batched pull,
+the splitter-probe kernel on the card — and so has no switch for them.
+The ledger's budget is the card's memory (exec/memory.py); the
+reference's ``HBM_BUDGET`` override comes with the spill tier.
 """
 
 from __future__ import annotations

@@ -190,13 +190,31 @@ class DeferredTable(Table):
     names, counts and capacity answer from ``meta`` = (names, types, dicts,
     has_nulls) and do not materialize."""
 
-    def __init__(self, env, valid_counts, capacity: int, thunk, meta,
-                 op_state=None):
-        super().__init__({}, env, valid_counts)
-        self._cap = int(capacity)
+    def __init__(self, env, valid_counts, capacity: int | None, thunk, meta,
+                 op_state=None, counts_thunk=None):
+        """``counts_thunk`` (with ``valid_counts=None``): the output counts
+        are still on the device — the producer dispatched its count phase
+        without pulling it, so the next operator's work can be queued
+        before this one's host wait (the pipelined piece loop).  The first
+        read of ``valid_counts``/``row_count``/``capacity`` pulls; a fused
+        consumer that drains ``op_state`` never does."""
+        if valid_counts is None and counts_thunk is None:
+            raise InvalidError("DeferredTable needs valid_counts or "
+                               "counts_thunk")
+        super().__init__({}, env, np.zeros(1, np.int64)
+                         if valid_counts is None else valid_counts)
+        self._counts_thunk = counts_thunk if valid_counts is None else None
+        self._cap = None if capacity is None else int(capacity)
         self._meta = meta
         self._thunk = thunk
         self.op_state = op_state
+
+    @property
+    def valid_counts(self) -> np.ndarray:
+        if self._counts_thunk is not None:
+            th, self._counts_thunk = self._counts_thunk, None
+            self._valid = np.asarray(th(), np.int64).reshape(1)
+        return self._valid
 
     @property
     def columns(self) -> dict[str, Column]:
@@ -218,6 +236,8 @@ class DeferredTable(Table):
 
     @property
     def capacity(self) -> int:
+        if self._cap is None:
+            self._cap = config.pow2ceil(int(self.valid_counts.max()))
         return self._cap
 
 

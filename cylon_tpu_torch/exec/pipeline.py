@@ -1,0 +1,384 @@
+"""Range-partitioned pipelined join and its streaming groupby sink (port of
+the world-1, inner-join part of ``cylon_tpu/exec/pipeline.py``).
+
+The join tiles over KEY RANGES of the once-sorted build side:
+
+  1. sort the build side (``right``) once by key;
+  2. snap R-1 evenly spaced positions forward to key-group starts, so a
+     key's whole build run lives in one range; the key operands at those
+     positions are the splitters;
+  3. give every probe row (``left``) its range id — how many splitters
+     compare ``<=`` its key tuple, the splitter probe (K2,
+     ``ops/splitter_probe.py``) — and stable-sort the probe side by it once;
+  4. pack both sorted sides into lane matrices and join range piece pairs,
+     contiguous windows of the two, each with the ordinary two-phase join.
+
+Each piece's sort scratch and output are 1/R of the monolith's, which is
+how a join larger than the card's memory runs at all.  A key's matches
+never leave its range, so a :class:`GroupBySink` keyed on the join keys
+sees each group in exactly one piece: its per-piece partials are the
+final groups.  With a sink, piece joins defer and the sink aggregates
+each piece's sorted state through the fused pushdown (relational/fused.py,
+whose run-start gather is K1).  ``n_chunks == 1`` equals the monolithic
+join.
+
+The setup phases (build sort, range bounds, probe targets, probe sort)
+chain on device tensors with no host wait in between; their two host
+sidecars — the range boundaries and the per-range probe counts — come back
+in ONE batched pull after the probe sort.  The splitters stay on the
+device: K2 reads them from device memory.
+
+Left out, as in no run of the reference by default: the shuffle of world
+sizes above 1 (slice 3), left/right/outer joins (slice 4), the spill
+prefetch of host-resident sources, the checkpoint stage and the recovery
+injectors (slice 11), plan nodes and traces (slice 12).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import config
+from ..core.column import Column
+from ..core.dtypes import LogicalType, np_dtype_of
+from ..core.table import Table
+from ..ops import pack
+from ..ops import splitter_probe
+from ..relational.common import (PAD_L, check_same_env, col_arrays,
+                                 live_mask, narrow32_flags, promote_key_pair)
+from ..relational.join import join_tables
+from ..relational.piece import PieceSource
+from ..relational.repart import concat_tables
+from ..relational.sort import local_sort_table
+from ..status import InvalidError
+from ..utils import timing
+from ..utils.host import host_arrays
+from . import memory
+
+
+class GroupBySink:
+    """Streaming groupby consumer for :func:`pipelined_join`.
+
+    Each joined piece is partially aggregated and released; ``finalize``
+    combines the partials.  Ops decompose through public aggregations of
+    their partials: sum/count/min/max/mean/var/std (mean = sum & count;
+    var/std = sum & count & sumsq).
+
+    Usage::
+
+        sink = GroupBySink("k", [("a", "sum"), ("b", "mean")])
+        pipelined_join(lt, rt, "k", "k", n_chunks=6, sink=sink)
+        out = sink.finalize()
+    """
+
+    _DECOMP = {"sum": ("sum",), "count": ("count",), "min": ("min",),
+               "max": ("max",), "mean": ("sum", "count"),
+               "var": ("sum", "count", "sumsq"),
+               "std": ("sum", "count", "sumsq")}
+    _COMBINE = {"sum": "sum", "count": "sum", "min": "min", "max": "max",
+                "sumsq": "sum"}
+
+    def __init__(self, by, aggs, ddof: int = 1):
+        self.by = [by] if isinstance(by, str) else list(by)
+        self.aggs = list(aggs)
+        self.ddof = int(ddof)
+        for col, op, *_ in self.aggs:
+            if op not in self._DECOMP:
+                raise InvalidError(
+                    f"GroupBySink does not support {op!r}; supported: "
+                    f"{sorted(self._DECOMP)}")
+        # one partial aggregation per distinct (col, intermediate op)
+        self._chunk_aggs = sorted({(c, i) for c, op, *_ in self.aggs
+                                   for i in self._DECOMP[op]})
+        self._parts: list[Table] = []
+        self._regs: list = []      # ledger registrations of the partials
+        self._pending = []         # dispatched fused pieces, meta unread
+        self._disjoint = False
+
+    def mark_key_disjoint(self) -> None:
+        """Caller guarantee: no group key occurs in more than one piece
+        (a range-partitioned pipeline keyed on the join keys), so the
+        partials are the final groups and only concatenate."""
+        self._disjoint = True
+
+    def __call__(self, chunk: Table) -> None:
+        """Consume one piece.  A deferred inner-join piece takes the fused
+        pushdown through begin/resolve: the NEXT piece's work is queued
+        before the previous piece's meta is read (one deep)."""
+        from ..relational.fused import try_begin_join_groupby
+        from ..relational.groupby import _normalize_aggs, groupby_aggregate
+        specs = _normalize_aggs(list(self._chunk_aggs))
+        h = try_begin_join_groupby(chunk, self.by, specs, 1)
+        if h is not None:
+            self._pending.append(h)
+            while len(self._pending) > 1:
+                self._adopt(self._pending.pop(0).resolve())
+            return None
+        self.flush_pending()
+        self._adopt(groupby_aggregate(chunk, self.by, list(self._chunk_aggs)))
+        return None
+
+    def _adopt(self, part: Table) -> None:
+        """Keep one piece's partial, accounted in the ledger until
+        ``finalize`` releases it."""
+        self._parts.append(part)
+        self._regs.append(memory.register_table("sink_part", part))
+
+    def flush_pending(self) -> None:
+        """Resolve every dispatched piece now."""
+        while self._pending:
+            self._adopt(self._pending.pop(0).resolve())
+
+    def snapshot(self) -> Table:
+        """The finalized aggregate over every piece consumed so far,
+        leaving the partials adopted."""
+        return self._combine(drain=False)
+
+    def finalize(self) -> Table:
+        return self._combine(drain=True)
+
+    def _combine(self, drain: bool) -> Table:
+        from ..relational.groupby import combine_sink_partials
+        self.flush_pending()
+        if not self._parts:
+            raise InvalidError("GroupBySink saw no chunks")
+        partial = concat_tables(self._parts)
+        if drain:
+            self._parts = []
+            for reg in self._regs:
+                memory.release(reg)
+            self._regs = []
+        return combine_sink_partials(partial, self.by, self.aggs,
+                                     self._chunk_aggs, self._COMBINE,
+                                     ddof=self.ddof,
+                                     disjoint=self._disjoint)
+
+
+# ---------------------------------------------------------------------------
+# range-partitioned pipelined join
+# ---------------------------------------------------------------------------
+
+def _range_bounds(n: int, by_datas, by_valids, n_ranges: int,
+                  narrow: tuple, need_nf: tuple):
+    """Range boundaries over the SORTED build side (``n`` live rows):
+    candidate positions r*n/R snapped forward to the next key-group start,
+    so a key's whole run stays in one range, capped at n; plus the
+    splitter key operands at those positions.  A boundary at n must read
+    as "+infinity" so probe rows never route into the empty trailing
+    ranges: each operand reads one explicit sentinel slot past the end
+    (liveness = the pad key), since at exact capacity (n == cap) there is
+    no padding row to serve.
+
+    The reference takes the next group start with a reverse ``cummin``;
+    torch's CUDA ``cummin`` is a slow scan-with-indices kernel, and a
+    ``nonzero`` of the group starts would wait on the host.  Instead: the
+    prefix count of group starts, ``csum``, is non-decreasing, so the next
+    start at or after c is the first position where ``csum`` reaches
+    (starts strictly before c) + 1 — one sorted search, no host wait."""
+    cap = by_datas[0].shape[0]
+    dev = by_datas[0].device
+    mask = live_mask([n], cap, dev)
+    ko = pack.key_operands(list(by_datas), list(by_valids), row_mask=mask,
+                           pad_key=PAD_L, need_null_flags=need_nf,
+                           narrow32=narrow)
+    del mask
+    first = pack.neighbor_flags(ko.ops, ko.kinds) != 0
+    first[:1] = True
+    csum = torch.cumsum(first, 0, dtype=torch.int32)
+    cand = (torch.arange(1, n_ranges, dtype=torch.int64, device=dev)
+            * n) // n_ranges
+    cand = cand.clamp(0, cap - 1)
+    before = csum[cand] - first[cand].to(torch.int32)
+    del first
+    nxt = torch.searchsorted(csum, before + 1)   # == cap: no start left
+    del csum
+    b = nxt.clamp_max(n)
+    sel = b.clamp_max(cap - 1)
+    sops = []
+    for j, op in enumerate(ko.ops):
+        sent = torch.full((), PAD_L if j == 0 else 0, dtype=op.dtype,
+                          device=dev)
+        sops.append(torch.where(b < cap, op[sel], sent))
+    return b.to(torch.int32), tuple(sops)
+
+
+def _probe_targets(n: int, by_datas, by_valids, sops: tuple, n_ranges: int,
+                   narrow: tuple, need_nf: tuple) -> torch.Tensor:
+    """Per-row range id of the probe side: the count of splitters <= the
+    row's key (>= because splitters are group STARTS of the sorted build),
+    by the splitter probe (K2, :mod:`..ops.splitter_probe`).  Dead rows
+    get id R, so a stable sort by id puts them last."""
+    cap = by_datas[0].shape[0]
+    mask = live_mask([n], cap, by_datas[0].device)
+    ko = pack.key_operands(list(by_datas), list(by_valids), row_mask=mask,
+                           pad_key=PAD_L, need_null_flags=need_nf,
+                           narrow32=narrow)
+    tgt = splitter_probe.count_ge_splitters(ko.ops, sops)
+    del ko
+    return torch.where(mask, tgt, n_ranges).to(torch.int32)
+
+
+def _range_counts(sorted_ids: torch.Tensor, n_ranges: int) -> torch.Tensor:
+    """Per-range live probe counts from the probe side's range-id column
+    AFTER its sort: live rows hold ids in [0, R) ascending and dead rows
+    id R after them, so the column is non-decreasing and R+1 sorted
+    searches bound every range.  (The reference scatter-adds the ids
+    before the sort; ``torch.bincount`` would wait on the host to size its
+    output, and an atomic scatter-add sends every row to one of R+1
+    addresses.)"""
+    edges = torch.arange(n_ranges + 1, dtype=sorted_ids.dtype,
+                         device=sorted_ids.device)
+    return torch.diff(torch.searchsorted(sorted_ids, edges))
+
+
+def pipelined_join(left: Table, right: Table, left_on, right_on,
+                   how: str = "inner", n_chunks: int = 4,
+                   suffixes=("_x", "_y"), sink=None):
+    """Range-partitioned streaming inner join (module docstring): ``right``
+    is the build side, sorted once; ``left`` streams through ``n_chunks``
+    key ranges.
+
+    ``sink``: the downstream operator.  When given, each piece's join
+    (deferred) is passed to ``sink(piece)`` and released, and the list of
+    sink results is returned; peak memory is one piece's state.  Without
+    a sink the pieces are concatenated into one Table, key-grouped."""
+    if how not in ("inner", "left", "right", "outer"):
+        raise InvalidError(
+            "pipelined_join supports how in ('inner','left','right','outer')")
+    if how != "inner":
+        raise NotImplementedError(
+            f"pipelined_join how={how!r}: cylon_tpu_torch joins inner only "
+            "so far; left/right/outer are slice 4 of ROADMAP.md Queue 1")
+    env = check_same_env(left, right)
+    left_on = [left_on] if isinstance(left_on, str) else list(left_on)
+    right_on = [right_on] if isinstance(right_on, str) else list(right_on)
+
+    # promote once so every piece shares dictionaries/dtypes with the build
+    lkey, rkey = [], []
+    for ln, rn in zip(left_on, right_on):
+        a, b = promote_key_pair(left.column(ln), right.column(rn))
+        lkey.append(a)
+        rkey.append(b)
+    lwork = left.with_columns(dict(zip(left_on, lkey)))
+    rwork = right.with_columns(dict(zip(right_on, rkey)))
+
+    if (isinstance(sink, GroupBySink) and left_on == right_on
+            and list(sink.by) == list(left_on)):
+        # ranges partition the join-key space: a groupby sink keyed on the
+        # join keys sees each group in exactly one piece
+        sink.mark_key_disjoint()
+
+    n_ranges = max(int(n_chunks), 1)
+    if n_ranges == 1 or rwork.row_count == 0 or lwork.row_count == 0:
+        # The reference materializes here and its sink runs the sort-based
+        # groupby; the port has none yet (slice 5), so with a sink the
+        # join defers and the sink takes the fused pushdown: same groups,
+        # same order.
+        res = join_tables(lwork, rwork, left_on, right_on, how=how,
+                          suffixes=suffixes, assume_colocated=True,
+                          allow_defer=sink is not None)
+        return [sink(res)] if sink is not None else res
+
+    with timing.region("pipe.build_sort"):
+        rsorted = local_sort_table(rwork, right_on)
+        # the per-shard sort makes equal keys contiguous; at world 1 that
+        # is grouped_by's whole contract
+        rsorted.grouped_by = tuple(right_on)
+    del rwork
+
+    l_keys = [lwork.column(n) for n in left_on]
+    r_keys = [rsorted.column(n) for n in right_on]
+    need_nf = tuple((a.validity is not None) or (b.validity is not None)
+                    for a, b in zip(l_keys, r_keys))
+    narrow = narrow32_flags(l_keys, r_keys)
+    key_dtypes = tuple(np_dtype_of(c.data).name for c in r_keys)
+
+    n_r = int(rsorted.valid_counts[0])
+    r_datas, r_valids = col_arrays(r_keys)
+    with timing.region("pipe.bounds"):
+        b_dev, sops = _range_bounds(n_r, r_datas, r_valids, n_ranges,
+                                    narrow, need_nf)
+    del r_datas, r_valids, r_keys
+
+    l_datas, l_valids = col_arrays(l_keys)
+    with timing.region("pipe.targets"):
+        tgt = _probe_targets(int(lwork.valid_counts[0]), l_datas, l_valids,
+                             sops, n_ranges, narrow, need_nf)
+    del sops, l_datas, l_valids, l_keys
+
+    tmp = "__range__"
+    while tmp in lwork.column_names:
+        tmp += "_"
+    ltab = lwork.with_columns(
+        {tmp: Column(tgt, LogicalType.INT32, None, bounds=(0, n_ranges))})
+    del lwork, tgt
+    with timing.region("pipe.probe_sort"):
+        lsorted = local_sort_table(ltab, [tmp])
+        pc_dev = _range_counts(lsorted.column(tmp).data, n_ranges)
+    del ltab
+
+    with timing.region("pipe.phase_sync"):
+        # THE pre-loop host wait: every setup phase above was queued with
+        # no pull in between; one batched pull brings both back
+        b_host, pc_host = host_arrays([b_dev, pc_dev])
+    b = np.asarray(b_host, np.int64).reshape(n_ranges - 1)
+    pcounts = np.asarray(pc_host, np.int64).reshape(n_ranges)
+    bb = np.concatenate([[0], b, [n_r]])
+    r_starts = bb[:-1]
+    r_lens = np.diff(bb)
+    l_starts = np.concatenate([[0], np.cumsum(pcounts)])[:-1]
+
+    # every per-range pow2 piece capacity is known up front
+    caps_l = [config.pow2ceil(max(int(pcounts[r]), 1))
+              for r in range(n_ranges)]
+    caps_r = [config.pow2ceil(max(int(r_lens[r]), 1))
+              for r in range(n_ranges)]
+
+    # piece-cap sizing consults the ledger: admission of the packed
+    # sources folds in the sort operands of the largest piece pair
+    scratch = pack.sort_operand_nbytes(key_dtypes, need_nf, narrow,
+                                       max(caps_l) + max(caps_r))
+    with timing.region("pipe.pack"):
+        src_l = PieceSource(lsorted, max(caps_l), drop=(tmp,),
+                            scratch_bytes=scratch)
+        src_r = PieceSource(rsorted, max(caps_r), scratch_bytes=scratch)
+    del lsorted, rsorted
+
+    live_ranges = [r for r in range(n_ranges)
+                   if pcounts[r] > 0 and r_lens[r] > 0]
+    outs = []
+    with timing.region("pipe.piece_loop"):
+        for r in live_ranges:
+            # window descriptors: the slice and unpack run inside the join
+            piece_l = src_l.packed([l_starts[r]], [pcounts[r]], caps_l[r])
+            piece_r = src_r.packed([r_starts[r]], [r_lens[r]], caps_r[r])
+            with timing.region("pipe.piece_join"):
+                res_r = join_tables(piece_l, piece_r, left_on, right_on,
+                                    how=how, suffixes=suffixes,
+                                    assume_colocated=True,
+                                    allow_defer=sink is not None)
+            del piece_l, piece_r
+            with timing.region("pipe.consume"):
+                outs.append(sink(res_r) if sink is not None else res_r)
+            del res_r
+        if not outs:
+            # no range qualified (no overlapping keys at all): one empty
+            # piece pair keeps the output schema path uniform (deferred
+            # under a sink, as on the n_chunks == 1 route above)
+            zeros = [0]
+            piece_l = src_l.packed(zeros, zeros, 1)
+            piece_r = src_r.packed(zeros, zeros, 1)
+            res_r = join_tables(piece_l, piece_r, left_on, right_on,
+                                how=how, suffixes=suffixes,
+                                assume_colocated=True,
+                                allow_defer=sink is not None)
+            outs.append(sink(res_r) if sink is not None else res_r)
+    if sink is not None:
+        return outs
+    out = concat_tables(outs)
+    if left_on == right_on:
+        # pieces are key-grouped, in key-range order: the concatenation
+        # keeps the grouped contract
+        out.grouped_by = tuple(left_on)
+    return out

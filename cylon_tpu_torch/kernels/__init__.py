@@ -25,7 +25,7 @@ from ..status import KernelError
 KERNEL_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(KERNEL_DIR, "_build")
 #: every kernel source of the package (``<name>.cu``)
-SOURCES = ("windowed_gather",)
+SOURCES = ("windowed_gather", "splitter_probe")
 #: sm_90a: Hopper with its architecture-specific features
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

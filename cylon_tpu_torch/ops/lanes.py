@@ -152,6 +152,32 @@ def unpack_lanes(spec: LaneSpec, mat: torch.Tensor):
     return tuple(datas), tuple(valids)
 
 
+def slice_lanes(spec: LaneSpec, mat: torch.Tensor, start: int,
+                window: int) -> torch.Tensor:
+    """Rows ``[start, start + window)`` of the lane matrix: a view, no
+    copy.  The caller pads the matrix so the window never runs off its
+    end (exec/pipeline.py piece sources)."""
+    if start < 0 or start + window > mat.shape[0]:
+        raise IndexError(f"lane window [{start}, {start + window}) outside "
+                         f"a {mat.shape[0]}-row matrix")
+    return mat[start:start + window, :spec.n_lanes]
+
+
+def unpack_column(spec: LaneSpec, mat: torch.Tensor, i: int):
+    """Unpack ONE column ``i`` of the lane matrix: ``(data, valid)``, data
+    None for a laneless (f64) column and valid None for a column planned
+    without validity.  A consumer that reads only the key columns of a
+    packed piece touches only their lanes."""
+    col = spec.cols[i]
+    d = _from_lanes([mat[:, li] for li in col.lanes], col.dtype,
+                    col.narrow) if col.lanes else None
+    v = None
+    if col.valid_bit >= 0:
+        vl = mat[:, spec.valid_lane0 + col.valid_bit // 32]
+        v = ((vl >> (col.valid_bit % 32)) & 1) != 0
+    return d, v
+
+
 def gather_laneless(spec: LaneSpec, datas, take) -> dict:
     """{col_index: gathered data} for ONLY the laneless (f64) columns of
     ``spec``, by take index (entries < 0 select row 0)."""

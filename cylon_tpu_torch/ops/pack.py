@@ -22,12 +22,35 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 NULL_FIRST = 0
 NULL_LAST = 2
 
 _LO32 = 0xFFFFFFFF
+
+
+def sort_operand_nbytes(dtypes, need_nf, narrow, rows: int,
+                        row_mask: bool = True) -> int:
+    """Host-side size of the operand set :func:`key_operands` builds for
+    ``rows`` rows — the per-piece sort scratch the pipeline's admission
+    folds in (exec/memory.py).  Counts the reference's operand widths
+    (liveness + per-column null flag + one or two 32-bit value operands;
+    an f64 key stays one 8-byte operand), so both packages size pieces
+    alike."""
+    per_row = 4 if row_mask else 0
+    for dt, nf, nw in zip(dtypes, need_nf, narrow):
+        if nf:
+            per_row += 4
+        d = np.dtype(dt)
+        if d.kind == "f" and d.itemsize == 8:
+            per_row += 8
+        elif d.itemsize == 8 and d.kind in ("i", "u") and not nw:
+            per_row += 8
+        else:
+            per_row += 4
+    return per_row * int(rows)
 
 
 class KeyOps(NamedTuple):
@@ -127,6 +150,18 @@ def op_neq(a, b, kind: str):
     return a != b
 
 
+def op_gt(a, b, kind: str):
+    if kind == "f":
+        return (a > b) | (torch.isnan(a) & ~torch.isnan(b))
+    return a > b
+
+
+def op_eq(a, b, kind: str):
+    if kind == "f":
+        return (a == b) | (torch.isnan(a) & torch.isnan(b))
+    return a == b
+
+
 def neighbor_flags(sorted_ops, kinds) -> torch.Tensor:
     """int32 flags: row i != row i-1 under the key tuple (row 0 -> 0)."""
     n = sorted_ops[0].shape[0]
@@ -134,6 +169,32 @@ def neighbor_flags(sorted_ops, kinds) -> torch.Tensor:
     for op, kind in zip(sorted_ops, kinds):
         neq[1:] |= op_neq(op[1:], op[:-1], kind).to(torch.int32)
     return neq
+
+
+def _rows_cmp_splitters(keyops: KeyOps, splitter_ops: tuple):
+    """(gt, eq) (n, S) bool pairs: row i's key tuple strictly greater than
+    / equal to splitter j's under the operand order."""
+    n = keyops.n
+    s = splitter_ops[0].shape[0]
+    dev = keyops.ops[0].device
+    gt = torch.zeros((n, s), dtype=torch.bool, device=dev)
+    eq = torch.ones((n, s), dtype=torch.bool, device=dev)
+    for op, sop, kind in zip(keyops.ops, splitter_ops, keyops.kinds):
+        a = op[:, None]
+        b = sop[None, :]
+        gt = gt | (eq & op_gt(a, b, kind))
+        eq = eq & op_eq(a, b, kind)
+    return gt, eq
+
+
+def rows_ge_splitters(keyops: KeyOps, splitter_ops: tuple) -> torch.Tensor:
+    """(n, S) bool: row i's key tuple >= splitter j's.  The range-
+    partitioned pipeline's splitters are key-GROUP STARTS of the sorted
+    build side, so a probe key equal to splitter j belongs to the range j
+    opens.  Unsigned operands (int64 holding [0, 2^32)) compare as their
+    values, which is the reference's uint32 order."""
+    gt, eq = _rows_cmp_splitters(keyops, splitter_ops)
+    return gt | eq
 
 
 def sort_words(keyops: KeyOps) -> tuple:

@@ -262,7 +262,7 @@ class _PendingFused:
     flag) has not been pulled yet.  :meth:`resolve` pulls it, redispatches
     on a segment-space or window mispredict and builds the result Table.
     The split lets a caller queue the next piece's work before waiting on
-    this one's meta (the pipelined route, a later slice)."""
+    this one's meta (``exec/pipeline.GroupBySink``)."""
 
     __slots__ = ("_fn",)
 

@@ -13,7 +13,8 @@ import numpy as np
 
 from .. import config
 from ..core.column import Column
-from ..core.dtypes import LogicalType, from_numpy_dtype, physical_np_dtype, torch_dtype
+from ..core.dtypes import (LogicalType, from_numpy_dtype, np_dtype_of,
+                           physical_np_dtype, torch_dtype)
 from ..core.table import Table
 from ..ops import groupby as gbk
 from ..status import InvalidError
@@ -90,6 +91,51 @@ def _result_table(env, by_names, by_cols, key_out, kval_out, res_names,
         gbk.guard_saturation(n.rsplit("_", 1)[-1], d, column=n)
         cols[n] = Column(d, t, v, dc)
     return Table(cols, env, np.asarray(n_groups, np.int64))
+
+
+def combine_sink_partials(partial: Table, by, aggs, chunk_aggs,
+                          combine_ops, ddof: int = 1,
+                          disjoint: bool = False) -> Table:
+    """Fold a table of per-piece partial aggregates (the concatenation of
+    an ``exec/pipeline.GroupBySink``'s partials) into the final aggregate
+    table.  ``disjoint``: the partials' key sets are pairwise disjoint (a
+    sink keyed on the range-partitioned join keys), so the partials ARE
+    the final groups and pass through renamed; derived ops (mean/var/std)
+    finalize from the summed (count, sum[, sumsq]) intermediates with
+    :func:`cylon_tpu_torch.ops.groupby.finalize`, as the reference does.
+    The non-disjoint combine needs the sort-based groupby (slice 5)."""
+    if not disjoint:
+        raise NotImplementedError(
+            "combining overlapping GroupBySink partials needs the "
+            "sort-based groupby, slice 5 of ROADMAP.md Queue 1")
+
+    def part(col, i):
+        return partial.column(f"{col}_{i}")
+
+    cols = {n: partial.column(n) for n in by}
+    for col, op, *_ in aggs:
+        name = f"{col}_{op}"
+        if op in ("mean", "var", "std"):
+            s = part(col, "sum").data
+            inter = {"count": part(col, "count").data,
+                     "sum": s if s.dtype.is_floating_point
+                     else s.to(torch_dtype(np.float64))}
+            if op != "mean":
+                inter["sumsq"] = part(col, "sumsq").data
+            d, v = gbk.finalize(op, inter, ddof)
+            cols[name] = Column(d, from_numpy_dtype(np_dtype_of(d)), v)
+        else:
+            # sum/count/min/max ARE their own intermediate: pass through.
+            # The armed overflow guard runs here because the pass-through
+            # never reaches _result_table's guard
+            c = part(col, op)
+            gbk.guard_saturation(op, c.data, column=name,
+                                 site="groupby.combine")
+            cols[name] = c
+    out = Table(cols, partial.env, np.asarray(partial.valid_counts,
+                                              np.int64))
+    out.grouped_by = None  # combine order is piece-partial order
+    return out
 
 
 def groupby_aggregate(table: Table, by, aggs, ddof: int = 1) -> Table:

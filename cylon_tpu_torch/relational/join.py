@@ -16,8 +16,10 @@ join keys aggregates straight off the sorted state (relational/fused.py);
 any other access rebuilds the carry from the held state with scans alone
 and materializes.
 
-Other join types, the hash shuffle and the skew route are later slices
-(ROADMAP.md Queue 1, slices 3 and 4).
+The packed-piece entry joins two :class:`~cylon_tpu_torch.relational.
+piece.PackedPiece` windows of the pipelined join (exec/pipeline.py) with
+the same kernels.  Other join types, the hash shuffle and the skew route
+are later slices (ROADMAP.md Queue 1, slices 3 and 4).
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from ..utils.host import host_array
 from .common import (PAD_L, PAD_R, build_table, check_same_env, col_arrays,
                      live_mask, narrow32_flags, promote_key_pair,
                      table_lane_spec)
+from .piece import PackedPiece
 
 
 def _live_cat(vcl, vcr, cap_l: int, cap_r: int, device):
@@ -68,12 +71,12 @@ def _sorted_state(vcl, vcr, l_datas, l_valids, r_datas, r_valids,
     return bnd, idx_s, live_cat, pl_s
 
 
-def _count(vcl, vcr, l_datas, l_valids, r_datas, r_valids, lg, rg,
-           narrow: tuple, lspec=None, rspec=None, all_live: bool = False,
+def _count(vcl, vcr, l_datas, l_valids, r_datas, r_valids, narrow: tuple,
+           lmat=None, rmat=None, all_live: bool = False,
            slim: bool = False):
     """Phase 1: sort once; return the exact count + carried state.
 
-    With ``lspec``/``rspec`` that side's lane matrix RIDES THE SORT as
+    ``lmat``/``rmat``: that side's (rows, L) lane matrix RIDES THE SORT as
     payload (left lanes first, then right lanes), so phase 2 needs no
     gather of the input columns.  ``slim`` returns only what the fused
     consumer needs: (total, idx_s, bnd, payloads)."""
@@ -81,18 +84,15 @@ def _count(vcl, vcr, l_datas, l_valids, r_datas, r_valids, lg, rg,
     cap_r = r_datas[0].shape[0]
     dev = l_datas[0].device
     payloads = ()
-    if lspec is not None:
-        lmat = lanes.pack_lanes(lspec, *lg)
+    if lmat is not None:
         zr = torch.zeros(cap_r, dtype=torch.int32, device=dev)
         payloads += tuple(torch.cat([lmat[:, j], zr])
-                          for j in range(lspec.n_lanes))
-        del lmat
-    if rspec is not None:
-        rmat = lanes.pack_lanes(rspec, *rg)
+                          for j in range(lmat.shape[1]))
+    if rmat is not None:
         zl = torch.zeros(cap_l, dtype=torch.int32, device=dev)
         payloads += tuple(torch.cat([zl, rmat[:, j]])
-                          for j in range(rspec.n_lanes))
-        del rmat
+                          for j in range(rmat.shape[1]))
+    del lmat, rmat
     bnd, idx_s, live, pl_s = _sorted_state(
         vcl, vcr, l_datas, l_valids, r_datas, r_valids, narrow, payloads,
         all_live)
@@ -103,11 +103,47 @@ def _count(vcl, vcr, l_datas, l_valids, r_datas, r_valids, lg, rg,
     return n, carry, pl_s
 
 
+def _col_source(spec, cols):
+    """One side's input rows as (gather_rows, gather_f64) by take index,
+    from full columns ``cols`` = (datas, valids)."""
+    return (lambda take: lanes.gather_columns(spec, *cols, take),
+            lambda take: lanes.gather_laneless(spec, cols[0], take))
+
+
+def _window_source(spec, mat, f64w, cap: int):
+    """One side's input rows as (gather_rows, gather_f64) by take index,
+    from a packed piece's window: whole rows of the lane matrix, unpacked
+    only at the output rows."""
+    def gather_f64(take):
+        datas = [None] * len(spec.cols)
+        wins = iter(f64w)
+        for i, c in enumerate(spec.cols):
+            if not c.lanes:
+                datas[i] = next(wins)
+        return lanes.gather_laneless(spec, datas, take)
+
+    def gather_rows(take):
+        if spec.n_lanes:
+            rows = mat[take.clamp(0, cap - 1).long()]
+            datas, valids = lanes.unpack_lanes(spec, rows)
+            datas, valids = list(datas), list(valids)
+        else:
+            datas = [None] * len(spec.cols)
+            valids = [None] * len(spec.cols)
+        for i, d in gather_f64(take).items():
+            datas[i] = d
+        return tuple(datas), tuple(valids)
+
+    return gather_rows, gather_f64
+
+
 def _materialize(carry, pl_s, out_cap: int, cap_l: int, plan: tuple,
-                 lspec, rspec, l_cols, r_cols, carry_emit: bool,
+                 lspec, rspec, l_src, r_src, carry_emit: bool,
                  carry_match: bool):
     """Phase 2.  ``plan`` entries: ("l", i, needs_valid) — output column =
-    left lane-matrix column i; ("r", j, needs_valid) — right column j.
+    left column i; ("r", j, needs_valid) — right column j.  ``l_src`` /
+    ``r_src``: each side's (gather_rows, gather_f64) by take index
+    (:func:`_col_source`, :func:`_window_source`).
     ``carry_emit``/``carry_match``: that side's lanes arrived sorted as
     phase-1 payload (laneless f64 columns gather by take index)."""
     l_f64 = any(not c.lanes for c in lspec.cols)
@@ -124,11 +160,10 @@ def _materialize(carry, pl_s, out_cap: int, cap_l: int, plan: tuple,
         l_ok = tk.valid
         if l_f64:
             ldat = list(ldat)
-            for i, d in lanes.gather_laneless(lspec, l_cols[0],
-                                              tk.l_take).items():
+            for i, d in l_src[1](tk.l_take).items():
                 ldat[i] = d
     else:
-        ldat, lval = lanes.gather_columns(lspec, *l_cols, tk.l_take)
+        ldat, lval = l_src[0](tk.l_take)
         l_ok = tk.l_take >= 0
     if carry_match:
         smat = torch.stack(pl_m, dim=1)          # (N, Lr) sorted lanes
@@ -137,11 +172,10 @@ def _materialize(carry, pl_s, out_cap: int, cap_l: int, plan: tuple,
         r_ok = tk.matched
         if r_f64:
             rdat = list(rdat)
-            for i, d in lanes.gather_laneless(rspec, r_cols[0],
-                                              tk.r_take).items():
+            for i, d in r_src[1](tk.r_take).items():
                 rdat[i] = d
     else:
-        rdat, rval = lanes.gather_columns(rspec, *r_cols, tk.r_take)
+        rdat, rval = r_src[0](tk.r_take)
         r_ok = tk.r_take >= 0
     return _plan_outputs(plan, ldat, lval, l_ok, rdat, rval, r_ok)
 
@@ -163,17 +197,28 @@ def _plan_outputs(plan, ldat, lval, l_ok, rdat, rval, r_ok):
 def join_tables(left: Table, right: Table, left_on, right_on,
                 how: str = "inner", suffixes=("_x", "_y"),
                 coalesce_keys: bool = True,
+                assume_colocated: bool = False,
                 allow_defer: bool | None = None) -> Table:
     """Inner-join two tables on ``left_on``/``right_on`` (world size 1).
 
     Returns a DeferredTable (fused-consumer state + lazy materialization)
     when ``DEFER_JOIN`` is on and the output columns ride the sort, else a
     materialized Table.  Output rows come in sorted-merge order, key
-    groups contiguous, left rows in source order within a group."""
+    groups contiguous, left rows in source order within a group.
+
+    ``assume_colocated``: the caller guarantees equal keys share a shard
+    (the pipelined join passes it); at world size 1 there is no shuffle to
+    skip.  ``left``/``right`` may be :class:`~cylon_tpu_torch.relational.
+    piece.PackedPiece` window descriptors instead of Tables (the pipelined
+    range loop): the window slice and key unpack then run inside the
+    join."""
     if how != "inner":
         raise NotImplementedError(
             f"join how={how!r}: cylon_tpu_torch joins inner only so far; "
             "left/right/outer/semi/anti are slice 4 of ROADMAP.md Queue 1")
+    if isinstance(left, PackedPiece) or isinstance(right, PackedPiece):
+        return _join_packed_entry(left, right, left_on, right_on, suffixes,
+                                  coalesce_keys, allow_defer)
     env = check_same_env(left, right)
     left_on = [left_on] if isinstance(left_on, str) else list(left_on)
     right_on = [right_on] if isinstance(right_on, str) else list(right_on)
@@ -252,18 +297,22 @@ def join_tables(left: Table, right: Table, left_on, right_on,
               tuple(c.validity for c in r_cols_list))
     all_live = bool((vcl == lwork.capacity).all()
                     and (vcr == rwork.capacity).all())
-    count_args = (vcl, vcr, l_datas, l_valids, r_datas, r_valids,
-                  l_cols, r_cols, narrow,
-                  lspec if carry_emit else None,
-                  rspec if carry_match else None, all_live)
     cap_l, cap_r = lwork.capacity, rwork.capacity
+    l_src, r_src = _col_source(lspec, l_cols), _col_source(rspec, r_cols)
+
+    def count(slim: bool):
+        return _count(vcl, vcr, l_datas, l_valids, r_datas, r_valids, narrow,
+                      lanes.pack_lanes(lspec, *l_cols) if carry_emit
+                      else None,
+                      lanes.pack_lanes(rspec, *r_cols) if carry_match
+                      else None, all_live, slim)
 
     if allow_defer is None:
         allow_defer = True
     defer = (config.DEFER_JOIN and carry_emit and carry_match and coalesce
              and allow_defer)
     if defer:
-        n_dev, idx_s_s, bnd_s, pl_s = _count(*count_args, slim=True)
+        n_dev, idx_s_s, bnd_s, pl_s = count(slim=True)
         counts = host_array(n_dev).astype(np.int64).reshape(1)
         out_cap = config.pow2ceil(int(counts.max()))
 
@@ -274,8 +323,8 @@ def join_tables(left: Table, right: Table, left_on, right_on,
                                                    env.device)
             _, carry = joink.join_carry(bnd_s, idx_s_s, live, cap_l, "inner")
             out_d, out_v = _materialize(carry, pl_s, out_cap, cap_l,
-                                        tuple(plan), lspec, rspec, l_cols,
-                                        r_cols, carry_emit, carry_match)
+                                        tuple(plan), lspec, rspec, l_src,
+                                        r_src, carry_emit, carry_match)
             return {nme: Column(d, t, v, dc, bounds=b)
                     for nme, d, v, t, dc, b in
                     zip(names, out_d, out_v, types, dicts, bounds)}
@@ -295,11 +344,11 @@ def join_tables(left: Table, right: Table, left_on, right_on,
         out.grouped_by = tuple(left_on)
         return out
 
-    n_dev, carry, pl_s = _count(*count_args)
+    n_dev, carry, pl_s = count(slim=False)
     counts = host_array(n_dev).astype(np.int64).reshape(1)
     out_cap = config.pow2ceil(int(counts.max()))
     out_d, out_v = _materialize(carry, pl_s, out_cap, cap_l, tuple(plan),
-                                lspec, rspec, l_cols, r_cols, carry_emit,
+                                lspec, rspec, l_src, r_src, carry_emit,
                                 carry_match)
     out = build_table(names, out_d, out_v, types, dicts, counts, env,
                       bounds=bounds)
@@ -307,3 +356,226 @@ def join_tables(left: Table, right: Table, left_on, right_on,
         # join output rows are key-grouped (sorted merge order)
         out.grouped_by = tuple(left_on)
     return out
+
+
+# ---------------------------------------------------------------------------
+# packed-piece entry: joins that consume PackedPiece window descriptors
+# (relational/piece.py), the range-partitioned pipeline's fast path.  The
+# window slice and the key unpack run inside the join, keys first; the
+# payload lanes ride the phase-1 sort and unpack only at the output rows.
+# The materialize-then-join path (PackedPiece.to_table + the colocated
+# join) is the reference these are exactly equal to.
+# ---------------------------------------------------------------------------
+
+def _window_keys(spec, mat, f64w, key_idx: tuple):
+    """Unpack ONLY the key columns of a window."""
+    fpos = {i: j for j, i in enumerate(
+        i for i, c in enumerate(spec.cols) if not c.lanes)}
+    datas, valids = [], []
+    for i in key_idx:
+        if spec.cols[i].lanes:
+            d, v = lanes.unpack_column(spec, mat, i)
+        else:
+            d = f64w[fpos[i]]
+            v = lanes.unpack_column(spec, mat, i)[1] if spec.n_lanes \
+                else None
+        datas.append(d)
+        valids.append(v)
+    return datas, valids
+
+
+def _fits32_meta(dtype, bounds) -> bool:
+    """fits_int32 over piece metadata (dtype name + host bounds)."""
+    dt = np.dtype(dtype)
+    if dt.itemsize != 8 or dt.kind not in ("i", "u"):
+        return False
+    return bounds is not None and bounds[0] >= -(1 << 31) \
+        and bounds[1] <= (1 << 31) - 1
+
+
+def _same_dictionary(a, b) -> bool:
+    if a is b:
+        return True
+    if a is None or b is None:
+        return False
+    return len(a) == len(b) and bool(np.array_equal(a, b))
+
+
+def _packed_keys_compatible(pl: PackedPiece, pr: PackedPiece,
+                            left_on, right_on) -> bool:
+    """Packed joins cannot promote keys inside the lanes — the pipeline
+    promotes BEFORE packing.  Any residual mismatch (dtype, dictionary)
+    takes the materialized path, which promotes like any other join."""
+    for ln, rn in zip(left_on, right_on):
+        i, j = pl.column_names.index(ln), pr.column_names.index(rn)
+        if pl.spec.cols[i].dtype != pr.spec.cols[j].dtype:
+            return False
+        if pl.meta[i][1] != pr.meta[j][1]:
+            return False
+        dl, dr = pl.meta[i][2], pr.meta[j][2]
+        if (dl is not None or dr is not None) \
+                and not _same_dictionary(dl, dr):
+            return False
+    return True
+
+
+class _LazyCounts:
+    """A dispatched, not yet pulled device count: shared by a
+    DeferredTable's ``counts_thunk`` and its materialize thunk, so the
+    host waits at most once, and only when someone needs the counts."""
+
+    __slots__ = ("_dev", "value")
+
+    def __init__(self, dev):
+        self._dev = dev
+        self.value = None
+
+    def __call__(self) -> np.ndarray:
+        if self.value is None:
+            self.value = host_array(self._dev).astype(np.int64).reshape(1)
+            self._dev = None
+        return self.value
+
+
+def _packed_statics(pl: PackedPiece, pr: PackedPiece, left_on, right_on,
+                    suffixes, coalesce_keys: bool):
+    """Every static input of the packed inner join, from the pieces'
+    metadata alone."""
+    names_l, names_r = pl.column_names, pr.column_names
+    kil = tuple(names_l.index(n) for n in left_on)
+    kir = tuple(names_r.index(n) for n in right_on)
+    need_nf = tuple((pl.spec.cols[i].valid_bit >= 0)
+                    or (pr.spec.cols[j].valid_bit >= 0)
+                    for i, j in zip(kil, kir))
+    narrow = tuple(_fits32_meta(pl.spec.cols[i].dtype, pl.meta[i][3])
+                   and _fits32_meta(pr.spec.cols[j].dtype, pr.meta[j][3])
+                   for i, j in zip(kil, kir))
+    coalesce = coalesce_keys and list(left_on) == list(right_on)
+    key_set_l, key_set_r = set(left_on), set(right_on)
+    overlap = (set(names_l) & set(names_r)) - (
+        key_set_l if coalesce else set())
+    plan, names, types, dicts, bounds = [], [], [], [], []
+    for i, (n, t, dc, nb) in enumerate(pl.meta):
+        has_v = pl.spec.cols[i].valid_bit >= 0
+        if coalesce and n in key_set_l:
+            rnb = pr.meta[kir[left_on.index(n)]][3]
+            bounds.append(None if nb is None or rnb is None
+                          else (min(nb[0], rnb[0]), max(nb[1], rnb[1])))
+        else:
+            bounds.append(nb)
+            n = n + suffixes[0] if n in overlap else n
+        plan.append(("l", i, has_v))
+        names.append(n)
+        types.append(t)
+        dicts.append(dc)
+    for j, (n, t, dc, nb) in enumerate(pr.meta):
+        if coalesce and n in key_set_r:
+            continue
+        plan.append(("r", j, pr.spec.cols[j].valid_bit >= 0))
+        names.append(n + suffixes[1] if n in overlap else n)
+        types.append(t)
+        dicts.append(dc)
+        bounds.append(nb)
+    carry_emit = any(c.lanes for c in pl.spec.cols) \
+        and pl.spec.n_lanes <= 6
+    carry_match = any(c.lanes for c in pr.spec.cols) \
+        and pr.spec.n_lanes <= 8
+    all_live = bool((pl.lens == pl.piece_cap).all()
+                    and (pr.lens == pr.piece_cap).all())
+    return (kil, kir, need_nf, narrow, coalesce, tuple(plan), tuple(names),
+            tuple(types), tuple(dicts), tuple(bounds), carry_emit,
+            carry_match, all_live)
+
+
+def _join_packed_impl(pl: PackedPiece, pr: PackedPiece, left_on, right_on,
+                      suffixes, coalesce_keys: bool,
+                      allow_defer: bool) -> Table:
+    env = pl.env
+    if pr.env is not env and pr.env.device != env.device:
+        raise InvalidError("pieces belong to different CylonEnvs")
+    (kil, kir, need_nf, narrow, coalesce, plan, names, types, dicts,
+     bounds, carry_emit, carry_match, all_live) = _packed_statics(
+        pl, pr, left_on, right_on, suffixes, coalesce_keys)
+    cap_l, cap_r = pl.piece_cap, pr.piece_cap
+    vcl = np.asarray(pl.lens, np.int32)
+    vcr = np.asarray(pr.lens, np.int32)
+    mat_l, f64_l = pl.window()
+    mat_r, f64_r = pr.window()
+    l_datas, l_valids = _window_keys(pl.spec, mat_l, f64_l, kil)
+    r_datas, r_valids = _window_keys(pr.spec, mat_r, f64_r, kir)
+    l_src = _window_source(pl.spec, mat_l, f64_l, cap_l)
+    r_src = _window_source(pr.spec, mat_r, f64_r, cap_r)
+
+    def count(slim: bool):
+        return _count(vcl, vcr, l_datas, l_valids, r_datas, r_valids, narrow,
+                      mat_l if carry_emit else None,
+                      mat_r if carry_match else None, all_live, slim)
+
+    defer = (config.DEFER_JOIN and carry_emit and carry_match and coalesce
+             and allow_defer)
+    if defer:
+        n_dev, idx_s_s, bnd_s, pl_s = count(slim=True)
+        # the count stays ON DEVICE: the next piece's work can be queued
+        # before this piece's host wait, and a fused consumer that drains
+        # the state never pulls it at all
+        holder = _LazyCounts(n_dev)
+
+        def materialize_cols():
+            out_cap = config.pow2ceil(int(holder().max()))
+            live = None if all_live else _live_cat(vcl, vcr, cap_l, cap_r,
+                                                   env.device)
+            _, carry = joink.join_carry(bnd_s, idx_s_s, live, cap_l, "inner")
+            out_d, out_v = _materialize(carry, pl_s, out_cap, cap_l, plan,
+                                        pl.spec, pr.spec, l_src, r_src,
+                                        True, True)
+            return {nme: Column(d, t, v, dc, bounds=b)
+                    for nme, d, v, t, dc, b in
+                    zip(names, out_d, out_v, types, dicts, bounds)}
+
+        from .fused import JoinState
+        state = JoinState(
+            vcl=vcl, vcr=vcr, idx_s=idx_s_s, bnd=bnd_s, pl_s=pl_s,
+            lspec=pl.spec, rspec=pr.spec, plan=plan, names=names,
+            types=types, dicts=dicts, key_names=tuple(left_on),
+            cap_l=cap_l, cap_r=cap_r, all_live=all_live)
+        out = DeferredTable(
+            env, None, None, materialize_cols,
+            (names, types, dicts, tuple(bool(e[-1]) for e in plan)),
+            op_state=state, counts_thunk=holder)
+        out.grouped_by = tuple(left_on)
+        return out
+
+    n_dev, carry, pl_s = count(slim=False)
+    counts = host_array(n_dev).astype(np.int64).reshape(1)
+    out_cap = config.pow2ceil(int(counts.max()))
+    out_d, out_v = _materialize(carry, pl_s, out_cap, cap_l, plan, pl.spec,
+                                pr.spec, l_src, r_src, carry_emit,
+                                carry_match)
+    out = build_table(names, out_d, out_v, types, dicts, counts, env,
+                      bounds=bounds)
+    if coalesce:
+        # pieces are key-grouped (sorted windows): the same grouped
+        # contract as the monolithic join
+        out.grouped_by = tuple(left_on)
+    return out
+
+
+def _join_packed_entry(left, right, left_on, right_on, suffixes,
+                       coalesce_keys: bool, allow_defer: bool):
+    left_on = [left_on] if isinstance(left_on, str) else list(left_on)
+    right_on = [right_on] if isinstance(right_on, str) else list(right_on)
+    if len(left_on) != len(right_on) or not left_on:
+        raise InvalidError("left_on/right_on must be equal-length, non-empty")
+    pl = left if isinstance(left, PackedPiece) else None
+    pr = right if isinstance(right, PackedPiece) else None
+    if (pl is not None and pr is not None
+            and _packed_keys_compatible(pl, pr, left_on, right_on)):
+        return _join_packed_impl(pl, pr, left_on, right_on, suffixes,
+                                 coalesce_keys, bool(allow_defer))
+    # a piece joined with a Table, or keys the lanes cannot promote:
+    # materialize the window(s) and take the colocated path
+    lt = pl.to_table() if pl is not None else left
+    rt = pr.to_table() if pr is not None else right
+    return join_tables(lt, rt, left_on, right_on, suffixes=suffixes,
+                       coalesce_keys=coalesce_keys, assume_colocated=True,
+                       allow_defer=allow_defer)

@@ -1,0 +1,152 @@
+"""Packed piece handles: window views over a lane-packed resident table
+(port of ``cylon_tpu/relational/piece.py``).
+
+The range-partitioned pipeline (exec/pipeline.py) packs each resident
+sorted table ONCE into a 32-bit lane matrix (plus f64 side arrays), padded
+by the largest piece capacity; every range piece is then a contiguous
+window ``[start, start + piece_cap)`` of that matrix.  A
+:class:`PackedPiece` is a host-side descriptor of such a window: making
+one costs no device work.  ``join_tables`` accepts it in place of a Table
+(relational/join.py packed entry) and slices and unpacks the window
+itself — the keys first, the payload lanes riding the join's sort — so no
+piece is ever unpacked into full columns and re-packed.
+
+The source owns the arrays and every piece aliases them; pieces never
+outlive the source.  :meth:`PackedPiece.to_table` materializes a window:
+the reference the packed join is held equal to.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import config
+from ..core.column import Column
+from ..core.table import Table
+from ..ops import lanes
+from ..status import CapacityOverflowError
+
+
+class PackedPiece:
+    """A window ``[starts[0], starts[0] + piece_cap)`` over a
+    :class:`PieceSource`'s packed arrays, of which the first ``lens[0]``
+    rows are live.  ``meta`` entries are ``(name, LogicalType, dictionary,
+    bounds)`` parallel to ``spec.cols``."""
+
+    __slots__ = ("env", "spec", "meta", "arrs", "starts", "lens",
+                 "piece_cap")
+
+    def __init__(self, env, spec, meta, arrs, starts, lens, piece_cap: int):
+        self.env = env
+        self.spec = spec
+        self.meta = meta
+        self.arrs = arrs
+        self.starts = np.asarray(starts, np.int64)
+        self.lens = np.asarray(lens, np.int64)
+        self.piece_cap = int(piece_cap)
+        if int(self.lens.max(initial=0)) > self.piece_cap:
+            raise CapacityOverflowError(
+                f"piece window of {int(self.lens.max())} live rows exceeds "
+                f"the pow2 piece cap {self.piece_cap}",
+                site="join.piece_cap")
+
+    @property
+    def column_names(self) -> list[str]:
+        return [n for n, _, _, _ in self.meta]
+
+    @property
+    def valid_counts(self) -> np.ndarray:
+        return self.lens
+
+    @property
+    def row_count(self) -> int:
+        return int(self.lens.sum())
+
+    @property
+    def capacity(self) -> int:
+        return self.piece_cap
+
+    def window(self):
+        """(lane-matrix window | None, tuple of f64 windows): views of the
+        source's arrays, no copy."""
+        s, cap = int(self.starts[0]), self.piece_cap
+        has_mat = self.spec.n_lanes > 0
+        mat = lanes.slice_lanes(self.spec, self.arrs[0], s, cap) \
+            if has_mat else None
+        f64w = tuple(a[s:s + cap] for a in self.arrs[int(has_mat):])
+        return mat, f64w
+
+    def to_table(self) -> Table:
+        """Materialize the window into a plain Table (slice + full
+        unpack) — the reference the packed consumers are equal to."""
+        mat, f64w = self.window()
+        if mat is not None:
+            datas, valids = lanes.unpack_lanes(self.spec, mat)
+            datas, valids = list(datas), list(valids)
+        else:
+            datas = [None] * len(self.spec.cols)
+            valids = [None] * len(self.spec.cols)
+        wins = iter(f64w)
+        for i, c in enumerate(self.spec.cols):
+            if not c.lanes:
+                datas[i] = next(wins).clone()
+        cols = {}
+        for (n, t, dc, nb), d, v in zip(self.meta, datas, valids):
+            cols[n] = Column(d, t, v, dc, bounds=nb)
+        return Table(cols, self.env, self.lens)
+
+
+class PieceSource:
+    """Range-piece provider over a resident sorted table: its columns pack
+    into ONE lane matrix (plus f64 side arrays), padded by ``pad`` rows so
+    every window fits; each piece is then a host-side :class:`PackedPiece`
+    descriptor.  The caller drops its reference to the table: the packed
+    arrays carry everything.
+
+    Admission goes straight to the ledger (exec/memory.ensure_headroom):
+    the reference routes it through the serving tier's scheduler
+    (slice 13).  ``scratch_bytes`` folds the piece join's transient sort
+    operands into that decision."""
+
+    def __init__(self, table: Table, pad: int, drop: tuple = (),
+                 scratch_bytes: int = 0):
+        from ..exec import memory
+        from .common import table_lane_spec
+        self.env = table.env
+        items = [(n, c) for n, c in table.columns.items() if n not in drop]
+        cols = [c for _, c in items]
+        self.spec = table_lane_spec(cols)
+        self.meta = tuple(
+            (n, c.type, c.dictionary,
+             (min(c.bounds[0], 0), max(c.bounds[1], 0))
+             if c.bounds is not None else None)
+            for n, c in items)
+        rows = table.capacity + int(pad)
+        memory.ensure_headroom(self.env,
+                               rows * memory.spec_row_bytes(self.spec),
+                               scratch=int(scratch_bytes))
+        dev = self.env.device
+        arrs = []
+        if self.spec.n_lanes:
+            mat = torch.zeros((rows, self.spec.n_lanes), dtype=torch.int32,
+                              device=dev)
+            mat[:table.capacity] = lanes.pack_lanes(
+                self.spec, [c.data for c in cols],
+                [c.validity for c in cols])
+            arrs.append(mat)
+        for c, cl in zip(cols, self.spec.cols):
+            if not cl.lanes:
+                side = torch.zeros(rows, dtype=c.data.dtype, device=dev)
+                side[:table.capacity] = c.data
+                arrs.append(side)
+        self.arrs = tuple(arrs)
+        memory.register("piece_src", self.arrs, anchor=self)
+
+    def packed(self, starts, lens, piece_cap: int | None = None
+               ) -> PackedPiece:
+        lens = np.asarray(lens, np.int64)
+        if piece_cap is None:
+            piece_cap = config.pow2ceil(max(int(lens.max(initial=0)), 1))
+        return PackedPiece(self.env, self.spec, self.meta, self.arrs,
+                           starts, lens, piece_cap)

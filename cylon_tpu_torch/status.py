@@ -69,6 +69,18 @@ class NumericOverflowError(CylonError):
         self.column = column
 
 
+class CapacityOverflowError(CylonError):
+    """A pow2-bucketed static capacity (piece cap, output cap) was exceeded
+    by the actual row counts: the planned shape cannot hold the data."""
+
+    code = Code.CapacityError
+    kind = "capacity"
+
+    def __init__(self, msg: str = "", site: str | None = None):
+        super().__init__(msg)
+        self.site = site
+
+
 class DeviceUnavailableError(CylonError):
     """A CUDA device was requested (the default) but none is visible.  The
     port never drops to the CPU on its own: pass ``device="cpu"``."""

@@ -1,0 +1,302 @@
+"""Parity of the range-partitioned pipelined join with its GroupBySink:
+cylon_tpu_torch against cylon_tpu at world size 1 (``env1``), a few
+thousand rows per side.
+
+Every comparison is exact — same keys in the same order, same bits —
+with the reference's Pallas splitter probe both off and on (interpret
+mode on the CPU) against the port's splitter probe (its plain version on
+the CPU).  Also held equal: the packed pieces' ``to_table`` windows,
+``local_sort_table``, the ledger's admission, and the refusals."""
+
+import gc
+
+import numpy as np
+import pandas as pd
+import pytest
+
+import cylon_tpu as rct
+from cylon_tpu import config as rconfig
+from cylon_tpu.exec import GroupBySink as RSink
+from cylon_tpu.exec import pipelined_join as r_pipe
+from cylon_tpu.ops import pallas_probe
+from cylon_tpu.relational import join_tables as r_join
+from cylon_tpu.relational.piece import PieceSource as RSource
+from cylon_tpu.relational.sort import local_sort_table as r_lsort
+import cylon_tpu_torch as pct
+from cylon_tpu_torch.exec import memory as pmemory
+from cylon_tpu_torch.ops import splitter_probe as sp
+from cylon_tpu_torch.relational.piece import PieceSource as PSource
+from cylon_tpu_torch.relational.sort import local_sort_table as p_lsort
+
+AGGS = [("a", "sum"), ("b", "sum"), ("a", "count"), ("b", "mean")]
+
+
+@pytest.fixture()
+def penv():
+    return pct.CylonEnv(device="cpu")
+
+
+def _assert_same(ref_table, port_table):
+    r, p = ref_table.host_columns(), port_table.host_columns()
+    assert list(r) == list(p)
+    assert int(ref_table.row_count) == int(port_table.row_count)
+    for name in r:
+        (rd, rv), (pd_, pv) = r[name], p[name]
+        assert rd.dtype == pd_.dtype, (name, rd.dtype, pd_.dtype)
+        np.testing.assert_array_equal(pd_, rd, err_msg=name)
+        assert (rv is None) == (pv is None), name
+        if rv is not None:
+            np.testing.assert_array_equal(pv, rv, err_msg=name)
+
+
+def _tables(left, right, env1, penv):
+    """The same pandas frames as a reference and a port table pair."""
+    ldf, rdf = pd.DataFrame(left), pd.DataFrame(right)
+    return (rct.Table.from_pandas(ldf, env1), rct.Table.from_pandas(rdf, env1),
+            pct.Table.from_pandas(ldf, penv), pct.Table.from_pandas(rdf, penv))
+
+
+def _data(kind, seed=0):
+    """Left (probe) and right (build) frames of one key structure."""
+    rng = np.random.default_rng(seed)
+    nl, nr = 3000, 2500
+    if kind == "baseline":            # bench.py's shape, masked tails
+        lk = rng.integers(0, 2700, nl)
+        rk = rng.integers(0, 2700, nr)
+    elif kind == "wide":              # int64 keys past int32: (hi, lo)
+        pool = rng.integers(-2**62, 2**62, 400, dtype=np.int64)
+        lk, rk = rng.choice(pool, nl), rng.choice(pool, nr)
+    elif kind == "hot_range":         # one key fills a whole range
+        lk = rng.integers(0, 900, nl)
+        rk = rng.integers(0, 900, nr)
+        lk[rng.random(nl) < 0.3] = 450
+        rk[rng.random(nr) < 0.6] = 450
+    elif kind == "nullable":          # a null-flag operand in the key
+        lk = pd.array(rng.integers(0, 800, nl), dtype="Int64")
+        rk = pd.array(rng.integers(0, 800, nr), dtype="Int64")
+        lk[rng.random(nl) < 0.05] = pd.NA
+        rk[rng.random(nr) < 0.05] = pd.NA
+    elif kind == "float64":           # an 'f' operand: NaN, ±0.0, ±inf
+        pool = np.concatenate([rng.normal(size=500),
+                               [np.nan, 0.0, -0.0, np.inf, -np.inf]])
+        lk, rk = rng.choice(pool, nl), rng.choice(pool, nr)
+    else:
+        raise ValueError(kind)
+    left = {"k": lk, "a": rng.integers(-1000, 1000, nl).astype(np.int64)}
+    right = {"k": rk, "b": rng.integers(0, 1 << 40, nr).astype(np.int64)}
+    return left, right
+
+
+def _sinks(rl, rr, pl, pr, n_chunks, probe_on, monkeypatch):
+    """Run both pipelines into a GroupBySink; returns (ref, port) results,
+    the reference's probe-gate answers and the port's K2 entry calls."""
+    r_gate, p_calls = [], []
+    r_sup, p_probe = pallas_probe.supported, sp.count_ge_splitters
+
+    def r_spy(*a):
+        r_gate.append(r_sup(*a))
+        return r_gate[-1]
+
+    def p_spy(ops, sops):
+        p_calls.append(len(sops[0]))
+        return p_probe(ops, sops)
+
+    monkeypatch.setattr(rconfig, "PALLAS_PROBE", probe_on)
+    monkeypatch.setattr(pallas_probe, "supported", r_spy)
+    monkeypatch.setattr(sp, "count_ge_splitters", p_spy)
+    rs, ps = RSink("k", AGGS), pct.GroupBySink("k", AGGS)
+    r_pipe(rl, rr, "k", "k", how="inner", n_chunks=n_chunks, sink=rs)
+    balance = pmemory.balance()
+    outs = pct.pipelined_join(pl, pr, "k", "k", how="inner",
+                              n_chunks=n_chunks, sink=ps)
+    assert all(o is None for o in outs)
+    assert ps._disjoint                 # keyed on the join key
+    snap = ps.snapshot()                # leaves the partials adopted
+    pg = ps.finalize()
+    _assert_same(snap, pg)
+    # the partials' ledger registrations drain at finalize, and the packed
+    # sources' with the pipeline's frame
+    assert pmemory.balance() == balance
+    return rs.finalize(), pg, r_gate, p_calls
+
+
+@pytest.mark.parametrize("probe_on", [False, True])
+@pytest.mark.parametrize("n_chunks", [1, 2, 6])
+def test_sink_matches_reference(env1, penv, monkeypatch, n_chunks,
+                                probe_on):
+    rl, rr, pl, pr = _tables(*_data("baseline"), env1, penv)
+    assert pl.capacity == 4096 and pl.row_count == 3000   # masked tail
+    rg, pg, r_gate, p_calls = _sinks(rl, rr, pl, pr, n_chunks, probe_on,
+                                     monkeypatch)
+    _assert_same(rg, pg)
+    # the reference's "on" leg really took its Pallas kernel, and the port
+    # probed through its K2 entry once, against R-1 splitters, either way
+    assert r_gate == ([True] if probe_on and n_chunks > 1 else [])
+    assert p_calls == ([n_chunks - 1] if n_chunks > 1 else [])
+    # and against the monolithic port join -> fused groupby
+    mono = pct.groupby_aggregate(pct.join_tables(pl, pr, "k", "k"), "k",
+                                 AGGS)
+    for name in ("k", "a_sum", "b_sum", "a_count"):
+        np.testing.assert_array_equal(pg.to_pydict()[name],
+                                      mono.to_pydict()[name])
+
+
+@pytest.mark.parametrize("kind", ["wide", "hot_range", "nullable"])
+def test_sink_key_structures(env1, penv, monkeypatch, kind):
+    rl, rr, pl, pr = _tables(*_data(kind, seed=3), env1, penv)
+    rg, pg, r_gate, p_calls = _sinks(rl, rr, pl, pr, 6, True, monkeypatch)
+    assert r_gate == [True] and p_calls == [5]
+    _assert_same(rg, pg)
+
+
+@pytest.mark.parametrize("sink", [False, True])
+def test_exact_capacity_sentinel(env1, penv, monkeypatch, sink):
+    """A build side at exact capacity (n == cap) has no padding row to
+    serve as the +inf boundary: probe rows holding its max key must still
+    find all their matches, and a key past it must route to the last
+    range rather than vanish."""
+    rng = np.random.default_rng(5)
+    n = 4096
+    right = {"k": np.full(n, 7, np.int64),
+             "b": rng.integers(0, 100, n).astype(np.int64)}
+    left = {"k": np.where(np.arange(96) % 2 == 0, 7, 9).astype(np.int64),
+            "a": rng.integers(0, 100, 96).astype(np.int64)}
+    rl, rr, pl, pr = _tables(left, right, env1, penv)
+    assert pr.capacity == pr.row_count == n
+    if sink:
+        rg, pg, _, _ = _sinks(rl, rr, pl, pr, 4, True, monkeypatch)
+        _assert_same(rg, pg)
+        assert pg.to_pydict()["a_count"].tolist() == [48 * n]
+    else:
+        got = pct.pipelined_join(pl, pr, "k", "k", n_chunks=4)
+        _assert_same(r_pipe(rl, rr, "k", "k", n_chunks=4), got)
+        assert got.row_count == 48 * n
+
+
+@pytest.mark.parametrize("sink", [False, True])
+def test_no_overlapping_keys(env1, penv, monkeypatch, sink):
+    """With a 2-row build every probe key sorts below it: no range
+    qualifies and one empty piece pair keeps the output schema."""
+    right = {"k": np.array([10, 20], np.int64), "b": np.array([1, 2])}
+    left = {"k": np.array([1, 2, 3], np.int64), "a": np.array([4, 5, 6])}
+    rl, rr, pl, pr = _tables(left, right, env1, penv)
+    if sink:
+        rg, pg, _, _ = _sinks(rl, rr, pl, pr, 4, False, monkeypatch)
+        assert pg.row_count == 0
+        assert pg.column_names == rg.column_names
+        _assert_same(rg, pg)
+    else:
+        got = pct.pipelined_join(pl, pr, "k", "k", n_chunks=4)
+        assert got.row_count == 0
+        assert got.column_names == ["k", "a", "b"]
+
+
+@pytest.mark.parametrize("kind", ["baseline", "wide", "nullable",
+                                  "float64"])
+def test_sinkless_rows_match_reference(env1, penv, kind):
+    """Without a sink the packed pieces' joins concatenate: the same rows
+    in the same order as the reference's pipelined join.  With a float64
+    key (an 'f' operand through K2: NaN, ±0.0, ±inf), whose packed pieces
+    the reference cannot build, the reference is its monolithic join:
+    key groups ascend in both, left rows in source order within one."""
+    rl, rr, pl, pr = _tables(*_data(kind, seed=9), env1, penv)
+    got = pct.pipelined_join(pl, pr, "k", "k", n_chunks=3)
+    ref = r_join(rl, rr, "k", "k", how="inner") if kind == "float64" \
+        else r_pipe(rl, rr, "k", "k", n_chunks=3)
+    _assert_same(ref, got)
+    assert got.grouped_by == ("k",)
+
+
+@pytest.mark.parametrize("refused", ["first_source", "second_source"])
+def test_admission_over_budget_needs_spill_tier(penv, monkeypatch,
+                                                refused):
+    """A device budget a packed source does not fit in — the first one
+    alone, or the second beside the first: where the reference would
+    evict to host memory, the port raises naming the spill tier's slice,
+    and the ledger keeps no trace of the refused run."""
+    left, right = _data("baseline")
+    pl = pct.Table.from_pandas(pd.DataFrame(left), penv)
+    pr = pct.Table.from_pandas(pd.DataFrame(right), penv)
+    needs, admit = [], pmemory.ensure_headroom
+
+    def spy(env, need, scratch=0):
+        needs.append(int(need) + int(scratch))
+        return admit(env, need, scratch)
+
+    monkeypatch.setattr(pmemory, "ensure_headroom", spy)
+    pct.pipelined_join(pl, pr, "k", "k", n_chunks=2)   # no limit on the CPU
+    assert len(needs) == 2 and min(needs) > 0
+    gc.collect()
+    balance = pmemory.balance()
+    budget = balance + needs[0] - (refused == "first_source")
+    monkeypatch.setattr(pmemory, "budget_bytes", lambda env: budget)
+    needs.clear()
+    with pytest.raises(NotImplementedError, match="slice 11"):
+        pct.pipelined_join(pl, pr, "k", "k", n_chunks=2)
+    assert len(needs) == (1 if refused == "first_source" else 2)
+    gc.collect()
+    assert pmemory.balance() == balance
+
+
+def _sorted_pair(env1, penv, seed=11):
+    """A nullable int key, an int payload and an f64 column, sorted by
+    key in both packages."""
+    rng = np.random.default_rng(seed)
+    n = 2500
+    k = pd.array(rng.integers(0, 300, n), dtype="Int64")
+    k[rng.random(n) < 0.05] = pd.NA
+    df = pd.DataFrame({"k": k, "a": rng.integers(-9, 9, n).astype(np.int64),
+                       "f": rng.normal(size=n)})
+    rt, pt = rct.Table.from_pandas(df, env1), pct.Table.from_pandas(df, penv)
+    return r_lsort(rt, ["k"]), p_lsort(pt, ["k"])
+
+
+def test_local_sort_table_matches_reference(env1, penv):
+    rs, ps = _sorted_pair(env1, penv)
+    _assert_same(rs, ps)
+    for name in rs.column_names:
+        assert ps.column(name).bounds == rs.column(name).bounds, name
+
+
+@pytest.mark.parametrize("start,length,cap", [
+    (0, 700, 1024), (1300, 512, 512), (2400, 100, 128), (0, 0, 1)])
+def test_packed_piece_windows(env1, penv, start, length, cap):
+    """A packed window materialized with to_table equals the reference's
+    window, and a packed inner join over two windows equals the
+    reference's (materialized from the deferred state)."""
+    rs, ps = _sorted_pair(env1, penv)
+    pad = 1024
+    r_src, p_src = RSource(rs, pad), PSource(ps, pad)
+    w = np.asarray
+    rp = r_src.packed(w([start]), w([length]), cap)
+    pp = p_src.packed(w([start]), w([length]), cap)
+    _assert_same(rp.to_table(), pp.to_table())
+    assert pp.column_names == ["k", "a", "f"]
+    # a join of the window with a second window of the same source
+    r2 = r_src.packed(w([100]), w([900]), 1024)
+    p2 = p_src.packed(w([100]), w([900]), 1024)
+    rj = r_join(rp, r2, "k", "k", how="inner", allow_defer=True)
+    pj = pct.join_tables(pp, p2, "k", "k", how="inner", allow_defer=True)
+    assert isinstance(pj, pct.DeferredTable) and not pj.materialized
+    _assert_same(rj, pj)
+    # a window joined with a materialized Table takes the colocated join
+    # of the materialized window: the same rows
+    _assert_same(rj, pct.join_tables(pp, p2.to_table(), "k", "k",
+                                     how="inner", allow_defer=False))
+
+
+def test_refusals(penv):
+    t = pct.Table.from_pydict({"k": np.arange(10), "v": np.arange(10)}, penv)
+    with pytest.raises(NotImplementedError, match="slice 4"):
+        pct.pipelined_join(t, t, "k", "k", how="left", n_chunks=2)
+    with pytest.raises(pct.InvalidError):
+        pct.pipelined_join(t, t, "k", "k", how="cross", n_chunks=2)
+    with pytest.raises(pct.InvalidError):
+        pct.GroupBySink("k", [("v", "median")])
+    # a sink keyed off the join keys needs the cross-piece combine
+    u = pct.Table.from_pydict({"k": np.arange(10), "g": np.arange(10) % 3,
+                               "w": np.arange(10)}, penv)
+    sink = pct.GroupBySink("g", [("v", "sum")])
+    with pytest.raises(NotImplementedError, match="slice 5"):
+        pct.pipelined_join(u, t, "k", "k", n_chunks=2, sink=sink)
+        sink.finalize()

@@ -224,12 +224,19 @@ def test_refusals(penv):
 
 
 def test_import_boundary():
-    """The package and chip_smoke.py import neither jax nor cylon_tpu, and
-    importing the package needs neither pandas nor pyarrow."""
+    """The package (the pipelined join's modules included) and
+    chip_smoke.py import neither jax nor cylon_tpu, and importing the
+    package needs neither pandas nor pyarrow."""
     code = (
         "import sys; sys.path.insert(0, sys.argv[1])\n"
         "import cylon_tpu_torch, cylon_tpu_torch.relational.fused\n"
         "import cylon_tpu_torch.kernels, chip_smoke\n"
+        "import cylon_tpu_torch.exec.pipeline, cylon_tpu_torch.exec.memory\n"
+        "import cylon_tpu_torch.relational.piece\n"
+        "import cylon_tpu_torch.relational.sort\n"
+        "import cylon_tpu_torch.relational.repart\n"
+        "import cylon_tpu_torch.ops.splitter_probe, cylon_tpu_torch.ops.sort\n"
+        "import cylon_tpu_torch.utils.timing\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'cylon_tpu', 'pandas', 'pyarrow'))\n"
         "print(bad)\n")
