@@ -19,6 +19,15 @@ public entry points and checks every result against a numpy oracle:
 Each kernel is also held against its plain version on the inputs its
 routes handed it, captured in one more run of each: K1 at the monolithic
 route's gather and at one pipelined piece's, K2 at the pipelined probe.
+K1 takes its lanes as an (L, M) matrix or as a list of lanes; every small
+case runs in both forms.  K2 is checked on both of its kernel paths
+(packed keys and the general path) wherever they admit a case's operands,
+and timed at the pipelined inputs through its wrapper (``ms``), on a
+prepared descriptor (``kernel_ms``), on the same operands one element in
+(``scalar_ms``, its scalar-load path) and on its general path
+(``general_ms``).  The general path is also timed on the key structures it
+serves, at the same rows: the same keys as three int32 operands (read
+directly) and as a wide int64 key (hi int32, lo u32: one image row).
 
 Each route's kernel counts are set to 0 just before it and read just
 after.  Prints one JSON line per phase, then the kernel summary line, then
@@ -79,33 +88,68 @@ def k1_bytes(n_lanes: int, n_idx: int) -> int:
     return 4 * n_idx + 2 * 4 * n_lanes * n_idx + 4
 
 
-def k1_check(wg, label, mat_t, idx, window, expect_ok=None, timed=False):
+def k1_sector_bytes(n_lanes: int, idx: torch.Tensor) -> int:
+    """Bytes any gather from separate lanes moves at least when it reads
+    whole 32-byte sectors: every sector of every lane that holds an index,
+    plus the output and the indices."""
+    sectors = torch.unique_consecutive(idx.to(torch.int64) >> 3).numel()
+    n_idx = idx.shape[0]
+    return n_lanes * 32 * sectors + 4 * n_lanes * n_idx + 4 * n_idx
+
+
+def k1_check(wg, label, lanes, idx, window, expect_ok=None, timed=False):
     """Kernel vs plain version on the same card inputs: bit-equal output
-    and flag.  Returns the phase record."""
-    out_k, ok_k = wg.windowed_take_t(mat_t, idx, window)
-    out_p, ok_p = wg.windowed_take_plain(mat_t, idx, window)
+    and flag.  ``lanes`` is an (L, M) matrix or a lane list.  Returns the
+    phase record."""
+    out_k, ok_k = wg.windowed_take_t(lanes, idx, window)
+    out_p, ok_p = wg.windowed_take_plain(lanes, idx, window)
     torch.cuda.synchronize()
     if bool(ok_k) != bool(ok_p) or not torch.equal(out_k, out_p):
         raise AssertionError(f"K1 {label}: kernel and plain version differ")
     if expect_ok is not None and bool(ok_k) != expect_ok:
         raise AssertionError(f"K1 {label}: ok={bool(ok_k)}, want {expect_ok}")
     err = int((out_k.to(torch.int64) - out_p.to(torch.int64)).abs().max())
-    L, M = mat_t.shape
-    S = idx.shape[0]
+    del out_k
+    ls = wg.as_lanes(lanes)
+    L, M, S = len(ls), ls[0].shape[0], idx.shape[0]
     rec = {"phase": "k1", "case": label, "L": L, "M": M, "S": S,
-           "window": window, "ok": bool(ok_k), "bit_equal": True,
-           "max_abs_err": err}
-    del out_k, out_p
+           "window": window,
+           "form": "matrix" if isinstance(lanes, torch.Tensor) else "lanes",
+           "ok": bool(ok_p), "bit_equal": True, "max_abs_err": err}
+    del out_p
     if timed:
         nbytes = k1_bytes(L, S)
+        sbytes = k1_sector_bytes(L, idx)
         rec.update(
-            ms=time_ms(lambda: wg.windowed_take_t(mat_t, idx, window)),
-            plain_ms=time_ms(lambda: wg.windowed_take_plain(mat_t, idx,
-                                                            window)),
-            library_ms=time_ms(lambda: mat_t.index_select(1, idx)),
+            ms=time_ms(lambda: wg.windowed_take_t(lanes, idx, window)),
+            plain_ms=time_ms(lambda: wg.windowed_take_plain(lanes, idx,
+                                                            window)))
+        # the library yardstick gathers from one matrix: a lane list is
+        # stacked for it first, outside the timing
+        mat = lanes if isinstance(lanes, torch.Tensor) else torch.stack(ls)
+        rec.update(
+            library_ms=time_ms(lambda: mat.index_select(1, idx)),
+            library="index_select(1, idx) on the (L, M) matrix",
             bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-            bound_by="bytes")
+            bound_by="bytes", sector_bytes=sbytes,
+            sector_floor_ms=sbytes / HBM_BYTES_PER_S * 1e3)
+        del mat
     return rec
+
+
+def k1_forms(wg, label, mat, idx, window, expect_ok):
+    """One K1 case as a matrix and as a list of separately allocated lanes:
+    the kernel's results equal to each other and to the plain version."""
+    lanes = [row.clone() for row in mat]
+    by_matrix = wg.windowed_take_t(mat, idx, window)
+    by_lanes = wg.windowed_take_t(lanes, idx, window)
+    torch.cuda.synchronize()
+    if not torch.equal(by_matrix[0], by_lanes[0]) \
+            or bool(by_matrix[1]) != bool(by_lanes[1]):
+        raise AssertionError(f"K1 {label}: matrix and lane list differ")
+    del by_matrix, by_lanes
+    yield k1_check(wg, f"{label}_matrix", mat, idx, window, expect_ok)
+    yield k1_check(wg, f"{label}_lanes", lanes, idx, window, expect_ok)
 
 
 def small_cases(rng, n_rows, n_lanes, seg, pattern, dev):
@@ -126,30 +170,60 @@ def small_cases(rng, n_rows, n_lanes, seg, pattern, dev):
             torch.from_numpy(idx).to(dev))
 
 
+K2_VARIANTS = ("packed", "general")
+
+
 def k2_check(sp, label, ops, sops, timed=False):
-    """K2 vs its plain version on the same card inputs: bit-equal counts.
-    With ``timed``, also the library yardstick: one ``torch.searchsorted``
-    over the key tuple packed into one int64 word (K <= 2; the packing
-    pass is not timed), itself checked equal."""
+    """K2 vs its plain version on the same card inputs: bit-equal counts,
+    from the wrapper and from the other kernel path where it admits the
+    operands.  With ``timed``, also the library yardstick: one
+    ``torch.searchsorted`` with int32 output over the key tuple packed into
+    one int64 word (K <= 2; the packing pass is not timed), itself checked
+    equal."""
     from cylon_tpu_torch.ops import pack
     got = sp.count_ge_splitters(ops, sops)
     want = sp.count_ge_splitters_plain(ops, sops)
     torch.cuda.synchronize()
     if not torch.equal(got, want):
         raise AssertionError(f"K2 {label}: kernel and plain version differ")
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    del got
+    plan = sp.plan(ops, sops)
+    checked = []
+    for variant, name in enumerate(K2_VARIANTS):
+        if ops[0].is_cuda and variant != plan.variant \
+                and sp.admits(variant, ops):
+            alt = sp.run(sp.prepare(ops, sops, variant))
+            if not torch.equal(alt, want):
+                raise AssertionError(f"K2 {label}: the {name} variant and "
+                                     "the plain version differ")
+            checked.append(name)
+            del alt
+    del want
     cap, S, K = ops[0].shape[0], sops[0].shape[0], len(ops)
     rec = {"phase": "k2", "case": label, "K": K, "S": S, "cap": cap,
-           "widths": [str(o.dtype) for o in ops], "bit_equal": True,
-           "max_abs_err": int((got.to(torch.int64)
-                               - want.to(torch.int64)).abs().max())}
-    del got, want
+           "widths": [str(o.dtype) for o in ops],
+           "variant": K2_VARIANTS[plan.variant], "vec": plan.vec,
+           "other_variants_equal": checked, "bit_equal": True,
+           "max_abs_err": err}
     if timed:
+        probe = sp.prepare(ops, sops)
+        # the same rows one element in: the kernel's scalar-load path
+        shifted = tuple(o[1:] for o in ops)
+        if sp.plan(shifted, sops).vec:
+            raise AssertionError(f"K2 {label}: shifted operands aligned")
+        general = sp.prepare(ops, sops, sp.VARIANT_GENERAL) \
+            if plan.variant != sp.VARIANT_GENERAL else None
         nbytes = (sum(o.numel() * o.element_size() for o in ops)
                   + sum(so.numel() * so.element_size() for so in sops)
                   + 4 * cap)
         n_ops = 2 * K * S * cap          # one > and one == per operand
         rec.update(
             ms=time_ms(lambda: sp.count_ge_splitters(ops, sops)),
+            kernel_ms=time_ms(lambda: sp.run(probe)),
+            scalar_ms=time_ms(lambda: sp.count_ge_splitters(shifted, sops)),
+            general_ms=None if general is None
+            else time_ms(lambda: sp.run(general)),
             plain_ms=time_ms(lambda: sp.count_ge_splitters_plain(ops, sops)),
             bytes=nbytes, bound_ms=max(nbytes / HBM_BYTES_PER_S,
                                        n_ops / SCALAR_OPS_PER_S) * 1e3,
@@ -158,21 +232,26 @@ def k2_check(sp, label, ops, sops, timed=False):
             bound_by="bytes" if nbytes / HBM_BYTES_PER_S
             >= n_ops / SCALAR_OPS_PER_S else "operations",
             library_ms=None)
+        if K == 2 and all(o.dtype == torch.int32 for o in ops):
+            # what one elementwise call reaches on the same 12 bytes a row
+            rec["elementwise_ms"] = time_ms(
+                lambda: torch.bitwise_xor(ops[0], ops[1]))
+        del probe, shifted, general
         kinds = ("i",) * K
         words = pack.sort_words(pack.KeyOps(tuple(ops), kinds))
         swords = pack.sort_words(pack.KeyOps(tuple(sops), kinds))
         if len(words) == 1:
             rw, sw = words[0][0], swords[0][0]
-            lib = torch.searchsorted(sw, rw, right=True)
-            if not torch.equal(lib.to(torch.int32),
-                               sp.count_ge_splitters(ops, sops)):
+            lib = torch.searchsorted(sw, rw, right=True, out_int32=True)
+            if not torch.equal(lib, sp.count_ge_splitters(ops, sops)):
                 raise AssertionError(f"K2 {label}: searchsorted yardstick "
                                      "differs")
             del lib
-            rec["library_ms"] = time_ms(
-                lambda: torch.searchsorted(sw, rw, right=True))
-            rec["library"] = ("torch.searchsorted(right=True) over one "
-                              "packed int64 word per row; packing not timed")
+            rec["library_ms"] = time_ms(lambda: torch.searchsorted(
+                sw, rw, right=True, out_int32=True))
+            rec["library"] = ("torch.searchsorted(right=True, out_int32="
+                              "True) over one packed int64 word per row; "
+                              "packing not timed")
         del words, swords
     return rec
 
@@ -230,6 +309,8 @@ def k2_cases(sp, dev):
         np.isnan(f64), f64 == np.inf, f64 == -np.inf,
         (f64 == 0) & np.signbit(f64))], np.int64)
     yield k2_check(sp, "narrow_K2_S5", narrow, splitters(narrow, 5, 1))
+    one = narrow[1:]
+    yield k2_check(sp, "narrow_K1_S5", one, splitters(one, 5, 1))
     yield k2_check(sp, "wide_K3_S13_lo_across_2^31", wide,
                    splitters(wide, 13, 1))
     yield k2_check(sp, "nullable_K3_S7", nullable,
@@ -252,21 +333,37 @@ def k2_cases(sp, dev):
                    (torch.from_numpy(pool[[0, 1, 3, 2, 7, 4]]).to(dev),))
     ragged = tuple(o[:cap - 333] for o in narrow)
     yield k2_check(sp, "ragged_cap", ragged, splitters(ragged, 5, 1))
+    # every cap % 4 tail of the 4-row load groups, on both paths, with and
+    # without image rows
+    for tail in (1, 2, 3):
+        for prefix, ops in (("", narrow), ("wide_", wide)):
+            cut = tuple(o[:cap - 4 + tail] for o in ops)
+            yield k2_check(sp, f"{prefix}cap_mod4_{tail}", cut,
+                           splitters(cut, 5, 1))
+    # operand views one element in, not 16-byte aligned: the scalar loads
+    # of both paths and of the image rows' writer
+    for name, ops in (("int32", narrow), ("f64", floats), ("wide", wide)):
+        view = tuple(o[1:] for o in ops)
+        yield k2_check(sp, f"unaligned_{name}_view", view,
+                       splitters(view, 7, 1))
     # splitter images beyond shared memory: the wrapper raises, it never
-    # computes the plain version on the card
+    # computes the plain version on the card, and launches nothing (on the
+    # general path, not even the image rows' writer)
     from cylon_tpu_torch.status import KernelError
-    before = sp.COUNTS["launches"]
-    try:
-        sp.count_ge_splitters(
-            (torch.zeros(1024, dtype=torch.int32, device=dev),),
-            (torch.zeros(1 << 16, dtype=torch.int32, device=dev),))
-    except KernelError as e:
-        if sp.COUNTS["launches"] != before:
-            raise AssertionError("K2 at S=65536 counted a launch") from e
-        yield {"phase": "k2", "case": "S65536_beyond_shared_memory",
-               "raised": type(e).__name__, "message": str(e)}
-    else:
-        raise AssertionError("K2 at S=65536: no error raised")
+    for dtype, label in ((torch.int32, "S65536_beyond_shared_memory"),
+                         (torch.int64, "u32_S65536_beyond_shared_memory")):
+        before = sp.COUNTS["launches"]
+        try:
+            sp.count_ge_splitters(
+                (torch.zeros(1024, dtype=dtype, device=dev),),
+                (torch.zeros(1 << 16, dtype=dtype, device=dev),))
+        except KernelError as e:
+            if sp.COUNTS["launches"] != before:
+                raise AssertionError(f"K2 {label} counted a launch") from e
+            yield {"phase": "k2", "case": label,
+                   "raised": type(e).__name__, "message": str(e)}
+        else:
+            raise AssertionError(f"K2 {label}: no error raised")
 
 
 def baseline_inputs(n: int, seed: int = 42, unique: float = 0.9):
@@ -366,6 +463,8 @@ def profile_step(ct, lt, rt, top: int = 12, step_fn=None) -> dict:
     ops = [e for e in evs if e.key.startswith("aten::")]
     return {
         "phase": "profile", "wall_s": wall_s, "device_busy_s": busy_us / 1e6,
+        "aten_stack_ms": sum(dev_us(e, False) for e in ops
+                             if e.key == "aten::stack") / 1e3,
         "device_idle_share_profiled": 1.0 - busy_us / 1e6 / wall_s,
         "kernels_ms": [[e.key[:80], dev_us(e, True) / 1e3, e.count]
                        for e in sorted(kern, key=lambda e: -dev_us(e, True))
@@ -413,11 +512,27 @@ def main() -> int:
     rng = np.random.default_rng(42)
     for lanes in (1, 7, 8, 13):
         mat, idx = small_cases(rng, 4096, lanes, 2048, "dense", dev)
-        emit(k1_check(wg, f"dense_L{lanes}", mat, idx, 1024, True))
+        for rec in k1_forms(wg, f"dense_L{lanes}", mat, idx, 1024, True):
+            emit(rec)
     mat, idx = small_cases(rng, 4096, 5, 1024, "tail", dev)
-    emit(k1_check(wg, "sentinel_tail", mat, idx, 1024, True))
+    for rec in k1_forms(wg, "sentinel_tail", mat, idx, 1024, True):
+        emit(rec)
     mat, idx = small_cases(rng, 1 << 15, 6, 4096, "skewed", dev)
-    emit(k1_check(wg, "skewed", mat, idx, 1024, False))
+    for rec in k1_forms(wg, "skewed", mat, idx, 1024, False):
+        emit(rec)
+    # M % 128 != 0 and tail tiles on padding columns
+    mat, idx = small_cases(rng, 4000, 3, 1024, "dense", dev)
+    idx[-256:] = 3999
+    for rec in k1_forms(wg, "unaligned_rows", mat, idx, 1024, None):
+        emit(rec)
+    # separate lanes, each starting 0-3 words past a 16-byte boundary
+    mat, idx = small_cases(rng, 1 << 14, 4, 4096, "dense", dev)
+    lanes = []
+    for off, row in enumerate(mat):
+        buf = torch.empty(row.shape[0] + 4, dtype=row.dtype, device=dev)
+        lanes.append(buf[off:off + row.shape[0]])
+        lanes[-1].copy_(row)
+    emit(k1_check(wg, "lanes_at_word_offsets", lanes, idx, 2048, True))
     # BASELINE-shaped: L=7, M=2^28+1, S=2^26, ~0.2 density, sentinel tail
     gen = torch.Generator(device=dev).manual_seed(42)
     M, S = (1 << 28) + 1, 1 << 26
@@ -430,6 +545,8 @@ def main() -> int:
     del real
     emit(k1_check(wg, "baseline_shaped", mat, idx, wg.pick_window(0.2),
                   True, timed=True))
+    emit(k1_check(wg, "baseline_shaped_lanes", list(mat.unbind(0)), idx,
+                  wg.pick_window(0.2), True))
     del mat, idx
     torch.cuda.empty_cache()
 
@@ -485,16 +602,11 @@ def main() -> int:
           "oracle": "equal",
           "kernel_counts": {"windowed_gather": counts}})
 
-    # a profiler failure is reported, not fatal: the phases above and the
-    # kernel checks below decide the outcome
-    try:
-        prof = profile_step(ct, lt, rt)
-        # the profiler slows the host many-fold: the idle share that
-        # counts compares the device time with the unprofiled best
-        prof["device_idle_share_of_best"] = 1.0 - prof["device_busy_s"] / best
-        emit(prof)
-    except Exception as e:  # noqa: BLE001 — report and carry on
-        emit({"phase": "profile", "error": f"{type(e).__name__}: {e}"})
+    prof = profile_step(ct, lt, rt)
+    # the profiler slows the host many-fold: the idle share that counts
+    # compares the device time with the unprofiled best
+    prof["device_idle_share_of_best"] = 1.0 - prof["device_busy_s"] / best
+    emit(prof)
 
     # -- pipelined path: bench.py's route, the same tables, counted ---------
     n_chunks = max(2, -(-n // PIECE_ROWS))
@@ -537,25 +649,21 @@ def main() -> int:
           "oracle": "equal", "kernel_counts": pipe_counts,
           "phase_split_s": phases, "phase_split_total_s": attributed_s})
 
-    try:
-        prof = profile_step(
-            ct, lt, rt,
-            step_fn=lambda c, a, b: pipelined_step(c, a, b, n_chunks))
-        prof["phase"] = "profile_pipelined"
-        prof["device_idle_share_of_best"] = \
-            1.0 - prof["device_busy_s"] / pbest
-        emit(prof)
-    except Exception as e:  # noqa: BLE001 — report and carry on
-        emit({"phase": "profile_pipelined",
-              "error": f"{type(e).__name__}: {e}"})
+    prof = profile_step(
+        ct, lt, rt,
+        step_fn=lambda c, a, b: pipelined_step(c, a, b, n_chunks))
+    prof["phase"] = "profile_pipelined"
+    prof["device_idle_share_of_best"] = 1.0 - prof["device_busy_s"] / pbest
+    emit(prof)
 
     # -- K1 at the main path's own inputs (captured in one more run) -------
     captured = {}
     launch = wg.windowed_take_t
 
-    def capture(mat_t, idx, window):
-        captured.update(mat_t=mat_t, idx=idx, window=window)
-        return launch(mat_t, idx, window)
+    def capture(lanes, idx, window):
+        # the caller clears its lane list after the call: keep a copy
+        captured.update(lanes=wg.as_lanes(lanes), idx=idx, window=window)
+        return launch(lanes, idx, window)
 
     wg.windowed_take_t = capture
     try:
@@ -570,9 +678,10 @@ def main() -> int:
         captured.update(ops=ops, sops=sops)
         return probe(ops, sops)
 
-    def capture_piece(mat_t, idx, window):
-        captured.setdefault("piece", (mat_t, idx, window))   # the first
-        return launch(mat_t, idx, window)
+    def capture_piece(lanes, idx, window):
+        captured.setdefault("piece", (wg.as_lanes(lanes), idx,
+                                      window))              # the first
+        return launch(lanes, idx, window)
 
     sp.count_ge_splitters = capture_k2
     wg.windowed_take_t = capture_piece
@@ -585,10 +694,10 @@ def main() -> int:
     del lt, rt
     torch.cuda.empty_cache()
 
-    rec = k1_check(wg, "main_path", captured["mat_t"], captured["idx"],
+    rec = k1_check(wg, "main_path", captured["lanes"], captured["idx"],
                    captured["window"], True, timed=True)
     emit(rec)
-    del captured["mat_t"], captured["idx"]
+    del captured["lanes"], captured["idx"]
     torch.cuda.empty_cache()
     piece = None
     if "piece" in captured:
@@ -601,26 +710,54 @@ def main() -> int:
     rec2 = k2_check(sp, "main_path", captured["ops"], captured["sops"],
                     timed=True)
     emit(rec2)
+    # the general path on the key structures it serves, at the same rows:
+    # (liveness, sign, key) as three int32 operands, and (liveness, hi
+    # int32, lo u32 in int64) as a wide int64 key.  Each tuple orders as
+    # the narrow key does, so every count equals the main path's.
+    ops, sops = captured["ops"], captured["sops"]
+    general = {}
+    for name, form in (
+            ("k3_int32", lambda o: (o[0], o[1] >> 31, o[1])),
+            ("wide_key", lambda o: (o[0], o[1] >> 31,
+                                    o[1].to(torch.int64) & 0xFFFFFFFF))):
+        rec3 = k2_check(sp, f"main_path_as_{name}", form(ops), form(sops),
+                        timed=True)
+        if not torch.equal(sp.count_ge_splitters(form(ops), form(sops)),
+                           sp.count_ge_splitters(ops, sops)):
+            raise AssertionError(f"K2: the {name} counts differ from the "
+                                 "narrow key's")
+        emit(rec3)
+        general[name] = {key: rec3[key] for key in (
+            "K", "widths", "variant", "max_abs_err", "ms", "kernel_ms",
+            "plain_ms", "bound_ms", "library_ms")}
+    del ops, sops, captured
     emit({"kernels": [{
         "name": "windowed_gather", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES, "launches": counts["launches"],
         "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
         "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+        "sector_bytes": rec["sector_bytes"],
+        "sector_floor_ms": rec["sector_floor_ms"],
         "redispatches": counts["redispatches"],
         "pipelined_launches": pipe_counts["windowed_gather"]["launches"],
         "pipelined_redispatches":
             pipe_counts["windowed_gather"]["redispatches"],
         "pipelined_piece": None if piece is None else {
             key: piece[key] for key in ("M", "S", "window", "max_abs_err",
-                                        "ms", "plain_ms", "bound_ms",
+                                        "ms", "plain_ms",
+                                        "bound_ms", "sector_bytes",
+                                        "sector_floor_ms",
                                         "library_ms")}}, {
         "name": "splitter_probe", "route": "cuda", "source": K2_SOURCE,
         "replaces": K2_REPLACES,
         "launches": pipe_counts["splitter_probe"]["launches"],
         "max_abs_err": rec2["max_abs_err"], "ms": rec2["ms"],
+        "kernel_ms": rec2["kernel_ms"], "scalar_ms": rec2["scalar_ms"],
+        "general_ms": rec2["general_ms"],
         "plain_ms": rec2["plain_ms"], "bound_ms": rec2["bound_ms"],
-        "bound_by": rec2["bound_by"], "library_ms": rec2["library_ms"]}]})
+        "bound_by": rec2["bound_by"], "library_ms": rec2["library_ms"],
+        "general_path": general}]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,8 @@ package is imported; :func:`build` starts one ``nvcc`` per source, all at
 once, and waits for them all.
 
 A build or load failure raises :class:`~cylon_tpu_torch.status.KernelError`;
-there is no fallback.
+there is no fallback.  :func:`load` gives each C entry its ctypes
+signature (:data:`SIGNATURES`) once, when it loads the library.
 """
 
 from __future__ import annotations
@@ -29,6 +30,17 @@ SOURCES = ("windowed_gather", "splitter_probe")
 #: sm_90a: Hopper with its architecture-specific features
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: name -> {C entry: argument types}; every entry returns a cudaError_t int
+SIGNATURES = {
+    "windowed_gather": {
+        # lane pointers, M, L, idx, S, M128, W, out, ok, stream
+        "cylon_windowed_take": [_P, _LL, _I, _P, _LL, _LL, _I, _P, _P, _P]},
+    "splitter_probe": {
+        # descriptor, K, cap, S, vec, image bytes, images, out, stream
+        "cylon_count_ge_splitters": [_P, _I, _LL, _I, _I, _I, _I, _P, _P]},
+}
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -81,7 +93,8 @@ def build(names=SOURCES) -> dict:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
+    """The loaded library of kernel ``name``, built first if needed, its C
+    entries' signatures set."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
@@ -90,5 +103,9 @@ def load(name: str) -> ctypes.CDLL:
                 lib = ctypes.CDLL(path)
             except OSError as e:
                 raise KernelError(f"cannot load {path}: {e}") from e
+            for entry, argtypes in SIGNATURES[name].items():
+                fn = getattr(lib, entry)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             _libs[name] = lib
         return lib

@@ -4,10 +4,10 @@
 * :func:`grouped_reduce` — the grouped-input fast path the fused
   join→groupby runs: per-group sums are differences of prefix sums at the
   run starts, so every cumsum-able aggregate and the representative keys
-  share ONE gather of a stacked 32-bit lane matrix (plus one f64 side
-  gather for float accumulators, which have no lanes).  With
-  ``use_window`` the lane gather goes through the windowed-gather kernel
-  (ops/windowed_gather.py).
+  share ONE gather of their 32-bit lanes (plus one f64 side gather for
+  float accumulators, which have no lanes).  With ``use_window`` the lane
+  gather goes through the windowed-gather kernel (ops/windowed_gather.py),
+  which takes the lanes by pointer, unstacked.
 * The MapReduce stages the slice needs: :func:`combine_locally` (with the
   segment ops under it) and :func:`finalize`.
 * :func:`guard_saturation`, the armed int64 overflow guard.
@@ -113,7 +113,7 @@ def grouped_reduce(ops, values_list, vmasks, starts, n_live, key_datas,
     For contiguous runs, group g's sum over x is PS[starts[g+1]] -
     PS[starts[g]], with PS the zero-padded exclusive prefix of x and slots
     past the last group holding ``n_live`` — so ONE (seg_cap, L) gather of
-    the stacked prefix lanes at ``starts`` plus a consecutive diff serves
+    the prefix lanes at ``starts`` plus a consecutive diff serves
     every op.  int64 prefixes split into (hi, lo) lanes; counts, and sums
     proven narrow by ``value_narrow[i]``, take one lane.  Key columns and
     their validity ride the same gather; ``key_narrow[i]`` rides a 64-bit
@@ -210,13 +210,12 @@ def grouped_reduce(ops, values_list, vmasks, starts, n_live, key_datas,
         windowed = wg.supported(n + 1, seg_cap, len(u32_cols), use_window)
     g_u = gn_u = g_f = gn_f = None
     if windowed:
-        # lane-major stack: rows are lanes, so the kernel reads each lane
-        # row at the run starts
-        mat_t = torch.stack(u32_cols, dim=0)
+        # the kernel reads the lanes by pointer: no (L, n+1) stack
+        g_u, win_ok = wg.windowed_take_t(u32_cols, starts, use_window)
+        tail = torch.cat([c[tail_at:tail_at + 1] for c in u32_cols])
+        gn_u = torch.cat([g_u[:, 1:], tail[:, None]], dim=1)
         u32_cols.clear()
-        g_u, win_ok = wg.windowed_take_t(mat_t, starts, use_window)
-        gn_u = torch.cat([g_u[:, 1:], mat_t[:, tail_at:tail_at + 1]], dim=1)
-        del mat_t
+        del tail
     elif u32_cols:
         g_u, gn_u = gather_pair(u32_cols)
         u32_cols.clear()

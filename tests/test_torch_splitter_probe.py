@@ -146,5 +146,133 @@ def test_wrapper_refuses_mismatched_operands():
     with pytest.raises(sp.InvalidError):
         sp.count_ge_splitters(ops, ops)
     with pytest.raises(sp.InvalidError, match="same type"):
-        sp._launch((torch.zeros(1024, dtype=torch.int32),),
-                   (torch.zeros(3, dtype=torch.int64),))
+        sp.plan((torch.zeros(1024, dtype=torch.int32),),
+                (torch.zeros(3, dtype=torch.int64),))
+
+
+_I32, _I64, _F64 = torch.int32, torch.int64, torch.float64
+
+
+@pytest.mark.parametrize("bad", [
+    "no_operands", "k_mismatch", "row_length", "splitter_length",
+    "row_device", "splitter_device", "row_2d", "unsupported_dtype",
+    "no_splitters"])
+def test_plan_refuses(bad):
+    """Every mismatch the kernel cannot take raises InvalidError before a
+    descriptor exists."""
+    a = torch.zeros(1024, dtype=_I32)
+    s = torch.zeros(5, dtype=_I32)
+    ops, sops = {
+        "no_operands": ((), ()),
+        "k_mismatch": ((a, a), (s,)),
+        "row_length": ((a, torch.zeros(1023, dtype=_I32)), (s, s)),
+        "splitter_length": ((a, a), (s, torch.zeros(4, dtype=_I32))),
+        "row_device": ((a, torch.zeros(1024, dtype=_I32, device="meta")),
+                       (s, s)),
+        "splitter_device": ((a,), (torch.zeros(5, dtype=_I32,
+                                               device="meta"),)),
+        "row_2d": ((torch.zeros((2, 512), dtype=_I32),), (s,)),
+        "unsupported_dtype": ((torch.zeros(1024, dtype=torch.float32),),
+                              (torch.zeros(5, dtype=torch.float32),)),
+        "no_splitters": ((a,), (torch.zeros(0, dtype=_I32),)),
+    }[bad]
+    with pytest.raises(sp.InvalidError):
+        sp.plan(ops, sops)
+
+
+@pytest.mark.parametrize("dtypes,variant,image_bytes", [
+    ((_I32,), sp.VARIANT_PACKED, 0),
+    ((_I32, _I32), sp.VARIANT_PACKED, 0),               # the main path
+    ((_I32,) * 3, sp.VARIANT_GENERAL, 4),
+    ((_I32,) * 5, sp.VARIANT_GENERAL, 4),
+    ((_I64,), sp.VARIANT_GENERAL, 4),                   # u32 only
+    ((_I32, _I32, _I64), sp.VARIANT_GENERAL, 4),        # a wide int64 key
+    ((_F64,), sp.VARIANT_GENERAL, 8),                   # f64 only
+    ((_I32, _F64), sp.VARIANT_GENERAL, 8),              # an f64 key
+    ((_I32, _I64, _F64), sp.VARIANT_GENERAL, 8),
+])
+@pytest.mark.parametrize("cap", [1024, 1023])
+def test_plan_picks_variant_and_descriptor(dtypes, variant, image_bytes,
+                                           cap):
+    """The host-side choices for each operand-type mix: one or two int32
+    operands count on packed 64-bit keys; any other mix takes the general
+    path on 32-bit images, 64-bit when some operand is f64.  With 32-bit
+    images an int32 operand is read directly and every other one gets an
+    image row; with 64-bit images every operand does.  Image rows are
+    padded to the 4-row load group.  The descriptor is [rows | splitters |
+    row codes | splitter codes | the rows the count reads]."""
+    ops = tuple(torch.zeros(cap, dtype=dt) for dt in dtypes)
+    sops = tuple(torch.zeros(7, dtype=dt) for dt in dtypes)
+    k = len(dtypes)
+    image_ptr = 1 << 40
+    p = sp.plan(ops, sops, image_ptr)
+    assert (p.variant, p.k, p.cap, p.n_split, p.image_bytes) == \
+        (variant, k, cap, 7, image_bytes)
+    codes = [{_I32: 0, _I64: 1, _F64: 2}[dt] for dt in dtypes]
+    rows = [o.data_ptr() for o in ops]
+    count_rows, n_images = list(rows), 0
+    for i, dt in enumerate(dtypes):
+        if image_bytes == 8 or (image_bytes == 4 and dt != _I32):
+            count_rows[i] = image_ptr + n_images * 1024 * image_bytes
+            n_images += 1
+    assert p.image_rows == n_images
+    if n_images:
+        assert p.image_stride == 1024          # cap padded to 4 rows
+        assert (p.image_stride * image_bytes) % 16 == 0
+    else:
+        assert p.image_stride == 0
+    assert p.desc == tuple(rows + [so.data_ptr() for so in sops] + codes
+                           + codes + count_rows)
+    assert p.vec == all(r % 16 == 0 for r in rows)
+
+
+@pytest.mark.parametrize("dtype", [_I32, _F64])
+def test_plan_unaligned_view_takes_scalar_loads(dtype):
+    """A view one element in is not 16-byte aligned: the plan turns the
+    kernel's 16-byte loads off for the launch."""
+    t = torch.zeros(1025, dtype=dtype)
+    s = torch.zeros(3, dtype=dtype)
+    assert t.data_ptr() % 16 == 0
+    assert sp.plan((t[:1024],), (s,)).vec
+    assert not sp.plan((t[1:],), (s,)).vec
+
+
+@pytest.mark.parametrize("dtypes,admitted", [
+    ((_I32,), {"packed", "general"}),
+    ((_I32, _I32), {"packed", "general"}),
+    ((_I32,) * 3, {"general"}),
+    ((_I64,), {"general"}),
+    ((_I32, _I64), {"general"}),
+    ((_F64,), {"general"}),
+    ((_I32, _F64), {"general"}),
+])
+def test_variants_admit_operands(dtypes, admitted):
+    """Which paths can count a mix: the default is the first admitted, and
+    planning a path that is not admitted raises."""
+    names = ("packed", "general")
+    ops = tuple(torch.zeros(64, dtype=dt) for dt in dtypes)
+    sops = tuple(torch.zeros(3, dtype=dt) for dt in dtypes)
+    assert {n for v, n in enumerate(names) if sp.admits(v, ops)} == admitted
+    assert names[sp.plan(ops, sops).variant] == \
+        next(n for n in names if n in admitted)
+    for v, n in enumerate(names):
+        if n in admitted:
+            assert sp.plan(ops, sops, variant=v).variant == v
+        else:
+            with pytest.raises(sp.InvalidError, match="cannot count"):
+                sp.plan(ops, sops, variant=v)
+
+
+@pytest.mark.parametrize("dtypes,variant,want", [
+    ((_I32,), sp.VARIANT_PACKED, 8 * 7),
+    ((_I32, _I32), sp.VARIANT_PACKED, 8 * 7),
+    ((_I32, _I32), sp.VARIANT_GENERAL, 2 * 4 * 7),
+    ((_I32, _I64), sp.VARIANT_GENERAL, 2 * 4 * 7),
+    ((_I32, _F64), sp.VARIANT_GENERAL, 2 * 8 * 7),
+])
+def test_splitter_shared_memory(dtypes, variant, want):
+    """The shared memory a launch's splitter images take (the bound on S
+    the kernel error names): one 64-bit key per splitter when packed."""
+    ops = tuple(torch.zeros(64, dtype=dt) for dt in dtypes)
+    sops = tuple(torch.zeros(7, dtype=dt) for dt in dtypes)
+    assert sp.splitter_bytes(sp.plan(ops, sops, variant=variant)) == want
