@@ -29,6 +29,28 @@ prepared descriptor (``kernel_ms``), on the same operands one element in
 serves, at the same rows: the same keys as three int32 operands (read
 directly) and as a wide int64 key (hi int32, lo u32: one image row).
 
+The same workload then runs at world sizes above 1, on a
+``VirtualMeshConfig`` world (W ranks on the one card; the exchange is a
+device-local permutation), both routes each time:
+
+* ``dist_small``: W = 8 and W = 3 at 1M rows per side; besides the
+  oracle, every result group must sit on the shard that a numpy copy of
+  the reference's row hash (kept here, independent of the package)
+  assigns it;
+* ``dist_path``: W = 4 at ``--rows`` per side in total, the monolithic
+  route timed like the W = 1 one, with its phase split (hash, exchange,
+  join, fused groupby) and K1 launched once per shard per iteration;
+* ``dist_pipelined_path``: the same tables through the pipelined route,
+  ``n_chunks = max(2, ceil(rows per rank / 21M))``, K2 launched on every
+  shard;
+* at both W = 4 routes, K1 and K2 held bit-equal against their plain
+  versions, and timed, on the inputs of their first launch (shard 0),
+  captured in each route's attribution run;
+* ``exchange``: ``hash_rows`` and ``shuffle_table`` of one side at W = 4,
+  timed with CUDA events against their byte bounds, beside one stable
+  ``torch.sort`` of the same int32 targets; the count sidecar also at
+  W = 8 on as many rows.
+
 Each route's kernel counts are set to 0 just before it and read just
 after.  Prints one JSON line per phase, then the kernel summary line, then
 the card's name and power limit as nvidia-smi reports them, and last
@@ -40,6 +62,7 @@ one.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -150,6 +173,38 @@ def k1_forms(wg, label, mat, idx, window, expect_ok):
     del by_matrix, by_lanes
     yield k1_check(wg, f"{label}_matrix", mat, idx, window, expect_ok)
     yield k1_check(wg, f"{label}_lanes", lanes, idx, window, expect_ok)
+
+
+def keep_k1(lanes, idx, window):
+    """K1's arguments as a capture keeps them: the caller clears its lane
+    list after the call, so the list is copied."""
+    from cylon_tpu_torch.ops import windowed_gather as wg
+    return wg.as_lanes(lanes), idx, window
+
+
+@contextlib.contextmanager
+def capturing(mod, name, into: dict, key: str, keep=lambda *a: a):
+    """Within the block, the first call of ``mod.name`` also stores
+    ``keep(*args)`` in ``into[key]``; the call itself goes through."""
+    launch = getattr(mod, name)
+
+    def first(*args):
+        if key not in into:
+            into[key] = keep(*args)
+        return launch(*args)
+
+    setattr(mod, name, first)
+    try:
+        yield
+    finally:
+        setattr(mod, name, launch)
+
+
+#: the keys of a K1 / K2 check that the kernels line repeats per route
+K1_KEYS = ("M", "S", "window", "max_abs_err", "ms", "plain_ms", "bound_ms",
+           "sector_bytes", "sector_floor_ms", "library_ms")
+K2_KEYS = ("K", "S", "cap", "variant", "max_abs_err", "ms", "kernel_ms",
+           "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 
 def small_cases(rng, n_rows, n_lanes, seg, pattern, dev):
@@ -366,6 +421,54 @@ def k2_cases(sp, dev):
             raise AssertionError(f"K2 {label}: no error raised")
 
 
+#: the reference's hash constants (cylon_tpu/ops/hashing.py), for the
+#: numpy copy below
+GOLD = 0x9E3779B9
+
+
+def np_partition_of(keys: np.ndarray, world: int) -> np.ndarray:
+    """The reference's target rank of each int64 key, in numpy: its u32
+    murmur3-finalizer row hash over the key's (lo, hi) lanes, then the
+    mask (power-of-two world) or the modulo.  Independent of the
+    package's torch code, so a wrong hash on the card cannot pass."""
+    k = np.asarray(keys, np.int64)
+    h = np.full(k.shape, GOLD, np.uint32)
+    with np.errstate(over="ignore"):
+        for lane in ((k & 0xFFFFFFFF).astype(np.uint32),
+                     ((k >> 32) & 0xFFFFFFFF).astype(np.uint32)):
+            z = h ^ (lane + np.uint32(GOLD) + (h << np.uint32(6))
+                     + (h >> np.uint32(2)))
+            z = (z ^ (z >> np.uint32(16))) * np.uint32(0x85EBCA6B)
+            z = (z ^ (z >> np.uint32(13))) * np.uint32(0xC2B2AE35)
+            h = z ^ (z >> np.uint32(16))
+    if world & (world - 1) == 0:
+        return (h & np.uint32(world - 1)).astype(np.int64)
+    return (h % np.uint32(world)).astype(np.int64)
+
+
+def check_dist(g, orc, world: int, label: str) -> int:
+    """A W-shard groupby result against the oracle: the same groups and
+    sums once sorted by key, each shard's keys ascending, and every group
+    on the shard the reference's hash assigns it."""
+    out = g.to_pydict()
+    order = np.argsort(out["k"], kind="stable")
+    for name in ("k", "a_sum", "b_sum"):
+        if not np.array_equal(out[name][order], orc[name]):
+            raise AssertionError(f"{label}: column {name} differs from the "
+                                 "numpy oracle")
+    vc, cap = g.valid_counts, g.capacity
+    keys = g.column("k").data.cpu().numpy()
+    for r in range(world):
+        kr = keys[r * cap:r * cap + int(vc[r])]
+        if len(kr) > 1 and not bool(np.all(np.diff(kr) > 0)):
+            raise AssertionError(f"{label}: shard {r}'s keys not ascending")
+        if not np.array_equal(np_partition_of(kr, world),
+                              np.full(len(kr), r)):
+            raise AssertionError(f"{label}: a group of shard {r} belongs "
+                                 "elsewhere by the reference's hash")
+    return len(out["k"])
+
+
 def baseline_inputs(n: int, seed: int = 42, unique: float = 0.9):
     """bench.py's BASELINE tables (same generator, same draw order)."""
     rng = np.random.default_rng(seed)
@@ -472,6 +575,224 @@ def profile_step(ct, lt, rt, top: int = 12, step_fn=None) -> dict:
         "aten_ops_ms": [[e.key, dev_us(e, False) / 1e3, e.count]
                         for e in sorted(ops, key=lambda e: -dev_us(e, False))
                         [:top]]}
+
+
+def dist_phases(ct, left, right, orc, n: int, need_k1: bool, routes: dict,
+                device=None) -> dict:
+    """The W > 1 phases (module docstring): ``dist_small`` at W = 8 and 3,
+    then ``dist_path``, ``dist_pipelined_path`` and ``exchange`` at W = 4
+    on the host arrays ``left``/``right`` of ``n`` rows per side, whose
+    oracle is ``orc``.  Adds each route's kernel counts to ``routes``.
+    Returns ``routes`` and the W = 4 kernel checks: K1 and K2 held against
+    their plain versions, and timed, on the inputs of their first launch
+    (shard 0) in each W = 4 route.  ``device`` is the card unless a
+    rehearsal passes the CPU."""
+    from cylon_tpu_torch.ctx.context import VirtualMeshConfig
+    from cylon_tpu_torch.ops import splitter_probe as sp
+    from cylon_tpu_torch.ops import windowed_gather as wg
+    from cylon_tpu_torch.utils import timing
+    sleft, sright, smv = baseline_inputs(1_000_000)
+    sorc = oracle(sleft, sright, smv)
+    for w in (8, 3):
+        envw = ct.CylonEnv(VirtualMeshConfig(w), device=device)
+        lt = ct.Table.from_pydict(sleft, envw)
+        rt = ct.Table.from_pydict(sright, envw)
+        wg.reset_counts()
+        groups = check_dist(step(ct, lt, rt), sorc, w,
+                            f"dist_small W={w} monolithic")
+        mono = {"windowed_gather": dict(wg.COUNTS)}
+        wg.reset_counts()
+        sp.reset_counts()
+        nc = max(2, -(-(1_000_000 // w) // PIECE_ROWS))
+        check_dist(pipelined_step(ct, lt, rt, nc), sorc, w,
+                   f"dist_small W={w} pipelined")
+        pipe = {"splitter_probe": dict(sp.COUNTS),
+                "windowed_gather": dict(wg.COUNTS)}
+        if pipe["splitter_probe"]["launches"] != w:
+            raise AssertionError(f"dist_small W={w}: K2 counts {pipe}, "
+                                 f"expected one launch per shard")
+        routes[f"monolithic_w{w}_1M"] = mono["windowed_gather"]
+        routes[f"pipelined_w{w}_1M"] = pipe
+        emit({"phase": "dist_small", "world": w, "rows_per_side": 1_000_000,
+              "n_chunks": nc, "groups": groups, "oracle": "equal",
+              "placement": "every group on the reference hash's shard",
+              "kernel_counts": {"monolithic": mono, "pipelined": pipe}})
+        del lt, rt, envw
+    del sleft, sright, sorc
+
+    # dist_path: W = 4 at --rows per side in total, the monolithic route
+    w = 4
+    env4 = ct.CylonEnv(VirtualMeshConfig(w), device=device)
+    t0 = time.perf_counter()
+    lt, rt = ct.Table.from_pydict(left, env4), ct.Table.from_pydict(right,
+                                                                    env4)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    wg.reset_counts()
+    times = []
+    g = step(ct, lt, rt, times)                 # warm-up (first sight)
+    for _ in range(3):
+        g = step(ct, lt, rt, times)
+    d_counts = dict(wg.COUNTS)
+    d_peak = torch.cuda.max_memory_allocated()
+    n_groups = check_dist(g, orc, w, "dist_path")
+    del g
+    if d_counts["redispatches"] != 0 or d_counts["launches"] not in (
+            (4 * w,) if need_k1 else (0, 4 * w)):
+        raise AssertionError(f"dist_path windowed gather counts {d_counts}:"
+                             f" expected {w} launches per iteration (one "
+                             "per shard) and no redispatch")
+    # the attribution run also keeps shard 0's K1 inputs
+    split, captured, w4 = [], {}, {}
+    timing.enable("block")
+    timing.reset()
+    with capturing(wg, "windowed_take_t", captured, "mono", keep_k1):
+        check_dist(step(ct, lt, rt, split), orc, w,
+                   "dist_path attribution run")
+    phases = timing.snapshot()
+    timing.enable(None)
+    dbest = min(t["total_s"] for t in times[1:])
+    emit({"phase": "dist_path", "world": w, "rows_per_side": n,
+          "groups": n_groups, "setup_s": setup_s, "iterations": times,
+          "best_s": dbest, "rows_per_s": 2 * n / dbest,
+          "peak_mem_bytes": d_peak, "oracle": "equal",
+          "kernel_counts": {"windowed_gather": d_counts},
+          "phase_split_s": {
+              "hash_both_sides": phases.get("shuffle.hash", 0.0),
+              "exchange_both_sides": phases.get("shuffle.exchange", 0.0),
+              "shuffle_total": phases.get("join.shuffle", 0.0),
+              "join": split[0]["join_s"] - phases.get("join.shuffle", 0.0),
+              "fused_groupby": split[0]["groupby_s"],
+              "total": split[0]["total_s"]}})
+    routes["monolithic_w4"] = d_counts
+    if "mono" in captured:
+        w4["k1_monolithic"] = k1_check(wg, "w4_monolithic_shard0",
+                                       *captured.pop("mono"), True,
+                                       timed=True)
+        emit(w4["k1_monolithic"])
+    elif need_k1:
+        raise AssertionError("dist_path: the attribution run launched no K1")
+    torch.cuda.empty_cache()
+    prof = profile_step(ct, lt, rt)
+    prof["phase"] = "profile_dist"
+    prof["device_idle_share_of_best"] = 1.0 - prof["device_busy_s"] / dbest
+    emit(prof)
+
+    # dist_pipelined_path: the same tables through the pipelined route
+    nc = max(2, -(-(n // w) // PIECE_ROWS))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    wg.reset_counts()
+    sp.reset_counts()
+    times = []
+    g = pipelined_step(ct, lt, rt, nc, times)           # warm-up
+    for _ in range(3):
+        g = pipelined_step(ct, lt, rt, nc, times)
+    dp_counts = {"splitter_probe": dict(sp.COUNTS),
+                 "windowed_gather": dict(wg.COUNTS)}
+    dp_peak = torch.cuda.max_memory_allocated()
+    n_groups = check_dist(g, orc, w, "dist_pipelined_path")
+    del g
+    if dp_counts["splitter_probe"]["launches"] != 4 * w or (
+            need_k1 and dp_counts["windowed_gather"]["launches"]
+            != 4 * w * nc):
+        raise AssertionError(f"dist_pipelined_path kernel counts "
+                             f"{dp_counts}: expected K2 once per shard and "
+                             "K1 once per shard and piece per iteration")
+    # the attribution run also keeps shard 0's K2 inputs and its first
+    # piece's K1 inputs
+    timing.enable("block")
+    timing.reset()
+    t0 = time.perf_counter()
+    with capturing(sp, "count_ge_splitters", captured, "probe"), \
+            capturing(wg, "windowed_take_t", captured, "piece", keep_k1):
+        check_dist(pipelined_step(ct, lt, rt, nc), orc, w,
+                   "dist_pipelined_path attribution run")
+    attributed_s = time.perf_counter() - t0
+    phases = timing.snapshot()
+    timing.enable(None)
+    dpbest = min(t["total_s"] for t in times[1:])
+    emit({"phase": "dist_pipelined_path", "world": w, "rows_per_side": n,
+          "n_chunks": nc, "groups": n_groups, "iterations": times,
+          "best_s": dpbest, "rows_per_s": 2 * n / dpbest,
+          "peak_mem_bytes": dp_peak, "oracle": "equal",
+          "kernel_counts": dp_counts, "phase_split_s": phases,
+          "phase_split_total_s": attributed_s})
+    routes["pipelined_w4"] = dp_counts
+    if "piece" in captured:
+        w4["k1_pipelined_piece"] = k1_check(
+            wg, "w4_pipelined_shard0_piece0", *captured.pop("piece"),
+            timed=True)
+        emit(w4["k1_pipelined_piece"])
+    elif need_k1:
+        raise AssertionError("dist_pipelined_path: the attribution run "
+                             "launched no K1")
+    w4["k2_pipelined"] = k2_check(sp, "w4_pipelined_shard0",
+                                  *captured.pop("probe"), timed=True)
+    emit(w4["k2_pipelined"])
+    torch.cuda.empty_cache()
+
+    # exchange: hash_rows and shuffle_table of one side at W = 4
+    from cylon_tpu_torch.ops import hashing
+    from cylon_tpu_torch.parallel import shuffle as pshuf
+    from cylon_tpu_torch.relational import repart
+    torch.cuda.empty_cache()
+    key = lt.column("k").data
+    rows = key.shape[0]
+    tgt = pshuf.hash_targets(env4, [key], [None], lt.valid_counts)
+    pairs = pshuf.count_targets(env4, tgt)
+    out = repart.shuffle_table(lt, ["k"])
+    ocap = out.capacity
+    okeys = out.column("k").data
+    for r in range(w):                  # rows landed where the hash says
+        kr = okeys[r * ocap:r * ocap + min(int(out.valid_counts[r]),
+                                           1 << 20)].cpu().numpy()
+        if not np.array_equal(np_partition_of(kr, w), np.full(len(kr), r)):
+            raise AssertionError(f"exchange: a row of shard {r} belongs "
+                                 "elsewhere by the reference's hash")
+    flat, _ = repart._flatten_for_exchange(lt)
+    del out, okeys
+    env8 = ct.CylonEnv(VirtualMeshConfig(8), device=device)
+    tgt8 = torch.randint(0, 9, (rows,), dtype=torch.int32, device=key.device,
+                         generator=torch.Generator(
+                             device=key.device).manual_seed(8))
+    if int(pshuf.count_targets(env8, tgt8).sum()) \
+            != int((tgt8 < 8).sum()):
+        raise AssertionError("count_targets at W=8 lost rows")
+    hash_bytes = 8 * rows + 8 * rows            # int64 keys in, hashes out
+    in_bytes = sum(c.data.numel() * c.data.element_size()
+                   for c in lt.columns.values())
+    shuffle_bytes = in_bytes + in_bytes // lt.capacity * ocap
+    xrec = {"phase": "exchange", "world": w, "rows": rows,
+            "rows_per_dest": [int(x) for x in pairs.sum(axis=0)],
+            "out_cap": ocap,
+            "hash_rows_ms": time_ms(lambda: hashing.hash_rows([key])),
+            "hash_bytes": hash_bytes,
+            "hash_bound_ms": hash_bytes / HBM_BYTES_PER_S * 1e3,
+            "hash_targets_ms": time_ms(lambda: pshuf.hash_targets(
+                env4, [key], [None], lt.valid_counts)),
+            "count_targets_ms": time_ms(lambda: pshuf.count_targets(env4,
+                                                                    tgt)),
+            # the count's work grows as W^2: the same rows as 8 shards
+            "count_targets_w8_ms": time_ms(lambda: pshuf.count_targets(
+                env8, tgt8)),
+            "exchange_ms": time_ms(lambda: pshuf.exchange(env4, tgt, pairs,
+                                                          flat), reps=3),
+            "target_sort_uint8_ms": time_ms(lambda: torch.sort(
+                tgt.to(torch.uint8), stable=True)),
+            "shuffle_table_ms": time_ms(lambda: repart.shuffle_table(
+                lt, ["k"]), reps=3),
+            "shuffle_bytes": shuffle_bytes,
+            "shuffle_bound_ms": shuffle_bytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes",
+            "library_ms": time_ms(lambda: torch.sort(tgt, stable=True)),
+            "library": "torch.sort(int32 targets, stable=True)"}
+    emit(xrec)
+    del flat, tgt, tgt8, lt, rt, key
+    torch.cuda.empty_cache()
+    return routes, w4
 
 
 def main() -> int:
@@ -582,7 +903,7 @@ def main() -> int:
     lt, rt = ct.Table.from_pydict(left, env), ct.Table.from_pydict(right, env)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    del left, right
+    # the host arrays stay for the W = 4 phases
     torch.cuda.reset_peak_memory_stats()
     wg.reset_counts()
     times = []
@@ -656,48 +977,20 @@ def main() -> int:
     prof["device_idle_share_of_best"] = 1.0 - prof["device_busy_s"] / pbest
     emit(prof)
 
-    # -- K1 at the main path's own inputs (captured in one more run) -------
+    # -- K1 and K2 at the main path's own inputs (one more run of each) ---
     captured = {}
-    launch = wg.windowed_take_t
-
-    def capture(lanes, idx, window):
-        # the caller clears its lane list after the call: keep a copy
-        captured.update(lanes=wg.as_lanes(lanes), idx=idx, window=window)
-        return launch(lanes, idx, window)
-
-    wg.windowed_take_t = capture
-    try:
+    with capturing(wg, "windowed_take_t", captured, "mono", keep_k1):
         check_groupby(step(ct, lt, rt), orc, "capture run")
-    finally:
-        wg.windowed_take_t = launch
-
-    # -- K2, and K1 on one piece, at the pipelined path's own inputs -------
-    probe = sp.count_ge_splitters
-
-    def capture_k2(ops, sops):
-        captured.update(ops=ops, sops=sops)
-        return probe(ops, sops)
-
-    def capture_piece(lanes, idx, window):
-        captured.setdefault("piece", (wg.as_lanes(lanes), idx,
-                                      window))              # the first
-        return launch(lanes, idx, window)
-
-    sp.count_ge_splitters = capture_k2
-    wg.windowed_take_t = capture_piece
-    try:
+    # K2, and K1 on the first piece, at the pipelined path's own inputs
+    with capturing(sp, "count_ge_splitters", captured, "probe"), \
+            capturing(wg, "windowed_take_t", captured, "piece", keep_k1):
         check_groupby(pipelined_step(ct, lt, rt, n_chunks), orc,
                       "K2 capture run")
-    finally:
-        sp.count_ge_splitters = probe
-        wg.windowed_take_t = launch
     del lt, rt
     torch.cuda.empty_cache()
 
-    rec = k1_check(wg, "main_path", captured["lanes"], captured["idx"],
-                   captured["window"], True, timed=True)
+    rec = k1_check(wg, "main_path", *captured.pop("mono"), True, timed=True)
     emit(rec)
-    del captured["lanes"], captured["idx"]
     torch.cuda.empty_cache()
     piece = None
     if "piece" in captured:
@@ -707,14 +1000,13 @@ def main() -> int:
     elif need_k1:
         raise AssertionError("K1 capture run: no piece launched K1")
     torch.cuda.empty_cache()
-    rec2 = k2_check(sp, "main_path", captured["ops"], captured["sops"],
-                    timed=True)
+    ops, sops = captured.pop("probe")
+    rec2 = k2_check(sp, "main_path", ops, sops, timed=True)
     emit(rec2)
     # the general path on the key structures it serves, at the same rows:
     # (liveness, sign, key) as three int32 operands, and (liveness, hi
     # int32, lo u32 in int64) as a wide int64 key.  Each tuple orders as
     # the narrow key does, so every count equals the main path's.
-    ops, sops = captured["ops"], captured["sops"]
     general = {}
     for name, form in (
             ("k3_int32", lambda o: (o[0], o[1] >> 31, o[1])),
@@ -731,6 +1023,13 @@ def main() -> int:
             "K", "widths", "variant", "max_abs_err", "ms", "kernel_ms",
             "plain_ms", "bound_ms", "library_ms")}
     del ops, sops, captured
+    torch.cuda.empty_cache()
+
+    # -- world sizes above 1: W ranks on this card, both routes ------------
+    routes, w4 = dist_phases(ct, left, right, orc, n, need_k1,
+                             {"monolithic_w1": counts,
+                              "pipelined_w1": pipe_counts})
+    del left, right
     emit({"kernels": [{
         "name": "windowed_gather", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES, "launches": counts["launches"],
@@ -740,15 +1039,17 @@ def main() -> int:
         "sector_bytes": rec["sector_bytes"],
         "sector_floor_ms": rec["sector_floor_ms"],
         "redispatches": counts["redispatches"],
+        "launches_by_route": {k: v["windowed_gather"] if "windowed_gather"
+                              in v else v for k, v in routes.items()},
         "pipelined_launches": pipe_counts["windowed_gather"]["launches"],
         "pipelined_redispatches":
             pipe_counts["windowed_gather"]["redispatches"],
         "pipelined_piece": None if piece is None else {
-            key: piece[key] for key in ("M", "S", "window", "max_abs_err",
-                                        "ms", "plain_ms",
-                                        "bound_ms", "sector_bytes",
-                                        "sector_floor_ms",
-                                        "library_ms")}}, {
+            key: piece[key] for key in K1_KEYS},
+        "w4": {route: {key: w4[check][key] for key in K1_KEYS}
+               if check in w4 else None for route, check in (
+                   ("monolithic_shard0", "k1_monolithic"),
+                   ("pipelined_shard0_piece0", "k1_pipelined_piece"))}}, {
         "name": "splitter_probe", "route": "cuda", "source": K2_SOURCE,
         "replaces": K2_REPLACES,
         "launches": pipe_counts["splitter_probe"]["launches"],
@@ -757,7 +1058,11 @@ def main() -> int:
         "general_ms": rec2["general_ms"],
         "plain_ms": rec2["plain_ms"], "bound_ms": rec2["bound_ms"],
         "bound_by": rec2["bound_by"], "library_ms": rec2["library_ms"],
-        "general_path": general}]})
+        "launches_by_route": {k: v["splitter_probe"] for k, v in
+                              routes.items() if "splitter_probe" in v},
+        "general_path": general,
+        "w4": {"pipelined_shard0": {key: w4["k2_pipelined"][key]
+                                    for key in K2_KEYS}}}]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,15 @@
 """cylon_tpu_torch: the PyTorch/CUDA port of cylon_tpu for one NVIDIA H100.
 
 The port mirrors ``cylon_tpu``'s module layout and is held bit-equal to it
-by the ``tests/test_torch_*.py`` parity tests.  This slice runs the
-BASELINE path at world size 1: ``Table.from_pydict`` ingest, an inner
-``join_tables`` that defers its output, and ``groupby_aggregate`` through
-the fused join→groupby pushdown, whose run-start gather is the
-hand-written CUDA kernel ``kernels/windowed_gather.cu``.  Above the card's
+by the ``tests/test_torch_*.py`` parity tests.  It runs the BASELINE
+path: ``Table.from_pydict`` ingest, an inner ``join_tables`` that defers
+its output, and ``groupby_aggregate`` through the fused join→groupby
+pushdown, whose run-start gather is the hand-written CUDA kernel
+``kernels/windowed_gather.cu``.  World sizes above 1 run as a
+``VirtualMeshConfig`` world, W ranks on one device: tables hash-shuffle
+through an order-preserving device-local exchange (``parallel/``) that
+routes every row to the reference's rank, and every shard then runs the
+world-1 operators.  Above the card's
 memory the same work runs through the range-partitioned
 ``exec.pipelined_join`` with a ``GroupBySink``, whose per-row range
 assignment is the hand-written CUDA kernel ``kernels/splitter_probe.cu``.
@@ -17,7 +21,7 @@ The package imports torch and numpy only; pandas is touched only by
 from .core.column import Column
 from .core.dtypes import LogicalType
 from .core.table import DeferredTable, Table
-from .ctx.context import CylonEnv, LocalConfig
+from .ctx.context import CylonEnv, LocalConfig, VirtualMeshConfig
 from .exec import GroupBySink, pipelined_join
 from .relational.groupby import groupby_aggregate
 from .relational.join import join_tables
@@ -26,4 +30,5 @@ from .status import CylonError, DeviceUnavailableError, InvalidError, KernelErro
 __all__ = ["Column", "CylonEnv", "CylonError", "DeferredTable",
            "DeviceUnavailableError", "GroupBySink", "InvalidError",
            "KernelError", "LocalConfig", "LogicalType", "Table",
-           "groupby_aggregate", "join_tables", "pipelined_join"]
+           "VirtualMeshConfig", "groupby_aggregate", "join_tables",
+           "pipelined_join"]

@@ -1,11 +1,14 @@
 """Device-resident Table (port of ``cylon_tpu/core/table.py``).
 
-Layout, as in the reference at world size 1: every column is a tensor of
-the same length ``cap`` on the env's device; the first ``valid_counts[0]``
-rows are real, the rest is padding.  Ingest pads the capacity to its
-``pow2ceil`` bucket with a masked tail (``config.family_cap``), so a port
-table holds exactly the capacity and padding of the reference table built
-from the same rows.
+Layout, as in the reference: every column is ONE tensor of length
+``W·cap`` on the env's device, W the env's world size; shard r is the row
+block ``[r·cap, (r+1)·cap)``, whose first ``valid_counts[r]`` rows are
+real and the rest padding.  Global row order is the concatenation of the
+shards' live prefixes in rank order.  World-1 ingest pads the capacity to
+its ``pow2ceil`` bucket with a masked tail (``config.family_cap``); a
+W-rank ingest splits the rows into W contiguous blocks of ``ceil(n / W)``
+and pads each to one ``pow2ceil`` capacity, so a port table holds exactly
+the layout of the reference table built from the same rows.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ import numpy as np
 import torch
 
 from .. import config
-from ..ctx.context import CylonEnv, LocalConfig
+from ..ctx.context import CylonEnv, LocalConfig, VirtualMeshConfig
 from ..status import CylonKeyError, InvalidError
 from .column import Column
 from .dtypes import LogicalType
@@ -45,10 +48,14 @@ class Table:
                 n = len(c)
             elif len(c) != n:
                 raise InvalidError("column length mismatch")
+        n = n or 0
+        w = self._env.world_size
         if valid_counts is None:
-            valid_counts = np.full(1, n or 0, dtype=np.int64)
+            if n % w:
+                raise InvalidError(f"rows {n} not divisible by world {w}")
+            valid_counts = np.full(w, n // w, dtype=np.int64)
         self._valid = np.asarray(valid_counts, dtype=np.int64)
-        if self._valid.shape != (1,):
+        if self._valid.shape != (w,):
             raise InvalidError("valid_counts must have one entry per rank")
 
     # -- construction ------------------------------------------------------
@@ -80,19 +87,26 @@ class Table:
 
     @staticmethod
     def from_reference_state(cols: Mapping[str, tuple], valid_counts,
-                             device) -> "Table":
+                             device, capacity: int | None = None) -> "Table":
         """Carry a table across from ``cylon_tpu`` without importing it.
 
         ``cols`` maps a name to ``(data, validity|None, logical-type name,
         dictionary|None, bounds|None)`` as host arrays — the live rows
-        ``cylon_tpu.Table.host_columns()`` returns plus the reference
-        ``Column``'s fields.  ``valid_counts`` are the reference table's
-        per-rank counts (world 1 here).  ``device`` is a device name or a
-        :class:`CylonEnv`.  The rows go through this package's own ingest,
-        so the capacity and masked tail equal the reference's."""
-        env = device if isinstance(device, CylonEnv) \
-            else CylonEnv(LocalConfig(), device=device)
+        ``cylon_tpu.Table.host_columns()`` returns (shard prefixes in rank
+        order) plus the reference ``Column``'s fields.  ``valid_counts``
+        are the reference table's per-rank counts; their number is the
+        world size.  ``device`` is a device name or a :class:`CylonEnv`
+        of that world size.  With ``capacity`` (the reference table's
+        per-shard capacity) each rank's rows land at its own shard, as
+        the reference holds them — a shuffled table is no contiguous
+        split, so it is never re-split; without it the rows go through
+        this package's own ingest."""
         vc = np.asarray(valid_counts, np.int64).reshape(-1)
+        env = device if isinstance(device, CylonEnv) \
+            else CylonEnv(VirtualMeshConfig(len(vc)), device=device)
+        if env.world_size != len(vc):
+            raise InvalidError(f"{len(vc)} valid counts for a world of "
+                               f"{env.world_size}")
         host = {}
         for name, (data, valid, tname, dictionary, bounds) in cols.items():
             data = np.asarray(data)
@@ -107,7 +121,9 @@ class Table:
                                                            dtype=object),
                 bounds=None if bounds is None else (int(bounds[0]),
                                                     int(bounds[1])))
-        return _ingest(host, env)
+        if capacity is None:
+            return _ingest(host, env)
+        return _place_shards(host, env, vc, int(capacity))
 
     # -- schema ------------------------------------------------------------
     @property
@@ -132,8 +148,10 @@ class Table:
 
     @property
     def capacity(self) -> int:
+        """Per-shard padded capacity."""
         cols = self.columns
-        return len(next(iter(cols.values()))) if cols else 0
+        return len(next(iter(cols.values()))) // self._env.world_size \
+            if cols else 0
 
     def column(self, name: str) -> Column:
         try:
@@ -148,22 +166,32 @@ class Table:
 
     # -- host pulls --------------------------------------------------------
     def host_columns(self) -> dict:
-        """{name: (data, validity|None)} host arrays of the live rows, in
-        one batched pull."""
+        """{name: (data, validity|None)} host arrays of the live rows in
+        global order (the shards' live prefixes in rank order), in one
+        batched pull."""
         from ..utils.host import host_arrays
-        n = int(self.valid_counts[0])
+        w, cap, vc = self._env.world_size, self.capacity, self.valid_counts
+        blocks = [(r * cap, r * cap + int(vc[r])) for r in range(w)]
+
+        def live(x):
+            return x[:blocks[0][1]] if w == 1 else x
+
         flat = []
         for c in self.columns.values():
-            flat.append(c.data[:n])
-            flat.append(None if c.validity is None else c.validity[:n])
+            flat.append(live(c.data))
+            flat.append(None if c.validity is None else live(c.validity))
         pulled = host_arrays(flat)
+        if w > 1:
+            pulled = [None if x is None
+                      else np.concatenate([x[a:b] for a, b in blocks])
+                      for x in pulled]
         return {k: (pulled[2 * i], pulled[2 * i + 1])
                 for i, k in enumerate(self.columns)}
 
     def to_pydict(self) -> dict:
-        """{name: decoded numpy array} of the live rows (strings decoded,
-        nulls as NaN/None)."""
-        n = int(self.valid_counts[0])
+        """{name: decoded numpy array} of the live rows in global order
+        (strings decoded, nulls as NaN/None)."""
+        n = self.row_count
         out = {}
         for k, (data, valid) in self.host_columns().items():
             c = self.column(k)
@@ -201,7 +229,8 @@ class DeferredTable(Table):
         if valid_counts is None and counts_thunk is None:
             raise InvalidError("DeferredTable needs valid_counts or "
                                "counts_thunk")
-        super().__init__({}, env, np.zeros(1, np.int64)
+        super().__init__({}, env, np.zeros((env or default_env()).world_size,
+                                           np.int64)
                          if valid_counts is None else valid_counts)
         self._counts_thunk = counts_thunk if valid_counts is None else None
         self._cap = None if capacity is None else int(capacity)
@@ -213,7 +242,8 @@ class DeferredTable(Table):
     def valid_counts(self) -> np.ndarray:
         if self._counts_thunk is not None:
             th, self._counts_thunk = self._counts_thunk, None
-            self._valid = np.asarray(th(), np.int64).reshape(1)
+            self._valid = np.asarray(th(), np.int64).reshape(
+                self._env.world_size)
         return self._valid
 
     @property
@@ -246,10 +276,10 @@ def _place(host: np.ndarray, env: CylonEnv) -> torch.Tensor:
 
 
 def _ingest(cols: dict[str, Column], env: CylonEnv) -> Table:
-    """World-1 ingest: exact placement when the row count is already its
-    own family bucket, else :func:`_distribute` pads to the bucket."""
+    """Ingest dispatch: at world size 1, exact placement when the row count
+    is already its own family bucket; otherwise :func:`_distribute`."""
     n = len(next(iter(cols.values()))) if cols else 0
-    if config.family_cap(n) == n:
+    if env.world_size == 1 and config.family_cap(n) == n:
         out = {k: Column(_place(np.asarray(c.data), env), c.type,
                          None if c.validity is None
                          else _place(np.asarray(c.validity), env),
@@ -260,23 +290,43 @@ def _ingest(cols: dict[str, Column], env: CylonEnv) -> Table:
 
 
 def _distribute(cols: dict[str, Column], env: CylonEnv) -> Table:
-    """Pad host-built columns to the ``pow2ceil`` capacity (zeros, masked
-    by ``valid_counts``) and place them on the device."""
+    """Split host-built columns into W contiguous row blocks of
+    ``ceil(n / W)`` rows (the last ranks may get fewer), pad each to one
+    ``pow2ceil`` capacity with zeros masked by ``valid_counts``, and place
+    them on the device (``cylon_tpu/core/table.py:420``)."""
     n = len(next(iter(cols.values()))) if cols else 0
-    cap = config.pow2ceil(n)
+    w = env.world_size
+    chunk = -(-n // w)
+    vc = np.asarray([max(0, min(chunk, n - r * chunk)) for r in range(w)],
+                    np.int64)
+    return _place_shards(cols, env, vc, config.pow2ceil(chunk))
+
+
+def _place_shards(cols: dict[str, Column], env: CylonEnv, vc: np.ndarray,
+                  cap: int) -> Table:
+    """Place live rows given in global order so that rank r's ``vc[r]``
+    rows fill the prefix of its ``cap``-row shard, zeros after; bounds
+    widen to include the padding's 0."""
+    w = env.world_size
+    if int(vc.max(initial=0)) > cap:
+        raise InvalidError(f"a shard of {int(vc.max())} rows exceeds the "
+                           f"capacity {cap}")
+    offs = np.concatenate([[0], np.cumsum(vc)])
     out = {}
     for k, c in cols.items():
         host = np.asarray(c.data)
-        padded = np.zeros((cap,) + host.shape[1:], host.dtype)
-        padded[:n] = host
-        v = None
-        if c.validity is not None:
-            vpad = np.zeros(cap, bool)
-            vpad[:n] = np.asarray(c.validity)
-            v = _place(vpad, env)
-        # padding rows are zeros — covered by widening bounds to include 0
+        padded = np.zeros((w * cap,) + host.shape[1:], host.dtype)
+        vhost = None if c.validity is None else np.asarray(c.validity)
+        vpad = None if vhost is None else np.zeros(w * cap, bool)
+        for r in range(w):
+            m = int(vc[r])
+            padded[r * cap:r * cap + m] = host[offs[r]:offs[r] + m]
+            if vpad is not None:
+                vpad[r * cap:r * cap + m] = vhost[offs[r]:offs[r] + m]
         b = c.bounds
         if b is not None:
             b = (min(b[0], 0), max(b[1], 0))
-        out[k] = Column(_place(padded, env), c.type, v, c.dictionary, bounds=b)
-    return Table(out, env, np.asarray([n], np.int64))
+        out[k] = Column(_place(padded, env), c.type,
+                        None if vpad is None else _place(vpad, env),
+                        c.dictionary, bounds=b)
+    return Table(out, env, vc)

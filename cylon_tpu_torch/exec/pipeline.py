@@ -1,7 +1,11 @@
 """Range-partitioned pipelined join and its streaming groupby sink (port of
-the world-1, inner-join part of ``cylon_tpu/exec/pipeline.py``).
+the inner-join part of ``cylon_tpu/exec/pipeline.py``).
 
-The join tiles over KEY RANGES of the once-sorted build side:
+At world size W > 1 both sides hash-shuffle ONCE first (build side, then
+probe side), so equal keys share a shard; every step below then runs on
+each shard alone, with W·(R-1) splitters, (W, R) range geometry and one
+pow2 piece capacity per range taken over the shards.  The join tiles
+over KEY RANGES of the once-sorted build side:
 
   1. sort the build side (``right``) once by key;
   2. snap R-1 evenly spaced positions forward to key-group starts, so a
@@ -28,10 +32,10 @@ sidecars — the range boundaries and the per-range probe counts — come back
 in ONE batched pull after the probe sort.  The splitters stay on the
 device: K2 reads them from device memory.
 
-Left out, as in no run of the reference by default: the shuffle of world
-sizes above 1 (slice 3), left/right/outer joins (slice 4), the spill
-prefetch of host-resident sources, the checkpoint stage and the recovery
-injectors (slice 11), plan nodes and traces (slice 12).
+Left out, as in no run of the reference by default: left/right/outer
+joins (slice 4), the spill prefetch of host-resident sources, the
+checkpoint stage and the recovery injectors (slice 11), plan nodes and
+traces (slice 12).
 """
 
 from __future__ import annotations
@@ -45,11 +49,12 @@ from ..core.dtypes import LogicalType, np_dtype_of
 from ..core.table import Table
 from ..ops import pack
 from ..ops import splitter_probe
+from ..parallel.shards import map_shards, shard
 from ..relational.common import (PAD_L, check_same_env, col_arrays,
                                  live_mask, narrow32_flags, promote_key_pair)
 from ..relational.join import join_tables
 from ..relational.piece import PieceSource
-from ..relational.repart import concat_tables
+from ..relational.repart import concat_tables, shuffle_table
 from ..relational.sort import local_sort_table
 from ..status import InvalidError
 from ..utils import timing
@@ -161,7 +166,8 @@ class GroupBySink:
 
 def _range_bounds(n: int, by_datas, by_valids, n_ranges: int,
                   narrow: tuple, need_nf: tuple):
-    """Range boundaries over the SORTED build side (``n`` live rows):
+    """One shard's range boundaries over its SORTED build side (``n``
+    live rows):
     candidate positions r*n/R snapped forward to the next key-group start,
     so a key's whole run stays in one range, capped at n; plus the
     splitter key operands at those positions.  A boundary at n must read
@@ -205,8 +211,8 @@ def _range_bounds(n: int, by_datas, by_valids, n_ranges: int,
 
 def _probe_targets(n: int, by_datas, by_valids, sops: tuple, n_ranges: int,
                    narrow: tuple, need_nf: tuple) -> torch.Tensor:
-    """Per-row range id of the probe side: the count of splitters <= the
-    row's key (>= because splitters are group STARTS of the sorted build),
+    """Per-row range id of one shard's probe side: the count of that
+    shard's splitters <= the row's key (>= because splitters are group STARTS of the sorted build),
     by the splitter probe (K2, :mod:`..ops.splitter_probe`).  Dead rows
     get id R, so a stable sort by id puts them last."""
     cap = by_datas[0].shape[0]
@@ -220,7 +226,7 @@ def _probe_targets(n: int, by_datas, by_valids, sops: tuple, n_ranges: int,
 
 
 def _range_counts(sorted_ids: torch.Tensor, n_ranges: int) -> torch.Tensor:
-    """Per-range live probe counts from the probe side's range-id column
+    """One shard's per-range live probe counts from its range-id column
     AFTER its sort: live rows hold ids in [0, R) ascending and dead rows
     id R after them, so the column is non-decreasing and R+1 sorted
     searches bound every range.  (The reference scatter-adds the ids
@@ -237,7 +243,7 @@ def pipelined_join(left: Table, right: Table, left_on, right_on,
                    suffixes=("_x", "_y"), sink=None):
     """Range-partitioned streaming inner join (module docstring): ``right``
     is the build side, sorted once; ``left`` streams through ``n_chunks``
-    key ranges.
+    key ranges.  At world size W > 1 both sides hash-shuffle once first.
 
     ``sink``: the downstream operator.  When given, each piece's join
     (deferred) is passed to ``sink(piece)`` and released, and the list of
@@ -269,6 +275,12 @@ def pipelined_join(left: Table, right: Table, left_on, right_on,
         # join keys sees each group in exactly one piece
         sink.mark_key_disjoint()
 
+    w = env.world_size
+    if w > 1:
+        with timing.region("join.shuffle"):
+            rwork = shuffle_table(rwork, right_on)   # build side: ONCE
+            lwork = shuffle_table(lwork, left_on)    # probe side: ONCE
+
     n_ranges = max(int(n_chunks), 1)
     if n_ranges == 1 or rwork.row_count == 0 or lwork.row_count == 0:
         # The reference materializes here and its sink runs the sort-based
@@ -282,8 +294,8 @@ def pipelined_join(left: Table, right: Table, left_on, right_on,
 
     with timing.region("pipe.build_sort"):
         rsorted = local_sort_table(rwork, right_on)
-        # the per-shard sort makes equal keys contiguous; at world 1 that
-        # is grouped_by's whole contract
+        # the hash shuffle co-located equal keys and the per-shard sort
+        # makes them contiguous: together that is grouped_by's contract
         rsorted.grouped_by = tuple(right_on)
     del rwork
 
@@ -294,17 +306,26 @@ def pipelined_join(left: Table, right: Table, left_on, right_on,
     narrow = narrow32_flags(l_keys, r_keys)
     key_dtypes = tuple(np_dtype_of(c.data).name for c in r_keys)
 
-    n_r = int(rsorted.valid_counts[0])
+    n_r = np.asarray(rsorted.valid_counts, np.int64)
     r_datas, r_valids = col_arrays(r_keys)
     with timing.region("pipe.bounds"):
-        b_dev, sops = _range_bounds(n_r, r_datas, r_valids, n_ranges,
-                                    narrow, need_nf)
-    del r_datas, r_valids, r_keys
+        # (W·(R-1),) boundaries and splitter operands, shard-major
+        res = map_shards(lambda r: _range_bounds(
+            int(n_r[r]), [shard(d, w, r) for d in r_datas],
+            [shard(v, w, r) for v in r_valids], n_ranges, narrow, need_nf),
+            w)
+        b_dev, sops = res
+    del r_datas, r_valids, r_keys, res
 
+    n_l = np.asarray(lwork.valid_counts, np.int64)
     l_datas, l_valids = col_arrays(l_keys)
     with timing.region("pipe.targets"):
-        tgt = _probe_targets(int(lwork.valid_counts[0]), l_datas, l_valids,
-                             sops, n_ranges, narrow, need_nf)
+        # K2 once per shard, each against its own shard's splitters
+        tgt = map_shards(lambda r: _probe_targets(
+            int(n_l[r]), [shard(d, w, r) for d in l_datas],
+            [shard(v, w, r) for v in l_valids],
+            tuple(shard(o, w, r) for o in sops), n_ranges, narrow, need_nf),
+            w)
     del sops, l_datas, l_valids, l_keys
 
     tmp = "__range__"
@@ -315,30 +336,37 @@ def pipelined_join(left: Table, right: Table, left_on, right_on,
     del lwork, tgt
     with timing.region("pipe.probe_sort"):
         lsorted = local_sort_table(ltab, [tmp])
-        pc_dev = _range_counts(lsorted.column(tmp).data, n_ranges)
+        ids = lsorted.column(tmp).data
+        pc_dev = map_shards(lambda r: _range_counts(shard(ids, w, r),
+                                                    n_ranges), w)
+        del ids
     del ltab
 
     with timing.region("pipe.phase_sync"):
         # THE pre-loop host wait: every setup phase above was queued with
         # no pull in between; one batched pull brings both back
         b_host, pc_host = host_arrays([b_dev, pc_dev])
-    b = np.asarray(b_host, np.int64).reshape(n_ranges - 1)
-    pcounts = np.asarray(pc_host, np.int64).reshape(n_ranges)
-    bb = np.concatenate([[0], b, [n_r]])
-    r_starts = bb[:-1]
-    r_lens = np.diff(bb)
-    l_starts = np.concatenate([[0], np.cumsum(pcounts)])[:-1]
+    b = np.asarray(b_host, np.int64).reshape(w, n_ranges - 1)
+    pcounts = np.asarray(pc_host, np.int64).reshape(w, n_ranges)
+    bb = np.concatenate([np.zeros((w, 1), np.int64), b, n_r[:, None]],
+                        axis=1)
+    r_starts = bb[:, :-1]
+    r_lens = np.diff(bb, axis=1)
+    l_starts = np.concatenate([np.zeros((w, 1), np.int64),
+                               np.cumsum(pcounts, axis=1)], axis=1)[:, :-1]
 
-    # every per-range pow2 piece capacity is known up front
-    caps_l = [config.pow2ceil(max(int(pcounts[r]), 1))
+    # every per-range pow2 piece capacity is known up front: one over the
+    # shards per range
+    caps_l = [config.pow2ceil(max(int(pcounts[:, r].max()), 1))
               for r in range(n_ranges)]
-    caps_r = [config.pow2ceil(max(int(r_lens[r]), 1))
+    caps_r = [config.pow2ceil(max(int(r_lens[:, r].max()), 1))
               for r in range(n_ranges)]
 
     # piece-cap sizing consults the ledger: admission of the packed
-    # sources folds in the sort operands of the largest piece pair
+    # sources folds in the sort operands of the largest piece pair, on
+    # every shard
     scratch = pack.sort_operand_nbytes(key_dtypes, need_nf, narrow,
-                                       max(caps_l) + max(caps_r))
+                                       (max(caps_l) + max(caps_r)) * w)
     with timing.region("pipe.pack"):
         src_l = PieceSource(lsorted, max(caps_l), drop=(tmp,),
                             scratch_bytes=scratch)
@@ -346,13 +374,13 @@ def pipelined_join(left: Table, right: Table, left_on, right_on,
     del lsorted, rsorted
 
     live_ranges = [r for r in range(n_ranges)
-                   if pcounts[r] > 0 and r_lens[r] > 0]
+                   if pcounts[:, r].sum() > 0 and r_lens[:, r].sum() > 0]
     outs = []
     with timing.region("pipe.piece_loop"):
         for r in live_ranges:
             # window descriptors: the slice and unpack run inside the join
-            piece_l = src_l.packed([l_starts[r]], [pcounts[r]], caps_l[r])
-            piece_r = src_r.packed([r_starts[r]], [r_lens[r]], caps_r[r])
+            piece_l = src_l.packed(l_starts[:, r], pcounts[:, r], caps_l[r])
+            piece_r = src_r.packed(r_starts[:, r], r_lens[:, r], caps_r[r])
             with timing.region("pipe.piece_join"):
                 res_r = join_tables(piece_l, piece_r, left_on, right_on,
                                     how=how, suffixes=suffixes,
@@ -366,7 +394,7 @@ def pipelined_join(left: Table, right: Table, left_on, right_on,
             # no range qualified (no overlapping keys at all): one empty
             # piece pair keeps the output schema path uniform (deferred
             # under a sink, as on the n_chunks == 1 route above)
-            zeros = [0]
+            zeros = [0] * w
             piece_l = src_l.packed(zeros, zeros, 1)
             piece_r = src_r.packed(zeros, zeros, 1)
             res_r = join_tables(piece_l, piece_r, left_on, right_on,
@@ -378,7 +406,7 @@ def pipelined_join(left: Table, right: Table, left_on, right_on,
         return outs
     out = concat_tables(outs)
     if left_on == right_on:
-        # pieces are key-grouped, in key-range order: the concatenation
-        # keeps the grouped contract
+        # pieces are key-grouped, in key-range order, and keys co-located:
+        # the per-shard concatenation keeps the grouped contract
         out.grouped_by = tuple(left_on)
     return out

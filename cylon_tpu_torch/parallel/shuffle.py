@@ -1,0 +1,96 @@
+"""The exchange: hash targets, the count sidecar and the order-preserving
+all-to-all (port of ``cylon_tpu/parallel/shuffle.py``).
+
+The reference moves rows between devices with padded ``lax.all_to_all``
+rounds under ``shard_map``; the multi-round protocol (``_prep_fn``,
+``_round_fn``) exists only to bound each TPU's send buffers.  Here every
+shard of a :class:`~cylon_tpu_torch.ctx.context.VirtualMeshConfig` world
+lives in one tensor on one device, source-major, so the all-to-all is one
+device-local permutation: a STABLE sort of the global target array puts
+the rows in (destination, source rank, source position) order — exactly
+the reference's receive contract — and one gather per destination writes
+each destination shard's rows into a zero-padded block of ``out_cap``
+rows.  The targets hold values 0..W (W = padding, dropped), so they sort
+as uint8 keys — one radix pass instead of four; :func:`exchange` refuses
+a world of more than :data:`MAX_WORLD` ranks.
+
+:func:`exchange` takes the env, not a mesh, so the multi-card transport
+(NCCL ``all_to_all_single`` with split sizes from the count sidecar, or
+peer copies under one controller) slots in behind the same interface.
+Not ported (ROADMAP.md): the skew targets, the two-hop topology route,
+the receive-budget guard and its ledger registration, the integrity
+audit and the comm counters.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import config
+from ..ops import hashing
+from ..relational.common import live_mask
+from ..status import InvalidError
+from ..utils.host import host_array
+
+#: the most ranks the exchange serves: its targets 0..W must fit uint8
+MAX_WORLD = 255
+
+
+def hash_targets(env, key_datas, key_valids, valid_counts) -> torch.Tensor:
+    """Global ``(W·cap,)`` int32 target-rank array; padding rows get
+    target W (the trash destination the exchange drops).  The hash is
+    elementwise, so one pass serves every shard."""
+    w = len(valid_counts)
+    cap = key_datas[0].shape[0] // w
+    with_valids = any(v is not None for v in key_valids)
+    h = hashing.hash_rows(list(key_datas),
+                          list(key_valids) if with_valids else None)
+    tgt = hashing.partition_targets(h, env.world_size)
+    del h
+    live = live_mask(valid_counts, cap, key_datas[0].device)
+    return torch.where(live, tgt, torch.full((), w, dtype=torch.int32,
+                                             device=tgt.device))
+
+
+def count_targets(env, tgt: torch.Tensor) -> np.ndarray:
+    """(W, W) host count matrix: ``C[s, d]`` = rows rank s sends to rank
+    d, from one compare-and-sum over the shards per destination and one
+    pull (an atomic histogram, ``torch.bincount``, measured slower on the
+    card and waits on the host to size its output).  The work grows as
+    W²·cap (W passes over the W·cap targets); the temporary is one byte
+    per row."""
+    w = env.world_size
+    by_src = tgt.view(w, -1)
+    counts = torch.stack([(by_src == d).sum(dim=1) for d in range(w)], dim=1)
+    return host_array(counts).astype(np.int64)
+
+
+def exchange(env, tgt: torch.Tensor, counts: np.ndarray, cols: tuple):
+    """Move every array of ``cols`` (each ``(W·cap, ...)``, source-major)
+    to its rows' target ranks.  Destination shard d receives its rows
+    ordered by (source rank, source position) in the first
+    ``counts[:, d].sum()`` rows of an ``out_cap``-row block, zeros after,
+    with ``out_cap = pow2ceil(max rows any destination receives)``.
+    Returns ``(new_cols, new_valid_counts)``, the counts being
+    ``counts.sum(axis=0)``."""
+    w = counts.shape[0]
+    if w > MAX_WORLD:
+        raise InvalidError(f"the exchange sorts its targets as uint8 keys: "
+                           f"world size must be at most {MAX_WORLD}, got {w}")
+    per_dest = counts.sum(axis=0).astype(np.int64)
+    out_cap = config.pow2ceil(int(per_dest.max()) if per_dest.size else 1)
+    # stable: equal targets keep their global (source-major) order
+    order = torch.sort(tgt.to(torch.uint8), stable=True).indices
+    starts = np.concatenate([[0], np.cumsum(per_dest)])
+    outs = []
+    for col in cols:
+        out = torch.empty((w * out_cap,) + tuple(col.shape[1:]),
+                          dtype=col.dtype, device=col.device)
+        for d in range(w):
+            a, b = int(starts[d]), int(starts[d + 1])
+            blk = out[d * out_cap:(d + 1) * out_cap]
+            torch.index_select(col, 0, order[a:b], out=blk[:b - a])
+            blk[b - a:] = 0
+        outs.append(out)
+    return tuple(outs), per_dest

@@ -1,7 +1,8 @@
-"""Shared plumbing for the table-level operators (port of the world-1 subset
-of ``cylon_tpu/relational/common.py``): the bounded prediction cache,
-liveness masks, int32-narrowing flags, lane specs, key promotion and
-result-table assembly."""
+"""Shared plumbing for the table-level operators (port of the subset of
+``cylon_tpu/relational/common.py`` the join→groupby path reads): the
+bounded prediction cache, per-shard liveness masks, int32-narrowing
+flags, lane specs, key promotion, result-table assembly and the
+same-world check."""
 
 from __future__ import annotations
 
@@ -33,9 +34,15 @@ class BoundedCache(dict):
 
 
 def live_mask(vc, cap: int, device) -> torch.Tensor:
-    """Row-liveness mask of one rank's shard: the first ``vc[0]`` of its
-    ``cap`` rows are real, the rest padding."""
-    return torch.arange(cap, device=device) < int(vc[0])
+    """Row liveness of a W-shard layout, ``W = len(vc)``: in each
+    ``cap``-row shard r the first ``vc[r]`` rows are real, the rest
+    padding.  A ``(W·cap,)`` bool tensor; one rank's counts give its
+    shard's ``(cap,)`` mask."""
+    pos = torch.arange(cap, device=device)
+    vc = np.asarray(vc).reshape(-1)
+    if len(vc) == 1:
+        return pos < int(vc[0])
+    return torch.cat([pos < int(v) for v in vc])
 
 
 def fits_int32(c: Column) -> bool:
@@ -118,6 +125,10 @@ def build_table(names, out_datas, out_valids, types, dicts,
 
 
 def check_same_env(a: Table, b: Table) -> CylonEnv:
-    if a.env is not b.env and a.env.device != b.env.device:
-        raise InvalidError("tables live on different devices")
+    """The env two tables share: the same env, or one of the same device
+    and world size (their shards line up)."""
+    if a.env is not b.env and (a.env.device != b.env.device
+                               or a.env.world_size != b.env.world_size):
+        raise InvalidError("tables belong to different worlds: "
+                           f"{a.env!r} and {b.env!r}")
     return a.env

@@ -33,11 +33,12 @@ import torch
 from .. import config
 from ..core.dtypes import LogicalType
 from ..core.table import DeferredTable, Table
-from ..ctx.context import CylonEnv, LocalConfig
+from ..ctx.context import CylonEnv, VirtualMeshConfig
 from ..ops import groupby as gbk
 from ..ops import lanes
 from ..ops import windowed_gather as wg
 from ..ops.join import at_run_end, at_run_start, cumsum32, runs_of
+from ..parallel.shards import map_shards, shard
 from ..utils.host import host_array
 from .common import BoundedCache
 
@@ -52,11 +53,12 @@ _I32 = torch.int32
 
 class JoinState(NamedTuple):
     """Pre-expansion inner-join state a DeferredTable carries for the fused
-    consumer (built in relational/join.py)."""
-    vcl: np.ndarray          # left valid counts (one entry: world 1)
-    vcr: np.ndarray          # right valid counts
-    idx_s: torch.Tensor      # (N,) int32 concat-row index per sorted position
-    bnd: torch.Tensor        # (N,) int32 key-boundary flags
+    consumer (built in relational/join.py).  Per-shard arrays are W
+    blocks of N = cap_l + cap_r rows, shard-major."""
+    vcl: np.ndarray          # (W,) left valid counts per shard
+    vcr: np.ndarray          # (W,) right valid counts per shard
+    idx_s: torch.Tensor      # (W·N,) int32 shard-local concat-row index
+    bnd: torch.Tensor        # (W·N,) int32 key-boundary flags
     pl_s: tuple              # sorted payload lanes: left lanes ++ right lanes
     lspec: lanes.LaneSpec
     rspec: lanes.LaneSpec
@@ -74,8 +76,9 @@ class JoinState(NamedTuple):
         """Carry a ``cylon_tpu`` JoinState across without importing it.
 
         ``fields`` maps the reference field names to plain values: ``vcl``,
-        ``vcr``, ``idx_s``, ``bnd`` and ``pl_s`` as host arrays (uint32
-        lanes keep their bits), ``lspec``/``rspec`` as plain tuples
+        ``vcr`` (one count per rank), ``idx_s``, ``bnd`` and ``pl_s`` as
+        the reference's global (W·N,) host arrays (uint32 lanes keep their
+        bits), ``lspec``/``rspec`` as plain tuples
         ``(cols, n_lanes, valid_lane0)`` with each col ``(dtype, lanes,
         valid_bit, narrow)``, ``types`` as logical-type names, the rest as
         the reference holds them.  ``device`` is a device name or a
@@ -110,14 +113,16 @@ class JoinState(NamedTuple):
     def deferred_table(self, env: CylonEnv | None = None) -> DeferredTable:
         """A DeferredTable over this state alone, for driving the fused
         stage by itself: reading its columns raises (it has no join
-        inputs to materialize from)."""
+        inputs to materialize from).  ``env`` defaults to a world of
+        ``len(vcl)`` ranks on the state's device."""
         def no_inputs():
             raise NotImplementedError(
                 "a DeferredTable built from a bare JoinState cannot "
                 "materialize: it holds no join inputs")
-        env = env or CylonEnv(LocalConfig(), device=self.idx_s.device)
+        w = len(self.vcl)
+        env = env or CylonEnv(VirtualMeshConfig(w), device=self.idx_s.device)
         return DeferredTable(
-            env, np.zeros(1, np.int64), 1, no_inputs,
+            env, np.zeros(w, np.int64), 1, no_inputs,
             (self.names, self.types, self.dicts,
              tuple(bool(e[-1]) for e in self.plan)),
             op_state=self)
@@ -140,7 +145,8 @@ def fused_shard(vcl, vcr, idx_s, bnd, pl_s, n_l: int, all_live: bool,
                 lspec, rspec, vspecs: tuple, key_cols: tuple,
                 key_narrow: tuple, seg_cap: int, ddof: int,
                 use_window: int = 0):
-    """One rank's fused join+groupby (the reference's ``per_shard``).
+    """One rank's fused join+groupby (the reference's ``per_shard``):
+    ``vcl``/``vcr`` hold that rank's one count each.
 
     ``vspecs``: per aggregation (side, lane_col_idx, op); ``key_cols``:
     left lane-col index per groupby key.  Live rows form a sorted PREFIX
@@ -335,11 +341,19 @@ def try_begin_join_groupby(table: Table, by: list, specs: list, ddof: int):
     sig = (env.serial, tuple(by), tuple(vspecs), state.cap_l, state.cap_r,
            int(state.vcl.sum()), int(state.vcr.sum()), ddof)
 
+    w = env.world_size
+
     def call(sc, win):
-        return fused_shard(state.vcl, state.vcr, state.idx_s, state.bnd,
-                           state.pl_s, state.cap_l, state.all_live,
-                           state.lspec, state.rspec, tuple(vspecs),
-                           tuple(key_cols), tuple(key_narrow), sc, ddof, win)
+        # every shard at one segment space and one window; K1 launches
+        # once per shard when the window is on
+        def one(r):
+            return fused_shard(
+                state.vcl[r:r + 1], state.vcr[r:r + 1],
+                shard(state.idx_s, w, r), shard(state.bnd, w, r),
+                tuple(shard(p, w, r) for p in state.pl_s), state.cap_l,
+                state.all_live, state.lspec, state.rspec, tuple(vspecs),
+                tuple(key_cols), tuple(key_narrow), sc, ddof, win)
+        return map_shards(one, w)
 
     # first sight of a large state: dispatch at a modest segment space;
     # the returned n_groups detects a mispredict.  A span overflow

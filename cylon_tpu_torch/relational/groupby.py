@@ -1,5 +1,6 @@
 """Table-level groupby-aggregate (port of the fused-route subset of
-``cylon_tpu/relational/groupby.py``).
+``cylon_tpu/relational/groupby.py``), at any world size: every shard
+aggregates its own co-located groups.
 
 This slice serves a groupby through the fused join→groupby pushdown
 (relational/fused.py).  A groupby the pushdown declines — a plain table,
@@ -49,15 +50,22 @@ def _normalize_aggs(aggs):
 
 
 def _shrink(table: Table, n_rows: np.ndarray) -> Table:
-    """Slice the dense row prefix down to its pow2 cap."""
+    """Slice each shard's dense row prefix down to one pow2 cap over the
+    shards, ``pow2ceil(max n_rows)``: shard r's rows then start at
+    ``r·new_cap`` (a view at world size 1, one copy above it)."""
     cap = table.capacity
     new_cap = config.pow2ceil(int(n_rows.max()) if n_rows.size else 1)
     if new_cap >= cap:
         return table
-    cols = {}
-    for n, c in table.columns.items():
-        v = c.validity[:new_cap] if c.validity is not None else None
-        cols[n] = Column(c.data[:new_cap], c.type, v, c.dictionary)
+    w = table.env.world_size
+
+    def cut(x):
+        if x is None:
+            return None
+        return x.view(w, cap)[:, :new_cap].reshape(w * new_cap)
+
+    cols = {n: Column(cut(c.data), c.type, cut(c.validity), c.dictionary)
+            for n, c in table.columns.items()}
     return Table(cols, table.env, n_rows)
 
 

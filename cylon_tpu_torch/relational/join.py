@@ -1,12 +1,15 @@
-"""Table-level inner join at world size 1 (port of the inner, world-1 subset
-of ``cylon_tpu/relational/join.py``).
+"""Table-level inner join (port of the inner, plain-hash subset of
+``cylon_tpu/relational/join.py``).
 
-The local kernel is the two-phase single-sort merge of ``ops/join.py``:
+At world size W > 1 both sides first hash-shuffle on the join keys
+(relational/repart.shuffle_table), so equal keys share a shard; then
+every shard runs the local kernel (parallel/shards.map_shards), the
+two-phase single-sort merge of ``ops/join.py``:
 
 * phase 1 runs THE one stable sort of both sides' key operands, with each
   side's 32-bit lane matrix riding the sort as payload, and returns the
   exact output count plus the sorted state;
-* the host picks a ``pow2ceil`` capacity;
+* the host picks ONE ``pow2ceil`` capacity over the shards' counts;
 * phase 2 expands the carried geometry into output rows.
 
 With ``DEFER_JOIN`` on, phase 1 runs SLIM and the result is a
@@ -18,8 +21,9 @@ and materializes.
 
 The packed-piece entry joins two :class:`~cylon_tpu_torch.relational.
 piece.PackedPiece` windows of the pipelined join (exec/pipeline.py) with
-the same kernels.  Other join types, the hash shuffle and the skew route
-are later slices (ROADMAP.md Queue 1, slices 3 and 4).
+the same kernels.  Other join types, the broadcast route and the skew
+split are later slices (ROADMAP.md Queue 1, slice 4): the port always
+takes the plain hash plan, the reference's unsplit baseline.
 """
 
 from __future__ import annotations
@@ -33,7 +37,9 @@ from ..core.table import DeferredTable, Table
 from ..ops import join as joink
 from ..ops import lanes
 from ..ops import pack
+from ..parallel.shards import map_shards, shard
 from ..status import InvalidError
+from ..utils import timing
 from ..utils.host import host_array
 from .common import (PAD_L, PAD_R, build_table, check_same_env, col_arrays,
                      live_mask, narrow32_flags, promote_key_pair,
@@ -41,8 +47,13 @@ from .common import (PAD_L, PAD_R, build_table, check_same_env, col_arrays,
 from .piece import PackedPiece
 
 
+def _shard_cols(cols, w: int, r: int):
+    """Rank r's views of a (datas, valids) column pair of tuples."""
+    return tuple(tuple(shard(x, w, r) for x in part) for part in cols)
+
+
 def _live_cat(vcl, vcr, cap_l: int, cap_r: int, device):
-    """Concat-row liveness for (left ++ right)."""
+    """Concat-row liveness for (left ++ right) of one shard."""
     return torch.cat([live_mask(vcl, cap_l, device),
                       live_mask(vcr, cap_r, device)])
 
@@ -199,16 +210,17 @@ def join_tables(left: Table, right: Table, left_on, right_on,
                 coalesce_keys: bool = True,
                 assume_colocated: bool = False,
                 allow_defer: bool | None = None) -> Table:
-    """Inner-join two tables on ``left_on``/``right_on`` (world size 1).
+    """Inner-join two tables on ``left_on``/``right_on``.
 
     Returns a DeferredTable (fused-consumer state + lazy materialization)
     when ``DEFER_JOIN`` is on and the output columns ride the sort, else a
-    materialized Table.  Output rows come in sorted-merge order, key
+    materialized Table.  At world size W > 1 both sides hash-shuffle
+    first.  Each shard's output rows come in sorted-merge order, key
     groups contiguous, left rows in source order within a group.
 
-    ``assume_colocated``: the caller guarantees equal keys share a shard
-    (the pipelined join passes it); at world size 1 there is no shuffle to
-    skip.  ``left``/``right`` may be :class:`~cylon_tpu_torch.relational.
+    ``assume_colocated``: the caller guarantees equal keys already share
+    a shard on both sides (the pipelined join passes it), so the shuffle
+    is skipped.  ``left``/``right`` may be :class:`~cylon_tpu_torch.relational.
     piece.PackedPiece` window descriptors instead of Tables (the pipelined
     range loop): the window slice and key unpack then run inside the
     join."""
@@ -232,6 +244,16 @@ def join_tables(left: Table, right: Table, left_on, right_on,
         rkey_cols.append(b)
     lwork = left.with_columns(dict(zip(left_on, lkey_cols)))
     rwork = right.with_columns(dict(zip(right_on, rkey_cols)))
+    w = env.world_size
+    if w > 1 and not assume_colocated:
+        # the plain hash plan (cylon_tpu/relational/join.py:268); the
+        # broadcast route and the skew split are not ported
+        with timing.region("join.shuffle"):
+            from .repart import shuffle_table
+            lwork = shuffle_table(lwork, left_on)
+            rwork = shuffle_table(rwork, right_on)
+        lkey_cols = [lwork.column(n) for n in left_on]
+        rkey_cols = [rwork.column(n) for n in right_on]
 
     l_datas, l_valids = col_arrays(lkey_cols)
     r_datas, r_valids = col_arrays(rkey_cols)
@@ -298,14 +320,30 @@ def join_tables(left: Table, right: Table, left_on, right_on,
     all_live = bool((vcl == lwork.capacity).all()
                     and (vcr == rwork.capacity).all())
     cap_l, cap_r = lwork.capacity, rwork.capacity
-    l_src, r_src = _col_source(lspec, l_cols), _col_source(rspec, r_cols)
+    keys_l, keys_r = (l_datas, l_valids), (r_datas, r_valids)
 
     def count(slim: bool):
-        return _count(vcl, vcr, l_datas, l_valids, r_datas, r_valids, narrow,
-                      lanes.pack_lanes(lspec, *l_cols) if carry_emit
-                      else None,
-                      lanes.pack_lanes(rspec, *r_cols) if carry_match
-                      else None, all_live, slim)
+        def one(r):
+            (ld, lv), (rd, rv) = (_shard_cols(keys_l, w, r),
+                                  _shard_cols(keys_r, w, r))
+            lc, rc = _shard_cols(l_cols, w, r), _shard_cols(r_cols, w, r)
+            return _count(vcl[r:r + 1], vcr[r:r + 1], ld, lv, rd, rv, narrow,
+                          lanes.pack_lanes(lspec, *lc) if carry_emit
+                          else None,
+                          lanes.pack_lanes(rspec, *rc) if carry_match
+                          else None, all_live, slim)
+        return map_shards(one, w)
+
+    def materialize(carry_of, pl_s, out_cap: int):
+        def one(r):
+            return _materialize(
+                carry_of(r), tuple(shard(p, w, r) for p in pl_s), out_cap,
+                cap_l,
+                tuple(plan), lspec, rspec,
+                _col_source(lspec, _shard_cols(l_cols, w, r)),
+                _col_source(rspec, _shard_cols(r_cols, w, r)),
+                carry_emit, carry_match)
+        return map_shards(one, w, cap=out_cap)
 
     if allow_defer is None:
         allow_defer = True
@@ -313,18 +351,19 @@ def join_tables(left: Table, right: Table, left_on, right_on,
              and allow_defer)
     if defer:
         n_dev, idx_s_s, bnd_s, pl_s = count(slim=True)
-        counts = host_array(n_dev).astype(np.int64).reshape(1)
+        counts = host_array(n_dev).astype(np.int64).reshape(w)
         out_cap = config.pow2ceil(int(counts.max()))
 
         def thunk():
             # the slim state holds the sorted payloads and (idx_s, bnd);
             # the carry rebuilds from scans alone — no second sort
-            live = None if all_live else _live_cat(vcl, vcr, cap_l, cap_r,
-                                                   env.device)
-            _, carry = joink.join_carry(bnd_s, idx_s_s, live, cap_l, "inner")
-            out_d, out_v = _materialize(carry, pl_s, out_cap, cap_l,
-                                        tuple(plan), lspec, rspec, l_src,
-                                        r_src, carry_emit, carry_match)
+            def carry_of(r):
+                live = None if all_live else _live_cat(
+                    vcl[r:r + 1], vcr[r:r + 1], cap_l, cap_r, env.device)
+                return joink.join_carry(shard(bnd_s, w, r),
+                                        shard(idx_s_s, w, r), live, cap_l,
+                                        "inner")[1]
+            out_d, out_v = materialize(carry_of, pl_s, out_cap)
             return {nme: Column(d, t, v, dc, bounds=b)
                     for nme, d, v, t, dc, b in
                     zip(names, out_d, out_v, types, dicts, bounds)}
@@ -345,15 +384,16 @@ def join_tables(left: Table, right: Table, left_on, right_on,
         return out
 
     n_dev, carry, pl_s = count(slim=False)
-    counts = host_array(n_dev).astype(np.int64).reshape(1)
+    counts = host_array(n_dev).astype(np.int64).reshape(w)
     out_cap = config.pow2ceil(int(counts.max()))
-    out_d, out_v = _materialize(carry, pl_s, out_cap, cap_l, tuple(plan),
-                                lspec, rspec, l_src, r_src, carry_emit,
-                                carry_match)
+    out_d, out_v = materialize(
+        lambda r: joink.JoinCarry(*(shard(c, w, r) for c in carry)), pl_s,
+        out_cap)
     out = build_table(names, out_d, out_v, types, dicts, counts, env,
                       bounds=bounds)
     if coalesce:
-        # join output rows are key-grouped (sorted merge order)
+        # join output rows are key-grouped per shard (sorted merge order)
+        # and keys co-located across shards (hash shuffle)
         out.grouped_by = tuple(left_on)
     return out
 
@@ -432,7 +472,7 @@ class _LazyCounts:
 
     def __call__(self) -> np.ndarray:
         if self.value is None:
-            self.value = host_array(self._dev).astype(np.int64).reshape(1)
+            self.value = host_array(self._dev).astype(np.int64).reshape(-1)
             self._dev = None
         return self.value
 
@@ -491,43 +531,60 @@ def _join_packed_impl(pl: PackedPiece, pr: PackedPiece, left_on, right_on,
                       suffixes, coalesce_keys: bool,
                       allow_defer: bool) -> Table:
     env = pl.env
-    if pr.env is not env and pr.env.device != env.device:
+    if pr.env is not env and (pr.env.device != env.device
+                              or pr.env.world_size != env.world_size):
         raise InvalidError("pieces belong to different CylonEnvs")
     (kil, kir, need_nf, narrow, coalesce, plan, names, types, dicts,
      bounds, carry_emit, carry_match, all_live) = _packed_statics(
         pl, pr, left_on, right_on, suffixes, coalesce_keys)
+    w = env.world_size
     cap_l, cap_r = pl.piece_cap, pr.piece_cap
     vcl = np.asarray(pl.lens, np.int32)
     vcr = np.asarray(pr.lens, np.int32)
-    mat_l, f64_l = pl.window()
-    mat_r, f64_r = pr.window()
-    l_datas, l_valids = _window_keys(pl.spec, mat_l, f64_l, kil)
-    r_datas, r_valids = _window_keys(pr.spec, mat_r, f64_r, kir)
-    l_src = _window_source(pl.spec, mat_l, f64_l, cap_l)
-    r_src = _window_source(pr.spec, mat_r, f64_r, cap_r)
 
     def count(slim: bool):
-        return _count(vcl, vcr, l_datas, l_valids, r_datas, r_valids, narrow,
-                      mat_l if carry_emit else None,
-                      mat_r if carry_match else None, all_live, slim)
+        def one(r):
+            mat_l, f64_l = pl.window(r)
+            mat_r, f64_r = pr.window(r)
+            l_datas, l_valids = _window_keys(pl.spec, mat_l, f64_l, kil)
+            r_datas, r_valids = _window_keys(pr.spec, mat_r, f64_r, kir)
+            return _count(vcl[r:r + 1], vcr[r:r + 1], l_datas, l_valids,
+                          r_datas, r_valids, narrow,
+                          mat_l if carry_emit else None,
+                          mat_r if carry_match else None, all_live, slim)
+        return map_shards(one, w)
+
+    def materialize(carry_of, pl_s, out_cap: int):
+        def one(r):
+            mat_l, f64_l = pl.window(r)
+            mat_r, f64_r = pr.window(r)
+            return _materialize(
+                carry_of(r), tuple(shard(p, w, r) for p in pl_s), out_cap,
+                cap_l, plan, pl.spec, pr.spec,
+                _window_source(pl.spec, mat_l, f64_l, cap_l),
+                _window_source(pr.spec, mat_r, f64_r, cap_r),
+                carry_emit, carry_match)
+        return map_shards(one, w, cap=out_cap)
 
     defer = (config.DEFER_JOIN and carry_emit and carry_match and coalesce
              and allow_defer)
     if defer:
         n_dev, idx_s_s, bnd_s, pl_s = count(slim=True)
-        # the count stays ON DEVICE: the next piece's work can be queued
+        # the counts stay ON DEVICE: the next piece's work can be queued
         # before this piece's host wait, and a fused consumer that drains
-        # the state never pulls it at all
+        # the state never pulls them at all
         holder = _LazyCounts(n_dev)
 
         def materialize_cols():
             out_cap = config.pow2ceil(int(holder().max()))
-            live = None if all_live else _live_cat(vcl, vcr, cap_l, cap_r,
-                                                   env.device)
-            _, carry = joink.join_carry(bnd_s, idx_s_s, live, cap_l, "inner")
-            out_d, out_v = _materialize(carry, pl_s, out_cap, cap_l, plan,
-                                        pl.spec, pr.spec, l_src, r_src,
-                                        True, True)
+
+            def carry_of(r):
+                live = None if all_live else _live_cat(
+                    vcl[r:r + 1], vcr[r:r + 1], cap_l, cap_r, env.device)
+                return joink.join_carry(shard(bnd_s, w, r),
+                                        shard(idx_s_s, w, r), live, cap_l,
+                                        "inner")[1]
+            out_d, out_v = materialize(carry_of, pl_s, out_cap)
             return {nme: Column(d, t, v, dc, bounds=b)
                     for nme, d, v, t, dc, b in
                     zip(names, out_d, out_v, types, dicts, bounds)}
@@ -546,11 +603,11 @@ def _join_packed_impl(pl: PackedPiece, pr: PackedPiece, left_on, right_on,
         return out
 
     n_dev, carry, pl_s = count(slim=False)
-    counts = host_array(n_dev).astype(np.int64).reshape(1)
+    counts = host_array(n_dev).astype(np.int64).reshape(w)
     out_cap = config.pow2ceil(int(counts.max()))
-    out_d, out_v = _materialize(carry, pl_s, out_cap, cap_l, plan, pl.spec,
-                                pr.spec, l_src, r_src, carry_emit,
-                                carry_match)
+    out_d, out_v = materialize(
+        lambda r: joink.JoinCarry(*(shard(c, w, r) for c in carry)), pl_s,
+        out_cap)
     out = build_table(names, out_d, out_v, types, dicts, counts, env,
                       bounds=bounds)
     if coalesce:

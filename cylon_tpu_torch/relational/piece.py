@@ -2,9 +2,10 @@
 (port of ``cylon_tpu/relational/piece.py``).
 
 The range-partitioned pipeline (exec/pipeline.py) packs each resident
-sorted table ONCE into a 32-bit lane matrix (plus f64 side arrays), padded
-by the largest piece capacity; every range piece is then a contiguous
-window ``[start, start + piece_cap)`` of that matrix.  A
+sorted table ONCE into a 32-bit lane matrix (plus f64 side arrays), each
+shard padded by the largest piece capacity; every range piece is then,
+on every shard, a contiguous window ``[start, start + piece_cap)`` of
+that shard's block.  A
 :class:`PackedPiece` is a host-side descriptor of such a window: making
 one costs no device work.  ``join_tables`` accepts it in place of a Table
 (relational/join.py packed entry) and slices and unpacks the window
@@ -25,14 +26,15 @@ from .. import config
 from ..core.column import Column
 from ..core.table import Table
 from ..ops import lanes
+from ..parallel.shards import map_shards
 from ..status import CapacityOverflowError
 
 
 class PackedPiece:
-    """A window ``[starts[0], starts[0] + piece_cap)`` over a
-    :class:`PieceSource`'s packed arrays, of which the first ``lens[0]``
-    rows are live.  ``meta`` entries are ``(name, LogicalType, dictionary,
-    bounds)`` parallel to ``spec.cols``."""
+    """Per shard r, a window ``[starts[r], starts[r] + piece_cap)`` of
+    shard r's block of a :class:`PieceSource`'s packed arrays, of which
+    the first ``lens[r]`` rows are live.  ``meta`` entries are ``(name,
+    LogicalType, dictionary, bounds)`` parallel to ``spec.cols``."""
 
     __slots__ = ("env", "spec", "meta", "arrs", "starts", "lens",
                  "piece_cap")
@@ -67,10 +69,11 @@ class PackedPiece:
     def capacity(self) -> int:
         return self.piece_cap
 
-    def window(self):
-        """(lane-matrix window | None, tuple of f64 windows): views of the
-        source's arrays, no copy."""
-        s, cap = int(self.starts[0]), self.piece_cap
+    def window(self, r: int = 0):
+        """Shard r's (lane-matrix window | None, tuple of f64 windows):
+        views of the source's arrays, no copy."""
+        block = self.arrs[0].shape[0] // self.env.world_size
+        s, cap = r * block + int(self.starts[r]), self.piece_cap
         has_mat = self.spec.n_lanes > 0
         mat = lanes.slice_lanes(self.spec, self.arrs[0], s, cap) \
             if has_mat else None
@@ -78,19 +81,24 @@ class PackedPiece:
         return mat, f64w
 
     def to_table(self) -> Table:
-        """Materialize the window into a plain Table (slice + full
-        unpack) — the reference the packed consumers are equal to."""
-        mat, f64w = self.window()
-        if mat is not None:
-            datas, valids = lanes.unpack_lanes(self.spec, mat)
-            datas, valids = list(datas), list(valids)
-        else:
-            datas = [None] * len(self.spec.cols)
-            valids = [None] * len(self.spec.cols)
-        wins = iter(f64w)
-        for i, c in enumerate(self.spec.cols):
-            if not c.lanes:
-                datas[i] = next(wins).clone()
+        """Materialize the windows into a plain Table (slice + full
+        unpack, per shard) — the reference the packed consumers are equal
+        to."""
+        def one(r):
+            mat, f64w = self.window(r)
+            if mat is not None:
+                datas, valids = lanes.unpack_lanes(self.spec, mat)
+                datas, valids = list(datas), list(valids)
+            else:
+                datas = [None] * len(self.spec.cols)
+                valids = [None] * len(self.spec.cols)
+            wins = iter(f64w)
+            for i, c in enumerate(self.spec.cols):
+                if not c.lanes:
+                    datas[i] = next(wins).clone()
+            return datas, valids
+
+        datas, valids = map_shards(one, self.env.world_size)
         cols = {}
         for (n, t, dc, nb), d, v in zip(self.meta, datas, valids):
             cols[n] = Column(d, t, v, dc, bounds=nb)
@@ -99,8 +107,8 @@ class PackedPiece:
 
 class PieceSource:
     """Range-piece provider over a resident sorted table: its columns pack
-    into ONE lane matrix (plus f64 side arrays), padded by ``pad`` rows so
-    every window fits; each piece is then a host-side :class:`PackedPiece`
+    into ONE lane matrix (plus f64 side arrays), each shard's block padded
+    by ``pad`` rows so every window fits; each piece is then a host-side :class:`PackedPiece`
     descriptor.  The caller drops its reference to the table: the packed
     arrays carry everything.
 
@@ -122,23 +130,24 @@ class PieceSource:
              (min(c.bounds[0], 0), max(c.bounds[1], 0))
              if c.bounds is not None else None)
             for n, c in items)
-        rows = table.capacity + int(pad)
+        w, cap = self.env.world_size, table.capacity
+        rows = cap + int(pad)          # per shard
         memory.ensure_headroom(self.env,
-                               rows * memory.spec_row_bytes(self.spec),
+                               w * rows * memory.spec_row_bytes(self.spec),
                                scratch=int(scratch_bytes))
         dev = self.env.device
         arrs = []
         if self.spec.n_lanes:
-            mat = torch.zeros((rows, self.spec.n_lanes), dtype=torch.int32,
-                              device=dev)
-            mat[:table.capacity] = lanes.pack_lanes(
+            mat = torch.zeros((w * rows, self.spec.n_lanes),
+                              dtype=torch.int32, device=dev)
+            mat.view(w, rows, -1)[:, :cap] = lanes.pack_lanes(
                 self.spec, [c.data for c in cols],
-                [c.validity for c in cols])
+                [c.validity for c in cols]).view(w, cap, -1)
             arrs.append(mat)
         for c, cl in zip(cols, self.spec.cols):
             if not cl.lanes:
-                side = torch.zeros(rows, dtype=c.data.dtype, device=dev)
-                side[:table.capacity] = c.data
+                side = torch.zeros(w * rows, dtype=c.data.dtype, device=dev)
+                side.view(w, rows)[:, :cap] = c.data.view(w, cap)
                 arrs.append(side)
         self.arrs = tuple(arrs)
         memory.register("piece_src", self.arrs, anchor=self)
