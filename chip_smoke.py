@@ -1,6 +1,6 @@
 """Smoke run of cylon_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py [--rows N]
+    python3 chip_smoke.py [--rows N] [--config3-rows N]
 
 Builds the package's CUDA kernels from the sources in this checkout (one
 nvcc per source, all at once), holds each against its plain PyTorch
@@ -50,6 +50,22 @@ device-local permutation), both routes each time:
   timed with CUDA events against their byte bounds, beside one stable
   ``torch.sort`` of the same int32 targets; the count sidecar also at
   W = 8 on as many rows.
+
+Then the sort-based groupby, the sample sort and the DataFrame entry,
+each against a numpy oracle:
+
+* ``groupby_small``: 1M rows at W = 1, 3, 4 and 8 — every groupby op on
+  int64 and float64 values (NaN, -0.0) under a nullable key, through the
+  raw route, the combine route and the grouped fast path; ``sort_table``
+  with both methods, both directions and both null positions, row by row;
+  a pipelined join into a ``GroupBySink`` keyed on a payload column;
+* ``config3_path``: BASELINE configuration 3, ``DataFrame(...).groupby
+  ("k")[["a"]].sum().sort_values("a", ascending=False)`` on 100M rows
+  (bench.py's generator), at W = 4 and W = 1: best of 3 after a warm-up,
+  rows/s, peak memory, phase split, a profile and the device idle share;
+  K1 and K2 must not launch there (no TPU kernel lies on this path);
+* ``exchange_gather``: the exchange's row gather on a 4-lane matrix,
+  timed beside other forms of the same gather.
 
 Each route's kernel counts are set to 0 just before it and read just
 after.  Prints one JSON line per phase, then the kernel summary line, then
@@ -795,10 +811,447 @@ def dist_phases(ct, left, right, orc, n: int, need_k1: bool, routes: dict,
     return routes, w4
 
 
+# ---------------------------------------------------------------------------
+# the sort-based groupby, the sample sort and the DataFrame entry
+# ---------------------------------------------------------------------------
+
+#: every op of the groupby, as (op, q) — median and quantile both
+SMALL_OPS = (("sum", None), ("count", None), ("min", None), ("max", None),
+             ("mean", None), ("var", None), ("std", None), ("sumsq", None),
+             ("nunique", None), ("median", None), ("quantile", 0.25))
+ASSOC_OPS = ("sum", "count", "min", "max", "mean", "var", "std", "sumsq")
+#: BASELINE configuration 3: 100M rows in total
+CONFIG3_ROWS = 100_000_000
+
+
+def small_groupby_inputs(n: int, seed: int = 7):
+    """groupby_small's host columns: a nullable int64 key (1% null) over
+    50,000 values, int64 values, float64 values with 2% NaN and 1% -0.0,
+    and a row id; plus a join pair whose left side carries a payload
+    group column ``g``."""
+    rng = np.random.default_rng(seed)
+    k = rng.integers(0, 50_000, n).astype(np.int64)
+    kvalid = rng.random(n) > 0.01
+    k[~kvalid] = 0
+    f = rng.normal(size=n)
+    f[rng.random(n) < 0.01] = -0.0
+    f[rng.random(n) < 0.02] = np.nan
+    cols = {"k": k, "kvalid": kvalid,
+            "i": rng.integers(-10**6, 10**6, n).astype(np.int64), "f": f,
+            "rid": np.arange(n, dtype=np.int64)}
+    mv = max(int(n * 0.9), 1)
+    left = {"k": rng.integers(0, mv, n).astype(np.int64),
+            "g": rng.integers(0, 1000, n).astype(np.int64),
+            "a": rng.integers(0, 1000, n).astype(np.int64)}
+    right = {"k": rng.integers(0, mv, n // 2).astype(np.int64),
+             "b": rng.integers(0, 1000, n // 2).astype(np.int64)}
+    return cols, left, right, mv
+
+
+def small_table(ct, cols, env):
+    from cylon_tpu_torch.core.dtypes import LogicalType
+    key = ct.Column(cols["k"], LogicalType.INT64, cols["kvalid"],
+                    bounds=(int(cols["k"].min()), int(cols["k"].max())))
+    return ct.Table.from_host_columns(
+        {"k": key, **{c: ct.Column.from_numpy(cols[c])
+                      for c in ("i", "f", "rid")}}, env)
+
+
+def np_agg(inv, ng, v, op, q=None):
+    """numpy oracle of one aggregation over group ids ``inv``: (values,
+    validity or None), NaN skipped, var/std with ddof 1 (from the sum of
+    squares, as the reference computes them), quantiles by linear
+    interpolation."""
+    m = ~np.isnan(v) if v.dtype.kind == "f" else np.ones(len(v), bool)
+    g, x = inv[m], v[m]
+    cnt = np.bincount(g, minlength=ng)
+    if op == "count":
+        return cnt.astype(np.int64), None
+    xf = x.astype(np.float64)
+    s = np.bincount(g, weights=xf, minlength=ng)
+    if op == "sum":
+        return (s.astype(np.int64) if v.dtype.kind == "i" else s), None
+    if op == "sumsq":
+        return np.bincount(g, weights=xf * xf, minlength=ng), None
+    ok = cnt > 0
+    order = np.lexsort((x, g))
+    xs, gs = x[order], g[order]
+    starts = np.concatenate([[0], np.cumsum(cnt)[:-1]])
+    last = max(len(xs) - 1, 0)
+    if op == "min":
+        return xs[np.minimum(starts, last)], ok
+    if op == "max":
+        return xs[np.clip(starts + cnt - 1, 0, last)], ok
+    c = np.maximum(cnt, 1)
+    if op == "mean":
+        return s / c, ok
+    if op in ("var", "std"):
+        # the reference's formula, from the sums: (E[x²] - mean²)·c/(c-1)
+        sq = np.bincount(g, weights=xf * xf, minlength=ng)
+        var = np.maximum(sq / c - (s / c) ** 2, 0.0) * (
+            c / np.maximum(cnt - 1, 1))
+        return (np.sqrt(var) if op == "std" else var), cnt > 1
+    if op == "nunique":
+        first = np.ones(len(xs), bool)
+        first[1:] = (xs[1:] != xs[:-1]) | (gs[1:] != gs[:-1])
+        return np.bincount(gs[first], minlength=ng).astype(np.int64), None
+    q = 0.5 if op == "median" else q
+    posf = q * np.maximum(cnt - 1, 0).astype(np.float64)
+    lo, hi = np.floor(posf).astype(np.int64), np.ceil(posf).astype(np.int64)
+    vlo = xs[np.clip(starts + lo, 0, last)].astype(np.float64)
+    vhi = xs[np.clip(starts + hi, 0, last)].astype(np.float64)
+    return vlo + (vhi - vlo) * (posf - lo), ok
+
+
+def small_aggs(ops=None):
+    out = []
+    for c in ("i", "f"):
+        for op, q in SMALL_OPS:
+            if ops is None or op in ops:
+                out.append((c, op) if q is None else (c, op, q))
+    return out
+
+
+def agg_name(a) -> str:
+    return f"{a[0]}_quantile_{a[2]:g}" if a[1] == "quantile" \
+        else f"{a[0]}_{a[1]}"
+
+
+def small_oracle(cols) -> tuple:
+    """The numpy answer of every aggregation of groupby_small: the group
+    keys (a null key is one group, -1 here) and per result name (values,
+    validity or None, float tolerance)."""
+    gid = np.where(cols["kvalid"], cols["k"], -1)
+    keys, inv = np.unique(gid, return_inverse=True)
+    want = {}
+    for a in small_aggs():
+        v = cols[a[0]]
+        vals, valid = np_agg(inv, len(keys), v, a[1],
+                             a[2] if len(a) > 2 else None)
+        vf = v.astype(np.float64)
+        scale = float(np.nansum(np.abs(vf)) + np.nansum(vf * vf))
+        atol = 64 * np.finfo(np.float64).eps * scale
+        # |sqrt(x) - sqrt(y)| <= sqrt(|x - y|): a std holds to the root of
+        # its variance's bound
+        want[agg_name(a)] = (vals, valid,
+                             np.sqrt(atol) if a[1] == "std" else atol)
+    return keys, want
+
+
+def check_small_groupby(g, orc, aggs, label: str) -> int:
+    """A groupby of groupby_small's table against the numpy oracle: the
+    same groups, every result value and validity; integers exact, floats
+    to rtol 1e-9 plus 64·eps·sum(|v| + v²) over the payload (its square
+    root for a std): a sum comes from a prefix-sum difference, whose
+    error grows with the magnitudes summed before it."""
+    keys, want = orc
+    host = g.host_columns()
+    kd, kv = host["k"]
+    pg = np.where(kv if kv is not None else True, kd, -1)
+    order = np.argsort(pg, kind="stable")
+    if not np.array_equal(pg[order], keys):
+        raise AssertionError(f"{label}: group keys differ from the oracle")
+    for a in aggs:
+        name = agg_name(a)
+        vals, wvalid, atol = want[name]
+        data, valid = host[name]
+        data = data[order]
+        ok = np.ones(len(keys), bool) if wvalid is None else wvalid
+        if (valid is None) != (wvalid is None) or (
+                valid is not None and not np.array_equal(valid[order], ok)):
+            raise AssertionError(f"{label}: {name} validity differs")
+        if data.dtype.kind == "f":
+            good = np.allclose(data[ok], vals[ok], rtol=1e-9, atol=atol)
+        else:
+            good = np.array_equal(data[ok], vals[ok])
+        if not good:
+            raise AssertionError(f"{label}: {name} differs from the oracle")
+    return len(keys)
+
+
+def sort_order_oracle(cols, descending: bool, nulls_first: bool):
+    """The rows' order after sort_table(["k", "f"]): the stable global
+    order, null keys first or last, -0.0 equal to 0.0, NaN after every
+    number in either direction."""
+    k, f = cols["k"], cols["f"]
+    sign = -1 if descending else 1
+    kflag = np.where(cols["kvalid"], 1, 0 if nulls_first else 2)
+    kval = np.where(cols["kvalid"], sign * k, 0)
+    nan = np.isnan(f)
+    fval = np.where(nan, 0.0, sign * f) + 0.0     # -0.0 -> 0.0
+    return np.lexsort((fval, nan, kval, kflag))
+
+
+def check_sorted(out, order, label: str):
+    """sort_table's output holds the rows in the oracle's ``order``, shard
+    after shard, and says so (``grouped_by``)."""
+    rid = out.host_columns()["rid"][0]
+    if not np.array_equal(rid, order):
+        raise AssertionError(f"{label}: rows out of order")
+    if out.grouped_by != ("k", "f"):
+        raise AssertionError(f"{label}: grouped_by {out.grouped_by}")
+
+
+def np_sink_oracle(left, right, mv):
+    """pipelined inner join -> groupby on the left payload ``g``: per g,
+    sum of a·R[k] and of SB[k] (R: right rows per key, SB: their b sum)."""
+    R = np.bincount(right["k"], minlength=mv)
+    SB = np.bincount(right["k"], right["b"], minlength=mv).astype(np.int64)
+    r = R[left["k"]]
+    keep = r > 0
+    ng = int(left["g"].max()) + 1
+    a_sum = np.bincount(left["g"], left["a"] * r, minlength=ng)
+    b_sum = np.bincount(left["g"], SB[left["k"]], minlength=ng)
+    gs = np.nonzero(np.bincount(left["g"][keep], minlength=ng))[0]
+    return gs, a_sum[gs].astype(np.int64), b_sum[gs].astype(np.int64)
+
+
+def groupby_small(ct, worlds=(1, 3, 4, 8), n: int = 1_000_000,
+                  device=None) -> dict:
+    """The sort-based groupby, the sample sort and the non-disjoint sink
+    at ``n`` rows, world by world, each against its numpy oracle."""
+    from cylon_tpu_torch.ctx.context import VirtualMeshConfig
+    from cylon_tpu_torch.relational import groupby as rgb
+    cols, left, right, mv = small_groupby_inputs(n)
+    orc = small_oracle(cols)
+    sink_orc = np_sink_oracle(left, right, mv)
+    variants = (("initial", False, False), ("initial", True, True),
+                ("regular", False, True), ("regular", True, False))
+    orders = {(d, f): sort_order_oracle(cols, d, f)
+              for _, d, f in variants}
+    recs = {}
+    for w in worlds:
+        t0 = time.perf_counter()
+        env = ct.CylonEnv(VirtualMeshConfig(w), device=device)
+        t = small_table(ct, cols, env)
+        rgb.reset_counts()
+        every = small_aggs()
+        groups = check_small_groupby(ct.groupby_aggregate(t, "k", every),
+                                     orc, every, f"groupby_small W={w} raw")
+        assoc = small_aggs(ASSOC_OPS)
+        check_small_groupby(ct.groupby_aggregate(t, "k", assoc), orc,
+                            assoc, f"groupby_small W={w} "
+                            f"{'combine' if w > 1 else 'raw'} route")
+        sorts = []
+        for method, desc, nfirst in variants:
+            s = ct.sort_table(t, ["k", "f"], ascending=not desc,
+                              nulls_position="first" if nfirst else "last",
+                              method=method)
+            check_sorted(s, orders[(desc, nfirst)],
+                         f"groupby_small W={w} sort {method} "
+                         f"desc={desc} nulls_first={nfirst}")
+            sorts.append(f"{method}/{'desc' if desc else 'asc'}/"
+                         f"nulls_{'first' if nfirst else 'last'}")
+        # a groupby on the sorted table takes the grouped fast path
+        s = ct.sort_table(t, "k")
+        check_small_groupby(ct.groupby_aggregate(s, "k", every), orc, every,
+                            f"groupby_small W={w} grouped fast path")
+        dispatches = dict(rgb.COUNTS)
+        # pipelined join into a GroupBySink keyed on the payload column:
+        # groups span pieces, so the partials combine (non-disjoint)
+        lt = ct.Table.from_pydict(left, env)
+        rt = ct.Table.from_pydict(right, env)
+        sink = ct.GroupBySink("g", [("a", "sum"), ("b", "sum")])
+        ct.pipelined_join(lt, rt, "k", "k", how="inner", n_chunks=2,
+                          sink=sink)
+        if sink._disjoint:
+            raise AssertionError("groupby_small: a sink on g took the "
+                                 "disjoint combine")
+        out = sink.finalize().to_pydict()
+        o = np.argsort(out["g"], kind="stable")
+        for name, want in zip(("g", "a_sum", "b_sum"), sink_orc):
+            if not np.array_equal(out[name][o], want):
+                raise AssertionError(f"groupby_small W={w}: sink column "
+                                     f"{name} differs from the oracle")
+        recs[w] = {"groups": groups, "sorts": sorts,
+                   "groupby_dispatches": dispatches,
+                   "sink_groups": len(sink_orc[0]),
+                   "seconds": time.perf_counter() - t0}
+        del t, s, lt, rt, sink, env
+    return recs
+
+
+def config3_inputs(n: int, seed: int = 42):
+    """bench.py's generator and draw order: k, then a, both uniform int64
+    in [0, 0.9 n)."""
+    rng = np.random.default_rng(seed)
+    mv = max(int(n * 0.9), 1)
+    k = rng.integers(0, mv, n).astype(np.int64)
+    a = rng.integers(0, mv, n).astype(np.int64)
+    return k, a, mv
+
+
+def config3_oracle(k, a, mv):
+    """numpy groupby-sum: per key in [0, mv), its row count and a sum
+    (float64 bincount; every sum stays below 2^53, so exact)."""
+    cnt = np.bincount(k, minlength=mv)
+    s = np.bincount(k, a, minlength=mv)
+    if s.max() >= 2.0 ** 53:
+        raise AssertionError("oracle sums leave the exact float64 range")
+    return cnt > 0, s.astype(np.int64)
+
+
+def check_config3(out, orc, label: str) -> int:
+    """The query's output against the oracle: the multiset of (k, a)
+    rows equals numpy's groupby-sum, each key once, and a non-increasing
+    over the shard-major live rows."""
+    present, sums = orc
+    host = out.table.host_columns()
+    k, a = host["k"][0], host["a"][0]
+    seen = np.bincount(k, minlength=len(present))
+    if len(seen) != len(present) or not np.array_equal(seen, present):
+        raise AssertionError(f"{label}: keys differ from the oracle or "
+                             "repeat")
+    at = np.zeros(len(present), np.int64)
+    at[k] = a
+    if not np.array_equal(at[present], sums[present]):
+        raise AssertionError(f"{label}: sums differ from the oracle")
+    if len(a) > 1 and not bool(np.all(np.diff(a) <= 0)):
+        raise AssertionError(f"{label}: a is not non-increasing")
+    return len(k)
+
+
+def config3_query(df, times=None):
+    """BASELINE configuration 3 through the DataFrame entry."""
+    t0 = time.perf_counter()
+    out = df.groupby("k")[["a"]].sum().sort_values("a", ascending=False)
+    sync_pull(out.table.column("a").data)
+    if times is not None:
+        times.append(time.perf_counter() - t0)
+    return out
+
+
+#: configuration 3's phases and the timing regions that hold them
+CONFIG3_PHASES = {"combine": "groupby.combine",
+                  "intermediates_shuffle": "groupby.shuffle",
+                  "final": "groupby.final", "raw_groupby": "groupby.raw",
+                  "sample": "sort.sample", "range_exchange": "sort.exchange",
+                  "local_sort": "sort.local"}
+
+
+def config3_path(ct, k, a, orc, w: int, device=None,
+                 profile: bool = True) -> dict:
+    """BASELINE configuration 3 at world size ``w``: warm-up, best of 3,
+    the phase split (one more iteration with a device wait after each
+    phase), one profiled iteration; K1 and K2 launches counted over the
+    timed run (both expected 0: no TPU kernel lies on this path)."""
+    from cylon_tpu_torch.ctx.context import VirtualMeshConfig
+    from cylon_tpu_torch.ops import splitter_probe as sp
+    from cylon_tpu_torch.ops import windowed_gather as wg
+    from cylon_tpu_torch.relational import groupby as rgb
+    from cylon_tpu_torch.utils import timing
+    n = len(k)
+    env = ct.CylonEnv(VirtualMeshConfig(w), device=device)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    df = ct.DataFrame({"k": k, "a": a}, env=env)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    wg.reset_counts()
+    sp.reset_counts()
+    rgb.reset_counts()
+    first = []
+    out = config3_query(df, first)             # warm-up (first sight)
+    warm = dict(rgb.COUNTS)
+    rgb.reset_counts()
+    times = []
+    for _ in range(3):
+        out = config3_query(df, times)
+    counts = {"windowed_gather": dict(wg.COUNTS),
+              "splitter_probe": dict(sp.COUNTS),
+              "groupby_warmup": warm, "groupby_timed": dict(rgb.COUNTS)}
+    peak = torch.cuda.max_memory_allocated()
+    groups = check_config3(out, orc, f"config3_path W={w}")
+    del out
+    if counts["windowed_gather"]["launches"] or \
+            counts["splitter_probe"]["launches"]:
+        raise AssertionError(f"config3_path W={w}: kernel counts {counts}; "
+                             "no TPU kernel lies on this path")
+    if counts["groupby_timed"]["redispatches"]:
+        raise AssertionError(f"config3_path W={w}: the timed iterations "
+                             f"redispatched: {counts}")
+    timing.enable("block")
+    timing.reset()
+    t0 = time.perf_counter()
+    out = config3_query(df)
+    split_total = time.perf_counter() - t0
+    phases = timing.snapshot()
+    timing.enable(None)
+    check_config3(out, orc, f"config3_path W={w} split")
+    del out
+    best = min(times)
+    rec = {"phase": "config3_path", "world": w, "rows": n,
+           "rows_per_rank": -(-n // w), "groups": groups,
+           "query": 'DataFrame({"k", "a"}).groupby("k")[["a"]].sum()'
+                    '.sort_values("a", ascending=False)',
+           "setup_s": setup_s, "first_s": first[0], "iterations": times,
+           "best_s": best, "rows_per_s": n / best, "peak_mem_bytes": peak,
+           "oracle": "equal", "kernel_counts": counts,
+           "phase_split_s": {p: phases[r] for p, r in CONFIG3_PHASES.items()
+                             if r in phases},
+           "phase_split_regions_s": phases,
+           "phase_split_total_s": split_total}
+    if profile:
+        prof = profile_step(ct, df, None, top=14,
+                            step_fn=lambda c, d, _: config3_query(d))
+        rec["profile"] = {
+            "device_busy_s": prof["device_busy_s"],
+            "device_idle_share_of_best": 1.0 - prof["device_busy_s"] / best,
+            "kernels_ms": prof["kernels_ms"],
+            "aten_ops_ms": prof["aten_ops_ms"]}
+    del df, env
+    torch.cuda.empty_cache()
+    return rec
+
+
+def exchange_gather_forms(dev, rows: int = 15_728_640, seed: int = 5) -> dict:
+    """The exchange's per-destination row gather (``torch.index_select``
+    into a preallocated block, parallel/shuffle.exchange) on a ``(rows, 4)``
+    int32 lane matrix — two int64 columns without bounds, as the
+    configuration-3 tables carry — at a random permutation, beside other
+    forms of the same gather: advanced indexing, four 1-D lane gathers, the
+    matrix viewed as ``(rows, 2)`` int64, and a 2-lane matrix (8-byte rows,
+    the BASELINE tables' narrow keys).  CUDA-event means; every form must
+    give the same rows."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    mat = torch.randint(-(1 << 31), (1 << 31) - 1, (rows, 4),
+                        dtype=torch.int32, device=dev, generator=gen)
+    idx = torch.randperm(rows, device=dev, generator=gen)
+    out = torch.empty_like(mat)
+    lanes = [mat[:, j].contiguous() for j in range(4)]
+    wide = mat.view(torch.int64)
+    narrow = mat[:, :2].contiguous()
+    torch.index_select(mat, 0, idx, out=out)
+    if not (torch.equal(out, mat[idx]) and torch.equal(
+            out.view(torch.int64), torch.index_select(wide, 0, idx))
+            and all(torch.equal(out[:, j], torch.index_select(lane, 0, idx))
+                    for j, lane in enumerate(lanes))):
+        raise AssertionError("exchange_gather: the gather forms differ")
+    nbytes = 8 + 2 * 16 * rows + 8 * rows     # rows read and written, idx
+    rec = {"phase": "exchange_gather", "rows": rows, "lanes": 4,
+           "index_select_out_ms": time_ms(
+               lambda: torch.index_select(mat, 0, idx, out=out)),
+           "advanced_index_ms": time_ms(lambda: mat[idx]),
+           "per_lane_index_select_ms": time_ms(
+               lambda: [torch.index_select(x, 0, idx) for x in lanes]),
+           "int64_view_index_select_ms": time_ms(
+               lambda: torch.index_select(wide, 0, idx)),
+           "two_lane_index_select_ms": time_ms(
+               lambda: torch.index_select(narrow, 0, idx)),
+           "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+           "bound_by": "bytes"}
+    del mat, idx, out, lanes, wide, narrow
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=125_000_000,
                     help="rows per side of the full BASELINE run")
+    ap.add_argument("--config3-rows", type=int, default=CONFIG3_ROWS,
+                    help="rows in total of BASELINE configuration 3")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this smoke run needs "
@@ -1029,7 +1482,19 @@ def main() -> int:
     routes, w4 = dist_phases(ct, left, right, orc, n, need_k1,
                              {"monolithic_w1": counts,
                               "pipelined_w1": pipe_counts})
-    del left, right
+    del left, right, orc
+    torch.cuda.empty_cache()
+
+    # -- the sort-based groupby, the sample sort, the DataFrame entry -----
+    for w, small in groupby_small(ct).items():
+        emit({"phase": "groupby_small", "world": w, "rows": 1_000_000,
+              "oracle": "equal", **small})
+    k, a, mv = config3_inputs(args.config3_rows)
+    c3orc = config3_oracle(k, a, mv)
+    for w in (4, 1):
+        emit(config3_path(ct, k, a, c3orc, w))
+    del k, a, c3orc
+    emit(exchange_gather_forms(dev))
     emit({"kernels": [{
         "name": "windowed_gather", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES, "launches": counts["launches"],

@@ -1,11 +1,14 @@
 """cylon_tpu_torch: the PyTorch/CUDA port of cylon_tpu for one NVIDIA H100.
 
 The port mirrors ``cylon_tpu``'s module layout and is held bit-equal to it
-by the ``tests/test_torch_*.py`` parity tests.  It runs the BASELINE
-path: ``Table.from_pydict`` ingest, an inner ``join_tables`` that defers
-its output, and ``groupby_aggregate`` through the fused join→groupby
-pushdown, whose run-start gather is the hand-written CUDA kernel
-``kernels/windowed_gather.cu``.  World sizes above 1 run as a
+by the ``tests/test_torch_*.py`` parity tests.  Its entry point is the
+``DataFrame`` (``merge``, ``groupby(...).sum()`` and the other
+aggregations, ``sort_values``) over the table operators: ``Table``
+ingest, an inner ``join_tables`` that defers its output,
+``groupby_aggregate`` (the fused join→groupby pushdown, whose run-start
+gather is the hand-written CUDA kernel ``kernels/windowed_gather.cu``,
+and the sort-based groupby for every other table) and the distributed
+sample sort ``sort_table``.  World sizes above 1 run as a
 ``VirtualMeshConfig`` world, W ranks on one device: tables hash-shuffle
 through an order-preserving device-local exchange (``parallel/``) that
 routes every row to the reference's rank, and every shard then runs the
@@ -23,12 +26,16 @@ from .core.dtypes import LogicalType
 from .core.table import DeferredTable, Table
 from .ctx.context import CylonEnv, LocalConfig, VirtualMeshConfig
 from .exec import GroupBySink, pipelined_join
+from .frame import DataFrame, GroupByDataFrame, concat, read_pandas
 from .relational.groupby import groupby_aggregate
 from .relational.join import join_tables
-from .status import CylonError, DeviceUnavailableError, InvalidError, KernelError
+from .relational.sort import local_sort_table, sort_table
+from .status import (CylonError, CylonKeyError, DeviceUnavailableError,
+                     InvalidError, KernelError)
 
-__all__ = ["Column", "CylonEnv", "CylonError", "DeferredTable",
-           "DeviceUnavailableError", "GroupBySink", "InvalidError",
-           "KernelError", "LocalConfig", "LogicalType", "Table",
-           "VirtualMeshConfig", "groupby_aggregate", "join_tables",
-           "pipelined_join"]
+__all__ = ["Column", "CylonEnv", "CylonError", "CylonKeyError", "DataFrame",
+           "DeferredTable", "DeviceUnavailableError", "GroupByDataFrame",
+           "GroupBySink", "InvalidError", "KernelError", "LocalConfig",
+           "LogicalType", "Table", "VirtualMeshConfig", "concat",
+           "groupby_aggregate", "join_tables", "local_sort_table",
+           "pipelined_join", "read_pandas", "sort_table"]

@@ -1,6 +1,6 @@
 """Configuration for cylon_tpu_torch: the subset of ``cylon_tpu/config.py``
-that the join→fused-groupby path and the range-partitioned pipeline read,
-under ``CYLON_TPU_TORCH_*`` environment names.
+that the join→groupby paths, the sample sort and the range-partitioned
+pipeline read, under ``CYLON_TPU_TORCH_*`` environment names.
 
 PyTorch holds int64/float64 natively, so there is no x64 switch: device
 columns always keep their 64-bit types.  The reference's
@@ -44,6 +44,20 @@ DEFER_JOIN = _env_flag("CYLON_TPU_TORCH_DEFER_JOIN", True)
 #: CUDA kernel (ops/windowed_gather.py) on the card; span overflows
 #: redispatch the plain gather.
 WINDOWED_GATHER = _env_flag("CYLON_TPU_TORCH_WINDOWED_GATHER", True)
+
+
+#: Distributed-sort splitter samples per shard (``0``: scale with the
+#: world size, :func:`sort_samples`).
+SORT_SAMPLES_PER_SHARD = int(os.environ.get("CYLON_TPU_TORCH_SORT_SAMPLES",
+                                            "0"))
+
+
+def sort_samples(world: int) -> int:
+    """Splitter samples per shard: the explicit override, else 16 per rank
+    and at least 64, as the reference samples."""
+    if SORT_SAMPLES_PER_SHARD > 0:
+        return SORT_SAMPLES_PER_SHARD
+    return max(64, 16 * world)
 
 
 def audit_armed() -> bool:

@@ -9,6 +9,7 @@ no x64 opt-out: 64-bit types always stay 64-bit.
 from __future__ import annotations
 
 import enum
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -100,3 +101,11 @@ def np_dtype_of(x) -> np.dtype:
     if isinstance(x, torch.Tensor):
         return _NUMPY[x.dtype]
     return np.dtype(x.dtype)
+
+
+class Field(NamedTuple):
+    """Column schema entry: name, logical type and nullability."""
+
+    name: str
+    type: LogicalType
+    nullable: bool = False

@@ -13,7 +13,7 @@ the layout of the reference table built from the same rows.
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Iterable, Mapping
 
 import numpy as np
 import torch
@@ -22,7 +22,7 @@ from .. import config
 from ..ctx.context import CylonEnv, LocalConfig, VirtualMeshConfig
 from ..status import CylonKeyError, InvalidError
 from .column import Column
-from .dtypes import LogicalType
+from .dtypes import Field, LogicalType
 
 _default_env: CylonEnv | None = None
 
@@ -84,6 +84,14 @@ class Table:
             else:
                 cols[str(k)] = Column.from_numpy(s.to_numpy())
         return _ingest(cols, env or default_env())
+
+    @staticmethod
+    def from_host_columns(cols: Mapping[str, Column],
+                          env: CylonEnv | None = None) -> "Table":
+        """Place already-typed HOST columns (numpy data and validity,
+        logical type, dictionary and bounds kept) onto the env — the
+        dtype-faithful ingest, a nullable numeric column included."""
+        return _ingest(dict(cols), env or default_env())
 
     @staticmethod
     def from_reference_state(cols: Mapping[str, tuple], valid_counts,
@@ -153,11 +161,37 @@ class Table:
         return len(next(iter(cols.values()))) // self._env.world_size \
             if cols else 0
 
+    @property
+    def column_count(self) -> int:
+        return len(self.column_names)
+
+    @property
+    def schema(self) -> list[Field]:
+        return [Field(k, c.type, c.validity is not None)
+                for k, c in self.columns.items()]
+
     def column(self, name: str) -> Column:
         try:
             return self.columns[name]
         except KeyError:
             raise CylonKeyError(f"no column {name!r}; have {self.column_names}")
+
+    def __contains__(self, name: str) -> bool:
+        return name in self.column_names
+
+    # -- projections (host-side metadata, no device work) -------------------
+    def project(self, names: Iterable[str]) -> "Table":
+        return Table({n: self.column(n) for n in names}, self._env,
+                     self.valid_counts)
+
+    def drop(self, names: Iterable[str]) -> "Table":
+        drop = set(names)
+        return Table({k: v for k, v in self.columns.items()
+                      if k not in drop}, self._env, self.valid_counts)
+
+    def rename(self, mapping: Mapping[str, str]) -> "Table":
+        return Table({mapping.get(k, k): v for k, v in self.columns.items()},
+                     self._env, self.valid_counts)
 
     def with_columns(self, extra: Mapping[str, Column]) -> "Table":
         cols = dict(self.columns)
@@ -263,6 +297,12 @@ class DeferredTable(Table):
     @property
     def column_names(self) -> list[str]:
         return list(self._meta[0])
+
+    @property
+    def schema(self) -> list[Field]:
+        """From the producer's metadata: reading it never materializes."""
+        return [Field(n, t, bool(hn)) for n, t, hn in
+                zip(self._meta[0], self._meta[1], self._meta[3])]
 
     @property
     def capacity(self) -> int:

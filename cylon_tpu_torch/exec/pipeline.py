@@ -284,9 +284,10 @@ def pipelined_join(left: Table, right: Table, left_on, right_on,
     n_ranges = max(int(n_chunks), 1)
     if n_ranges == 1 or rwork.row_count == 0 or lwork.row_count == 0:
         # The reference materializes here and its sink runs the sort-based
-        # groupby; the port has none yet (slice 5), so with a sink the
-        # join defers and the sink takes the fused pushdown: same groups,
-        # same order.
+        # groupby.  With a sink the port's join defers instead, so a sink
+        # keyed on the join keys takes the fused pushdown and never
+        # materializes the join: same groups, same order, integer sums
+        # bit-equal (float sums may differ in association order).
         res = join_tables(lwork, rwork, left_on, right_on, how=how,
                           suffixes=suffixes, assume_colocated=True,
                           allow_defer=sink is not None)

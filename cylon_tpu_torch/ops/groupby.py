@@ -1,19 +1,27 @@
-"""Groupby kernels (port of the grouped-input subset of
-``cylon_tpu/ops/groupby.py``).
+"""Groupby kernels (port of ``cylon_tpu/ops/groupby.py``).
 
-* :func:`grouped_reduce` — the grouped-input fast path the fused
-  join→groupby runs: per-group sums are differences of prefix sums at the
-  run starts, so every cumsum-able aggregate and the representative keys
-  share ONE gather of their 32-bit lanes (plus one f64 side gather for
-  float accumulators, which have no lanes).  With ``use_window`` the lane
-  gather goes through the windowed-gather kernel (ops/windowed_gather.py),
-  which takes the lanes by pointer, unstacked.
-* The MapReduce stages the slice needs: :func:`combine_locally` (with the
-  segment ops under it) and :func:`finalize`.
+* Segment reductions (``seg_sum``/``seg_count``/``seg_min``/``seg_max``):
+  masked rows route to one trash segment and ids past the segment space
+  are dropped, as the reference's segment ops drop them, so a dispatch
+  at too small a segment space stays in bounds (its group count then
+  triggers the redispatch).  Empty segments hold the reduction identity.
+* :func:`grouped_reduce` — the grouped-input fast path: per-group sums
+  are differences of prefix sums at the run starts
+  (:func:`grouped_starts`), so every cumsum-able aggregate and the
+  representative keys share ONE gather of their 32-bit lanes (plus one
+  f64 side gather for float accumulators, which have no lanes).  With
+  ``use_window`` the lane gather goes through the windowed-gather kernel
+  (ops/windowed_gather.py), which takes the lanes by pointer, unstacked;
+  only the fused join→groupby asks for it.
+* The MapReduce stages: :func:`combine_locally`,
+  :func:`reduce_intermediates` and :func:`finalize`.
+* The non-associative ops on raw values: :func:`nunique` and
+  :func:`quantile`; and :func:`group_first_index`.
 * :func:`guard_saturation`, the armed int64 overflow guard.
 
 Integer accumulators are int64 and float accumulators float64, as in the
-reference with x64 on.
+reference with x64 on (its ``_ftype`` is float64 there, for float32 input
+too; results are cast to the declared dtype afterwards).
 """
 
 from __future__ import annotations
@@ -60,13 +68,14 @@ def _ident(kind: str, dt: torch.dtype):
 def _seg_apply(kind: str, values, g, ns: int, out_len: int):
     """Segment reduce over ROUTED gids ``g`` (trash segment included in
     ``ns``), returning the first ``out_len`` segments; empty segments hold
-    the reduction identity."""
-    g = g.long()
+    the reduction identity.  Ids at or past ``ns`` are dropped (one more
+    slot takes them)."""
+    g = torch.where(g < ns, g, ns).long()
     if kind == "sum":
-        acc = torch.zeros(ns, dtype=values.dtype, device=values.device)
+        acc = torch.zeros(ns + 1, dtype=values.dtype, device=values.device)
         return acc.index_add_(0, g, values)[:out_len]
     src = values.to(torch.int32) if values.dtype == torch.bool else values
-    acc = torch.full((ns,), _ident(kind, values.dtype), dtype=src.dtype,
+    acc = torch.full((ns + 1,), _ident(kind, values.dtype), dtype=src.dtype,
                      device=values.device)
     red = "amin" if kind == "min" else "amax"
     out = acc.scatter_reduce_(0, g, src, red)[:out_len]
@@ -97,6 +106,24 @@ def seg_max(values, gids, num_segments, mask=None):
 # ---------------------------------------------------------------------------
 # grouped-run reductions
 # ---------------------------------------------------------------------------
+
+def grouped_starts(gids, first, mask, n_live: int, seg_cap: int):
+    """First live row position (int32) of each group id of a grouped
+    input (each group one contiguous run in the live prefix, ids counting
+    the run starts).  Slots past the last group hold ``n_live``: both the
+    empty-group sentinel and the "next start" of the final group, so every
+    run extent is a consecutive difference of this one array.
+
+    The reference scatters each run start to its id.  Here group g's
+    start is the first position where the running count of run starts
+    reaches g + 1: one sorted search, with no scatter of the other rows
+    into a trash slot (on the card, millions of writes to one address
+    serialize).  ``gids`` is the reference's argument, not needed."""
+    del gids
+    csum = torch.cumsum(first & mask, 0, dtype=torch.int32)
+    q = torch.arange(1, seg_cap + 1, dtype=torch.int32, device=csum.device)
+    return torch.searchsorted(csum, q).clamp_max(int(n_live)).to(torch.int32)
+
 
 _GROUPED_NEEDS = {"sum": ("sum",), "count": ("count",),
                   "sumsq": ("sumsq",),
@@ -292,6 +319,18 @@ def combine_locally(op: str, values, gids, num_segments, mask=None):
     raise ValueError(f"op {op} has no associative decomposition")
 
 
+_REDUCERS = {"sum": seg_sum, "sumsq": seg_sum, "count": seg_sum,
+             "min": seg_min, "max": seg_max}
+
+
+def reduce_intermediates(inter: dict, gids, num_segments, mask=None):
+    """Stage 4: combine shuffled intermediates keyed by new group ids.
+    min/max of empty pre-groups carry the identity; their count of 0 keeps
+    them out of the final validity."""
+    return {k: _REDUCERS[k](v, gids, num_segments, mask)
+            for k, v in inter.items()}
+
+
 def finalize(op: str, inter: dict, ddof: int = 1):
     """Stage 5: intermediates -> (result_values, result_validity|None)."""
     cnt = inter.get("count")
@@ -311,6 +350,74 @@ def finalize(op: str, inter: dict, ddof: int = 1):
         ok = cnt > ddof
         return (torch.sqrt(var) if op == "std" else var), ok
     raise ValueError(f"unknown associative op {op}")
+
+
+# ---------------------------------------------------------------------------
+# non-associative ops on raw (co-located) values
+# ---------------------------------------------------------------------------
+
+def nunique(value_keyops, gids, num_segments, mask=None):
+    """Distinct count (int32) per group: sort the (gid, value operands)
+    tuples, count the boundaries per segment.  ``value_keyops`` is a
+    :class:`~cylon_tpu_torch.ops.pack.KeyOps` over the value column; the
+    mask drops padding and null rows (pandas drops nulls).  Any order of
+    equal tuples gives the same count, so one stable sort serves."""
+    from .pack import KeyOps, lex_sort_perm, neighbor_flags, sort_words
+    g, ns = _route(gids, num_segments, mask)
+    words = sort_words(KeyOps((g.to(torch.int32),) + tuple(value_keyops.ops),
+                              ("i",) + tuple(value_keyops.kinds)))
+    perm = lex_sort_perm(words)
+    neq = neighbor_flags([w[perm] for w, _ in words], [k for _, k in words])
+    neq[:1] = 1
+    return _seg_apply("sum", neq, g[perm], ns, num_segments)
+
+
+def _total_order_f64(v: torch.Tensor) -> torch.Tensor:
+    """int64 image of float64 values whose signed order is the IEEE total
+    order (-0.0 before +0.0, NaN last): the order of the reference's
+    ``lax.sort`` on floats."""
+    b = v.view(torch.int64)
+    return b ^ ((b >> 63) & 0x7FFFFFFFFFFFFFFF)
+
+
+def quantile(values, gids, num_segments, q: float, mask=None):
+    """Per-group quantile with linear interpolation, computed in float64:
+    sort (gid, value), then index each group's sorted run through the
+    count prefix sums.  Returns ``(values, validity)``."""
+    from .pack import lex_sort_perm
+    f = values.to(_F64)
+    g, ns = _route(gids, num_segments, mask)
+    v = f if mask is None else torch.where(
+        mask, f, torch.full((), float("inf"), dtype=f.dtype, device=f.device))
+    perm = lex_sort_perm(((g.to(_I64), "i"), (_total_order_f64(v), "i")))
+    v_s = v[perm]
+    del perm
+    ones = torch.ones(g.shape[0], dtype=_I64, device=g.device)
+    cnt_all = _seg_apply("sum", ones, g, ns, ns)
+    offs_all = torch.cat([torch.zeros(1, dtype=_I64, device=g.device),
+                          torch.cumsum(cnt_all, 0)[:-1]])
+    cnt, offs = cnt_all[:num_segments], offs_all[:num_segments]
+    posf = torch.full((), q, dtype=f.dtype, device=f.device) \
+        * (cnt - 1).clamp_min(0).to(f.dtype)
+    lo = torch.floor(posf).to(_I64)
+    hi = torch.ceil(posf).to(_I64)
+    frac = posf - lo.to(f.dtype)
+    n = v_s.shape[0]
+
+    def take(i):
+        return v_s[(offs + i).clamp(0, max(n - 1, 0))]
+
+    vlo, vhi = take(lo), take(hi)
+    return vlo + (vhi - vlo) * frac, cnt > 0
+
+
+def group_first_index(gids, num_segments, mask=None):
+    """Representative (first) source-row index (int32) per group; empty
+    groups hold the int32 maximum."""
+    n = gids.shape[0]
+    g, ns = _route(gids, num_segments, mask)
+    idx = torch.arange(n, dtype=torch.int32, device=gids.device)
+    return _seg_apply("min", idx, g, ns, num_segments)
 
 
 def np_result_dtype(op: str, src: np.dtype) -> np.dtype:

@@ -171,6 +171,77 @@ def neighbor_flags(sorted_ops, kinds) -> torch.Tensor:
     return neq
 
 
+def dense_rank(keyops: KeyOps):
+    """Rank rows by their key tuple: ``(gids, n_groups)`` with ``gids[i]``
+    the 0-based dense rank of row i's key (ids ordered like the keys) and
+    ``n_groups`` a 0-dim int32 device tensor.  One stable lexicographic
+    sort (:func:`lex_sort_perm`), boundary flags over the sorted words,
+    a prefix sum and one scatter back to source order."""
+    n = keyops.n
+    dev = keyops.ops[0].device
+    if n == 0:
+        return (torch.zeros(0, dtype=torch.int32, device=dev),
+                torch.zeros((), dtype=torch.int32, device=dev))
+    words = sort_words(keyops)
+    perm = lex_sort_perm(words)
+    flags = neighbor_flags([w[perm] for w, _ in words],
+                           [k for _, k in words])
+    gid_sorted = torch.cumsum(flags, 0, dtype=torch.int32)
+    del flags
+    gids = torch.empty(n, dtype=torch.int32, device=dev)
+    gids[perm] = gid_sorted
+    return gids, gid_sorted[-1] + 1
+
+
+def row_neq_prev(datas, validities=None, narrow32=None) -> torch.Tensor:
+    """(n,) bool: row i's key tuple differs from row i-1's (row 0 ->
+    False).  Null-aware (null == null, null != value) and float-total
+    (NaN == NaN, -0.0 == 0.0): the dense rank's equality, computed on
+    adjacent rows of an already-grouped table (no sort).  ``narrow32[i]``
+    compares a 64-bit integer column as int32."""
+    n = datas[0].shape[0]
+    dev = datas[0].device
+    neq = torch.zeros(max(n - 1, 0), dtype=torch.bool, device=dev)
+    for i, d in enumerate(datas):
+        if d.dtype.is_floating_point:
+            d = _canon_float(d)
+            kind = "f"
+        else:
+            if narrow32 is not None and bool(narrow32[i]) \
+                    and d.dtype.itemsize == 8:
+                d = d.to(torch.int32)
+            kind = "i"
+        dn = op_neq(d[1:], d[:-1], kind)
+        v = validities[i] if validities is not None else None
+        if v is not None:
+            dn = (v[1:] != v[:-1]) | (dn & v[1:] & v[:-1])
+        neq = neq | dn
+    return torch.cat([torch.zeros(min(n, 1), dtype=torch.bool, device=dev),
+                      neq])
+
+
+def grouped_gids(datas, validities, mask, narrow32=None):
+    """Dense group ids of an already-grouped shard (equal keys
+    contiguous): boundary flags and a prefix sum, no sort.  Returns
+    ``(gids, n_groups, first)``; padding rows get id ``n`` (the caller
+    routes them), ``first`` marks each group's first live row and
+    ``n_groups`` is a 0-dim int32 device tensor."""
+    n = datas[0].shape[0]
+    bnd = row_neq_prev(datas, validities, narrow32)
+    bnd[:1] = True
+    bnd &= mask
+    gid = torch.cumsum(bnd, 0, dtype=torch.int32) - 1
+    return torch.where(mask, gid, n), count_groups(gid, mask), bnd
+
+
+def count_groups(gid, mask) -> torch.Tensor:
+    """0-dim int32 device tensor: one more than the largest live group id
+    (0 when no row is live)."""
+    if not gid.numel():
+        return torch.zeros((), dtype=torch.int32, device=gid.device)
+    return (torch.where(mask, gid, -1).max() + 1).to(torch.int32)
+
+
 def _rows_cmp_splitters(keyops: KeyOps, splitter_ops: tuple):
     """(gt, eq) (n, S) bool pairs: row i's key tuple strictly greater than
     / equal to splitter j's under the operand order."""
@@ -185,6 +256,14 @@ def _rows_cmp_splitters(keyops: KeyOps, splitter_ops: tuple):
         gt = gt | (eq & op_gt(a, b, kind))
         eq = eq & op_eq(a, b, kind)
     return gt, eq
+
+
+def rows_gt_splitters(keyops: KeyOps, splitter_ops: tuple) -> torch.Tensor:
+    """(n, S) bool: row i's key tuple strictly greater than splitter j's
+    (the sample sort's range assignment: a row's destination is the
+    number of splitters strictly below it)."""
+    gt, _ = _rows_cmp_splitters(keyops, splitter_ops)
+    return gt
 
 
 def rows_ge_splitters(keyops: KeyOps, splitter_ops: tuple) -> torch.Tensor:

@@ -1,8 +1,8 @@
 """Shared plumbing for the table-level operators (port of the subset of
-``cylon_tpu/relational/common.py`` the join→groupby path reads): the
-bounded prediction cache, per-shard liveness masks, int32-narrowing
-flags, lane specs, key promotion, result-table assembly and the
-same-world check."""
+``cylon_tpu/relational/common.py`` the join, groupby and sort read): the
+bounded prediction cache, per-shard liveness masks, sample positions,
+int32-narrowing flags, lane specs, key promotion, result-table assembly
+and the same-world check."""
 
 from __future__ import annotations
 
@@ -43,6 +43,16 @@ def live_mask(vc, cap: int, device) -> torch.Tensor:
     if len(vc) == 1:
         return pos < int(vc[0])
     return torch.cat([pos < int(v) for v in vc])
+
+
+def sample_positions(n: int, m: int, cap: int) -> np.ndarray:
+    """``m`` evenly spaced in-range row positions (int32) over a live
+    prefix of ``n`` rows, computed with the reference's float32 stride
+    (``max(n, 1) / m``, then ``arange(m) * stride`` truncated), so both
+    packages sample the same rows.  Host-side: ``n`` is a host count."""
+    stride = np.float32(max(int(n), 1)) / np.float32(m)
+    idx = (np.arange(m, dtype=np.float32) * stride).astype(np.int32)
+    return np.clip(idx, 0, cap - 1)
 
 
 def fits_int32(c: Column) -> bool:

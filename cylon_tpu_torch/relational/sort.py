@@ -1,24 +1,42 @@
-"""Local sort of a table (port of ``local_sort_table`` of
-``cylon_tpu/relational/sort.py``).
+"""Table-level sort: the local multi-key sort and the distributed sample
+sort (port of ``cylon_tpu/relational/sort.py``).
 
-Only :func:`local_sort_table` is ported: the pipelined join sorts its
-build side by key and its probe side by range id with it, each shard on
-its own (no exchange).  The
-distributed sample sort and the hashed-string lexical sort are slice 8 of
-ROADMAP.md Queue 1.
+:func:`sort_table` at world size W > 1 is the reference's sample sort:
+sample each shard's key operands at evenly spaced positions (after a
+local sort first with ``method="regular"``), pick W - 1 splitters on the
+host from the W·m samples (one batched pull), send each row to the number
+of splitters strictly below it, exchange the rows in (source rank, source
+position) order (relational/repart.exchange_by_targets) and sort each
+shard locally.  At world size 1 it is one local sort.  The output is
+globally sorted, so ``grouped_by = by``.
+
+:func:`local_sort_table` sorts each shard on its own (the pipelined join
+sorts its build side by key and its probe side by range id with it).
+
+Not ported: the reference's lexical sort of hashed (high-cardinality)
+string keys, ``_expand_hashed_string_keys``: the port has no hashed
+strings yet (slice 8 of ROADMAP.md Queue 1), so every string key here is
+a sorted dictionary whose codes order like its strings.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from .. import config
 from ..core.column import Column
 from ..core.table import Table
 from ..ops import pack
 from ..ops.sort import sort_permutation, take_data
+from ..parallel import shuffle
 from ..parallel.shards import map_shards, shard
 from ..status import InvalidError
-from .common import PAD_L, live_mask, narrow32_flags
+from ..utils import timing
+from ..utils.host import host_arrays
+from .common import (PAD_L, col_arrays, live_mask, narrow32_flags,
+                     sample_positions)
+from .repart import exchange_by_targets
 
 
 def _norm_dirs(by, ascending):
@@ -65,3 +83,107 @@ def local_sort_table(table: Table, by, ascending=True,
     cols = {n: Column(d, c.type, v, c.dictionary, bounds=c.bounds)
             for (n, c), (d, v) in zip(items, sorted_cols)}
     return Table(cols, table.env, table.valid_counts)
+
+
+def _sample_fn(vc, w: int, cap: int, m: int, by_datas, by_valids,
+               descendings, npos, narrow):
+    """Every shard's key operands (no liveness operand) at ``m`` evenly
+    spaced positions of its live prefix, pulled in one batch: ``(W·m,)``
+    host arrays per operand, and the ``(W·m,)`` liveness of the samples
+    (a shard with no live row contributes none)."""
+    pos = np.concatenate([sample_positions(int(vc[r]), m, cap) + r * cap
+                          for r in range(w)]).astype(np.int64)
+    idx = torch.from_numpy(pos).to(by_datas[0].device)
+    datas = [d[idx] for d in by_datas]
+    valids = [None if v is None else v[idx] for v in by_valids]
+    ko = pack.key_operands(datas, valids, descendings=list(descendings),
+                           nulls_position=npos, narrow32=narrow)
+    live = np.repeat(np.asarray(vc) > 0, m)
+    return host_arrays(list(ko.ops)), live
+
+
+def _pick_splitters(sample_ops, live, w: int):
+    """Host-side splitter selection: sort the W·m sampled operand rows
+    (live first), take W - 1 evenly spaced rows of the live prefix.  Any
+    choice of sample rows gives a correct partition (rows meet the
+    splitters on the device under the same total order); the choice only
+    affects balance, so numpy's NaN-last lexsort serves."""
+    n_live = int(live.sum())
+    cols = [~live] + list(sample_ops)
+    order = np.lexsort(tuple(reversed(cols)))
+    take = [order[min(max((n_live * j) // w, 0), max(n_live - 1, 0))]
+            for j in range(1, w)]
+    take = np.asarray(take, np.int64)
+    return tuple(o[take] for o in sample_ops)
+
+
+def _target_fn(vc, cap: int, by_datas, by_valids, splitters, descendings,
+               npos, narrow) -> torch.Tensor:
+    """Per-row destination rank (int32) = the number of splitters strictly
+    below the row; padding rows get W.  Elementwise, so one pass serves
+    every shard."""
+    w = len(vc)
+    dev = by_datas[0].device
+    ko = pack.key_operands(list(by_datas), list(by_valids),
+                           descendings=list(descendings),
+                           nulls_position=npos, narrow32=narrow)
+    sops = tuple(torch.from_numpy(np.ascontiguousarray(s)).to(dev)
+                 for s in splitters)
+    tgt = pack.rows_gt_splitters(ko, sops).sum(dim=1, dtype=torch.int32)
+    del ko
+    return torch.where(live_mask(vc, cap, dev), tgt,
+                       torch.full((), w, dtype=torch.int32, device=dev))
+
+
+def sort_table(table: Table, by, ascending=True,
+               nulls_position: str = "last", num_samples: int = 0,
+               method: str = "initial") -> Table:
+    """Sort ``table`` globally by key columns ``by`` (stable within each
+    shard; ``ascending`` a bool or one per key; nulls ``"first"`` or
+    ``"last"``).
+
+    ``method``: ``"initial"`` samples the unsorted shards, range-
+    partitions and sorts once; ``"regular"`` sorts each shard first and
+    samples the sorted runs (evenly spaced positions of a sorted shard
+    are its exact quantiles), then sorts again after the exchange.
+    ``num_samples`` per shard, 0 for ``config.sort_samples(W)``."""
+    by = [by] if isinstance(by, str) else list(by)
+    if not by:
+        raise InvalidError("sort needs at least one key column")
+    if method not in ("initial", "regular"):
+        raise InvalidError("sort method must be 'initial' or 'regular'")
+    env = table.env
+    descendings = _norm_dirs(by, ascending)
+    npos = pack.NULL_FIRST if nulls_position == "first" else pack.NULL_LAST
+    w = env.world_size
+    if w > 1 and table.row_count > 0:
+        if method == "regular":
+            # quantile-exact splitter samples come from the SORTED shards
+            with timing.region("sort.local"):
+                table = local_sort_table(table, by, ascending,
+                                         nulls_position)
+        by_cols = [table.column(n) for n in by]
+        by_datas, by_valids = col_arrays(by_cols)
+        narrow = narrow32_flags(by_cols)
+        vc = np.asarray(table.valid_counts, np.int64)
+        cap = table.capacity
+        if num_samples <= 0:
+            num_samples = config.sort_samples(w)
+        m = min(max(cap, 1), num_samples)
+        with timing.region("sort.sample"):
+            sample_ops, live = _sample_fn(vc, w, cap, m, by_datas,
+                                          by_valids, descendings, npos,
+                                          narrow)
+            splitters = _pick_splitters(sample_ops, live, w)
+            tgt = _target_fn(vc, cap, by_datas, by_valids, splitters,
+                             descendings, npos, narrow)
+        with timing.region("sort.exchange"):
+            counts = shuffle.count_targets(env, tgt)
+            table = exchange_by_targets(table, tgt, counts)
+            del tgt
+    with timing.region("sort.local"):
+        out = local_sort_table(table, by, ascending, nulls_position)
+    # globally sorted by the keys: equal keys contiguous per shard and,
+    # through the range partition, co-located across shards
+    out.grouped_by = tuple(by)
+    return out

@@ -293,10 +293,130 @@ def test_refusals(penv):
         pct.pipelined_join(t, t, "k", "k", how="cross", n_chunks=2)
     with pytest.raises(pct.InvalidError):
         pct.GroupBySink("k", [("v", "median")])
-    # a sink keyed off the join keys needs the cross-piece combine
+    # a sink keyed off the join keys combines across pieces (ported): it
+    # is refused no longer
     u = pct.Table.from_pydict({"k": np.arange(10), "g": np.arange(10) % 3,
                                "w": np.arange(10)}, penv)
     sink = pct.GroupBySink("g", [("v", "sum")])
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        pct.pipelined_join(u, t, "k", "k", n_chunks=2, sink=sink)
-        sink.finalize()
+    pct.pipelined_join(u, t, "k", "k", n_chunks=2, sink=sink)
+    out = sink.finalize().to_pydict()
+    np.testing.assert_array_equal(out["g"], [0, 1, 2])
+    np.testing.assert_array_equal(out["v_sum"], [18, 12, 15])
+
+
+# ---------------------------------------------------------------------------
+# non-disjoint sinks: groups that span pieces combine through the
+# sort-based groupby (inner joins; tests/test_pipeline.py's cases)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def worlds4(env4):
+    from cylon_tpu_torch.ctx.context import VirtualMeshConfig
+    return {1: None, 4: (env4, pct.CylonEnv(VirtualMeshConfig(4),
+                                            device="cpu"))}
+
+
+def _world(w, env1, penv, worlds4, monkeypatch):
+    """(reference env, port env) at world size ``w``, the reference on its
+    plain hash plan (the port's) at W > 1."""
+    if w == 1:
+        return env1, penv
+    monkeypatch.setattr(rconfig, "SKEW_SPLIT", False)
+    monkeypatch.setattr(rconfig, "BROADCAST_JOIN_ROWS", 0)
+    return worlds4[w]
+
+
+def _pipe_frames(seed=3, n=3000):
+    rng = np.random.default_rng(seed)
+    ldf = pd.DataFrame({"k": rng.integers(0, 250, n).astype(np.int64),
+                        "g": rng.integers(0, 7, n).astype(np.int64),
+                        "a": rng.integers(0, 50, n).astype(np.int64)})
+    rdf = pd.DataFrame({"k": rng.integers(100, 350, n // 2).astype(np.int64),
+                        "b": rng.integers(0, 50, n // 2).astype(np.int64)})
+    return ldf, rdf
+
+
+@pytest.mark.parametrize("w", [4])
+def test_sink_callable_partials_combine(env1, penv, worlds4, monkeypatch,
+                                        w):
+    """A plain callable sink: per-piece groupbys, concatenated and
+    combined by one more groupby over the partials
+    (tests/test_pipeline.py::test_pipelined_groupby_sink_combines)."""
+    from cylon_tpu.relational import concat_tables as r_concat
+    from cylon_tpu.relational import groupby_aggregate as r_groupby
+    from cylon_tpu_torch.relational.repart import concat_tables as p_concat
+    renv, penv_w = _world(w, env1, penv, worlds4, monkeypatch)
+    ldf, rdf = _pipe_frames()
+    rl, rr = rct.Table.from_pandas(ldf, renv), rct.Table.from_pandas(rdf,
+                                                                     renv)
+    pl, pr = pct.Table.from_pandas(ldf, penv_w), pct.Table.from_pandas(
+        rdf, penv_w)
+    aggs = [("a", "sum"), ("b", "sum")]
+    combine = [("a_sum", "sum"), ("b_sum", "sum")]
+    rparts = r_pipe(rl, rr, "k", "k", n_chunks=3,
+                    sink=lambda c: r_groupby(c, "k", aggs))
+    pparts = pct.pipelined_join(pl, pr, "k", "k", n_chunks=3,
+                                sink=lambda c: pct.groupby_aggregate(
+                                    c, "k", aggs))
+    rg = r_groupby(r_concat(rparts), "k", combine)
+    pg = pct.groupby_aggregate(p_concat(pparts), "k", combine)
+    _assert_same(rg, pg)
+    np.testing.assert_array_equal(pg.valid_counts, rg.valid_counts)
+    assert pg.capacity == rg.capacity and pg.grouped_by == rg.grouped_by
+
+
+@pytest.mark.parametrize("w", [1, 4])
+def test_sink_overlapping_chunks(env1, penv, worlds4, monkeypatch, w):
+    """var/std/mean combined across chunks that SHARE keys, fed by hand
+    (tests/test_pipeline.py::TestGroupBySink::
+    test_sink_var_overlapping_chunks).  Float results to the stated
+    tolerance of tests/test_torch_groupby_sort.py."""
+    from test_torch_groupby_sort import _scale, assert_same
+    renv, penv_w = _world(w, env1, penv, worlds4, monkeypatch)
+    rng = np.random.default_rng(4)
+    df = pd.DataFrame({"k": rng.integers(0, 40, 3000).astype(np.int64),
+                       "v": rng.random(3000),
+                       "i": rng.integers(-50, 50, 3000)})
+    aggs = [("v", "var"), ("v", "std"), ("v", "mean"), ("i", "min"),
+            ("i", "max"), ("i", "count"), ("i", "sum")]
+    rs, ps = RSink("k", aggs), pct.GroupBySink("k", aggs)
+    for lo, hi in ((0, 1000), (1000, 2600), (2600, 3000)):
+        rs(rct.Table.from_pandas(df.iloc[lo:hi], renv))
+        ps(pct.Table.from_pandas(df.iloc[lo:hi], penv_w))
+    assert not ps._disjoint
+    rg, pg = rs.finalize(), ps.finalize()
+    assert pg.grouped_by is None
+    rg.grouped_by = None
+    assert_same(rg, pg, _scale(df))
+
+
+@pytest.mark.parametrize("w", [1, 4])
+def test_sink_non_key_by_combines_across_pieces(env1, penv, worlds4,
+                                                monkeypatch, w):
+    """A GroupBySink keyed on a payload column: its groups span pieces,
+    so the sink combines through the sort-based groupby
+    (tests/test_pipeline.py::TestPipelinedGroupBySinkHow::
+    test_sink_non_key_by_combines_across_chunks, inner)."""
+    from cylon_tpu.relational import groupby_aggregate as r_groupby
+    renv, penv_w = _world(w, env1, penv, worlds4, monkeypatch)
+    ldf, rdf = _pipe_frames(5)
+    rl, rr = rct.Table.from_pandas(ldf, renv), rct.Table.from_pandas(rdf,
+                                                                     renv)
+    pl, pr = pct.Table.from_pandas(ldf, penv_w), pct.Table.from_pandas(
+        rdf, penv_w)
+    aggs = [("a", "sum"), ("b", "mean"), ("b", "max"), ("a", "count")]
+    rs, ps = RSink("g", aggs), pct.GroupBySink("g", aggs)
+    r_pipe(rl, rr, "k", "k", how="inner", n_chunks=4, sink=rs)
+    pct.pipelined_join(pl, pr, "k", "k", how="inner", n_chunks=4, sink=ps)
+    assert not ps._disjoint
+    rg, pg = rs.finalize(), ps.finalize()
+    _assert_same(rg, pg)
+    np.testing.assert_array_equal(pg.valid_counts, rg.valid_counts)
+    assert pg.capacity == rg.capacity
+    # and the monolithic port join -> sort-based groupby on g
+    mono = pct.groupby_aggregate(pct.join_tables(pl, pr, "k", "k"), "g",
+                                 aggs).to_pandas()
+    got = pg.to_pandas()
+    pd.testing.assert_frame_equal(
+        got.sort_values("g").reset_index(drop=True),
+        mono.sort_values("g").reset_index(drop=True))

@@ -206,8 +206,12 @@ def test_windowed_route_and_win_ok_redispatch(env1, penv, monkeypatch,
 
 def test_refusals(penv):
     t = pct.Table.from_pydict({"k": np.arange(10), "v": np.arange(10)}, penv)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        pct.groupby_aggregate(t, "k", [("v", "sum")])
+    # a plain table's groupby takes the sort-based groupby (ported); a
+    # single DataFrame column would be a Series, which is not
+    out = pct.groupby_aggregate(t, "k", [("v", "sum")]).to_pydict()
+    np.testing.assert_array_equal(out["v_sum"], np.arange(10))
+    with pytest.raises(NotImplementedError, match="slice 9"):
+        pct.DataFrame(t)["v"]
     with pytest.raises(NotImplementedError, match="slice 4"):
         pct.join_tables(t, t, "k", "k", how="left")
     with pytest.raises(pct.InvalidError):
@@ -241,7 +245,8 @@ def test_import_boundary():
         "import cylon_tpu_torch.kernels, chip_smoke\n"
         "import cylon_tpu_torch.exec.pipeline, cylon_tpu_torch.exec.memory\n"
         "import cylon_tpu_torch.relational.piece\n"
-        "import cylon_tpu_torch.relational.sort\n"
+        "import cylon_tpu_torch.relational.sort, cylon_tpu_torch.frame\n"
+        "import cylon_tpu_torch.relational.groupby\n"
         "import cylon_tpu_torch.relational.repart\n"
         "import cylon_tpu_torch.ops.splitter_probe, cylon_tpu_torch.ops.sort\n"
         "import cylon_tpu_torch.utils.timing\n"
