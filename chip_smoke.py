@@ -67,6 +67,34 @@ each against a numpy oracle:
 * ``exchange_gather``: the exchange's row gather on a 4-lane matrix,
   timed beside other forms of the same gather.
 
+Then the join types, the broadcast route and the N-way join:
+
+* ``left_join_path``: the BASELINE tables at ``--rows`` per side on a
+  W = 4 world through ``DataFrame(left).merge(DataFrame(right), on="k",
+  how="left").groupby("k").sum()``: best of 3 after a warm-up, rows/s,
+  peak memory, phase split (shuffle, ``join.sort_count``,
+  ``join.materialize``, the groupby), a profile and the device idle
+  share; K1 and K2 must not launch (a left join defers nothing);
+* ``outer_pipelined_path``: the same tables through ``pipelined_join(
+  how="outer", n_chunks=2)`` into a ``GroupBySink`` on ``k``, timed the
+  same way; K2 launches once per shard per iteration and is held
+  bit-equal to its plain version on shard 0's inputs;
+* ``joins_small``: 1M rows per side at W = 1, 3, 4 and 8 — every ``how``
+  through ``join_tables``; left, right and outer through
+  ``pipelined_join`` (n_chunks 3) with and without a ``GroupBySink``; a
+  nullable key and a two-column key; the broadcast route with a small
+  right side (inner, left, semi, anti) and a small left side (inner,
+  right); semi and anti on a probe side where one key holds 40% of the
+  rows (the heavy-key spread); ``join_tables_multi`` over three tables,
+  inner and left; unsigned min/max and descending sorts, a join with an
+  empty side and a groupby of an empty table.  The oracle counts each
+  key's rows on both sides with ``np.bincount``; semi and anti rows are
+  checked with ``np.isin``, in source order on each shard;
+* ``broadcast_path``: a star-schema lookup at W = 4 — ``--fact-rows``
+  fact rows (default 125M) over 72,818 keys left-joined to a 65,536-row
+  dimension table, then a groupby-sum; the dimension table replicates
+  and the fact table never shuffles.
+
 Each route's kernel counts are set to 0 just before it and read just
 after.  Prints one JSON line per phase, then the kernel summary line, then
 the card's name and power limit as nvidia-smi reports them, and last
@@ -1246,12 +1274,551 @@ def exchange_gather_forms(dev, rows: int = 15_728_640, seed: int = 5) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# the join types, the broadcast route and the N-way join
+# ---------------------------------------------------------------------------
+
+JOIN_HOWS = ("inner", "left", "right", "outer")
+#: the materializing join's phases and the timing regions that hold them
+JOIN_PHASES = {"shuffle": "join.shuffle", "sort_count": "join.sort_count",
+               "materialize": "join.materialize"}
+
+
+def how_oracle(lk, a, rk, b, n_keys: int, how: str) -> dict:
+    """The ``how`` join of {k: lk, a} with {k: rk, b}, per key id in
+    [0, n_keys): its output rows, and over the valid payloads the sum and
+    count of ``a`` and of ``b`` (int64; the float64 bincounts stay exact
+    below 2^53, checked).  A matched key gives L·R rows; an unmatched
+    left (right) key gives L (R) rows with a null ``b`` (``a``) where the
+    join type keeps it."""
+    L = np.bincount(lk, minlength=n_keys)
+    R = np.bincount(rk, minlength=n_keys)
+    sa = np.bincount(lk, a, minlength=n_keys)
+    sb = np.bincount(rk, b, minlength=n_keys)
+    if max(sa.max() * max(R.max(), 1), sb.max() * max(L.max(), 1)) \
+            >= 2.0 ** 53:
+        raise AssertionError("oracle sums leave the exact float64 range")
+    SA, SB = sa.astype(np.int64), sb.astype(np.int64)
+    both = (L > 0) & (R > 0)
+    lonly = (L > 0) & (R == 0) & (how in ("left", "outer"))
+    ronly = (L == 0) & (R > 0) & (how in ("right", "outer"))
+    LR = np.where(both, L * R, 0)
+    return {"rows": LR + np.where(lonly, L, 0) + np.where(ronly, R, 0),
+            "sa": np.where(both, SA * R, 0) + np.where(lonly, SA, 0),
+            "ca": LR + np.where(lonly, L, 0),
+            "sb": np.where(both, SB * L, 0) + np.where(ronly, SB, 0),
+            "cb": LR + np.where(ronly, R, 0)}
+
+
+def key_ids(host, n_keys: int, second=None) -> np.ndarray:
+    """Key id of each output row: ``k`` (a null key the last id), or
+    ``k·4 + second`` for the two-column key."""
+    k, kv = host["k"]
+    if second is not None:
+        k = k * 4 + host[second][0]
+    return k if kv is None else np.where(kv, k, n_keys - 1)
+
+
+def check_join(out, orc, label: str, second=None) -> int:
+    """A join's output rows against :func:`how_oracle`: per key, the rows
+    and the sums and counts of the valid payloads."""
+    host = out.host_columns()
+    n_keys = len(orc["rows"])
+    kid = key_ids(host, n_keys, second)
+    got = {"rows": np.bincount(kid, minlength=n_keys)}
+    for col, s, c in (("a", "sa", "ca"), ("b", "sb", "cb")):
+        d, v = host[col]
+        v = np.ones(len(d), bool) if v is None else v
+        got[s] = np.bincount(kid[v], d[v], minlength=n_keys).astype(np.int64)
+        got[c] = np.bincount(kid[v], minlength=n_keys)
+    for name, want in orc.items():
+        if not np.array_equal(got[name], want):
+            raise AssertionError(f"{label}: per-key {name} differs from the "
+                                 "numpy oracle")
+    return int(orc["rows"].sum())
+
+
+def check_join_sums(g, orc, label: str, names=("a_sum", "b_sum")) -> int:
+    """A join→groupby-sum on the key against :func:`how_oracle`: one row
+    per key the join emits, sums over the valid payloads (an all-null
+    group sums to 0, a valid 0, as the reference sums it)."""
+    host = g.host_columns()
+    k = host["k"][0]
+    order = np.argsort(k, kind="stable")
+    if not np.array_equal(k[order], np.nonzero(orc["rows"] > 0)[0]):
+        raise AssertionError(f"{label}: group keys differ from the oracle")
+    for name, want in zip(names, ("sa", "sb")):
+        d, v = host[name]
+        if v is not None and not v.all():
+            raise AssertionError(f"{label}: {name} has null groups")
+        if not np.array_equal(d[order], orc[want][orc["rows"] > 0]):
+            raise AssertionError(f"{label}: {name} differs from the oracle")
+    return len(k)
+
+
+def check_semi(out, match, lk, how: str, label: str) -> int:
+    """A semi/anti join's output: exactly the left rows (by row id ``i``)
+    whose key has (has no) match, each shard's rows in source order (the
+    exchange keeps (source rank, source position) order)."""
+    i = out.host_columns()["i"][0]
+    want = np.nonzero(match[lk] == (how == "semi"))[0]
+    if not np.array_equal(np.sort(i), want):
+        raise AssertionError(f"{label}: rows differ from np.isin's")
+    bounds = np.concatenate([[0], np.cumsum(out.valid_counts)])
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        if hi - lo > 1 and not bool(np.all(np.diff(i[lo:hi]) > 0)):
+            raise AssertionError(f"{label}: a shard's rows out of order")
+    return len(i)
+
+
+def joins_small_inputs(n: int, seed: int = 11) -> dict:
+    """joins_small's host columns: bench.py-like keys uniform in
+    [0, 0.9 n) on both sides with int64 payloads and a left row id;
+    validity masks (1% null) for the nullable-key case; a second key
+    column in [0, 4); a left key column where one key holds 40% of the
+    rows; a 1,000-row side for the broadcast route; a third table (n/4
+    rows) for the N-way join; and unsigned columns for the repairs."""
+    rng = np.random.default_rng(seed)
+    mv = max(int(n * 0.9), 1)
+    d = {"mv": mv, "lk": rng.integers(0, mv, n), "a": rng.integers(0, mv, n),
+         "rk": rng.integers(0, mv, n), "b": rng.integers(0, mv, n),
+         "lvalid": rng.random(n) > 0.01, "rvalid": rng.random(n) > 0.01,
+         "lc": rng.integers(0, 4, n), "rc": rng.integers(0, 4, n),
+         "sk": rng.integers(0, mv, 1000), "sv": rng.integers(0, mv, 1000),
+         "ck": rng.integers(0, mv, n // 4), "cv": rng.integers(0, mv, n // 4),
+         "g": rng.integers(0, 50, n)}
+    skew = d["lk"].copy()
+    skew[rng.random(n) < 0.4] = 7
+    d["lk_skew"] = skew
+    for bits in (16, 32, 64):
+        top = (1 << bits) - 1
+        u = rng.integers(0, top, n, dtype=np.uint64, endpoint=True)
+        u[:2] = (0, top)
+        d[f"u{bits}"] = u.astype(f"uint{bits}")
+    d["uvalid"] = d["g"] != 7            # group 7: every value null
+    return d
+
+
+def joins_small_world(ct, d: dict, w: int, device=None) -> dict:
+    """Every check of joins_small at world size ``w`` (module docstring);
+    returns the counts of what ran."""
+    from cylon_tpu_torch.core.dtypes import LogicalType
+    from cylon_tpu_torch.ctx.context import VirtualMeshConfig
+    from cylon_tpu_torch.parallel import shuffle as pshuf
+    from cylon_tpu_torch.utils import timing
+    env = ct.CylonEnv(VirtualMeshConfig(w), device=device)
+    n, mv = len(d["lk"]), d["mv"]
+    rid = np.arange(n, dtype=np.int64)
+    lt = ct.Table.from_pydict({"k": d["lk"], "a": d["a"], "i": rid}, env)
+    rt = ct.Table.from_pydict({"k": d["rk"], "b": d["b"]}, env)
+    rec = {"world": w}
+    orcs = {how: how_oracle(d["lk"], d["a"], d["rk"], d["b"], mv, how)
+            for how in JOIN_HOWS}
+    for how in JOIN_HOWS:
+        check_join(ct.join_tables(lt, rt, "k", "k", how=how), orcs[how],
+                   f"joins_small W={w} {how}")
+    match = np.bincount(d["rk"], minlength=mv) > 0
+    for how in ("semi", "anti"):
+        check_semi(ct.join_tables(lt, rt, "k", "k", how=how), match,
+                   d["lk"], how, f"joins_small W={w} {how}")
+    for how in ("left", "right", "outer"):
+        check_join(ct.pipelined_join(lt, rt, "k", "k", how=how, n_chunks=3),
+                   orcs[how], f"joins_small W={w} pipelined {how}")
+        sink = ct.GroupBySink("k", [("a", "sum"), ("b", "sum")])
+        ct.pipelined_join(lt, rt, "k", "k", how=how, n_chunks=3, sink=sink)
+        check_join_sums(sink.finalize(), orcs[how],
+                        f"joins_small W={w} pipelined {how} sink")
+    rec["hows"] = list(JOIN_HOWS) + ["semi", "anti"]
+    rec["pipelined_hows"] = ["left", "right", "outer"]
+
+    # a nullable key (null matches null) and a two-column key
+    def keyed(k, valid, **cols):
+        key = ct.Column(k, LogicalType.INT64, valid,
+                        bounds=(int(k.min()), int(k.max())))
+        return ct.Table.from_host_columns(
+            {"k": key, **{c: ct.Column.from_numpy(v)
+                          for c, v in cols.items()}}, env)
+    ltn = keyed(d["lk"], d["lvalid"], a=d["a"])
+    rtn = keyed(d["rk"], d["rvalid"], b=d["b"])
+    lkn = np.where(d["lvalid"], d["lk"], mv)
+    rkn = np.where(d["rvalid"], d["rk"], mv)
+    for how in ("inner", "outer"):
+        check_join(ct.join_tables(ltn, rtn, "k", "k", how=how),
+                   how_oracle(lkn, d["a"], rkn, d["b"], mv + 1, how),
+                   f"joins_small W={w} nullable key {how}")
+    lt2 = ct.Table.from_pydict({"k": d["lk"], "c": d["lc"], "a": d["a"]},
+                               env)
+    rt2 = ct.Table.from_pydict({"k": d["rk"], "c": d["rc"], "b": d["b"]},
+                               env)
+    for how in ("inner", "left"):
+        check_join(ct.join_tables(lt2, rt2, ["k", "c"], ["k", "c"], how=how),
+                   how_oracle(d["lk"] * 4 + d["lc"], d["a"],
+                              d["rk"] * 4 + d["rc"], d["b"], mv * 4, how),
+                   f"joins_small W={w} two-column key {how}", second="c")
+    del ltn, rtn, lt2, rt2
+
+    # the broadcast route: a 1,000-row side against n rows
+    small_r = ct.Table.from_pydict({"k": d["sk"], "b": d["sv"]}, env)
+    small_l = ct.Table.from_pydict({"k": d["sk"], "a": d["sv"]}, env)
+    smatch = np.bincount(d["sk"], minlength=mv) > 0
+    routes = []
+    for lhs, rhs, how in [(lt, small_r, h) for h in ("inner", "left", "semi",
+                                                      "anti")] \
+            + [(small_l, rt, h) for h in ("inner", "right")]:
+        timing.reset()
+        out = ct.join_tables(lhs, rhs, "k", "k", how=how)
+        label = f"joins_small W={w} broadcast {how}"
+        if how in ("semi", "anti"):
+            check_semi(out, smatch, d["lk"], how, label)
+        elif lhs is lt:
+            check_join(out, how_oracle(d["lk"], d["a"], d["sk"], d["sv"], mv,
+                                       how), label)
+        else:
+            check_join(out, how_oracle(d["sk"], d["sv"], d["rk"], d["b"], mv,
+                                       how), label)
+        taken = timing.counts().get("join.broadcast", 0)
+        if taken != int(w > 1) or (w > 1 and out.grouped_by is not None):
+            raise AssertionError(f"{label}: route taken {taken} times, "
+                                 f"grouped_by {out.grouped_by}")
+        routes.append(f"{'right' if lhs is lt else 'left'}-{how}")
+    rec["broadcast"] = routes
+
+    # semi and anti on a probe side where one key holds 40% of the rows
+    lts = ct.Table.from_pydict({"k": d["lk_skew"], "a": d["a"], "i": rid},
+                               env)
+    spread = []
+    orig = pshuf.skew_targets
+    pshuf.skew_targets = lambda *x: spread.append(1) or orig(*x)
+    try:
+        for how in ("semi", "anti"):
+            check_semi(ct.join_tables(lts, rt, "k", "k", how=how), match,
+                       d["lk_skew"], how, f"joins_small W={w} skewed {how}")
+    finally:
+        pshuf.skew_targets = orig
+    if len(spread) != (2 if w > 1 else 0):
+        raise AssertionError(f"joins_small W={w}: the semi/anti spread ran "
+                             f"{len(spread)} times")
+    rec["skewed_semi_anti_spread"] = len(spread)
+    del lts, small_l, small_r
+
+    # the N-way join of three tables
+    ct3 = ct.Table.from_pydict({"k": d["ck"], "c": d["cv"]}, env)
+    L = np.bincount(d["lk"], minlength=mv)
+    R = np.bincount(d["rk"], minlength=mv)
+    C = np.bincount(d["ck"], minlength=mv)
+    SA = np.bincount(d["lk"], d["a"], minlength=mv).astype(np.int64)
+    SC = np.bincount(d["ck"], d["cv"], minlength=mv).astype(np.int64)
+    for how in ("inner", "left"):
+        out = ct.join_tables_multi([lt, rt, ct3], ["k", "k", "k"], how=how)
+        r1, c1 = (R, C) if how == "inner" else (np.maximum(R, 1),
+                                                np.maximum(C, 1))
+        host = out.host_columns()
+        k = host["k"][0]
+        cd, cv = host["c"]
+        cv = np.ones(len(cd), bool) if cv is None else cv
+        for name, got, want in (
+                ("rows", np.bincount(k, minlength=mv), L * r1 * c1),
+                ("a", np.bincount(k, host["a"][0], minlength=mv),
+                 SA * r1 * c1),
+                ("c", np.bincount(k[cv], cd[cv], minlength=mv),
+                 SC * L * r1)):
+            if not np.array_equal(got.astype(np.int64), want):
+                raise AssertionError(f"joins_small W={w} join_tables_multi "
+                                     f"{how}: {name} differs")
+        if out.grouped_by is not None:
+            raise AssertionError("join_tables_multi: grouped_by is set")
+    rec["multi"] = ["inner", "left"]
+    del ct3
+
+    # the repairs: unsigned min/max and descending sort, an empty side,
+    # a zero-capacity groupby
+    ucols = {"g": ct.Column.from_numpy(d["g"])}
+    for bits in (16, 32, 64):
+        u = d[f"u{bits}"]
+        ucols[f"u{bits}"] = ct.Column(u, LogicalType(f"uint{bits}"),
+                                      d["uvalid"])
+    ut = ct.Table.from_host_columns(ucols, env)
+    aggs = [(f"u{bits}", op) for bits in (16, 32, 64)
+            for op in ("min", "max")]
+    host = ct.groupby_aggregate(ut, "g", aggs).host_columns()
+    order = np.argsort(host["g"][0], kind="stable")
+    gv = d["g"][d["uvalid"]]
+    for col, op in aggs:
+        u = d[col]
+        # an all-null group holds the reduction's identity
+        want = np.full(50, np.iinfo(u.dtype).max if op == "min" else 0,
+                       u.dtype)
+        (np.minimum if op == "min" else np.maximum).at(want, gv,
+                                                       u[d["uvalid"]])
+        data, valid = host[f"{col}_{op}"]
+        if not (np.array_equal(data[order], want)
+                and np.array_equal(valid[order], np.arange(50) != 7)):
+            raise AssertionError(f"joins_small W={w}: unsigned {op} of "
+                                 f"{col} differs")
+    nv = int(d["uvalid"].sum())
+    for bits in (16, 32, 64):
+        # the values descending, then the nulls (nulls_position "last")
+        got, gv = ct.sort_table(ut, f"u{bits}", ascending=False) \
+            .host_columns()[f"u{bits}"]
+        want = np.sort(d[f"u{bits}"][d["uvalid"]])[::-1]
+        if not (np.array_equal(got[:nv], want) and gv[:nv].all()
+                and not gv[nv:].any()):
+            raise AssertionError(f"joins_small W={w}: descending sort of "
+                                 f"u{bits} differs")
+    del ut
+    empty = ct.Table.from_pydict({"k": np.zeros(0, np.int64),
+                                  "a": np.zeros(0, np.int64)}, env)
+    for how, rows in (("inner", 0), ("right", n)):
+        out = ct.join_tables(empty, rt, "k", "k", how=how)
+        if out.row_count != rows or (w > 1) != (out.grouped_by is None):
+            raise AssertionError(f"joins_small W={w}: empty-side {how} join "
+                                 f"rows {out.row_count}, grouped_by "
+                                 f"{out.grouped_by}")
+    g0 = ct.groupby_aggregate(empty, "k", [("a", "sum"), ("a", "min")])
+    if g0.row_count or g0.column_names != ["k", "a_sum", "a_min"]:
+        raise AssertionError(f"joins_small W={w}: empty groupby "
+                             f"{g0.column_names}, {g0.row_count} rows")
+    rec["repairs"] = ["unsigned min/max", "unsigned descending sort",
+                      "empty side", f"capacity-{empty.capacity} groupby"]
+    return rec
+
+
+def joins_small(ct, worlds=(1, 3, 4, 8), n: int = 1_000_000,
+                device=None) -> list:
+    """Every join type, route and repair of the slice at ``n`` rows per
+    side, world by world, each against its numpy oracle."""
+    d = joins_small_inputs(n)
+    recs = []
+    for w in worlds:
+        t0 = time.perf_counter()
+        rec = joins_small_world(ct, d, w, device)
+        rec["seconds"] = time.perf_counter() - t0
+        recs.append(rec)
+    return recs
+
+
+def timed_path(label: str, query, check, phase_names: dict,
+               profile: bool = True) -> dict:
+    """Warm-up, best of 3, the peak memory, K1 and K2 launches over the
+    warm-up and the timed runs, the phase split (one more run with a
+    device wait after each timing region) and one profiled run: the
+    record of a full-size phase.  ``query(times)`` runs the phase's query
+    once (appending its seconds) and returns its result; ``check``
+    holds a result to the oracle and returns its group count."""
+    from cylon_tpu_torch.ops import splitter_probe as sp
+    from cylon_tpu_torch.ops import windowed_gather as wg
+    from cylon_tpu_torch.utils import timing
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    wg.reset_counts()
+    sp.reset_counts()
+    first, times = [], []
+    out = query(first)                          # warm-up (first sight)
+    for _ in range(3):
+        out = query(times)
+    counts = {"windowed_gather": dict(wg.COUNTS),
+              "splitter_probe": dict(sp.COUNTS)}
+    peak = torch.cuda.max_memory_allocated()
+    groups = check(out, label)
+    del out
+    timing.enable("block")
+    timing.reset()
+    split = []
+    out = query(split)
+    phases = timing.snapshot()
+    timing.enable(None)
+    check(out, f"{label} split")
+    del out
+    split_total = split[0]
+    best = min(times)
+    split = {p: phases[r] for p, r in phase_names.items() if r in phases}
+    split["rest"] = split_total - sum(split.values())
+    rec = {"first_s": first[0], "iterations": times, "best_s": best,
+           "peak_mem_bytes": peak, "groups": groups, "oracle": "equal",
+           "kernel_counts": counts, "phase_split_s": split,
+           "phase_split_regions_s": phases,
+           "phase_split_total_s": split_total}
+    if profile:
+        torch.cuda.empty_cache()
+        prof = profile_step(None, None, None, top=12,
+                            step_fn=lambda *_: query([]))
+        rec["profile"] = {
+            "device_busy_s": prof["device_busy_s"],
+            "device_idle_share_of_best": 1.0 - prof["device_busy_s"] / best,
+            "kernels_ms": prof["kernels_ms"],
+            "aten_ops_ms": prof["aten_ops_ms"]}
+    return rec
+
+
+def frame_query(lhs, rhs, how: str):
+    """``lhs.merge(rhs, on="k", how=how).groupby("k").sum()``, waited on;
+    appends its seconds to ``times``."""
+    def run(times):
+        t0 = time.perf_counter()
+        out = lhs.merge(rhs, on="k", how=how).groupby("k").sum()
+        sync_pull(out.table.column("k").data)
+        times.append(time.perf_counter() - t0)
+        return out
+    return run
+
+
+def left_join_path(ct, left, right, mv: int, device=None) -> dict:
+    """The BASELINE tables at W = 4 through ``DataFrame(left).merge(
+    DataFrame(right), on="k", how="left").groupby("k").sum()``."""
+    from cylon_tpu_torch.ctx.context import VirtualMeshConfig
+    n = len(left["k"])
+    orc = how_oracle(left["k"], left["a"], right["k"], right["b"], mv,
+                     "left")
+    env = ct.CylonEnv(VirtualMeshConfig(4), device=device)
+    t0 = time.perf_counter()
+    lhs = ct.DataFrame(left, env=env)
+    rhs = ct.DataFrame(right, env=env)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    rec = timed_path(
+        "left_join_path", frame_query(lhs, rhs, "left"),
+        lambda out, label: check_join_sums(out.table, orc, label,
+                                           ("a", "b")),
+        {**JOIN_PHASES, "groupby": "groupby.raw"})
+    del lhs, rhs, env
+    rec.update({"phase": "left_join_path", "world": 4, "rows_per_side": n,
+                "join_rows": int(orc["rows"].sum()),
+                "query": 'DataFrame(left).merge(DataFrame(right), on="k", '
+                         'how="left").groupby("k").sum()',
+                "setup_s": setup_s, "rows_per_s": 2 * n / rec["best_s"]})
+    if any(v["launches"] for v in rec["kernel_counts"].values()):
+        raise AssertionError(f"left_join_path: kernel counts "
+                             f"{rec['kernel_counts']}; a left join defers "
+                             "nothing, so neither kernel runs")
+    return rec
+
+
+def outer_pipelined_path(ct, left, right, mv: int, device=None) -> dict:
+    """The BASELINE tables at W = 4 through ``pipelined_join(how="outer",
+    n_chunks=2)`` into a ``GroupBySink`` on ``k``: K2 once per shard per
+    iteration, held bit-equal to its plain version on shard 0's inputs."""
+    from cylon_tpu_torch.ctx.context import VirtualMeshConfig
+    from cylon_tpu_torch.ops import splitter_probe as sp
+    w, n = 4, len(left["k"])
+    orc = how_oracle(left["k"], left["a"], right["k"], right["b"], mv,
+                     "outer")
+    env = ct.CylonEnv(VirtualMeshConfig(w), device=device)
+    t0 = time.perf_counter()
+    lt, rt = ct.Table.from_pydict(left, env), ct.Table.from_pydict(right,
+                                                                   env)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    def query(times):
+        t0 = time.perf_counter()
+        sink = ct.GroupBySink("k", [("a", "sum"), ("b", "sum")])
+        ct.pipelined_join(lt, rt, "k", "k", how="outer", n_chunks=2,
+                          sink=sink)
+        g = sink.finalize()
+        sync_pull(g.column("k").data)
+        times.append(time.perf_counter() - t0)
+        return g
+
+    rec = timed_path("outer_pipelined_path", query,
+                     lambda g, label: check_join_sums(g, orc, label),
+                     {"shuffle": "join.shuffle",
+                      "build_sort": "pipe.build_sort",
+                      "bounds": "pipe.bounds", "targets": "pipe.targets",
+                      "probe_sort": "pipe.probe_sort",
+                      "phase_sync": "pipe.phase_sync", "pack": "pipe.pack",
+                      "piece_join": "pipe.piece_join",
+                      "consume": "pipe.consume"})
+    k2 = rec["kernel_counts"]["splitter_probe"]["launches"]
+    if k2 != 4 * w:
+        raise AssertionError(f"outer_pipelined_path: K2 launched {k2} "
+                             f"times, expected {w} per iteration")
+    captured = {}
+    with capturing(sp, "count_ge_splitters", captured, "probe"):
+        check_join_sums(query([]), orc, "outer_pipelined_path capture run")
+    del lt, rt, env
+    torch.cuda.empty_cache()
+    rec["k2_shard0"] = k2_check(sp, "outer_pipelined_shard0",
+                                *captured.pop("probe"), timed=True)
+    rec.update({"phase": "outer_pipelined_path", "world": w,
+                "rows_per_side": n, "n_chunks": 2,
+                "join_rows": int(orc["rows"].sum()), "setup_s": setup_s,
+                "rows_per_s": 2 * n / rec["best_s"]})
+    return rec
+
+
+#: broadcast_path: a fact table over 72,818 keys joined to a 65,536-row
+#: dimension table, so about 10% of the fact rows find no dimension row
+FACT_ROWS, FACT_KEYS, DIM_ROWS = 125_000_000, 72_818, 65_536
+
+
+def broadcast_path(ct, n_fact: int = FACT_ROWS, device=None) -> dict:
+    """A star-schema lookup at W = 4: ``fact.merge(dim, on="k",
+    how="left").groupby("k").sum()``.  The dimension table is at the
+    broadcast cutover, so it replicates and the fact table never
+    shuffles (``join.broadcast`` once per query, no join shuffle)."""
+    from cylon_tpu_torch.ctx.context import VirtualMeshConfig
+    from cylon_tpu_torch.relational import join as pjoin
+    from cylon_tpu_torch.utils import timing
+    rng = np.random.default_rng(42)
+    fk = rng.integers(0, FACT_KEYS, n_fact)
+    fa = rng.integers(0, 1_000_000, n_fact)
+    dk = rng.permutation(DIM_ROWS).astype(np.int64)
+    db = rng.integers(0, 1_000_000, DIM_ROWS)
+    orc = how_oracle(fk, fa, dk, db, FACT_KEYS, "left")
+    env = ct.CylonEnv(VirtualMeshConfig(4), device=device)
+    t0 = time.perf_counter()
+    fact = ct.DataFrame({"k": fk, "a": fa}, env=env)
+    dim = ct.DataFrame({"k": dk, "b": db}, env=env)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    del fk, fa
+    rec = timed_path(
+        "broadcast_path", frame_query(fact, dim, "left"),
+        lambda out, label: check_join_sums(out.table, orc, label,
+                                           ("a", "b")),
+        {**JOIN_PHASES, "combine": "groupby.combine",
+         "intermediates_shuffle": "groupby.shuffle",
+         "final": "groupby.final"})
+    # the route, counted on one more query
+    shuffles = []
+    orig = pjoin.shuffle_table
+    pjoin.shuffle_table = lambda *a, **k: shuffles.append(1) or orig(*a, **k)
+    timing.reset()
+    try:
+        check_join_sums(frame_query(fact, dim, "left")([]).table, orc,
+                        "broadcast_path route run", ("a", "b"))
+    finally:
+        pjoin.shuffle_table = orig
+    taken = timing.counts().get("join.broadcast", 0)
+    if taken != 1 or shuffles:
+        raise AssertionError(f"broadcast_path: the broadcast route ran "
+                             f"{taken} times, the join shuffled "
+                             f"{len(shuffles)} tables")
+    del fact, dim, env
+    rec.update({"phase": "broadcast_path", "world": 4, "fact_rows": n_fact,
+                "fact_keys": FACT_KEYS, "dim_rows": DIM_ROWS,
+                "join_rows": int(orc["rows"].sum()),
+                "unmatched_fact_rows": int(orc["rows"][DIM_ROWS:].sum()),
+                "query": 'fact.merge(dim, on="k", how="left")'
+                         '.groupby("k").sum()',
+                "broadcast_routes": taken, "join_shuffles": len(shuffles),
+                "setup_s": setup_s,
+                "rows_per_s": (n_fact + DIM_ROWS) / rec["best_s"]})
+    if any(v["launches"] for v in rec["kernel_counts"].values()):
+        raise AssertionError(f"broadcast_path: kernel counts "
+                             f"{rec['kernel_counts']}; no TPU kernel lies on "
+                             "this path")
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=125_000_000,
                     help="rows per side of the full BASELINE run")
     ap.add_argument("--config3-rows", type=int, default=CONFIG3_ROWS,
                     help="rows in total of BASELINE configuration 3")
+    ap.add_argument("--fact-rows", type=int, default=FACT_ROWS,
+                    help="fact-table rows of the broadcast phase")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this smoke run needs "
@@ -1482,7 +2049,19 @@ def main() -> int:
     routes, w4 = dist_phases(ct, left, right, orc, n, need_k1,
                              {"monolithic_w1": counts,
                               "pipelined_w1": pipe_counts})
-    del left, right, orc
+    del orc
+    torch.cuda.empty_cache()
+
+    # -- the join types at full size, W = 4: a left join through the
+    # DataFrame entry, an outer join through the pipeline (K2) ----------
+    jrec = left_join_path(ct, left, right, mv)
+    routes["left_join_w4"] = jrec["kernel_counts"]
+    emit(jrec)
+    jrec = outer_pipelined_path(ct, left, right, mv)
+    routes["outer_pipelined_w4"] = jrec["kernel_counts"]
+    w4["k2_outer_pipelined"] = jrec["k2_shard0"]
+    emit(jrec)
+    del left, right, jrec
     torch.cuda.empty_cache()
 
     # -- the sort-based groupby, the sample sort, the DataFrame entry -----
@@ -1494,6 +2073,13 @@ def main() -> int:
     for w in (4, 1):
         emit(config3_path(ct, k, a, c3orc, w))
     del k, a, c3orc
+    for jrec in joins_small(ct):
+        emit({"phase": "joins_small", "rows_per_side": 1_000_000,
+              "oracle": "equal", **jrec})
+    jrec = broadcast_path(ct, args.fact_rows)
+    routes["broadcast_w4"] = jrec["kernel_counts"]
+    emit(jrec)
+    del jrec
     emit(exchange_gather_forms(dev))
     emit({"kernels": [{
         "name": "windowed_gather", "route": "cuda", "source": K1_SOURCE,
@@ -1527,7 +2113,9 @@ def main() -> int:
                               routes.items() if "splitter_probe" in v},
         "general_path": general,
         "w4": {"pipelined_shard0": {key: w4["k2_pipelined"][key]
-                                    for key in K2_KEYS}}}]})
+                                    for key in K2_KEYS},
+               "outer_pipelined_shard0": {
+                   key: w4["k2_outer_pipelined"][key] for key in K2_KEYS}}}]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

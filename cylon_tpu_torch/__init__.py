@@ -4,7 +4,9 @@ The port mirrors ``cylon_tpu``'s module layout and is held bit-equal to it
 by the ``tests/test_torch_*.py`` parity tests.  Its entry point is the
 ``DataFrame`` (``merge``, ``groupby(...).sum()`` and the other
 aggregations, ``sort_values``) over the table operators: ``Table``
-ingest, an inner ``join_tables`` that defers its output,
+ingest, ``join_tables`` with every join type of the reference (an inner
+join defers its output; a small side may be broadcast instead of
+shuffled), ``join_tables_multi``, ``filter_table``,
 ``groupby_aggregate`` (the fused join→groupby pushdown, whose run-start
 gather is the hand-written CUDA kernel ``kernels/windowed_gather.cu``,
 and the sort-based groupby for every other table) and the distributed
@@ -28,7 +30,8 @@ from .ctx.context import CylonEnv, LocalConfig, VirtualMeshConfig
 from .exec import GroupBySink, pipelined_join
 from .frame import DataFrame, GroupByDataFrame, concat, read_pandas
 from .relational.groupby import groupby_aggregate
-from .relational.join import join_tables
+from .relational.join import join_tables, join_tables_multi
+from .relational.repart import filter_table
 from .relational.sort import local_sort_table, sort_table
 from .status import (CylonError, CylonKeyError, DeviceUnavailableError,
                      InvalidError, KernelError)
@@ -37,5 +40,6 @@ __all__ = ["Column", "CylonEnv", "CylonError", "CylonKeyError", "DataFrame",
            "DeferredTable", "DeviceUnavailableError", "GroupByDataFrame",
            "GroupBySink", "InvalidError", "KernelError", "LocalConfig",
            "LogicalType", "Table", "VirtualMeshConfig", "concat",
-           "groupby_aggregate", "join_tables", "local_sort_table",
-           "pipelined_join", "read_pandas", "sort_table"]
+           "filter_table", "groupby_aggregate", "join_tables",
+           "join_tables_multi", "local_sort_table", "pipelined_join",
+           "read_pandas", "sort_table"]

@@ -1,6 +1,8 @@
 """Configuration for cylon_tpu_torch: the subset of ``cylon_tpu/config.py``
-that the join→groupby paths, the sample sort and the range-partitioned
-pipeline read, under ``CYLON_TPU_TORCH_*`` environment names.
+that the joins, the groupby paths, the sample sort and the
+range-partitioned pipeline read, under ``CYLON_TPU_TORCH_*`` environment
+names.  The reference's ``SKEW_SPLIT`` switch has no counterpart yet: the
+port has no skew split (ROADMAP.md, slice 10).
 
 PyTorch holds int64/float64 natively, so there is no x64 switch: device
 columns always keep their 64-bit types.  The reference's
@@ -44,6 +46,32 @@ DEFER_JOIN = _env_flag("CYLON_TPU_TORCH_DEFER_JOIN", True)
 #: CUDA kernel (ops/windowed_gather.py) on the card; span overflows
 #: redispatch the plain gather.
 WINDOWED_GATHER = _env_flag("CYLON_TPU_TORCH_WINDOWED_GATHER", True)
+
+
+#: A join side at or below this row count is REPLICATED to every shard
+#: (``parallel/collectives.allgather_table``) instead of hash-shuffling
+#: both sides: the broadcast-hash-join cutover (relational/join.py).
+BROADCAST_JOIN_ROWS = int(os.environ.get(
+    "CYLON_TPU_TORCH_BROADCAST_JOIN_ROWS", "65536"))
+
+# Heavy-key detection for the semi/anti spread (relational/join.py), the
+# reference's values: detection runs on the row hash of the key tuple, so
+# multi-column and float keys take part alike, and the predicate is the
+# routing hash.
+#: Rows sampled per shard for the heavy-hitter estimate:
+SKEW_SAMPLE = 4096
+#: Minimum per-shard sampled share for a key to enter the estimate:
+SKEW_MIN_SHARE = 0.01
+#: A key is heavy when its weighted global share exceeds FACTOR / world
+#: (1.0 = one full shard's worth of rows):
+SKEW_GLOBAL_FACTOR = 1.0
+#: At most this many heavy keys spread per join:
+SKEW_MAX_KEYS = 8
+#: Replication guard: no spread when the build side's heavy rows,
+#: replicated world-ways, would exceed GUARD_RATIO x the build size AND
+#: GUARD_ROWS rows.
+SKEW_GUARD_RATIO = 2.0
+SKEW_GUARD_ROWS = 65536
 
 
 #: Distributed-sort splitter samples per shard (``0``: scale with the

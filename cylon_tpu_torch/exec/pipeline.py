@@ -32,10 +32,16 @@ sidecars — the range boundaries and the per-range probe counts — come back
 in ONE batched pull after the probe sort.  The splitters stay on the
 device: K2 reads them from device memory.
 
-Left out, as in no run of the reference by default: left/right/outer
-joins (slice 4), the spill prefetch of host-resident sources, the
-checkpoint stage and the recovery injectors (slice 11), plan nodes and
-traces (slice 12).
+Every ``how`` of the reference streams: ranges partition the KEY space,
+so a key's rows on both sides meet in one piece, and an unmatched row of
+either side is unmatched in its piece too.  A left join runs every range
+with probe rows, a right join every range with build rows, an outer join
+both.  Only inner pieces defer; the others materialize, and a sink takes
+the sort-based groupby over them.
+
+Left out, as in no run of the reference by default: the spill prefetch
+of host-resident sources, the checkpoint stage and the recovery
+injectors (slice 11), plan nodes and traces (slice 12).
 """
 
 from __future__ import annotations
@@ -241,21 +247,19 @@ def _range_counts(sorted_ids: torch.Tensor, n_ranges: int) -> torch.Tensor:
 def pipelined_join(left: Table, right: Table, left_on, right_on,
                    how: str = "inner", n_chunks: int = 4,
                    suffixes=("_x", "_y"), sink=None):
-    """Range-partitioned streaming inner join (module docstring): ``right``
-    is the build side, sorted once; ``left`` streams through ``n_chunks``
-    key ranges.  At world size W > 1 both sides hash-shuffle once first.
+    """Range-partitioned streaming join (module docstring): ``right`` is
+    the build side, sorted once; ``left`` streams through ``n_chunks``
+    key ranges.  ``how``: inner, left, right or outer.  At world size
+    W > 1 both sides hash-shuffle once first.
 
     ``sink``: the downstream operator.  When given, each piece's join
-    (deferred) is passed to ``sink(piece)`` and released, and the list of
-    sink results is returned; peak memory is one piece's state.  Without
-    a sink the pieces are concatenated into one Table, key-grouped."""
+    (deferred when inner) is passed to ``sink(piece)`` and released, and
+    the list of sink results is returned; peak memory is one piece's
+    state.  Without a sink the pieces are concatenated into one Table,
+    key-grouped."""
     if how not in ("inner", "left", "right", "outer"):
         raise InvalidError(
             "pipelined_join supports how in ('inner','left','right','outer')")
-    if how != "inner":
-        raise NotImplementedError(
-            f"pipelined_join how={how!r}: cylon_tpu_torch joins inner only "
-            "so far; left/right/outer are slice 4 of ROADMAP.md Queue 1")
     env = check_same_env(left, right)
     left_on = [left_on] if isinstance(left_on, str) else list(left_on)
     right_on = [right_on] if isinstance(right_on, str) else list(right_on)
@@ -284,10 +288,11 @@ def pipelined_join(left: Table, right: Table, left_on, right_on,
     n_ranges = max(int(n_chunks), 1)
     if n_ranges == 1 or rwork.row_count == 0 or lwork.row_count == 0:
         # The reference materializes here and its sink runs the sort-based
-        # groupby.  With a sink the port's join defers instead, so a sink
-        # keyed on the join keys takes the fused pushdown and never
+        # groupby.  With a sink the port's inner join defers instead, so a
+        # sink keyed on the join keys takes the fused pushdown and never
         # materializes the join: same groups, same order, integer sums
-        # bit-equal (float sums may differ in association order).
+        # bit-equal (float sums may differ in association order).  Other
+        # join types materialize, as in the reference.
         res = join_tables(lwork, rwork, left_on, right_on, how=how,
                           suffixes=suffixes, assume_colocated=True,
                           allow_defer=sink is not None)
@@ -374,8 +379,14 @@ def pipelined_join(left: Table, right: Table, left_on, right_on,
         src_r = PieceSource(rsorted, max(caps_r), scratch_bytes=scratch)
     del lsorted, rsorted
 
-    live_ranges = [r for r in range(n_ranges)
-                   if pcounts[:, r].sum() > 0 and r_lens[:, r].sum() > 0]
+    def qualifies(r) -> bool:
+        # a range runs when the join can emit rows there
+        any_l = pcounts[:, r].sum() > 0
+        any_r = r_lens[:, r].sum() > 0
+        return {"inner": any_l and any_r, "left": any_l, "right": any_r,
+                "outer": any_l or any_r}[how]
+
+    live_ranges = [r for r in range(n_ranges) if qualifies(r)]
     outs = []
     with timing.region("pipe.piece_loop"):
         for r in live_ranges:
@@ -392,9 +403,10 @@ def pipelined_join(left: Table, right: Table, left_on, right_on,
                 outs.append(sink(res_r) if sink is not None else res_r)
             del res_r
         if not outs:
-            # no range qualified (no overlapping keys at all): one empty
-            # piece pair keeps the output schema path uniform (deferred
-            # under a sink, as on the n_chunks == 1 route above)
+            # no range qualified (an inner join with no overlapping
+            # keys): one empty piece pair keeps the output schema path
+            # uniform (deferred under a sink, as on the n_chunks == 1
+            # route above)
             zeros = [0] * w
             piece_l = src_l.packed(zeros, zeros, 1)
             piece_r = src_r.packed(zeros, zeros, 1)

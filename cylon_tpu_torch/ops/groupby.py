@@ -31,6 +31,7 @@ import torch
 
 from .. import config
 from . import lanes as lanes_mod
+from .pack import SIGNED_VIEW
 
 #: ops whose intermediates are plain segment reductions
 ASSOCIATIVE = {"sum", "count", "min", "max", "mean", "var", "std", "sumsq"}
@@ -65,21 +66,48 @@ def _ident(kind: str, dt: torch.dtype):
     return info.max if kind == "min" else info.min
 
 
+#: the int64 sign bit: flipping it maps uint64 order onto int64 order
+_SIGN64 = -(1 << 63)
+
+
+def _order_image(values: torch.Tensor) -> torch.Tensor:
+    """An exact int64 image of unsigned values with the same order (torch
+    has no min/max scatter for uint16/32/64): zero-extended, or for
+    uint64 the bits with the sign bit flipped."""
+    if values.dtype == torch.uint64:
+        return values.view(torch.int64) ^ _SIGN64
+    return values.to(torch.int64)
+
+
+def _from_image(img: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    if dt == torch.uint64:
+        return (img ^ _SIGN64).view(torch.uint64)
+    return img.to(dt)
+
+
 def _seg_apply(kind: str, values, g, ns: int, out_len: int):
     """Segment reduce over ROUTED gids ``g`` (trash segment included in
     ``ns``), returning the first ``out_len`` segments; empty segments hold
     the reduction identity.  Ids at or past ``ns`` are dropped (one more
     slot takes them)."""
     g = torch.where(g < ns, g, ns).long()
+    dt = values.dtype
     if kind == "sum":
-        acc = torch.zeros(ns + 1, dtype=values.dtype, device=values.device)
+        acc = torch.zeros(ns + 1, dtype=dt, device=values.device)
         return acc.index_add_(0, g, values)[:out_len]
-    src = values.to(torch.int32) if values.dtype == torch.bool else values
-    acc = torch.full((ns + 1,), _ident(kind, values.dtype), dtype=src.dtype,
-                     device=values.device)
+    ident = torch.full((), _ident(kind, dt), dtype=dt)
+    if dt == torch.bool:
+        src, ident = values.to(torch.int32), ident.to(torch.int32)
+    elif dt in SIGNED_VIEW:
+        src, ident = _order_image(values), _order_image(ident)
+    else:
+        src = values
+    acc = ident.to(values.device).expand(ns + 1).clone()
     red = "amin" if kind == "min" else "amax"
     out = acc.scatter_reduce_(0, g, src, red)[:out_len]
-    return out.bool() if values.dtype == torch.bool else out
+    if dt == torch.bool:
+        return out.bool()
+    return _from_image(out, dt) if dt in SIGNED_VIEW else out
 
 
 def seg_sum(values, gids, num_segments, mask=None):
@@ -181,7 +209,8 @@ def grouped_reduce(ops, values_list, vmasks, starts, n_live, key_datas,
 
     def pass_lanes(src, kind, kslot):
         """Passthrough (gathered at start, no diff): key data / validity."""
-        ext = torch.cat([src, src[-1:]])
+        # one more row, as the prefix lanes have (zero on an empty shard)
+        ext = torch.cat([src, src[-1:] if n else src.new_zeros(1)])
         dt = ext.dtype
         dt_name = str(dt).replace("torch.", "")
         if dt == _F64:
@@ -403,6 +432,8 @@ def quantile(values, gids, num_segments, q: float, mask=None):
     hi = torch.ceil(posf).to(_I64)
     frac = posf - lo.to(f.dtype)
     n = v_s.shape[0]
+    if n == 0:      # an empty shard: every group is empty (count 0)
+        v_s = v_s.new_zeros(1)
 
     def take(i):
         return v_s[(offs + i).clamp(0, max(n - 1, 0))]

@@ -170,11 +170,16 @@ class JoinTake(NamedTuple):
 
 def _set_drop(dst: torch.Tensor, index: torch.Tensor,
               src: torch.Tensor) -> torch.Tensor:
-    """``dst.at[index].set(src, mode="drop")``: indices outside
-    [0, len(dst)) are dropped."""
-    keep = (index >= 0) & (index < dst.shape[0])
-    dst[index[keep].long()] = src[keep].to(dst.dtype)
-    return dst
+    """``dst.at[index].set(src, mode="drop")`` for indices that are unique
+    inside [0, len(dst)): every other element writes to a slot of its own
+    past the end, sliced off (no host wait for a mask, and no two writes
+    to one address)."""
+    m, n = dst.shape[0], index.shape[0]
+    keep = (index >= 0) & (index < m)
+    slot = torch.where(keep, index.long(),
+                       m + torch.arange(n, device=index.device))
+    ext = torch.cat([dst, dst.new_empty(n)])
+    return ext.scatter_(0, slot, src.to(dst.dtype))[:m]
 
 
 def join_take(carry: JoinCarry, n_l: int, how: str, out_cap: int,

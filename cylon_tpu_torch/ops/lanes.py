@@ -178,12 +178,20 @@ def unpack_column(spec: LaneSpec, mat: torch.Tensor, i: int):
     return d, v
 
 
+def _one_row_if_empty(xs):
+    """Columns of 0 rows (a capacity-0 table) as one zero row each, so a
+    gather from them has a row to clamp to; its slots are masked by the
+    caller."""
+    return [x if x is None or x.shape[0] else x.new_zeros(1) for x in xs]
+
+
 def gather_laneless(spec: LaneSpec, datas, take) -> dict:
     """{col_index: gathered data} for ONLY the laneless (f64) columns of
     ``spec``, by take index (entries < 0 select row 0)."""
     idxs = [i for i, c in enumerate(spec.cols) if not c.lanes]
     if not idxs:
         return {}
+    datas = _one_row_if_empty(datas)
     n = datas[idxs[0]].shape[0]
     sel = take.clamp(0, max(n - 1, 0)).long()
     if len(idxs) == 1:
@@ -198,6 +206,7 @@ def gather_columns(spec: LaneSpec, datas, valids, take):
     columns.  ``take`` entries < 0 select row 0 (callers mask them)."""
     if not spec.cols:
         return (), ()
+    datas, valids = _one_row_if_empty(datas), _one_row_if_empty(valids)
     n = datas[0].shape[0]
     sel = take.clamp(0, max(n - 1, 0)).long()
     if spec.n_lanes:

@@ -30,6 +30,11 @@ NULL_LAST = 2
 
 _LO32 = 0xFFFFFFFF
 
+#: torch's CUDA ``where``, compares and gathers have no uint16/32/64
+#: kernels: those run on a signed view of the same width
+SIGNED_VIEW = {torch.uint16: torch.int16, torch.uint32: torch.int32,
+               torch.uint64: torch.int64}
+
 
 def sort_operand_nbytes(dtypes, need_nf, narrow, rows: int,
                         row_mask: bool = True) -> int:
@@ -81,19 +86,30 @@ def _sort_value(x: torch.Tensor, descending: bool,
     if not dt.is_floating_point:
         if narrow and dt.itemsize == 8:
             x = x.to(torch.int32)
-        # ~x = -x-1: strictly decreasing, total, no overflow
-        if descending:
+        unsigned = x.dtype in (torch.uint8, torch.uint16, torch.uint32,
+                               torch.uint64)
+        # ~x = -x-1: strictly decreasing, total, no overflow.  torch has
+        # no bitwise not for uint16/32/64, so an unsigned column's images
+        # are complemented below instead, within their width: the
+        # reference's ~x on the unsigned type, bit for bit.
+        if descending and not unsigned:
             x = ~x
         if x.dtype.itemsize <= 4:
             if x.dtype == torch.uint32:
-                return [(x.view(torch.int32).to(torch.int64) & _LO32, "i")]
-            return [(x.to(torch.int32), "i")]
-        xi = x.view(torch.int64) if x.dtype == torch.uint64 else x
-        if x.dtype == torch.uint64:
-            hi = (xi >> 32) & _LO32            # unsigned hi: zero-extended
+                ops = [x.view(torch.int32).to(torch.int64) & _LO32]
+            else:
+                ops = [x.to(torch.int32)]
         else:
-            hi = (xi >> 32).to(torch.int32)    # signed hi keeps the sign
-        return [(hi, "i"), (xi & _LO32, "i")]
+            xi = x.view(torch.int64) if x.dtype == torch.uint64 else x
+            if x.dtype == torch.uint64:
+                hi = (xi >> 32) & _LO32        # unsigned hi: zero-extended
+            else:
+                hi = (xi >> 32).to(torch.int32)  # signed hi keeps the sign
+            ops = [hi, xi & _LO32]
+        if descending and unsigned:
+            ones = (1 << min(8 * x.dtype.itemsize, 32)) - 1
+            ops = [op ^ ones for op in ops]
+        return [(op, "i") for op in ops]
     v = -x if descending else x
     v = _canon_float(v)
     if dt == torch.float32:
@@ -128,7 +144,8 @@ def key_operands(datas, validities=None, row_mask=None, descendings=None,
                 nf = torch.ones(n, dtype=torch.int32, device=dev)
             else:
                 nf = torch.where(v, 1, nulls_position).to(torch.int32)
-                d = torch.where(v, d, torch.zeros_like(d))
+                sv = d.view(SIGNED_VIEW.get(d.dtype, d.dtype))
+                d = torch.where(v, sv, torch.zeros_like(sv)).view(d.dtype)
             ops.append(nf)
             kinds.append("i")
         nrw = bool(narrow32[i]) if narrow32 is not None else False

@@ -17,7 +17,9 @@ a world of more than :data:`MAX_WORLD` ranks.
 :func:`exchange` takes the env, not a mesh, so the multi-card transport
 (NCCL ``all_to_all_single`` with split sizes from the count sidecar, or
 peer copies under one controller) slots in behind the same interface.
-Not ported (ROADMAP.md): the skew targets, the two-hop topology route,
+:func:`skew_targets` routes a semi/anti join's probe side with its heavy
+keys spread round-robin (relational/join.py).  Not ported (ROADMAP.md):
+the skew-split plan's targets (slice 10), the two-hop topology route,
 the receive-budget guard and its ledger registration, the integrity
 audit and the comm counters.
 """
@@ -51,6 +53,22 @@ def hash_targets(env, key_datas, key_valids, valid_counts) -> torch.Tensor:
     live = live_mask(valid_counts, cap, key_datas[0].device)
     return torch.where(live, tgt, torch.full((), w, dtype=torch.int32,
                                              device=tgt.device))
+
+
+def skew_targets(env, h: torch.Tensor, valid_counts,
+                 heavy: torch.Tensor) -> torch.Tensor:
+    """Global ``(W·cap,)`` int32 targets from the row hashes ``h``, with
+    the rows flagged ``heavy`` spread round-robin by global position
+    instead (the build side replicates those keys, so any rank can join
+    them); padding rows get target W."""
+    w = len(valid_counts)
+    n = h.shape[0]
+    spread = (torch.arange(n, dtype=torch.int64, device=h.device) % w).to(
+        torch.int32)
+    tgt = torch.where(heavy, spread, hashing.partition_targets(h, w))
+    live = live_mask(valid_counts, n // w, h.device)
+    return torch.where(live, tgt, torch.full((), w, dtype=torch.int32,
+                                             device=h.device))
 
 
 def count_targets(env, tgt: torch.Tensor) -> np.ndarray:

@@ -1,8 +1,8 @@
 """Shared plumbing for the table-level operators (port of the subset of
 ``cylon_tpu/relational/common.py`` the join, groupby and sort read): the
 bounded prediction cache, per-shard liveness masks, sample positions,
-int32-narrowing flags, lane specs, key promotion, result-table assembly
-and the same-world check."""
+int32-narrowing flags, lane specs, key promotion, result-table assembly,
+the filter flag of a bool column and the same-world check."""
 
 from __future__ import annotations
 
@@ -53,6 +53,15 @@ def sample_positions(n: int, m: int, cap: int) -> np.ndarray:
     stride = np.float32(max(int(n), 1)) / np.float32(m)
     idx = (np.arange(m, dtype=np.float32) * stride).astype(np.int32)
     return np.clip(idx, 0, cap - 1)
+
+
+def valid_flag(col: Column) -> torch.Tensor:
+    """Boolean filter payload of a bool column with null rows forced False
+    (a null predicate never selects a row)."""
+    flag = col.data
+    if col.validity is not None:
+        flag = flag & col.validity
+    return flag
 
 
 def fits_int32(c: Column) -> bool:
@@ -132,6 +141,16 @@ def build_table(names, out_datas, out_valids, types, dicts,
         b = bounds[i] if bounds is not None else None
         cols[name] = Column(d, t, v, dc, bounds=b)
     return Table(cols, env, np.asarray(valid_counts, np.int64))
+
+
+def rebuild_like(items, out_datas, out_valids, valid_counts,
+                 env: CylonEnv) -> Table:
+    """:func:`build_table` with the schema (name, type, dictionary) of
+    existing ``(name, Column)`` pairs, for ops that permute or filter the
+    rows of one table.  Bounds are not carried, as in the reference."""
+    return build_table([n for n, _ in items], out_datas, out_valids,
+                       [c.type for _, c in items],
+                       [c.dictionary for _, c in items], valid_counts, env)
 
 
 def check_same_env(a: Table, b: Table) -> CylonEnv:

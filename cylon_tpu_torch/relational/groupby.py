@@ -44,6 +44,7 @@ from ..core.dtypes import (LogicalType, from_numpy_dtype, np_dtype_of,
 from ..core.table import Table
 from ..ops import groupby as gbk
 from ..ops import lanes, pack
+from ..ops.sort import take_data
 from ..parallel.shards import map_shards, shard
 from ..status import InvalidError
 from ..utils import timing
@@ -162,7 +163,7 @@ def _rep_keys(by_datas, by_valids, gids, seg_cap: int):
     """Representative key row per group (its first source row)."""
     rep = gbk.group_first_index(gids, seg_cap)
     safe = rep.clamp(0, by_datas[0].shape[0] - 1).long()
-    return (tuple(d[safe] for d in by_datas),
+    return (tuple(take_data(d, safe) for d in by_datas),
             tuple(None if v is None else v[safe] for v in by_valids))
 
 
@@ -193,7 +194,7 @@ def _sort_state(n_live: int, by_datas, by_valids, val_datas, val_valids,
     del gid
 
     def take(xs):
-        return tuple(None if x is None else x[perm] for x in xs)
+        return tuple(None if x is None else take_data(x, perm) for x in xs)
 
     return (gids, n_groups, mask, first, take(by_datas), take(by_valids),
             take(val_datas), take(val_valids))

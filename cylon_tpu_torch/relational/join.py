@@ -1,29 +1,38 @@
-"""Table-level inner join (port of the inner, plain-hash subset of
-``cylon_tpu/relational/join.py``).
+"""Table-level joins (port of ``cylon_tpu/relational/join.py``): every
+join type of the reference — inner, left, right, outer, semi and anti —
+and the N-way ``join_tables_multi``.
 
-At world size W > 1 both sides first hash-shuffle on the join keys
-(relational/repart.shuffle_table), so equal keys share a shard; then
-every shard runs the local kernel (parallel/shards.map_shards), the
-two-phase single-sort merge of ``ops/join.py``:
+At world size W > 1 the sides are first co-located
+(:func:`_shuffle_for_join`): both hash-shuffle on the join keys
+(relational/repart.shuffle_table), or a small side is replicated to every
+shard and the other stays in place (the broadcast route), or, for semi
+and anti joins whose probe side holds a heavy key, the heavy keys' build
+rows replicate and their probe rows spread round-robin.  Then every
+shard runs the local kernel (parallel/shards.map_shards), the two-phase
+single-sort merge of ``ops/join.py``:
 
 * phase 1 runs THE one stable sort of both sides' key operands, with each
-  side's 32-bit lane matrix riding the sort as payload, and returns the
-  exact output count plus the sorted state;
+  side's 32-bit lane matrix riding the sort as payload (inner and left
+  joins), and returns the exact output count plus the sorted state;
 * the host picks ONE ``pow2ceil`` capacity over the shards' counts;
-* phase 2 expands the carried geometry into output rows.
+* phase 2 expands the carried geometry into output rows; an outer join
+  appends each shard's unmatched right rows after its merge-ordered rows.
 
-With ``DEFER_JOIN`` on, phase 1 runs SLIM and the result is a
-:class:`~cylon_tpu_torch.core.table.DeferredTable` carrying a
+Semi and anti joins expand nothing: one matched flag per left row over
+the sorted state, then ``repart.filter_table``.
+
+With ``DEFER_JOIN`` on, an inner join's phase 1 runs SLIM and the result
+is a :class:`~cylon_tpu_torch.core.table.DeferredTable` carrying a
 :class:`~cylon_tpu_torch.relational.fused.JoinState`: a groupby on the
 join keys aggregates straight off the sorted state (relational/fused.py);
 any other access rebuilds the carry from the held state with scans alone
-and materializes.
+and materializes.  Every other join type materializes.
 
 The packed-piece entry joins two :class:`~cylon_tpu_torch.relational.
 piece.PackedPiece` windows of the pipelined join (exec/pipeline.py) with
-the same kernels.  Other join types, the broadcast route and the skew
-split are later slices (ROADMAP.md Queue 1, slice 4): the port always
-takes the plain hash plan, the reference's unsplit baseline.
+the same kernels.  The skew split and its stitch are slice 10 of
+ROADMAP.md Queue 1: the port takes the reference's unsplit plan
+(``SKEW_SPLIT`` off).
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ from ..core.table import DeferredTable, Table
 from ..ops import join as joink
 from ..ops import lanes
 from ..ops import pack
+from ..parallel.collectives import allgather_table
 from ..parallel.shards import map_shards, shard
 from ..status import InvalidError
 from ..utils import timing
@@ -45,6 +55,10 @@ from .common import (PAD_L, PAD_R, build_table, check_same_env, col_arrays,
                      live_mask, narrow32_flags, promote_key_pair,
                      table_lane_spec)
 from .piece import PackedPiece
+from .repart import (concat_tables, exchange_by_targets, filter_table,
+                     shuffle_table)
+
+HOW = ("inner", "left", "right", "outer", "semi", "anti")
 
 
 def _shard_cols(cols, w: int, r: int):
@@ -83,7 +97,7 @@ def _sorted_state(vcl, vcr, l_datas, l_valids, r_datas, r_valids,
 
 
 def _count(vcl, vcr, l_datas, l_valids, r_datas, r_valids, narrow: tuple,
-           lmat=None, rmat=None, all_live: bool = False,
+           how: str, lmat=None, rmat=None, all_live: bool = False,
            slim: bool = False):
     """Phase 1: sort once; return the exact count + carried state.
 
@@ -108,7 +122,7 @@ def _count(vcl, vcr, l_datas, l_valids, r_datas, r_valids, narrow: tuple,
         vcl, vcr, l_datas, l_valids, r_datas, r_valids, narrow, payloads,
         all_live)
     del payloads
-    n, carry = joink.join_carry(bnd, idx_s, live, cap_l, "inner")
+    n, carry = joink.join_carry(bnd, idx_s, live, cap_l, how)
     if slim:
         return n, idx_s, bnd, pl_s
     return n, carry, pl_s
@@ -148,11 +162,13 @@ def _window_source(spec, mat, f64w, cap: int):
     return gather_rows, gather_f64
 
 
-def _materialize(carry, pl_s, out_cap: int, cap_l: int, plan: tuple,
-                 lspec, rspec, l_src, r_src, carry_emit: bool,
+def _materialize(carry, pl_s, how: str, out_cap: int, cap_l: int,
+                 plan: tuple, lspec, rspec, l_src, r_src, carry_emit: bool,
                  carry_match: bool):
     """Phase 2.  ``plan`` entries: ("l", i, needs_valid) — output column =
-    left column i; ("r", j, needs_valid) — right column j.  ``l_src`` /
+    left column i; ("r", j, needs_valid) — right column j; ("k", i, j,
+    needs_valid) — left column i where the left row exists, else right
+    column j (an outer join's coalesced key).  ``l_src`` /
     ``r_src``: each side's (gather_rows, gather_f64) by take index
     (:func:`_col_source`, :func:`_window_source`).
     ``carry_emit``/``carry_match``: that side's lanes arrived sorted as
@@ -161,7 +177,7 @@ def _materialize(carry, pl_s, out_cap: int, cap_l: int, plan: tuple,
     r_f64 = any(not c.lanes for c in rspec.cols)
     n_e = lspec.n_lanes if carry_emit else 0
     pl_e, pl_m = pl_s[:n_e], pl_s[n_e:]
-    tk = joink.join_take(joink.JoinCarry(*carry), cap_l, "inner", out_cap,
+    tk = joink.join_take(joink.JoinCarry(*carry), cap_l, how, out_cap,
                          extra=pl_e, carry_emit=carry_emit,
                          carry_match=carry_match,
                          emit_idx=carry_emit and l_f64,
@@ -193,16 +209,186 @@ def _materialize(carry, pl_s, out_cap: int, cap_l: int, plan: tuple,
 
 def _plan_outputs(plan, ldat, lval, l_ok, rdat, rval, r_ok):
     """Assemble the output (datas, valids) from per-side columns."""
+    def side_out(datas, vals, ok, i, needs_valid):
+        if not needs_valid:
+            return datas[i], None
+        return datas[i], (ok if vals[i] is None else ok & vals[i])
+
     out_d, out_v = [], []
-    for side, i, needs_valid in plan:
-        datas, vals, ok = ((ldat, lval, l_ok) if side == "l"
-                           else (rdat, rval, r_ok))
-        d = datas[i]
-        v = None if not needs_valid else (ok if vals[i] is None
-                                          else ok & vals[i])
-        out_d.append(d)
-        out_v.append(v)
+    for entry in plan:
+        if entry[0] == "k":
+            _, i, j, needs_valid = entry
+            dl, vl = side_out(ldat, lval, l_ok, i, True)
+            dr, vr = side_out(rdat, rval, r_ok, j, True)
+            out_d.append(torch.where(l_ok, dl, dr))
+            out_v.append(torch.where(l_ok, vl, vr) if needs_valid else None)
+        else:
+            side, i, needs_valid = entry
+            d, v = side_out(*((ldat, lval, l_ok) if side == "l"
+                              else (rdat, rval, r_ok)), i, needs_valid)
+            out_d.append(d)
+            out_v.append(v)
     return tuple(out_d), tuple(out_v)
+
+
+# ---------------------------------------------------------------------------
+# co-location at W > 1: the hash plan, the broadcast route and the semi/anti
+# heavy-key spread (reference ``_shuffle_for_join`` without the skew split)
+# ---------------------------------------------------------------------------
+
+def _key_hashes(table: Table, key_names) -> torch.Tensor:
+    """The routing hash of every row's key tuple (ops/hashing.hash_rows),
+    the predicate both heavy-key detection and the spread use."""
+    from ..ops import hashing
+    datas, valids = col_arrays([table.column(n) for n in key_names])
+    return hashing.hash_rows(list(datas), list(valids))
+
+
+def _heavy_keys(table: Table, key_names, env):
+    """Host-side heavy-hitter estimate from a small device sample: key
+    HASHES whose weighted global share exceeds SKEW_GLOBAL_FACTOR/W (one
+    key holding a full shard's worth of rows).  Returns an int64 array
+    of u32 hashes or None.  A hash collision only widens the spread to a
+    light key: both sides flag with the same predicate."""
+    from .common import sample_positions
+    w = env.world_size
+    total = int(table.valid_counts.sum())
+    if total < w * 64:      # too small to skew: no device sample
+        return None
+    m, cap = config.SKEW_SAMPLE, table.capacity
+    vc = np.asarray(table.valid_counts, np.int64)
+    h = _key_hashes(table, key_names)
+    pos = np.concatenate([r * cap + sample_positions(int(vc[r]), m, cap)
+                          for r in range(w)]).astype(np.int64)
+    vals = host_array(h[torch.from_numpy(pos).to(h.device)]).reshape(w, m)
+    del h
+    shares: dict = {}
+    for s in range(w):
+        if not vc[s]:
+            continue
+        lv = vals[s]
+        # each shard's sample weighs its true row share
+        weight = float(vc[s]) / total / lv.size
+        uniq, cnt = np.unique(lv, return_counts=True)
+        keep = cnt / lv.size > config.SKEW_MIN_SHARE
+        for u, c in zip(uniq[keep], cnt[keep]):
+            shares[u] = shares.get(u, 0.0) + c * weight
+    thresh = config.SKEW_GLOBAL_FACTOR / w
+    heavy = [(u, sh) for u, sh in shares.items() if sh > thresh]
+    if not heavy:
+        return None
+    heavy.sort(key=lambda x: -x[1])
+    return np.asarray([u for u, _ in heavy[:config.SKEW_MAX_KEYS]],
+                      np.int64)
+
+
+def _heavy_flag(h: torch.Tensor, heavy) -> torch.Tensor:
+    """Per-row flag: the row hash ``h`` is one of the ``heavy`` hashes."""
+    flag = torch.zeros(h.shape[0], dtype=torch.bool, device=h.device)
+    for hh in heavy:
+        flag |= h == int(hh)
+    return flag
+
+
+def _shuffle_for_join(lwork: Table, rwork: Table, left_on, right_on,
+                      how: str, env):
+    """Co-locate equal keys across the W shards.  Returns ``(lwork, rwork,
+    split)``; ``split`` is True when the output will not be co-located by
+    key (the broadcast route or the semi/anti spread), which turns off
+    ``grouped_by`` and the deferred join.
+
+    * Broadcast: a side of at most ``BROADCAST_JOIN_ROWS`` rows, facing
+      one at least 4x its size, replicates to every shard and the big
+      side does not move.  Only a side whose unmatched rows are never
+      emitted may replicate: the right side for inner/left/semi/anti,
+      the left side for inner/right.  A side of 0 rows always qualifies.
+    * Semi/anti spread: when the probe (left) side's sample shows a heavy
+      key, the build rows of the heavy keys replicate, the other build
+      rows hash, and the probe's heavy rows spread round-robin — unless
+      the build side is itself heavy on those keys (the replication
+      guard), when both sides hash.
+    * Otherwise both sides hash-shuffle."""
+    from ..parallel import shuffle as shf
+    bc = config.BROADCAST_JOIN_ROWS
+    if (how in ("inner", "left", "semi", "anti")
+            and rwork.row_count <= bc
+            and lwork.row_count >= 4 * max(rwork.row_count, 1)):
+        timing.bump("join.broadcast")
+        return lwork, allgather_table(rwork), True
+    if (how in ("inner", "right")
+            and lwork.row_count <= bc
+            and rwork.row_count >= 4 * max(lwork.row_count, 1)):
+        timing.bump("join.broadcast")
+        return allgather_table(lwork), rwork, True
+
+    if how in ("semi", "anti"):
+        heavy = _heavy_keys(lwork, left_on, env)
+        if heavy is not None:
+            flag = _heavy_flag(_key_hashes(rwork, right_on), heavy)
+            build_heavy = filter_table(rwork, flag)
+            if (build_heavy.row_count * env.world_size
+                    > config.SKEW_GUARD_RATIO * max(rwork.row_count, 1)
+                    and build_heavy.row_count > config.SKEW_GUARD_ROWS):
+                return (shuffle_table(lwork, left_on),
+                        shuffle_table(rwork, right_on), False)
+            build_light = filter_table(rwork, ~flag)
+            build_out = concat_tables([shuffle_table(build_light, right_on),
+                                       allgather_table(build_heavy)])
+            h = _key_hashes(lwork, left_on)
+            tgt = shf.skew_targets(env, h, lwork.valid_counts,
+                                   _heavy_flag(h, heavy))
+            del h
+            counts = shf.count_targets(env, tgt)
+            return exchange_by_targets(lwork, tgt, counts), build_out, True
+    return (shuffle_table(lwork, left_on), shuffle_table(rwork, right_on),
+            False)
+
+
+def _semi_flag(vcl, vcr, l_datas, l_valids, r_datas, r_valids, narrow,
+               all_live: bool, anti: bool) -> torch.Tensor:
+    """One shard's per-left-row keep flag of a SEMI (ANTI) join: the left
+    row's key run in the sorted state holds a (no) live right row.  No
+    output expansion: the output is a filter of the left table.  Null
+    keys match null keys, as in the other join types."""
+    cap_l = l_datas[0].shape[0]
+    bnd, idx_s, live_cat, _ = _sorted_state(
+        vcl, vcr, l_datas, l_valids, r_datas, r_valids, narrow, (), all_live)
+    n = bnd.shape[0]
+    dev = bnd.device
+    pos = torch.arange(n, dtype=torch.int32, device=dev)
+    side_r = idx_s >= cap_l
+    if live_cat is None:
+        lefts_b = ~side_r
+        rights = side_r.to(torch.int32)
+    else:
+        live = live_cat[idx_s.long()]
+        lefts_b = (~side_r) & live
+        rights = (side_r & live).to(torch.int32)
+    runs = joink.runs_of(bnd.bool() | (pos == 0))
+    s_r = joink.cumsum32(rights)
+    matched = (joink.at_run_end(s_r, runs)
+               - joink.at_run_start(s_r - rights, runs)) > 0
+    keep = (matched ^ anti) & lefts_b
+    # idx_s is a permutation of the concat rows: one scatter, no collision
+    flag = torch.empty(n, dtype=torch.bool, device=dev)
+    flag[idx_s.long()] = keep
+    return flag[:cap_l]
+
+
+def _semi_anti(env, lwork: Table, rwork: Table, keys_l, keys_r, narrow,
+               how: str) -> Table:
+    """Semi/anti join over co-located sides: per-shard matched flags, then
+    one filter of the left table."""
+    w = env.world_size
+    vcl = np.asarray(lwork.valid_counts, np.int32)
+    vcr = np.asarray(rwork.valid_counts, np.int32)
+    all_live = bool((vcl == lwork.capacity).all()
+                    and (vcr == rwork.capacity).all())
+    with timing.region("join.semi"):
+        flag = map_shards(lambda r: _semi_flag(
+            vcl[r:r + 1], vcr[r:r + 1], *_shard_cols(keys_l, w, r),
+            *_shard_cols(keys_r, w, r), narrow, all_live, how == "anti"), w)
+    return filter_table(lwork, flag)
 
 
 def join_tables(left: Table, right: Table, left_on, right_on,
@@ -210,13 +396,19 @@ def join_tables(left: Table, right: Table, left_on, right_on,
                 coalesce_keys: bool = True,
                 assume_colocated: bool = False,
                 allow_defer: bool | None = None) -> Table:
-    """Inner-join two tables on ``left_on``/``right_on``.
+    """Join two tables on ``left_on``/``right_on``; ``how`` is one of
+    :data:`HOW`.
 
-    Returns a DeferredTable (fused-consumer state + lazy materialization)
-    when ``DEFER_JOIN`` is on and the output columns ride the sort, else a
-    materialized Table.  At world size W > 1 both sides hash-shuffle
-    first.  Each shard's output rows come in sorted-merge order, key
-    groups contiguous, left rows in source order within a group.
+    An inner join returns a DeferredTable (fused-consumer state + lazy
+    materialization) when ``DEFER_JOIN`` is on, the output columns ride
+    the sort and the sides are co-located by key; every other join is a
+    materialized Table.  At world size W > 1 the sides co-locate first
+    (:func:`_shuffle_for_join`).  Each shard's output rows come in
+    sorted-merge order, key groups contiguous, left rows in source order
+    within a group; an outer join appends the shard's unmatched right
+    rows.  Semi and anti joins return the kept left rows in their shard
+    order.  ``grouped_by`` is the join keys when they coalesce and the
+    sides were co-located by key.
 
     ``assume_colocated``: the caller guarantees equal keys already share
     a shard on both sides (the pipelined join passes it), so the shuffle
@@ -224,13 +416,11 @@ def join_tables(left: Table, right: Table, left_on, right_on,
     piece.PackedPiece` window descriptors instead of Tables (the pipelined
     range loop): the window slice and key unpack then run inside the
     join."""
-    if how != "inner":
-        raise NotImplementedError(
-            f"join how={how!r}: cylon_tpu_torch joins inner only so far; "
-            "left/right/outer/semi/anti are slice 4 of ROADMAP.md Queue 1")
+    if how not in HOW:
+        raise InvalidError(f"how must be one of {HOW}, got {how!r}")
     if isinstance(left, PackedPiece) or isinstance(right, PackedPiece):
-        return _join_packed_entry(left, right, left_on, right_on, suffixes,
-                                  coalesce_keys, allow_defer)
+        return _join_packed_entry(left, right, left_on, right_on, how,
+                                  suffixes, coalesce_keys, allow_defer)
     env = check_same_env(left, right)
     left_on = [left_on] if isinstance(left_on, str) else list(left_on)
     right_on = [right_on] if isinstance(right_on, str) else list(right_on)
@@ -245,19 +435,22 @@ def join_tables(left: Table, right: Table, left_on, right_on,
     lwork = left.with_columns(dict(zip(left_on, lkey_cols)))
     rwork = right.with_columns(dict(zip(right_on, rkey_cols)))
     w = env.world_size
+    split = False
     if w > 1 and not assume_colocated:
-        # the plain hash plan (cylon_tpu/relational/join.py:268); the
-        # broadcast route and the skew split are not ported
         with timing.region("join.shuffle"):
-            from .repart import shuffle_table
-            lwork = shuffle_table(lwork, left_on)
-            rwork = shuffle_table(rwork, right_on)
+            lwork, rwork, split = _shuffle_for_join(lwork, rwork, left_on,
+                                                    right_on, how, env)
         lkey_cols = [lwork.column(n) for n in left_on]
         rkey_cols = [rwork.column(n) for n in right_on]
 
     l_datas, l_valids = col_arrays(lkey_cols)
     r_datas, r_valids = col_arrays(rkey_cols)
     narrow = narrow32_flags(lkey_cols, rkey_cols)
+    keys_l, keys_r = (l_datas, l_valids), (r_datas, r_valids)
+    if how in ("semi", "anti"):
+        # output ⊆ left rows: one matched-flag pass + filter, no plan and
+        # no expansion
+        return _semi_anti(env, lwork, rwork, keys_l, keys_r, narrow, how)
     vcl = np.asarray(lwork.valid_counts, np.int32)
     vcr = np.asarray(rwork.valid_counts, np.int32)
 
@@ -281,12 +474,24 @@ def join_tables(left: Table, right: Table, left_on, right_on,
             bounds.append(None if col.bounds is None or rcol.bounds is None
                           else (min(col.bounds[0], rcol.bounds[0]),
                                 max(col.bounds[1], rcol.bounds[1])))
-            # every inner-join output row has a live left key: one lane set
-            plan.append(("l", lane_col(l_cols_list, col),
-                         col.validity is not None))
+            # the coalesced key needs both sides only for an outer join:
+            # every inner/left output row has a live left key, every
+            # right one a live right key
+            if how in ("inner", "left"):
+                plan.append(("l", lane_col(l_cols_list, col),
+                             col.validity is not None))
+            elif how == "right":
+                plan.append(("r", lane_col(r_cols_list, rcol),
+                             rcol.validity is not None))
+            else:
+                plan.append(("k", lane_col(l_cols_list, col),
+                             lane_col(r_cols_list, rcol),
+                             col.validity is not None
+                             or rcol.validity is not None))
         else:
             plan.append(("l", lane_col(l_cols_list, col),
-                         col.validity is not None))
+                         col.validity is not None
+                         or how in ("right", "outer")))
             bounds.append(col.bounds)
             n = n + suffixes[0] if n in overlap else n
         names.append(n)
@@ -296,7 +501,8 @@ def join_tables(left: Table, right: Table, left_on, right_on,
         if coalesce and n in key_set_r:
             continue
         col = rwork.column(n)
-        plan.append(("r", lane_col(r_cols_list, col), col.validity is not None))
+        plan.append(("r", lane_col(r_cols_list, col),
+                     col.validity is not None or how in ("left", "outer")))
         names.append(n + suffixes[1] if n in overlap else n)
         types.append(col.type)
         dicts.append(col.dictionary)
@@ -305,10 +511,12 @@ def join_tables(left: Table, right: Table, left_on, right_on,
     lspec = table_lane_spec(l_cols_list)
     rspec = table_lane_spec(r_cols_list)
 
-    # ride a side's lanes through the sort when it has a laneable column
-    # and few lanes (f64 columns keep take-index gathers: carry-LITE)
+    # ride a side's lanes through the sort (inner and left joins) when it
+    # has a laneable column and few lanes (f64 columns keep take-index
+    # gathers: carry-LITE)
     def _can_carry(spec, col_list, budget: int) -> bool:
-        return bool(col_list and any(c.lanes for c in spec.cols)
+        return bool(how in ("inner", "left") and col_list
+                    and any(c.lanes for c in spec.cols)
                     and spec.n_lanes <= budget)
 
     carry_match = _can_carry(rspec, r_cols_list, 8)
@@ -320,7 +528,6 @@ def join_tables(left: Table, right: Table, left_on, right_on,
     all_live = bool((vcl == lwork.capacity).all()
                     and (vcr == rwork.capacity).all())
     cap_l, cap_r = lwork.capacity, rwork.capacity
-    keys_l, keys_r = (l_datas, l_valids), (r_datas, r_valids)
 
     def count(slim: bool):
         def one(r):
@@ -328,6 +535,7 @@ def join_tables(left: Table, right: Table, left_on, right_on,
                                   _shard_cols(keys_r, w, r))
             lc, rc = _shard_cols(l_cols, w, r), _shard_cols(r_cols, w, r)
             return _count(vcl[r:r + 1], vcr[r:r + 1], ld, lv, rd, rv, narrow,
+                          how,
                           lanes.pack_lanes(lspec, *lc) if carry_emit
                           else None,
                           lanes.pack_lanes(rspec, *rc) if carry_match
@@ -337,8 +545,8 @@ def join_tables(left: Table, right: Table, left_on, right_on,
     def materialize(carry_of, pl_s, out_cap: int):
         def one(r):
             return _materialize(
-                carry_of(r), tuple(shard(p, w, r) for p in pl_s), out_cap,
-                cap_l,
+                carry_of(r), tuple(shard(p, w, r) for p in pl_s), how,
+                out_cap, cap_l,
                 tuple(plan), lspec, rspec,
                 _col_source(lspec, _shard_cols(l_cols, w, r)),
                 _col_source(rspec, _shard_cols(r_cols, w, r)),
@@ -347,11 +555,14 @@ def join_tables(left: Table, right: Table, left_on, right_on,
 
     if allow_defer is None:
         allow_defer = True
-    defer = (config.DEFER_JOIN and carry_emit and carry_match and coalesce
-             and allow_defer)
+    # the broadcast route and the semi/anti spread leave equal keys on
+    # several shards: no fused pushdown and no grouped_by there
+    defer = (config.DEFER_JOIN and how == "inner" and carry_emit
+             and carry_match and coalesce and allow_defer and not split)
     if defer:
-        n_dev, idx_s_s, bnd_s, pl_s = count(slim=True)
-        counts = host_array(n_dev).astype(np.int64).reshape(w)
+        with timing.region("join.sort_count"):
+            n_dev, idx_s_s, bnd_s, pl_s = count(slim=True)
+            counts = host_array(n_dev).astype(np.int64).reshape(w)
         out_cap = config.pow2ceil(int(counts.max()))
 
         def thunk():
@@ -362,8 +573,9 @@ def join_tables(left: Table, right: Table, left_on, right_on,
                     vcl[r:r + 1], vcr[r:r + 1], cap_l, cap_r, env.device)
                 return joink.join_carry(shard(bnd_s, w, r),
                                         shard(idx_s_s, w, r), live, cap_l,
-                                        "inner")[1]
-            out_d, out_v = materialize(carry_of, pl_s, out_cap)
+                                        how)[1]
+            with timing.region("join.materialize"):
+                out_d, out_v = materialize(carry_of, pl_s, out_cap)
             return {nme: Column(d, t, v, dc, bounds=b)
                     for nme, d, v, t, dc, b in
                     zip(names, out_d, out_v, types, dicts, bounds)}
@@ -383,19 +595,90 @@ def join_tables(left: Table, right: Table, left_on, right_on,
         out.grouped_by = tuple(left_on)
         return out
 
-    n_dev, carry, pl_s = count(slim=False)
-    counts = host_array(n_dev).astype(np.int64).reshape(w)
+    with timing.region("join.sort_count"):
+        n_dev, carry, pl_s = count(slim=False)
+        counts = host_array(n_dev).astype(np.int64).reshape(w)
     out_cap = config.pow2ceil(int(counts.max()))
-    out_d, out_v = materialize(
-        lambda r: joink.JoinCarry(*(shard(c, w, r) for c in carry)), pl_s,
-        out_cap)
+    with timing.region("join.materialize"):
+        out_d, out_v = materialize(
+            lambda r: joink.JoinCarry(*(shard(c, w, r) for c in carry)),
+            pl_s, out_cap)
     out = build_table(names, out_d, out_v, types, dicts, counts, env,
                       bounds=bounds)
-    if coalesce:
+    if coalesce and not split:
         # join output rows are key-grouped per shard (sorted merge order)
         # and keys co-located across shards (hash shuffle)
         out.grouped_by = tuple(left_on)
     return out
+
+
+def join_tables_multi(tables: list, ons: list, how: str = "inner",
+                      suffixes=("_x", "_y")) -> Table:
+    """N-way join on ONE shared key set: every table is co-partitioned
+    once (one hash shuffle each, or a broadcast for a small right-side
+    table), then the chain runs as local co-located joins, so no
+    intermediate result is shuffled again.
+
+    ``ons[i]``: the key column name(s) of ``tables[i]`` (every key set of
+    the same length; values compare pairwise-promoted).  ``how`` applies
+    to every step: inner or left."""
+    if len(tables) < 2 or len(tables) != len(ons):
+        raise InvalidError("join_tables_multi needs >= 2 tables with one "
+                           "key set each")
+    if how not in ("inner", "left"):
+        raise InvalidError("join_tables_multi supports how in "
+                           "('inner','left') — chain others manually")
+    ons = [[o] if isinstance(o, str) else list(o) for o in ons]
+    if len({len(o) for o in ons}) != 1:
+        raise InvalidError("all key sets must have the same length")
+    env = tables[0].env
+    # promote every table's keys to ONE representation before the
+    # shuffles (the routing hash depends on the physical dtype and on the
+    # string dictionary): pairwise promotion converges on cols[0], and a
+    # second sweep brings the middles to the final form
+    tables = list(tables)
+    for ki in range(len(ons[0])):
+        cols = [t.column(ons[i][ki]) for i, t in enumerate(tables)]
+        for j in range(1, len(cols)):
+            cols[0], cols[j] = promote_key_pair(cols[0], cols[j])
+        cols = [cols[0]] + [promote_key_pair(cols[0], c)[1]
+                            for c in cols[1:]]
+        tables = [t.with_columns({ons[i][ki]: c})
+                  for i, (t, c) in enumerate(zip(tables, cols))]
+    bc = config.BROADCAST_JOIN_ROWS
+    big = max(t.row_count for t in tables)
+    shuffled = []
+    for i, (t, on) in enumerate(zip(tables, ons)):
+        if env.world_size == 1:
+            shuffled.append(t)
+        elif (i > 0 and t.row_count <= bc
+                and big >= 4 * max(t.row_count, 1)):
+            # only right-side tables may replicate: a replicated left
+            # accumulator would emit its matches once per shard
+            shuffled.append(allgather_table(t))
+        else:
+            shuffled.append(shuffle_table(t, on))
+    acc = shuffled[0]
+    acc_on = list(ons[0])
+    for t, on in zip(shuffled[1:], ons[1:]):
+        # track the accumulated left key names through the suffixes: equal
+        # key name sets coalesce onto the left names; otherwise a left key
+        # colliding with a right column takes suffixes[0]
+        coalesce = acc_on == on
+        overlap = (set(acc.column_names) & set(t.column_names)) \
+            - (set(acc_on) if coalesce else set())
+        acc = join_tables(acc, t, acc_on, on, how=how, suffixes=suffixes,
+                          assume_colocated=True, allow_defer=False)
+        acc_on = [n if (coalesce or n not in overlap) else n + suffixes[0]
+                  for n in acc_on]
+        missing = [n for n in acc_on if n not in acc.column_names]
+        if missing:
+            raise InvalidError(
+                f"accumulated join key column(s) {missing} disappeared "
+                "after suffix renaming — choose non-colliding suffixes "
+                "or rename the payload columns before join_tables_multi")
+    acc.grouped_by = None
+    return acc
 
 
 # ---------------------------------------------------------------------------
@@ -478,9 +761,9 @@ class _LazyCounts:
 
 
 def _packed_statics(pl: PackedPiece, pr: PackedPiece, left_on, right_on,
-                    suffixes, coalesce_keys: bool):
-    """Every static input of the packed inner join, from the pieces'
-    metadata alone."""
+                    how: str, suffixes, coalesce_keys: bool):
+    """Every static input of the packed join, from the pieces' metadata
+    alone."""
     names_l, names_r = pl.column_names, pr.column_names
     kil = tuple(names_l.index(n) for n in left_on)
     kir = tuple(names_r.index(n) for n in right_on)
@@ -498,28 +781,39 @@ def _packed_statics(pl: PackedPiece, pr: PackedPiece, left_on, right_on,
     for i, (n, t, dc, nb) in enumerate(pl.meta):
         has_v = pl.spec.cols[i].valid_bit >= 0
         if coalesce and n in key_set_l:
-            rnb = pr.meta[kir[left_on.index(n)]][3]
+            j = kir[left_on.index(n)]
+            rnb = pr.meta[j][3]
+            rv = pr.spec.cols[j].valid_bit >= 0
             bounds.append(None if nb is None or rnb is None
                           else (min(nb[0], rnb[0]), max(nb[1], rnb[1])))
+            if how in ("inner", "left"):
+                plan.append(("l", i, has_v))
+            elif how == "right":
+                plan.append(("r", j, rv))
+            else:
+                plan.append(("k", i, j, has_v or rv))
         else:
+            plan.append(("l", i, has_v or how in ("right", "outer")))
             bounds.append(nb)
             n = n + suffixes[0] if n in overlap else n
-        plan.append(("l", i, has_v))
         names.append(n)
         types.append(t)
         dicts.append(dc)
     for j, (n, t, dc, nb) in enumerate(pr.meta):
         if coalesce and n in key_set_r:
             continue
-        plan.append(("r", j, pr.spec.cols[j].valid_bit >= 0))
+        rv = pr.spec.cols[j].valid_bit >= 0
+        plan.append(("r", j, rv or how in ("left", "outer")))
         names.append(n + suffixes[1] if n in overlap else n)
         types.append(t)
         dicts.append(dc)
         bounds.append(nb)
-    carry_emit = any(c.lanes for c in pl.spec.cols) \
-        and pl.spec.n_lanes <= 6
-    carry_match = any(c.lanes for c in pr.spec.cols) \
-        and pr.spec.n_lanes <= 8
+
+    def can_carry(spec) -> bool:
+        return how in ("inner", "left") and any(c.lanes for c in spec.cols)
+
+    carry_emit = can_carry(pl.spec) and pl.spec.n_lanes <= 6
+    carry_match = can_carry(pr.spec) and pr.spec.n_lanes <= 8
     all_live = bool((pl.lens == pl.piece_cap).all()
                     and (pr.lens == pr.piece_cap).all())
     return (kil, kir, need_nf, narrow, coalesce, tuple(plan), tuple(names),
@@ -528,7 +822,7 @@ def _packed_statics(pl: PackedPiece, pr: PackedPiece, left_on, right_on,
 
 
 def _join_packed_impl(pl: PackedPiece, pr: PackedPiece, left_on, right_on,
-                      suffixes, coalesce_keys: bool,
+                      how: str, suffixes, coalesce_keys: bool,
                       allow_defer: bool) -> Table:
     env = pl.env
     if pr.env is not env and (pr.env.device != env.device
@@ -536,7 +830,7 @@ def _join_packed_impl(pl: PackedPiece, pr: PackedPiece, left_on, right_on,
         raise InvalidError("pieces belong to different CylonEnvs")
     (kil, kir, need_nf, narrow, coalesce, plan, names, types, dicts,
      bounds, carry_emit, carry_match, all_live) = _packed_statics(
-        pl, pr, left_on, right_on, suffixes, coalesce_keys)
+        pl, pr, left_on, right_on, how, suffixes, coalesce_keys)
     w = env.world_size
     cap_l, cap_r = pl.piece_cap, pr.piece_cap
     vcl = np.asarray(pl.lens, np.int32)
@@ -549,7 +843,7 @@ def _join_packed_impl(pl: PackedPiece, pr: PackedPiece, left_on, right_on,
             l_datas, l_valids = _window_keys(pl.spec, mat_l, f64_l, kil)
             r_datas, r_valids = _window_keys(pr.spec, mat_r, f64_r, kir)
             return _count(vcl[r:r + 1], vcr[r:r + 1], l_datas, l_valids,
-                          r_datas, r_valids, narrow,
+                          r_datas, r_valids, narrow, how,
                           mat_l if carry_emit else None,
                           mat_r if carry_match else None, all_live, slim)
         return map_shards(one, w)
@@ -559,17 +853,18 @@ def _join_packed_impl(pl: PackedPiece, pr: PackedPiece, left_on, right_on,
             mat_l, f64_l = pl.window(r)
             mat_r, f64_r = pr.window(r)
             return _materialize(
-                carry_of(r), tuple(shard(p, w, r) for p in pl_s), out_cap,
-                cap_l, plan, pl.spec, pr.spec,
+                carry_of(r), tuple(shard(p, w, r) for p in pl_s), how,
+                out_cap, cap_l, plan, pl.spec, pr.spec,
                 _window_source(pl.spec, mat_l, f64_l, cap_l),
                 _window_source(pr.spec, mat_r, f64_r, cap_r),
                 carry_emit, carry_match)
         return map_shards(one, w, cap=out_cap)
 
-    defer = (config.DEFER_JOIN and carry_emit and carry_match and coalesce
-             and allow_defer)
+    defer = (config.DEFER_JOIN and how == "inner" and carry_emit
+             and carry_match and coalesce and allow_defer)
     if defer:
-        n_dev, idx_s_s, bnd_s, pl_s = count(slim=True)
+        with timing.region("join.sort_count"):
+            n_dev, idx_s_s, bnd_s, pl_s = count(slim=True)
         # the counts stay ON DEVICE: the next piece's work can be queued
         # before this piece's host wait, and a fused consumer that drains
         # the state never pulls them at all
@@ -583,8 +878,9 @@ def _join_packed_impl(pl: PackedPiece, pr: PackedPiece, left_on, right_on,
                     vcl[r:r + 1], vcr[r:r + 1], cap_l, cap_r, env.device)
                 return joink.join_carry(shard(bnd_s, w, r),
                                         shard(idx_s_s, w, r), live, cap_l,
-                                        "inner")[1]
-            out_d, out_v = materialize(carry_of, pl_s, out_cap)
+                                        how)[1]
+            with timing.region("join.materialize"):
+                out_d, out_v = materialize(carry_of, pl_s, out_cap)
             return {nme: Column(d, t, v, dc, bounds=b)
                     for nme, d, v, t, dc, b in
                     zip(names, out_d, out_v, types, dicts, bounds)}
@@ -602,12 +898,14 @@ def _join_packed_impl(pl: PackedPiece, pr: PackedPiece, left_on, right_on,
         out.grouped_by = tuple(left_on)
         return out
 
-    n_dev, carry, pl_s = count(slim=False)
-    counts = host_array(n_dev).astype(np.int64).reshape(w)
+    with timing.region("join.sort_count"):
+        n_dev, carry, pl_s = count(slim=False)
+        counts = host_array(n_dev).astype(np.int64).reshape(w)
     out_cap = config.pow2ceil(int(counts.max()))
-    out_d, out_v = materialize(
-        lambda r: joink.JoinCarry(*(shard(c, w, r) for c in carry)), pl_s,
-        out_cap)
+    with timing.region("join.materialize"):
+        out_d, out_v = materialize(
+            lambda r: joink.JoinCarry(*(shard(c, w, r) for c in carry)),
+            pl_s, out_cap)
     out = build_table(names, out_d, out_v, types, dicts, counts, env,
                       bounds=bounds)
     if coalesce:
@@ -617,7 +915,7 @@ def _join_packed_impl(pl: PackedPiece, pr: PackedPiece, left_on, right_on,
     return out
 
 
-def _join_packed_entry(left, right, left_on, right_on, suffixes,
+def _join_packed_entry(left, right, left_on, right_on, how: str, suffixes,
                        coalesce_keys: bool, allow_defer: bool):
     left_on = [left_on] if isinstance(left_on, str) else list(left_on)
     right_on = [right_on] if isinstance(right_on, str) else list(right_on)
@@ -626,13 +924,14 @@ def _join_packed_entry(left, right, left_on, right_on, suffixes,
     pl = left if isinstance(left, PackedPiece) else None
     pr = right if isinstance(right, PackedPiece) else None
     if (pl is not None and pr is not None
+            and how in ("inner", "left", "right", "outer")
             and _packed_keys_compatible(pl, pr, left_on, right_on)):
-        return _join_packed_impl(pl, pr, left_on, right_on, suffixes,
+        return _join_packed_impl(pl, pr, left_on, right_on, how, suffixes,
                                  coalesce_keys, bool(allow_defer))
     # a piece joined with a Table, or keys the lanes cannot promote:
     # materialize the window(s) and take the colocated path
     lt = pl.to_table() if pl is not None else left
     rt = pr.to_table() if pr is not None else right
-    return join_tables(lt, rt, left_on, right_on, suffixes=suffixes,
-                       coalesce_keys=coalesce_keys, assume_colocated=True,
-                       allow_defer=allow_defer)
+    return join_tables(lt, rt, left_on, right_on, how=how,
+                       suffixes=suffixes, coalesce_keys=coalesce_keys,
+                       assume_colocated=True, allow_defer=allow_defer)

@@ -1,11 +1,12 @@
-"""Shuffle and row-wise assembly (port of the hash shuffle and
-``concat_tables`` of ``cylon_tpu/relational/repart.py``).
+"""Shuffle, row filter and row-wise assembly (port of the hash shuffle,
+``filter_table`` and ``concat_tables`` of
+``cylon_tpu/relational/repart.py``).
 
 The hash shuffle packs a table's laneable columns into ONE 32-bit lane
 matrix (ops/lanes.py) plus f64 side arrays, moves them through the
 exchange (parallel/shuffle.py) and unpacks them on the receiving shards,
-as the reference does.  Repartition, slice, head, tail and filter are
-slice 8 of ROADMAP.md Queue 1.
+as the reference does.  Repartition, slice, head and tail are slice 8 of
+ROADMAP.md Queue 1.
 """
 
 from __future__ import annotations
@@ -19,12 +20,14 @@ from ..core.dtypes import LogicalType
 from ..core.table import Table
 from ..ctx.context import CylonEnv
 from ..ops import lanes
+from ..ops import sort as sortk
 from ..parallel import shuffle
 from ..parallel.shards import map_shards, shard
 from ..status import InvalidError
 from ..utils import timing
-from .common import (build_table, col_arrays, promote_key_pair,
-                     table_lane_spec, unify_dictionaries)
+from ..utils.host import host_array
+from .common import (build_table, col_arrays, live_mask, promote_key_pair,
+                     rebuild_like, table_lane_spec, unify_dictionaries)
 
 
 def _flatten_for_exchange(table: Table):
@@ -89,6 +92,29 @@ def exchange_by_targets(table: Table, tgt, counts: np.ndarray) -> Table:
         new_flat, new_valid = shuffle.exchange(table.env, tgt, counts, flat)
         del flat
         return _rebuild(recipe, new_flat, new_valid, table.env)
+
+
+def filter_table(table: Table, flag: torch.Tensor) -> Table:
+    """Keep the rows whose bool ``flag`` (the table's row layout) is set.
+    Row order is preserved and every row stays on its shard; the output
+    capacity is one ``pow2ceil`` over the shards' kept counts, pulled in
+    one wait."""
+    env = table.env
+    w = env.world_size
+    keep = flag & live_mask(table.valid_counts, table.capacity, flag.device)
+    counts = host_array(keep.view(w, -1).sum(dim=1)).astype(np.int64)
+    out_cap = config.pow2ceil(int(counts.max()) if counts.size else 1)
+    items = list(table.columns.items())
+    datas, valids = col_arrays([c for _, c in items])
+    spec = table_lane_spec([c for _, c in items])
+
+    def one(r):
+        idx, _ = sortk.compact_by_flag(shard(keep, w, r), out_cap)
+        return lanes.gather_columns(spec, [shard(d, w, r) for d in datas],
+                                    [shard(v, w, r) for v in valids], idx)
+
+    out_d, out_v = map_shards(one, w, cap=out_cap)
+    return rebuild_like(items, out_d, out_v, counts, env)
 
 
 def concat_tables(tables: list[Table]) -> Table:

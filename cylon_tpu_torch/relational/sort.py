@@ -94,7 +94,7 @@ def _sample_fn(vc, w: int, cap: int, m: int, by_datas, by_valids,
     pos = np.concatenate([sample_positions(int(vc[r]), m, cap) + r * cap
                           for r in range(w)]).astype(np.int64)
     idx = torch.from_numpy(pos).to(by_datas[0].device)
-    datas = [d[idx] for d in by_datas]
+    datas = [take_data(d, idx) for d in by_datas]
     valids = [None if v is None else v[idx] for v in by_valids]
     ko = pack.key_operands(datas, valids, descendings=list(descendings),
                            nulls_position=npos, narrow32=narrow)

@@ -7,6 +7,7 @@ is queued asynchronously, so an ``async`` region records the host time to
 QUEUE its work; ``block`` mode waits for the device at the end of every
 region, which gives each phase its device time but serializes the
 phases' overlap — use it for an attribution run, not a timed one.
+:func:`bump` counts an event (a route taken) whatever the mode.
 """
 
 from __future__ import annotations
@@ -47,6 +48,13 @@ def region(name: str):
         acc[1] += 1
 
 
+def bump(name: str) -> None:
+    """Count one occurrence of event ``name`` without timing it; counted
+    whether timing is on or off (:func:`counts`)."""
+    acc = _ACCUM.setdefault(name, [0.0, 0])
+    acc[1] += 1
+
+
 def reset() -> None:
     _ACCUM.clear()
 
@@ -54,3 +62,9 @@ def reset() -> None:
 def snapshot() -> dict:
     """{name: seconds} accumulated since the last :func:`reset`."""
     return {k: v[0] for k, v in _ACCUM.items()}
+
+
+def counts() -> dict:
+    """{name: occurrences} of every region and event since the last
+    :func:`reset`."""
+    return {k: v[1] for k, v in _ACCUM.items()}

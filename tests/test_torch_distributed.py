@@ -14,8 +14,9 @@ shard's rows and padding):
 * ``GroupBySink + pipelined_join(n_chunks = 2, 3) + finalize`` at W = 4;
 * a ``JoinState`` carried across from a reference W = 4 join.
 
-The port takes the plain hash plan, so the reference runs its own
-unsplit baseline: ``SKEW_SPLIT`` off and ``BROADCAST_JOIN_ROWS`` 0."""
+The port has no skew split, so the reference runs its own unsplit
+baseline (``SKEW_SPLIT`` off), and both packages take the plain hash plan
+at ``BROADCAST_JOIN_ROWS`` 0."""
 
 import numpy as np
 import pytest
@@ -28,6 +29,7 @@ from cylon_tpu.exec import pipelined_join as r_pipe
 from cylon_tpu.relational import groupby_aggregate as r_groupby
 from cylon_tpu.relational import join_tables as r_join
 import cylon_tpu_torch as pct
+from cylon_tpu_torch import config as pconfig
 from cylon_tpu_torch.ctx.context import VirtualMeshConfig
 from cylon_tpu_torch.ops import splitter_probe as sp
 from cylon_tpu_torch.ops import windowed_gather as wg
@@ -41,6 +43,7 @@ AGGS = [("a", "sum"), ("b", "sum"), ("a", "count"), ("b", "mean")]
 def unsplit_reference(monkeypatch):
     monkeypatch.setattr(rconfig, "SKEW_SPLIT", False)
     monkeypatch.setattr(rconfig, "BROADCAST_JOIN_ROWS", 0)
+    monkeypatch.setattr(pconfig, "BROADCAST_JOIN_ROWS", 0)
 
 
 @pytest.fixture(scope="module")

@@ -7,8 +7,9 @@ configuration 3's query (``groupby`` → ``sum`` → ``sort_values``
 descending), every ``agg`` spelling, the naming of ``quantile`` and
 ``median`` results, the other aggregation methods, ``sort_values``
 methods, ``drop``/``rename``/projection, ``concat``, moving a frame to
-another env, and the frame's accessors.  The port takes the plain hash
-plan, so the reference runs with ``SKEW_SPLIT`` off and
+another env, the frame's accessors, ``merge`` with every ``how`` and
+``join`` with its default "left".  The port has no skew split, so the
+reference runs with ``SKEW_SPLIT`` off, and both packages with
 ``BROADCAST_JOIN_ROWS`` at 0 (as in tests/test_torch_distributed.py).
 
 Held: the table layout (``valid_counts``, capacity, ``grouped_by``,
@@ -21,7 +22,9 @@ import pytest
 
 import cylon_tpu as rct
 from cylon_tpu import config as rconfig
+from cylon_tpu.relational import join as rjoin
 import cylon_tpu_torch as pct
+from cylon_tpu_torch import config as pconfig
 from cylon_tpu_torch.ctx.context import VirtualMeshConfig
 from test_torch_groupby_sort import _scale, assert_same
 
@@ -30,6 +33,11 @@ from test_torch_groupby_sort import _scale, assert_same
 def unsplit_reference(monkeypatch):
     monkeypatch.setattr(rconfig, "SKEW_SPLIT", False)
     monkeypatch.setattr(rconfig, "BROADCAST_JOIN_ROWS", 0)
+    monkeypatch.setattr(pconfig, "BROADCAST_JOIN_ROWS", 0)
+    # the reference materializes a join at the capacity an earlier call
+    # with the same signature needed, when that is larger; the port has
+    # no such cache, so each case starts without one
+    rjoin._CAP_CACHE.clear()
 
 
 @pytest.fixture(params=[1, 4])
@@ -65,6 +73,38 @@ def test_quickstart(worlds):
     pg = p1.merge(p2, on="key").groupby("key")[["a", "b"]].sum()
     same(rg, pg, _scale(left) * len(right))
     assert pg.columns == ["key", "a", "b"]
+
+
+@pytest.mark.parametrize("how", ["inner", "left", "right", "outer", "semi",
+                                 "anti"])
+def test_merge_every_how(worlds, how):
+    """``merge`` with every join type; a left or outer merge followed by
+    a groupby-sum takes the sort-based groupby over the materialized
+    join, whose unmatched rows carry null payloads."""
+    renv, penv = worlds
+    left, right = _frames(3)
+    r1, r2 = rct.DataFrame(left, env=renv), rct.DataFrame(right, env=renv)
+    p1, p2 = pct.DataFrame(left, env=penv), pct.DataFrame(right, env=penv)
+    rm, pm = r1.merge(r2, on="key", how=how), p1.merge(p2, on="key", how=how)
+    same(rm, pm)
+    if how in ("semi", "anti"):
+        return
+    assert len(pm) == len(left.merge(right, on="key", how=how))
+    same(rm.groupby("key")[["a", "b"]].sum(),
+         pm.groupby("key")[["a", "b"]].sum(), _scale(left) * len(right))
+
+
+def test_join_default_left(worlds):
+    """``DataFrame.join`` with its default "left": keys kept apart and
+    every overlapping column suffixed."""
+    renv, penv = worlds
+    left, right = _frames(4)
+    r = rct.DataFrame(left, env=renv).join(rct.DataFrame(right, env=renv),
+                                           on="key")
+    p = pct.DataFrame(left, env=penv).join(pct.DataFrame(right, env=penv),
+                                           on="key")
+    same(r, p)
+    assert p.columns == ["keyl", "a", "i", "keyr", "b"]
 
 
 def test_config3_query(worlds):
@@ -163,8 +203,10 @@ def test_frame_refusals():
         p["nope"]
     with pytest.raises(pct.CylonKeyError):
         p.groupby("k")[["nope"]]
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        p.merge(p, on="k", how="left")
+    # a left merge answers (ported): the reference's frame
+    r = rct.DataFrame({"k": np.arange(4), "v": np.arange(4.0)},
+                      env=rct.CylonEnv(config=rct.LocalConfig()))
+    same(r.merge(r, on="k", how="left"), p.merge(p, on="k", how="left"))
     with pytest.raises(pct.InvalidError):
         p.merge(pct.DataFrame({"x": np.arange(4)}, env=p.env))
     assert pct.DataFrame([np.arange(3), np.ones(3)],

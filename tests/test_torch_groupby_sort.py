@@ -347,3 +347,53 @@ def test_typed_errors(envs):
             agg(t, "k", [("v", "sum"), ("v", "sum")])
         with pytest.raises(lib.status.CylonKeyError):
             agg(t, "nokey", [("v", "sum")])
+
+
+@pytest.mark.parametrize("w", [1, 4])
+@pytest.mark.parametrize("dtype", ["UInt8", "UInt16", "UInt32", "UInt64"])
+def test_unsigned_min_max(envs, w, dtype):
+    """min/max over unsigned values, 0 and the type's maximum included,
+    with one group whose values are all null: that group is null and
+    holds the reduction's identity, as in the reference.  The data of
+    null slots is compared too."""
+    rng = np.random.default_rng(13)
+    top = int(np.iinfo(dtype.lower()).max)
+    n = 400
+    u = rng.integers(0, top, n, dtype=np.uint64, endpoint=True)
+    u[:2] = (0, top)
+    k = rng.integers(0, 20, n)
+    df = pd.DataFrame({"k": k, "u": pd.array(u.astype(dtype.lower()),
+                                              dtype=dtype)})
+    df.loc[df["k"] == 7, "u"] = pd.NA
+    aggs = [("u", "min"), ("u", "max"), ("u", "count")]
+    rt, pt = tables(df, envs, w)
+    ref, out = r_groupby(rt, "k", aggs), pct.groupby_aggregate(pt, "k", aggs)
+    assert_same(ref, out)
+    r, p = ref.host_columns(), out.host_columns()
+    for name in ("u_min", "u_max"):
+        np.testing.assert_array_equal(p[name][0], r[name][0], err_msg=name)
+        assert not p[name][1][list(p["k"][0]).index(7)]
+
+
+@pytest.mark.parametrize("aggs", [[("a", "sum")],
+                                  [("a", "min"), ("b", "max")],
+                                  [("b", "mean"), ("a", "count"),
+                                   ("b", "median")]])
+def test_zero_capacity_groupby(envs, aggs):
+    """A W = 1 table of no rows has capacity 0: the groupby returns the
+    empty result with the schema the W = 4 run of the reference gives."""
+    df = pd.DataFrame({"k": np.array([], np.int64),
+                       "a": np.array([], np.int64),
+                       "b": np.array([], np.float64)})
+    ref = r_groupby(rct.Table.from_pandas(df, envs[4]), "k", aggs)
+    pt = pct.Table.from_pandas(df, penv(1))
+    assert pt.capacity == 0
+    out = pct.groupby_aggregate(pt, "k", aggs)
+    assert out.column_names == ref.column_names
+    assert out.row_count == ref.row_count == 0
+    assert out.grouped_by == ref.grouped_by
+    r, p = ref.host_columns(), out.host_columns()
+    for name in r:
+        assert p[name][0].dtype == r[name][0].dtype, name
+        assert p[name][0].shape == r[name][0].shape == (0,), name
+        assert (p[name][1] is None) == (r[name][1] is None), name

@@ -23,6 +23,7 @@ from cylon_tpu.relational import join_tables as r_join
 from cylon_tpu.relational.piece import PieceSource as RSource
 from cylon_tpu.relational.sort import local_sort_table as r_lsort
 import cylon_tpu_torch as pct
+from cylon_tpu_torch import config as pconfig
 from cylon_tpu_torch.exec import memory as pmemory
 from cylon_tpu_torch.ops import splitter_probe as sp
 from cylon_tpu_torch.relational.piece import PieceSource as PSource
@@ -285,10 +286,13 @@ def test_packed_piece_windows(env1, penv, start, length, cap):
                                      how="inner", allow_defer=False))
 
 
-def test_refusals(penv):
+def test_refusals(env1, penv):
     t = pct.Table.from_pydict({"k": np.arange(10), "v": np.arange(10)}, penv)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        pct.pipelined_join(t, t, "k", "k", how="left", n_chunks=2)
+    # a left join streams (ported): the reference's answer
+    rt = rct.Table.from_pydict({"k": np.arange(10), "v": np.arange(10)},
+                               env1)
+    _assert_same(r_pipe(rt, rt, "k", "k", how="left", n_chunks=2),
+                 pct.pipelined_join(t, t, "k", "k", how="left", n_chunks=2))
     with pytest.raises(pct.InvalidError):
         pct.pipelined_join(t, t, "k", "k", how="cross", n_chunks=2)
     with pytest.raises(pct.InvalidError):
@@ -317,12 +321,13 @@ def worlds4(env4):
 
 
 def _world(w, env1, penv, worlds4, monkeypatch):
-    """(reference env, port env) at world size ``w``, the reference on its
-    plain hash plan (the port's) at W > 1."""
+    """(reference env, port env) at world size ``w``, both packages on the
+    plain hash plan at W > 1."""
     if w == 1:
         return env1, penv
     monkeypatch.setattr(rconfig, "SKEW_SPLIT", False)
     monkeypatch.setattr(rconfig, "BROADCAST_JOIN_ROWS", 0)
+    monkeypatch.setattr(pconfig, "BROADCAST_JOIN_ROWS", 0)
     return worlds4[w]
 
 
@@ -420,3 +425,109 @@ def test_sink_non_key_by_combines_across_pieces(env1, penv, worlds4,
     pd.testing.assert_frame_equal(
         got.sort_values("g").reset_index(drop=True),
         mono.sort_values("g").reset_index(drop=True))
+
+
+# ---------------------------------------------------------------------------
+# left, right and outer joins through the pipeline (tests/test_pipeline.py's
+# how cases): pieces materialize, and a sink takes the sort-based groupby
+# ---------------------------------------------------------------------------
+
+HOW_AGGS = [("a", "sum"), ("b", "sum"), ("b", "count"), ("a", "max")]
+
+
+@pytest.fixture()
+def no_cap_cache():
+    """The reference materializes a piece join at the capacity an earlier
+    call with the same signature needed, when that is larger; the port
+    has no such cache, so a case comparing capacities starts without
+    it."""
+    from cylon_tpu.relational import join as rjoin
+    rjoin._CAP_CACHE.clear()
+
+
+def _assert_live_layout(ref, port):
+    """Same rows per shard (the concatenation's padding is the
+    reference's leftover block content, so it is not compared)."""
+    _assert_same(ref, port)
+    np.testing.assert_array_equal(port.valid_counts, ref.valid_counts)
+    assert port.capacity == ref.capacity
+    assert port.grouped_by == ref.grouped_by
+
+
+@pytest.mark.parametrize("w", [1, 4])
+@pytest.mark.parametrize("how", ["left", "right", "outer"])
+def test_pipelined_how_matches_reference(env1, penv, worlds4, monkeypatch,
+                                         no_cap_cache, w, how):
+    """Keys in [0, 250) on the left and [100, 350) on the right, so both
+    sides hold unmatched rows, n_chunks = 3: the concatenated pieces, and
+    a GroupBySink on the join key (whose groups over a null ``a`` or
+    ``b`` sum as the reference sums them)."""
+    renv, penv_w = _world(w, env1, penv, worlds4, monkeypatch)
+    ldf, rdf = _pipe_frames(7)
+    rl, rr = rct.Table.from_pandas(ldf, renv), rct.Table.from_pandas(rdf,
+                                                                     renv)
+    pl, pr = pct.Table.from_pandas(ldf, penv_w), pct.Table.from_pandas(
+        rdf, penv_w)
+    out = pct.pipelined_join(pl, pr, "k", "k", how=how, n_chunks=3)
+    _assert_live_layout(r_pipe(rl, rr, "k", "k", how=how, n_chunks=3), out)
+    assert out.row_count == len(ldf.merge(rdf, on="k", how=how))
+    rs, ps = RSink("k", HOW_AGGS), pct.GroupBySink("k", HOW_AGGS)
+    r_pipe(rl, rr, "k", "k", how=how, n_chunks=3, sink=rs)
+    sp.reset_counts()
+    pct.pipelined_join(pl, pr, "k", "k", how=how, n_chunks=3, sink=ps)
+    assert sp.COUNTS["launches"] == 0     # CPU tensors: plain version only
+    assert ps._disjoint
+    _assert_live_layout(rs.finalize(), ps.finalize())
+
+
+@pytest.mark.parametrize("how", ["left", "right", "outer"])
+def test_pipelined_how_null_and_string_keys(env4, how, monkeypatch,
+                                            no_cap_cache):
+    """Null-key and dictionary-string groups stay whole in one range
+    (tests/test_pipeline.py::test_pipelined_join_null_and_string_keys)."""
+    from cylon_tpu_torch.ctx.context import VirtualMeshConfig
+    monkeypatch.setattr(rconfig, "SKEW_SPLIT", False)
+    monkeypatch.setattr(rconfig, "BROADCAST_JOIN_ROWS", 0)
+    rng = np.random.default_rng(8)
+    n = 1500
+    ldf = pd.DataFrame({"k": rng.choice(["ant", "bee", "cow", "dog", "elk"],
+                                        n).astype(object),
+                        "a": rng.random(n)})
+    rdf = pd.DataFrame({"k": rng.choice(["bee", "cow", "dog", "fox"],
+                                        n // 2).astype(object),
+                        "b": rng.random(n // 2)})
+    ldf.loc[ldf.index % 7 == 0, "k"] = None
+    rdf.loc[rdf.index % 5 == 0, "k"] = None
+    penv4 = pct.CylonEnv(VirtualMeshConfig(4), device="cpu")
+    _assert_live_layout(
+        r_pipe(rct.Table.from_pandas(ldf, env4),
+               rct.Table.from_pandas(rdf, env4), "k", "k", how=how,
+               n_chunks=3),
+        pct.pipelined_join(pct.Table.from_pandas(ldf, penv4),
+                           pct.Table.from_pandas(rdf, penv4), "k", "k",
+                           how=how, n_chunks=3))
+
+
+@pytest.mark.parametrize("case", ["exact_capacity", "no_qualifying_range"])
+@pytest.mark.parametrize("how", ["left", "right", "outer"])
+def test_pipelined_how_edge_ranges(env1, penv, no_cap_cache, case, how):
+    """A build side exactly at its capacity (no padding row to serve as
+    the +infinity splitter) and a 2-row build whose range 0 snaps empty
+    while every probe key routes there (tests/test_pipeline.py::
+    TestExactCapacityAllHows)."""
+    rng = np.random.default_rng(9)
+    if case == "exact_capacity":
+        n = 4096
+        bdf = pd.DataFrame({"k": np.full(n, 7, np.int64),
+                            "b": rng.random(n)})
+        pdf = pd.DataFrame({"k": np.where(np.arange(96) % 2 == 0, 7, 9)
+                            .astype(np.int64), "a": rng.random(96)})
+    else:
+        bdf = pd.DataFrame({"k": np.array([10, 20], np.int64),
+                            "b": [1.0, 2.0]})
+        pdf = pd.DataFrame({"k": np.array([1, 2, 3], np.int64),
+                            "a": [0.1, 0.2, 0.3]})
+    rl, rr, pl, pr = _tables(pdf, bdf, env1, penv)
+    out = pct.pipelined_join(pl, pr, "k", "k", how=how, n_chunks=4)
+    _assert_live_layout(r_pipe(rl, rr, "k", "k", how=how, n_chunks=4), out)
+    assert out.row_count == len(pdf.merge(bdf, on="k", how=how))

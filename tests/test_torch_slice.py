@@ -212,8 +212,11 @@ def test_refusals(penv):
     np.testing.assert_array_equal(out["v_sum"], np.arange(10))
     with pytest.raises(NotImplementedError, match="slice 9"):
         pct.DataFrame(t)["v"]
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        pct.join_tables(t, t, "k", "k", how="left")
+    # a left join answers (ported): the reference's rows
+    rt = rct.Table.from_pydict({"k": np.arange(10), "v": np.arange(10)},
+                               rct.CylonEnv(config=rct.LocalConfig()))
+    _assert_same(r_join(rt, rt, "k", "k", how="left"),
+                 pct.join_tables(t, t, "k", "k", how="left"))
     with pytest.raises(pct.InvalidError):
         pct.groupby_aggregate(t, "k", [("v", "nosuchop")])
 
@@ -252,6 +255,7 @@ def test_import_boundary():
         "import cylon_tpu_torch.utils.timing\n"
         "import cylon_tpu_torch.ops.hashing, cylon_tpu_torch.parallel.shuffle\n"
         "import cylon_tpu_torch.parallel.shards\n"
+        "import cylon_tpu_torch.parallel.collectives\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'cylon_tpu', 'pandas', 'pyarrow'))\n"
         "print(bad)\n")

@@ -137,3 +137,28 @@ def test_sort_method_validation(envs):
     with pytest.raises(pct.InvalidError):
         pct.sort_table(t, [])
 
+
+
+@pytest.mark.parametrize("w", [1, 4])
+@pytest.mark.parametrize("dtype", [np.uint16, np.uint32, np.uint64])
+@pytest.mark.parametrize("local", [False, True])
+def test_sort_unsigned_descending(envs, w, dtype, local):
+    """A descending sort on an unsigned key, 0 and the type's maximum
+    included, through ``sort_table`` and ``local_sort_table``: the same
+    layout as the reference, row for row."""
+    from cylon_tpu.relational.sort import local_sort_table as r_local
+    rng = np.random.default_rng(6)
+    top = int(np.iinfo(dtype).max)
+    k = rng.integers(0, top, 300, dtype=np.uint64, endpoint=True)
+    k[:4] = (0, top, 0, top)
+    df = pd.DataFrame({"k": k.astype(dtype), "v": np.arange(300)})
+    if not local:
+        got = both(df, envs, w, "k", ascending=False).to_pandas()
+        exp = df.sort_values("k", ascending=False, kind="stable")
+        np.testing.assert_array_equal(got["k"], exp["k"])
+        return
+    rt = rct.Table.from_pandas(df, envs[w])
+    pt = pct.Table.from_pandas(df, pct.CylonEnv(VirtualMeshConfig(w),
+                                                device="cpu"))
+    assert_layout(r_local(rt, "k", ascending=False),
+                  pct.local_sort_table(pt, "k", ascending=False))
