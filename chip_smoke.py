@@ -1,6 +1,7 @@
 """Smoke run of cylon_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py [--rows N] [--config3-rows N]
+    python3 chip_smoke.py [--rows N] [--config3-rows N] [--fact-rows N]
+                          [--string-rows N]
 
 Builds the package's CUDA kernels from the sources in this checkout (one
 nvcc per source, all at once), holds each against its plain PyTorch
@@ -95,6 +96,33 @@ Then the join types, the broadcast route and the N-way join:
   dimension table, then a groupby-sum; the dimension table replicates
   and the fact table never shuffles.
 
+Then the set operations, the redistributions and hashed string keys:
+
+* ``setops_path``: the BASELINE tables at ``--rows`` per side on a W = 4
+  world, ``L = df1[["k"]]``, ``R = df2[["k"]]``: ``L.union(R)``,
+  ``L.intersect(R)``, ``L.subtract(R)`` and ``df1.drop_duplicates(
+  ["k"])``, each best of 3 after a warm-up, with rows/s, peak memory,
+  the phase split (hash, exchange, flags with their count pull,
+  materialization), a profile and the idle share; the oracle holds each
+  result to its key set (every key once) and the kept row of each key;
+  K1 and K2 must not launch;
+* ``pipelined_setop_path``: ``pipelined_set_op(L, R, "subtract",
+  n_chunks=4)`` on the same tables, timed and checked the same way;
+* ``repart_path``: ``repartition()`` of the subtraction's uneven output
+  onto the even split (timed), then ``head(1000)``, ``tail(1000)`` and
+  the middle third, in global order against the host copy;
+* ``setops_small``: 1M rows at W = 1, 3, 4 and 8 — every set operation
+  on two nullable columns (and pipelined at n_chunks 3), unique keep
+  first/last on a subset and on all columns, ordered and unordered
+  ``equals``, even and specified repartitions, slices across shard
+  boundaries, and a hashed-string join, groupby and sort (the crossover
+  lowered to this size through the config knob), each against numpy;
+* ``strings_path``: two ``--string-rows`` tables (default 16,777,216)
+  keyed by TPC-H's ``C_NAME`` format of bench.py's keys, above the
+  crossover, so the keys hash on ingest (``setup_s``):
+  ``merge(on="name").groupby("name").sum().sort_values("name")`` at
+  W = 4, best of 3, decoded names and sums against numpy.
+
 Each route's kernel counts are set to 0 just before it and read just
 after.  Prints one JSON line per phase, then the kernel summary line, then
 the card's name and power limit as nvidia-smi reports them, and last
@@ -131,6 +159,11 @@ PIECE_ROWS = 21_000_000
 
 
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries the host clock
+    (``clock_s``, ``time.perf_counter``) when it was printed, so the
+    differences between lines give each phase's share of the run."""
+    if "phase" in obj:
+        obj = {**obj, "clock_s": time.perf_counter()}
     print(json.dumps(obj), flush=True)
 
 
@@ -1811,6 +1844,407 @@ def broadcast_path(ct, n_fact: int = FACT_ROWS, device=None) -> dict:
     return rec
 
 
+# -- set operations, unique, equals, repartition, hashed string keys -------
+
+#: strings_path: rows per table; TPC-H's C_NAME format on bench.py's keys
+STRING_ROWS = 16_777_216
+NAME_FORMAT = "Customer#%09d"
+
+
+def setops_small_inputs(n: int, seed: int = 13):
+    """Two tables of a nullable int64 key ``k`` (2% null, each value about
+    8 times) and a nullable int64 ``g`` in [0, 3) (2% null); the first
+    also a row id ``i``.  The second's keys overlap the first's upper
+    half."""
+    rng = np.random.default_rng(seed)
+
+    def side(m, lo):
+        k = rng.integers(lo, lo + max(m // 8, 1), m).astype(np.int64)
+        kvalid = rng.random(m) > 0.02
+        k[~kvalid] = 0
+        g = rng.integers(0, 3, m).astype(np.int64)
+        gvalid = rng.random(m) > 0.02
+        g[~gvalid] = 0
+        return {"k": k, "kvalid": kvalid, "g": g, "gvalid": gvalid}
+
+    a = side(n, 0)
+    a["i"] = np.arange(n, dtype=np.int64)
+    return a, side(n // 2, n // 16)
+
+
+def setops_table(ct, cols, env, names=("k", "g", "i")):
+    from cylon_tpu_torch.core.dtypes import LogicalType
+    out = {}
+    for c in names:
+        if c not in cols:
+            continue
+        d, v = cols[c], cols.get(c + "valid")
+        out[c] = ct.Column(d, LogicalType.INT64, v,
+                           bounds=(int(d.min()), int(d.max())))
+    return ct.Table.from_host_columns(out, env)
+
+
+def row_codes(k, kv, g, gv) -> np.ndarray:
+    """One int64 per (k, g) row value, a null its own value."""
+    kc = np.where(kv, k + 1, 0) if kv is not None else k + 1
+    gc = np.where(gv, g + 1, 0) if gv is not None else g + 1
+    return kc * 4 + gc
+
+
+def out_codes(t) -> np.ndarray:
+    host = t.host_columns()
+    return row_codes(*host["k"], *host["g"])
+
+
+def check_set(got: np.ndarray, want: np.ndarray, label: str) -> int:
+    """``got`` (row codes in any order) must be exactly the sorted unique
+    ``want``: the same rows, each once."""
+    if not np.array_equal(np.sort(got), want):
+        raise AssertionError(f"{label}: {len(got)} rows differ from the "
+                             f"numpy oracle's {len(want)}")
+    return len(got)
+
+
+def check_ids(t, want: np.ndarray, label: str) -> int:
+    """The row ids ``i`` of ``t`` in global order must be ``want``."""
+    got = t.host_columns()["i"][0]
+    if not np.array_equal(got, want):
+        raise AssertionError(f"{label}: row ids differ from the host copy")
+    return len(got)
+
+
+def strings_tables(ct, left, right, names, env):
+    """The BASELINE pair keyed by ``NAME_FORMAT`` names of their int keys,
+    one int64 payload each; hashed on ingest."""
+    lt = ct.DataFrame({"name": names[left["k"]], "a": left["a"]}, env=env)
+    rt = ct.DataFrame({"name": names[right["k"]], "b": right["b"]}, env=env)
+    return lt, rt
+
+
+def strings_oracle(left, right, mv: int) -> dict:
+    """``merge(on="name").groupby("name").sum().sort_values("name")`` in
+    numpy on the int keys: the names sort as their zero-padded keys do."""
+    orc = how_oracle(left["k"], left["a"], right["k"], right["b"], mv,
+                     "inner")
+    keep = orc["rows"] > 0
+    return {"keys": np.flatnonzero(keep), "a": orc["sa"][keep],
+            "b": orc["sb"][keep]}
+
+
+def strings_query(lt, rt):
+    def run(times):
+        t0 = time.perf_counter()
+        out = lt.merge(rt, on="name").groupby("name").sum() \
+            .sort_values("name")
+        sync_pull(out.table.column("name").data)
+        times.append(time.perf_counter() - t0)
+        return out
+    return run
+
+
+def check_strings(out, orc, names, label: str) -> int:
+    """Names decoded through the column's value store, in order, and the
+    sums."""
+    got = out.table.to_pydict()
+    if not np.array_equal(got["name"], names[orc["keys"]]):
+        raise AssertionError(f"{label}: names or their order differ from "
+                             "the numpy oracle")
+    for c in ("a", "b"):
+        if not np.array_equal(got[c], orc[c]):
+            raise AssertionError(f"{label}: {c} sums differ from the oracle")
+    return len(orc["keys"])
+
+
+def setops_small_world(ct, a, b, w: int, device=None) -> dict:
+    """Every set operation, unique, equals, repartition and row range of
+    this slice on one world, each against numpy."""
+    from cylon_tpu_torch.ctx.context import VirtualMeshConfig
+    env = ct.CylonEnv(VirtualMeshConfig(w), device=device)
+    n = len(a["k"])
+    ta, tb = setops_table(ct, a, env), setops_table(ct, b, env)
+    pa, pb = ta.project(["k", "g"]), tb.project(["k", "g"])
+    ca = row_codes(a["k"], a["kvalid"], a["g"], a["gvalid"])
+    cb = row_codes(b["k"], b["kvalid"], b["g"], b["gvalid"])
+    want = {"union": np.union1d(ca, cb), "intersect": np.intersect1d(ca, cb),
+            "subtract": np.setdiff1d(ca, cb)}
+    rec = {"world": w, "rows": n}
+    for op, exp in want.items():
+        rec[op] = check_set(out_codes(ct.set_operation(pa, pb, op)), exp,
+                            f"setops_small W={w} {op}")
+        rec[f"pipelined_{op}"] = check_set(
+            out_codes(ct.pipelined_set_op(pa, pb, op, n_chunks=3)), exp,
+            f"setops_small W={w} pipelined {op}")
+    # unique on a subset (keep first / last) and on every column
+    kc = np.where(a["kvalid"], a["k"] + 1, 0)
+    _, first = np.unique(kc, return_index=True)
+    _, rlast = np.unique(kc[::-1], return_index=True)
+    for keep, rows in (("first", first), ("last", n - 1 - rlast)):
+        u = ct.unique_table(ta, ["k"], keep)
+        got = np.sort(u.host_columns()["i"][0])
+        if not np.array_equal(got, np.sort(rows)):
+            raise AssertionError(f"setops_small W={w}: unique keep={keep} "
+                                 "kept other rows")
+        rec[f"unique_{keep}"] = len(got)
+    rec["unique_all"] = check_set(out_codes(ct.unique_table(pa)),
+                                  np.unique(ca), f"setops_small W={w} unique")
+    # equals: ordered and unordered
+    perm = np.random.default_rng(w).permutation(n)
+    shuffled = setops_table(ct, {c: x[perm] for c, x in a.items()}, env)
+    changed = {c: x.copy() for c, x in a.items()}
+    changed["g"][n // 2] += 1
+    changed = setops_table(ct, changed, env)
+    same = setops_table(ct, a, env)
+    eq = (ct.equals(ta, same), ct.equals(ta, shuffled),
+          ct.equals(ta, shuffled, ordered=False), ct.equals(ta, changed))
+    if eq != (True, False, True, False):
+        raise AssertionError(f"setops_small W={w}: equals answered {eq}")
+    # repartition: even after an uneven slice, then a specified split
+    lo, ln = n // 7, n // 2
+    s = ct.slice_table(ta, lo, ln)
+    ids = np.arange(lo, lo + ln)
+    r = ct.repartition(s)
+    if not np.array_equal(r.valid_counts, even_counts(ln, w)):
+        raise AssertionError(f"setops_small W={w}: repartition counts "
+                             f"{r.valid_counts}")
+    check_ids(r, ids, f"setops_small W={w} repartition even")
+    dest = np.zeros(w, np.int64)
+    dest[-1] = ln - 7 * (w - 1)
+    dest[:-1] = 7
+    r2 = ct.repartition(r, dest)
+    if not np.array_equal(r2.valid_counts, dest):
+        raise AssertionError(f"setops_small W={w}: specified counts "
+                             f"{r2.valid_counts}")
+    check_ids(r2, ids, f"setops_small W={w} repartition specified")
+    # row ranges across shard boundaries (ingest: blocks of ceil(n / w))
+    chunk = -(-n // w)
+    for name, t, want_ids in (
+            ("slice", ct.slice_table(ta, chunk - 10, chunk + 20),
+             np.arange(chunk - 10, min(2 * chunk + 10, n))),
+            ("head", ct.head(ta, chunk + 3), np.arange(min(chunk + 3, n))),
+            ("tail", ct.tail(ta, chunk + 5),
+             np.arange(max(n - chunk - 5, 0), n))):
+        rec[name] = check_ids(t, want_ids, f"setops_small W={w} {name}")
+    return rec
+
+
+def even_counts(total: int, w: int) -> np.ndarray:
+    base, extra = divmod(int(total), w)
+    return np.asarray([base + (i < extra) for i in range(w)], np.int64)
+
+
+def strings_small(ct, w: int, n: int, device=None) -> int:
+    """A hashed-string join, groupby and sort at ``n`` rows per side, the
+    crossover forced down to this size through the config knobs."""
+    from cylon_tpu_torch import config
+    from cylon_tpu_torch.core.column import HashedStrings
+    from cylon_tpu_torch.ctx.context import VirtualMeshConfig
+    left, right, mv = baseline_inputs(n, seed=5)
+    names = np.asarray([NAME_FORMAT % i for i in range(mv)], dtype=object)
+    saved = config.STRING_HASH_MIN_ROWS
+    config.STRING_HASH_MIN_ROWS = min(saved, n)
+    try:
+        env = ct.CylonEnv(VirtualMeshConfig(w), device=device)
+        lt, rt = strings_tables(ct, left, right, names, env)
+    finally:
+        config.STRING_HASH_MIN_ROWS = saved
+    if not isinstance(lt.table.column("name").dictionary, HashedStrings):
+        raise AssertionError("strings_small: the names did not hash")
+    return check_strings(strings_query(lt, rt)([]),
+                         strings_oracle(left, right, mv), names,
+                         f"strings_small W={w}")
+
+
+def setops_small(ct, worlds=(1, 3, 4, 8), n: int = 1_000_000,
+                 device=None) -> list:
+    a, b = setops_small_inputs(n)
+    recs = []
+    for w in worlds:
+        t0 = time.perf_counter()
+        rec = setops_small_world(ct, a, b, w, device)
+        rec["strings_groups"] = strings_small(ct, w, n // 4, device)
+        rec["seconds"] = time.perf_counter() - t0
+        recs.append(rec)
+    return recs
+
+
+SETOP_PHASES = {"hash": "shuffle.hash", "exchange": "shuffle.exchange",
+                "flags": "setop.flags", "materialize": "setop.materialize"}
+UNIQUE_PHASES = {"hash": "shuffle.hash", "exchange": "shuffle.exchange",
+                 "flags": "unique.flags", "materialize": "unique.materialize"}
+
+
+def key_presence_check(expected: np.ndarray, mv: int, first=None, a=None):
+    """``expected``: a bool per key id; the result must hold each of those
+    keys exactly once (and, given ``first``, its first row's ``a``)."""
+    def check(out, label):
+        host = out.table.host_columns()
+        keys = host["k"][0]
+        if not np.array_equal(np.bincount(keys, minlength=mv),
+                              expected.astype(np.int64)):
+            raise AssertionError(f"{label}: key set differs from numpy")
+        if first is not None and not np.array_equal(host["a"][0],
+                                                     a[first[keys]]):
+            raise AssertionError(f"{label}: not each key's first row")
+        return len(keys)
+    return check
+
+
+def frame_run(fn):
+    """``fn()``, a DataFrame query, waited on; appends its seconds."""
+    def run(times):
+        t0 = time.perf_counter()
+        out = fn()
+        sync_pull(out.table.column("k").data)
+        times.append(time.perf_counter() - t0)
+        return out
+    return run
+
+
+def no_kernels(rec: dict, label: str) -> None:
+    if any(v["launches"] for v in rec["kernel_counts"].values()):
+        raise AssertionError(f"{label}: kernel counts "
+                             f"{rec['kernel_counts']}; no TPU kernel lies "
+                             "on this path")
+
+
+def setops_paths(ct, left, right, mv: int, device=None,
+                 profile: bool = True) -> list:
+    """The BASELINE tables at W = 4: ``L.union(R)``, ``L.intersect(R)``,
+    ``L.subtract(R)`` on the key columns, ``df1.drop_duplicates(["k"])``
+    on the full table (``setops_path``); ``pipelined_set_op(L, R,
+    "subtract", n_chunks=4)`` (``pipelined_setop_path``); and the
+    repartition of the subtraction's uneven output with head, tail and a
+    slice of its middle third (``repart_path``)."""
+    from cylon_tpu_torch.ctx.context import VirtualMeshConfig
+    n = len(left["k"])
+    env = ct.CylonEnv(VirtualMeshConfig(4), device=device)
+    t0 = time.perf_counter()
+    df1 = ct.DataFrame(left, env=env)
+    df2 = ct.DataFrame(right, env=env)
+    L, R = df1[["k"]], df2[["k"]]
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    pres_l = np.bincount(left["k"], minlength=mv) > 0
+    pres_r = np.bincount(right["k"], minlength=mv) > 0
+    first = np.empty(mv, np.int64)
+    # reversed fancy assignment: the last write, each key's first row, wins
+    first[left["k"][::-1]] = np.arange(n - 1, -1, -1)
+    recs = []
+    for op, want, rows, fn in (
+            ("union", pres_l | pres_r, 2 * n, lambda: L.union(R)),
+            ("intersect", pres_l & pres_r, 2 * n, lambda: L.intersect(R)),
+            ("subtract", pres_l & ~pres_r, 2 * n, lambda: L.subtract(R)),
+            ("drop_duplicates", pres_l, n,
+             lambda: df1.drop_duplicates(["k"]))):
+        dd = op == "drop_duplicates"
+        rec = timed_path(
+            f"setops_path {op}", frame_run(fn),
+            key_presence_check(want, mv, first if dd else None,
+                               left["a"] if dd else None),
+            UNIQUE_PHASES if dd else SETOP_PHASES, profile=profile)
+        no_kernels(rec, f"setops_path {op}")
+        rec.update({"phase": "setops_path", "query": op, "world": 4,
+                    "rows_per_side": n, "rows_in": rows,
+                    "setup_s": setup_s, "rows_per_s": rows / rec["best_s"]})
+        recs.append(rec)
+    rec = timed_path(
+        "pipelined_setop_path",
+        frame_run(lambda: ct.DataFrame.from_table(ct.pipelined_set_op(
+            L.table, R.table, "subtract", n_chunks=4))),
+        key_presence_check(pres_l & ~pres_r, mv),
+        {**SETOP_PHASES, "unique_flags": "unique.flags",
+         "unique_materialize": "unique.materialize"}, profile=profile)
+    no_kernels(rec, "pipelined_setop_path")
+    rec.update({"phase": "pipelined_setop_path", "query": "subtract",
+                "n_chunks": 4, "world": 4, "rows_per_side": n,
+                "rows_in": 2 * n, "rows_per_s": 2 * n / rec["best_s"]})
+    recs.append(rec)
+    recs.append(repart_path(ct, L.subtract(R).table))
+    return recs
+
+
+def repart_path(ct, sub) -> dict:
+    """``repartition()`` of an uneven table onto the even split (best of 3
+    after a warm-up), then ``head(1000)``, ``tail(1000)`` and
+    ``slice_table(n/3, n/3)``, each in global order against the host
+    copy."""
+    from cylon_tpu_torch.ops import splitter_probe as sp
+    from cylon_tpu_torch.ops import windowed_gather as wg
+    host = sub.host_columns()["k"][0]
+    total, w = len(host), sub.env.world_size
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    wg.reset_counts()
+    sp.reset_counts()
+    times = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        r = ct.repartition(sub)
+        sync_pull(r.column("k").data)
+        times.append(time.perf_counter() - t0)
+    counts = {"windowed_gather": dict(wg.COUNTS),
+              "splitter_probe": dict(sp.COUNTS)}
+    peak = torch.cuda.max_memory_allocated()
+    if not np.array_equal(r.valid_counts, even_counts(total, w)):
+        raise AssertionError(f"repart_path: counts {r.valid_counts}")
+    if not np.array_equal(r.host_columns()["k"][0], host):
+        raise AssertionError("repart_path: global order changed")
+    third = total // 3
+    t0 = time.perf_counter()
+    pieces = {"head": (ct.head(r, 1000), host[:1000]),
+              "tail": (ct.tail(r, 1000), host[total - 1000:]),
+              "slice": (ct.slice_table(r, third, third),
+                        host[third:2 * third])}
+    sync_pull(pieces["slice"][0].column("k").data)
+    ranges_s = time.perf_counter() - t0
+    for name, (t, want) in pieces.items():
+        if not np.array_equal(t.host_columns()["k"][0], want):
+            raise AssertionError(f"repart_path: {name} differs from the "
+                                 "host copy")
+    rec = {"phase": "repart_path", "world": w, "rows": total,
+           "counts_before": [int(x) for x in sub.valid_counts],
+           "counts_after": [int(x) for x in r.valid_counts],
+           "iterations": times[1:], "first_s": times[0],
+           "best_s": min(times[1:]), "rows_per_s": total / min(times[1:]),
+           "peak_mem_bytes": peak, "ranges_s": ranges_s,
+           "kernel_counts": counts, "oracle": "equal"}
+    no_kernels(rec, "repart_path")
+    return rec
+
+
+def strings_path(ct, n: int = STRING_ROWS, device=None,
+                 profile: bool = True) -> dict:
+    """Two ``n``-row tables keyed by ``NAME_FORMAT`` names of bench.py's
+    keys (above the crossover, so their codes hash on ingest) at W = 4:
+    ``merge(on="name").groupby("name").sum().sort_values("name")``."""
+    from cylon_tpu_torch.core.column import HashedStrings
+    from cylon_tpu_torch.ctx.context import VirtualMeshConfig
+    left, right, mv = baseline_inputs(n)
+    t0 = time.perf_counter()
+    names = np.asarray([NAME_FORMAT % i for i in range(mv)], dtype=object)
+    names_s = time.perf_counter() - t0
+    env = ct.CylonEnv(VirtualMeshConfig(4), device=device)
+    t0 = time.perf_counter()
+    lt, rt = strings_tables(ct, left, right, names, env)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    if not isinstance(lt.table.column("name").dictionary, HashedStrings):
+        raise AssertionError("strings_path: the names did not hash")
+    orc = strings_oracle(left, right, mv)
+    rec = timed_path("strings_path", strings_query(lt, rt),
+                     lambda out, label: check_strings(out, orc, names,
+                                                      label),
+                     {**JOIN_PHASES, "groupby": "groupby.raw",
+                      "string_lanes": "sort.string_lanes",
+                      "sort_sample": "sort.sample",
+                      "sort_exchange": "sort.exchange",
+                      "sort_local": "sort.local"}, profile=profile)
+    rec.update({"phase": "strings_path", "world": 4, "rows_per_side": n,
+                "distinct_names": mv, "names_s": names_s,
+                "setup_s": setup_s, "rows_per_s": 2 * n / rec["best_s"]})
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=125_000_000,
@@ -1819,6 +2253,8 @@ def main() -> int:
                     help="rows in total of BASELINE configuration 3")
     ap.add_argument("--fact-rows", type=int, default=FACT_ROWS,
                     help="fact-table rows of the broadcast phase")
+    ap.add_argument("--string-rows", type=int, default=STRING_ROWS,
+                    help="rows per table of the hashed-string phase")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this smoke run needs "
@@ -2061,7 +2497,16 @@ def main() -> int:
     routes["outer_pipelined_w4"] = jrec["kernel_counts"]
     w4["k2_outer_pipelined"] = jrec["k2_shard0"]
     emit(jrec)
-    del left, right, jrec
+    del jrec
+    torch.cuda.empty_cache()
+
+    # -- the set operations, the pipelined set op and the repartition at
+    # full size, W = 4 ---------------------------------------------------
+    for srec in setops_paths(ct, left, right, mv):
+        routes[f"{srec['phase']}_{srec.get('query', 'w4')}"] = \
+            srec["kernel_counts"]
+        emit(srec)
+    del left, right, srec
     torch.cuda.empty_cache()
 
     # -- the sort-based groupby, the sample sort, the DataFrame entry -----
@@ -2080,6 +2525,14 @@ def main() -> int:
     routes["broadcast_w4"] = jrec["kernel_counts"]
     emit(jrec)
     del jrec
+    torch.cuda.empty_cache()
+    for srec in setops_small(ct):
+        emit({"phase": "setops_small", "oracle": "equal", **srec})
+    srec = strings_path(ct, args.string_rows)
+    routes["strings_path"] = srec["kernel_counts"]
+    emit(srec)
+    del srec
+    torch.cuda.empty_cache()
     emit(exchange_gather_forms(dev))
     emit({"kernels": [{
         "name": "windowed_gather", "route": "cuda", "source": K1_SOURCE,

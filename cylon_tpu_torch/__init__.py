@@ -9,8 +9,13 @@ join defers its output; a small side may be broadcast instead of
 shuffled), ``join_tables_multi``, ``filter_table``,
 ``groupby_aggregate`` (the fused join→groupby pushdown, whose run-start
 gather is the hand-written CUDA kernel ``kernels/windowed_gather.cu``,
-and the sort-based groupby for every other table) and the distributed
-sample sort ``sort_table``.  World sizes above 1 run as a
+and the sort-based groupby for every other table), the distributed
+sample sort ``sort_table``, the set operations (``set_operation``,
+``unique_table``, ``equals``, and ``exec.pipelined_set_op`` over row
+chunks) and the redistributions (``repartition``, ``slice_table``,
+``head``, ``tail``).  A string column of high cardinality takes hashed
+64-bit codes (``core.column.HashedStrings``, hashed on the host by
+``native/strhash.cpp``, built with ``g++`` at first use).  World sizes above 1 run as a
 ``VirtualMeshConfig`` world, W ranks on one device: tables hash-shuffle
 through an order-preserving device-local exchange (``parallel/``) that
 routes every row to the reference's rank, and every shard then runs the
@@ -27,19 +32,25 @@ from .core.column import Column
 from .core.dtypes import LogicalType
 from .core.table import DeferredTable, Table
 from .ctx.context import CylonEnv, LocalConfig, VirtualMeshConfig
-from .exec import GroupBySink, pipelined_join
+from .exec import GroupBySink, chunk_table, pipelined_join, pipelined_set_op
 from .frame import DataFrame, GroupByDataFrame, concat, read_pandas
 from .relational.groupby import groupby_aggregate
 from .relational.join import join_tables, join_tables_multi
-from .relational.repart import filter_table
+from .relational.repart import (concat_tables, filter_table, head,
+                                repad_table, repartition, shuffle_table,
+                                slice_table, tail)
+from .relational.setops import equals, set_operation, unique_table
 from .relational.sort import local_sort_table, sort_table
-from .status import (CylonError, CylonKeyError, DeviceUnavailableError,
-                     InvalidError, KernelError)
+from .status import (CylonError, CylonKeyError, CylonTypeError,
+                     DeviceUnavailableError, InvalidError, KernelError)
 
-__all__ = ["Column", "CylonEnv", "CylonError", "CylonKeyError", "DataFrame",
-           "DeferredTable", "DeviceUnavailableError", "GroupByDataFrame",
-           "GroupBySink", "InvalidError", "KernelError", "LocalConfig",
-           "LogicalType", "Table", "VirtualMeshConfig", "concat",
-           "filter_table", "groupby_aggregate", "join_tables",
-           "join_tables_multi", "local_sort_table", "pipelined_join",
-           "read_pandas", "sort_table"]
+__all__ = ["Column", "CylonEnv", "CylonError", "CylonKeyError",
+           "CylonTypeError", "DataFrame", "DeferredTable",
+           "DeviceUnavailableError", "GroupByDataFrame", "GroupBySink",
+           "InvalidError", "KernelError", "LocalConfig", "LogicalType",
+           "Table", "VirtualMeshConfig", "chunk_table", "concat",
+           "concat_tables", "equals", "filter_table", "groupby_aggregate",
+           "head", "join_tables", "join_tables_multi", "local_sort_table",
+           "pipelined_join", "pipelined_set_op", "read_pandas",
+           "repad_table", "repartition", "set_operation", "shuffle_table",
+           "slice_table", "sort_table", "tail", "unique_table"]

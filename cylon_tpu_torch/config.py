@@ -74,6 +74,18 @@ SKEW_GUARD_RATIO = 2.0
 SKEW_GUARD_ROWS = 65536
 
 
+#: High-cardinality string crossover: a column of at least MIN_ROWS rows
+#: whose sampled distinct ratio reaches RATIO takes hashed codes
+#: (``core/column.HashedStrings``) instead of a sorted dictionary, whose
+#: ``np.unique`` over every value is a host-memory wall at ~1e8 distinct
+#: strings.  The reference's defaults; the port is always 64-bit, so the
+#: reference's x64 condition has no counterpart.
+STRING_HASH_MIN_ROWS = int(os.environ.get("CYLON_TPU_TORCH_STRING_HASH_MIN",
+                                          str(4_000_000)))
+STRING_HASH_RATIO = float(os.environ.get(
+    "CYLON_TPU_TORCH_STRING_HASH_RATIO", "0.5"))
+
+
 #: Distributed-sort splitter samples per shard (``0``: scale with the
 #: world size, :func:`sort_samples`).
 SORT_SAMPLES_PER_SHARD = int(os.environ.get("CYLON_TPU_TORCH_SORT_SAMPLES",

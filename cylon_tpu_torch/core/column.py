@@ -4,11 +4,15 @@
 Physical layout as in the reference: a fixed-width tensor plus an optional
 boolean validity tensor (True = valid).  Strings are dictionary-encoded:
 int32 codes on the device, a sorted value table on the host, so code order
-is lexical order.  A host column (before ingest) holds numpy arrays; the
-``Table`` factories move it onto the env's device.
+is lexical order.  Above the crossover (``config.STRING_HASH_MIN_ROWS``
+rows and a sampled distinct ratio of ``config.STRING_HASH_RATIO``) a
+string column takes hashed codes instead: int64 value hashes on the
+device, a :class:`HashedStrings` lookup on the host.  A host column
+(before ingest) holds numpy arrays; the ``Table`` factories move it onto
+the env's device.
 
-Out of this slice: hashed high-cardinality strings, decimals and list
-passthrough columns (ROADMAP Queue 1, slice 1).
+Out of this slice: decimals and list passthrough columns (ROADMAP Queue 1,
+slice 1).
 """
 
 from __future__ import annotations
@@ -24,6 +28,68 @@ from .dtypes import LogicalType, from_numpy_dtype, physical_np_dtype, torch_dtyp
 
 def _is_null_scalar(v) -> bool:
     return v is None or (isinstance(v, float) and v != v)
+
+
+class HashedStrings:
+    """The 'dictionary' of a high-cardinality string column: its device
+    codes are stable 64-bit value hashes (the int64 bit pattern of
+    ``native.hash_strings``) instead of sorted-dictionary indices.
+
+    It rides the ``Column.dictionary`` slot, so every rebuild site carries
+    it along.  Equality of codes is value equality up to 64-bit hash
+    collisions, so joins, groupbys, set ops and unique are exact up to
+    them; code order is NOT value order, so a groupby min/max on such a
+    column raises, and a sort on it goes through value-stable prefix
+    lanes (relational/sort.py).  Decoding goes through a lazily built
+    hash -> value lookup over the source values."""
+
+    __slots__ = ("_hashes", "_values", "_sorted")
+
+    def __init__(self, hashes: np.ndarray, values: np.ndarray):
+        self._hashes = hashes      # uint64, aligned with _values
+        self._values = values      # object array of the source strings
+        self._sorted = None
+
+    def _lookup(self):
+        """(unique hashes ascending, their values), built once."""
+        if self._sorted is None:
+            order = np.argsort(self._hashes)
+            hs = self._hashes[order]
+            vs = self._values[order]
+            keep = np.concatenate([[True], hs[1:] != hs[:-1]])
+            self._sorted = (hs[keep], vs[keep])
+        return self._sorted
+
+    def take(self, codes: np.ndarray) -> np.ndarray:
+        """Decode int64-bit-pattern codes to their string values."""
+        hs, vs = self._lookup()
+        u = np.asarray(codes).astype(np.int64).view(np.uint64)
+        if len(hs) == 0:
+            return np.asarray([""] * len(u), dtype=object)
+        idx = np.clip(np.searchsorted(hs, u), 0, len(hs) - 1)
+        return vs[idx]
+
+    def hash_values(self, values) -> np.ndarray:
+        """int64-bit-pattern codes of new values."""
+        from .. import native
+        return native.hash_strings(np.asarray(values, dtype=object)) \
+            .view(np.int64)
+
+    def merged_with(self, other: "HashedStrings") -> "HashedStrings":
+        return HashedStrings(
+            np.concatenate([self._hashes, other._hashes]),
+            np.concatenate([self._values, other._values]))
+
+    def __len__(self):
+        """The number of distinct values."""
+        return len(self._lookup()[0])
+
+
+def hashed_codes(values: np.ndarray):
+    """``(codes int64, HashedStrings)`` of a host object array of str."""
+    from .. import native
+    hashes = native.hash_strings(values)
+    return hashes.view(np.int64), HashedStrings(hashes, values)
 
 
 class Column:
@@ -68,7 +134,12 @@ class Column:
     def _encode_strings(arr: np.ndarray) -> "Column":
         """Sorted-dictionary encoding (the reference's ``pd.factorize(
         sort=True)``, done with ``np.unique``): codes order like the
-        strings.  None and float NaN are nulls."""
+        strings.  Above the crossover, hashed codes (:class:`HashedStrings`)
+        instead, decided as the reference decides: at least
+        ``STRING_HASH_MIN_ROWS`` rows, and a distinct ratio of at least
+        ``STRING_HASH_RATIO`` among every ``n // 65536``-th value (at
+        most 65536 of them).  None and float NaN are nulls; their codes
+        are those of the empty string."""
         if arr.dtype.kind == "S":
             arr = np.char.decode(arr, "utf-8")
         if arr.dtype == object:
@@ -85,8 +156,15 @@ class Column:
         else:
             mask = np.zeros(len(arr), bool)
             values = arr.astype(object)
-        dictionary, codes = np.unique(values, return_inverse=True)
         validity = ~mask if mask.any() else None
+        from .. import config
+        n = len(values)
+        if n >= config.STRING_HASH_MIN_ROWS:
+            samp = values[::max(n // 65536, 1)][:65536]
+            if len(np.unique(samp)) >= config.STRING_HASH_RATIO * len(samp):
+                codes, lookup = hashed_codes(values)
+                return Column(codes, LogicalType.STRING, validity, lookup)
+        dictionary, codes = np.unique(values, return_inverse=True)
         return Column(codes.astype(np.int32), LogicalType.STRING, validity,
                       np.asarray(dictionary, dtype=object))
 
@@ -103,8 +181,13 @@ class Column:
         valid = (host_array(self.validity)[: len(data)]
                  if self.validity is not None else None)
         if self.type == LogicalType.STRING:
-            out = self.dictionary[np.clip(data, 0, len(self.dictionary) - 1)] \
-                if len(self.dictionary) else np.full(len(data), "", object)
+            if isinstance(self.dictionary, HashedStrings):
+                out = self.dictionary.take(data)
+            elif len(self.dictionary):
+                out = self.dictionary[np.clip(data, 0,
+                                              len(self.dictionary) - 1)]
+            else:
+                out = np.full(len(data), "", object)
             out = np.asarray(out).astype(object)
             if valid is not None:
                 out[~valid] = None

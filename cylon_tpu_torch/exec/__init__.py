@@ -1,3 +1,4 @@
-from .pipeline import GroupBySink, pipelined_join
+from .pipeline import (GroupBySink, chunk_table, pipelined_join,
+                       pipelined_set_op)
 
-__all__ = ["GroupBySink", "pipelined_join"]
+__all__ = ["GroupBySink", "chunk_table", "pipelined_join", "pipelined_set_op"]

@@ -1,5 +1,5 @@
-"""Range-partitioned pipelined join and its streaming groupby sink (port of
-the inner-join part of ``cylon_tpu/exec/pipeline.py``).
+"""Range-partitioned pipelined join and its streaming groupby sink, and the
+chunked set operation (port of ``cylon_tpu/exec/pipeline.py``).
 
 At world size W > 1 both sides hash-shuffle ONCE first (build side, then
 probe side), so equal keys share a shard; every step below then runs on
@@ -39,12 +39,19 @@ with probe rows, a right join every range with build rows, an outer join
 both.  Only inner pieces defer; the others materialize, and a sink takes
 the sort-based groupby over them.
 
+:func:`pipelined_set_op` streams one side of a set operation through
+row chunks (:func:`chunk_table`) against the other side shuffled once,
+and takes one distinct pass over the partials.
+
 Left out, as in no run of the reference by default: the spill prefetch
 of host-resident sources, the checkpoint stage and the recovery
-injectors (slice 11), plan nodes and traces (slice 12).
+injectors (slice 11), plan nodes and traces (slice 12), and the serving
+tier's interleave point at each chunk boundary (slice 13).
 """
 
 from __future__ import annotations
+
+from collections.abc import Sequence
 
 import numpy as np
 import torch
@@ -66,6 +73,99 @@ from ..status import InvalidError
 from ..utils import timing
 from ..utils.host import host_arrays
 from . import memory
+
+
+class _LazyChunks(Sequence):
+    """Chunk views of one table made on access: ``chunks[i]`` slices chunk
+    i when it is read, so a streaming consumer holds one chunk's copies
+    at a time.  Reading a chunk again slices it again."""
+
+    def __init__(self, table: Table, n_chunks: int, step: int):
+        self._table = table
+        self._n = int(n_chunks)
+        self._step = int(step)
+
+    def __len__(self) -> int:
+        return self._n
+
+    def __getitem__(self, i: int) -> Table:
+        if i < 0:
+            i += self._n
+        if not 0 <= i < self._n:
+            raise IndexError(i)
+        t = self._table
+        w, cap, step = t.env.world_size, t.capacity, self._step
+        start = i * step
+
+        def window(x):
+            if x is None:
+                return None
+            rest = tuple(x.shape[1:])
+            return x.view((w, cap) + rest)[:, start:start + step] \
+                .reshape((w * step,) + rest)
+
+        # each shard keeps the part of its live prefix inside the window
+        vc = np.clip(t.valid_counts - start, 0, step).astype(np.int64)
+        cols = {n: Column(window(c.data), c.type, window(c.validity),
+                          c.dictionary, bounds=c.bounds)
+                for n, c in t.columns.items()}
+        return Table(cols, t.env, vc)
+
+
+def chunk_table(table: Table, n_chunks: int) -> Sequence:
+    """Split each shard's rows into ``n_chunks`` contiguous windows of
+    ``ceil(cap / n_chunks)`` rows (the table is repadded first when they
+    do not tile its capacity); chunk i is a Table of every shard's i-th
+    window, so the chunks in order cover the table shard by shard.  A
+    lazy sequence: a chunk's copy is made when it is read."""
+    if n_chunks <= 1:
+        return [table]
+    from ..relational.repart import repad_table
+    cap = max(table.capacity, 1)
+    step = -(-cap // n_chunks)
+    if step * n_chunks != table.capacity:
+        table = repad_table(table, step * n_chunks)
+    return _LazyChunks(table, n_chunks, step)
+
+
+def pipelined_set_op(a: Table, b: Table, op: str, n_chunks: int = 4):
+    """A set operation with ``a`` streamed in row chunks: the resident side
+    ``b`` shuffles once, each chunk of ``a`` shuffles inside the loop (so
+    ``a`` is never held shuffled in full), and one distinct pass combines
+    the per-chunk partials:
+
+    * union: ``unique(concat(unique(chunk_i)..., unique(b)))``;
+    * subtract: each chunk minus the resident ``b``, then distinct over
+      the chunks (a row may recur in several chunks);
+    * intersect: as subtract, keeping the rows ``b`` holds.
+
+    Extra memory at the peak is the partials (each at most one chunk)
+    plus the final pass's input."""
+    from ..relational.setops import (_align_schemas, _set_operation_impl,
+                                     unique_table)
+    if op not in ("union", "intersect", "subtract"):
+        raise InvalidError(f"unknown set op {op!r}")
+    env = check_same_env(a, b)
+    a, b = _align_schemas(a, b)
+    names = a.column_names
+    if env.world_size > 1 and op != "union":
+        b = shuffle_table(b, names)     # the resident side, once
+    parts = []
+    for chunk in chunk_table(a, n_chunks):
+        if op == "union":
+            # unique_table shuffles the chunk itself
+            parts.append(unique_table(chunk))
+        else:
+            if env.world_size > 1:
+                chunk = shuffle_table(chunk, names)
+            parts.append(_set_operation_impl(chunk, b, op,
+                                             assume_colocated=True))
+        del chunk
+    if op == "union":
+        parts.append(unique_table(b))
+    combined = concat_tables(parts) if len(parts) > 1 else parts[0]
+    del parts
+    return unique_table(combined)
 
 
 class GroupBySink:

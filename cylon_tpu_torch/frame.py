@@ -9,8 +9,7 @@ caller hands in a pandas frame or asks for one (``to_pandas``).
 
 Not ported yet: the Series (a single-column ``df["a"]`` raises
 ``NotImplementedError`` naming slice 9 of ROADMAP.md Queue 1), the index,
-filters, set operations, IO and the rest of the API breadth (slices 8
-and 9).
+filters, IO and the rest of the API breadth (slice 9).
 """
 
 from __future__ import annotations
@@ -24,7 +23,9 @@ from .core.table import Table
 from .ctx.context import CylonEnv
 from .relational.groupby import groupby_aggregate
 from .relational.join import join_tables
-from .relational.repart import concat_tables
+from .relational.repart import (concat_tables, head, repartition,
+                                shuffle_table, tail)
+from .relational.setops import equals, set_operation, unique_table
 from .relational.sort import sort_table
 from .status import CylonKeyError, InvalidError
 
@@ -196,6 +197,69 @@ class DataFrame:
         env = _resolve_env(self.env, env)
         by = [by] if isinstance(by, str) else list(by)
         return GroupByDataFrame(self._to_env(env), by)
+
+    def drop_duplicates(self, subset=None, keep: str = "first",
+                        env: CylonEnv | None = None) -> "DataFrame":
+        """Distinct rows on ``subset`` (default every column), keeping
+        each value's first or last occurrence."""
+        env = _resolve_env(self.env, env)
+        d = self._to_env(env)
+        if subset is None:
+            subset = d.columns
+        return DataFrame(_table=unique_table(d._table, subset, keep))
+
+    def _set_op(self, other: "DataFrame", op: str,
+                env: CylonEnv | None) -> "DataFrame":
+        env = _resolve_env(self.env, env)
+        return DataFrame(_table=set_operation(self._to_env(env)._table,
+                                              other._to_env(env)._table, op))
+
+    def union(self, other: "DataFrame",
+              env: CylonEnv | None = None) -> "DataFrame":
+        """Distinct rows of either frame."""
+        return self._set_op(other, "union", env)
+
+    def intersect(self, other: "DataFrame",
+                  env: CylonEnv | None = None) -> "DataFrame":
+        """Distinct rows of this frame that ``other`` also holds."""
+        return self._set_op(other, "intersect", env)
+
+    def subtract(self, other: "DataFrame",
+                 env: CylonEnv | None = None) -> "DataFrame":
+        """Distinct rows of this frame that ``other`` does not hold."""
+        return self._set_op(other, "subtract", env)
+
+    def shuffle(self, on, env: CylonEnv | None = None) -> "DataFrame":
+        """Hash-partition the rows on ``on``: equal keys share a rank."""
+        env = _resolve_env(self.env, env)
+        on = [on] if isinstance(on, str) else list(on)
+        return DataFrame(_table=shuffle_table(self._to_env(env)._table, on))
+
+    def repartition(self, rows_per_partition=None,
+                    env: CylonEnv | None = None) -> "DataFrame":
+        """Redistribute the rows in their global order: the even split, or
+        ``rows_per_partition[r]`` rows on rank r."""
+        env = _resolve_env(self.env, env)
+        return DataFrame(_table=repartition(self._to_env(env)._table,
+                                            rows_per_partition))
+
+    def head(self, n: int = 5) -> "DataFrame":
+        return DataFrame(_table=head(self._table, n))
+
+    def tail(self, n: int = 5) -> "DataFrame":
+        return DataFrame(_table=tail(self._table, n))
+
+    def equals(self, other: "DataFrame", ordered: bool = True) -> bool:
+        """The same columns and rows (in global order, or as multisets
+        with ``ordered=False``)."""
+        return equals(self._table, other._to_env(self.env)._table,
+                      ordered=ordered)
+
+    def isin(self, other: "DataFrame") -> bool:
+        """Row-subset test: every row of this frame appears in ``other``."""
+        diff = set_operation(self._table, other._to_env(self.env)._table,
+                             "subtract")
+        return diff.row_count == 0
 
 
 class GroupByDataFrame:

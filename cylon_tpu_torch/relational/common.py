@@ -1,7 +1,8 @@
 """Shared plumbing for the table-level operators (port of the subset of
-``cylon_tpu/relational/common.py`` the join, groupby and sort read): the
-bounded prediction cache, per-shard liveness masks, sample positions,
-int32-narrowing flags, lane specs, key promotion, result-table assembly,
+``cylon_tpu/relational/common.py`` the join, groupby, sort and set ops
+read): the bounded prediction cache, per-shard liveness masks, sample
+positions, int32-narrowing flags, lane specs, string-dictionary
+unification (sorted or hashed), key promotion, result-table assembly,
 the filter flag of a bool column and the same-world check."""
 
 from __future__ import annotations
@@ -9,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.column import Column
+from ..core.column import Column, HashedStrings
 from ..core.dtypes import LogicalType, np_dtype_of, physical_np_dtype
 from ..core.table import Table
 from ..ctx.context import CylonEnv
@@ -95,9 +96,37 @@ def col_arrays(cols: list[Column]):
     return tuple(c.data for c in cols), tuple(c.validity for c in cols)
 
 
+def to_hashed_strings(c: Column) -> Column:
+    """Re-code a sorted-dictionary string column into hashed-codes space
+    (codes = stable 64-bit value hashes, ``core.column.HashedStrings``),
+    so it can meet a hashed column in a join, set op or concat."""
+    if isinstance(c.dictionary, HashedStrings):
+        return c
+    from .. import native
+    vals = np.asarray(c.dictionary, dtype=object)
+    hashes = native.hash_strings(vals) if len(vals) \
+        else np.zeros(0, np.uint64)
+    if len(vals):
+        remap = torch.from_numpy(hashes.view(np.int64)).to(c.data.device)
+        data = remap[c.data.clamp(0, len(vals) - 1).long()]
+    else:
+        data = torch.zeros(c.data.shape, dtype=torch.int64,
+                           device=c.data.device)
+    return Column(data, LogicalType.STRING, c.validity,
+                  HashedStrings(hashes, vals))
+
+
 def unify_dictionaries(a: Column, b: Column) -> tuple[Column, Column]:
     """Re-code two dictionary-encoded string columns into one shared sorted
-    dictionary (code order stays lexical order)."""
+    dictionary (code order stays lexical order).  When either side is
+    hashed, both land in hashed-codes space: the codes already compare
+    across columns (one hash function), only the decode lookups merge."""
+    if isinstance(a.dictionary, HashedStrings) \
+            or isinstance(b.dictionary, HashedStrings):
+        ah, bh = to_hashed_strings(a), to_hashed_strings(b)
+        merged = ah.dictionary.merged_with(bh.dictionary)
+        return (Column(ah.data, LogicalType.STRING, ah.validity, merged),
+                Column(bh.data, LogicalType.STRING, bh.validity, merged))
     if a.dictionary is b.dictionary or (
             len(a.dictionary) == len(b.dictionary)
             and np.array_equal(a.dictionary, b.dictionary)):
@@ -111,6 +140,31 @@ def unify_dictionaries(a: Column, b: Column) -> tuple[Column, Column]:
         return Column(codes, LogicalType.STRING, c.validity, merged)
 
     return recode(a), recode(b)
+
+
+def unify_dictionaries_many(cols: list[Column]) -> list[Column]:
+    """N-way :func:`unify_dictionaries` (concat, the pipelined set op's
+    partials): one merged sorted dictionary, or hashed-codes space when
+    any column is hashed."""
+    if any(isinstance(c.dictionary, HashedStrings) for c in cols):
+        hashed = [to_hashed_strings(c) for c in cols]
+        merged = hashed[0].dictionary
+        for h in hashed[1:]:
+            merged = merged.merged_with(h.dictionary)
+        return [Column(h.data, LogicalType.STRING, h.validity, merged)
+                for h in hashed]
+    dicts = [c.dictionary for c in cols]
+    if all(d is dicts[0] or np.array_equal(d, dicts[0]) for d in dicts[1:]):
+        return list(cols)
+    merged = np.unique(np.concatenate(dicts))
+    out = []
+    for c in cols:
+        m = torch.from_numpy(np.searchsorted(merged, c.dictionary)
+                             .astype(np.int32)).to(c.data.device)
+        out.append(Column(m[c.data.clamp(0, max(len(c.dictionary) - 1, 0))
+                            .long()], LogicalType.STRING, c.validity,
+                          merged))
+    return out
 
 
 def promote_key_pair(a: Column, b: Column) -> tuple[Column, Column]:

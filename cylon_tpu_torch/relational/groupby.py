@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from .. import config
-from ..core.column import Column
+from ..core.column import Column, HashedStrings
 from ..core.dtypes import (LogicalType, from_numpy_dtype, np_dtype_of,
                            physical_np_dtype, torch_dtype)
 from ..core.table import Table
@@ -532,6 +532,11 @@ def _groupby_aggregate_impl(table: Table, by: list, specs, ddof: int) -> Table:
         if col.type == LogicalType.STRING and op not in ("count", "nunique",
                                                          "min", "max"):
             raise InvalidError(f"agg {op!r} not valid for string column {c!r}")
+        if (col.type == LogicalType.STRING and op in ("min", "max")
+                and isinstance(col.dictionary, HashedStrings)):
+            raise InvalidError(
+                f"agg {op!r} on high-cardinality hashed string column "
+                f"{c!r}: hashed codes carry no lexical order")
     res_types, res_dicts = _result_types(specs, val_cols)
     res_names = [n for _, _, _, n in specs]
     all_assoc = all(op in gbk.ASSOCIATIVE for _, op, _, _ in specs)

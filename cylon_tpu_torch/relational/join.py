@@ -721,7 +721,9 @@ def _same_dictionary(a, b) -> bool:
         return True
     if a is None or b is None:
         return False
-    return len(a) == len(b) and bool(np.array_equal(a, b))
+    if isinstance(a, np.ndarray) and isinstance(b, np.ndarray):
+        return len(a) == len(b) and bool(np.array_equal(a, b))
+    return False  # a hashed-string lookup: the same object only
 
 
 def _packed_keys_compatible(pl: PackedPiece, pr: PackedPiece,

@@ -1,12 +1,18 @@
-"""Shuffle, row filter and row-wise assembly (port of the hash shuffle,
-``filter_table`` and ``concat_tables`` of
-``cylon_tpu/relational/repart.py``).
+"""Shuffle, repartition, slice, head, tail, row filter and row-wise
+assembly (port of ``cylon_tpu/relational/repart.py``).
 
 The hash shuffle packs a table's laneable columns into ONE 32-bit lane
 matrix (ops/lanes.py) plus f64 side arrays, moves them through the
 exchange (parallel/shuffle.py) and unpacks them on the receiving shards,
-as the reference does.  Repartition, slice, head and tail are slice 8 of
-ROADMAP.md Queue 1.
+as the reference does.  :func:`repartition` moves rows through the same
+exchange with order-preserving targets: each source sends every
+destination a contiguous global range, and the exchange's (source rank,
+source position) receive order puts the rows back in global order.
+:func:`slice_table`, :func:`head` and :func:`tail` keep each rank's
+overlap with a global row range where it is.
+
+Not ported: ``place_by_global_pos``, the skew stitch's placement by
+caller-computed positions (slice 10 of ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ from ..status import InvalidError
 from ..utils import timing
 from ..utils.host import host_array
 from .common import (build_table, col_arrays, live_mask, promote_key_pair,
-                     rebuild_like, table_lane_spec, unify_dictionaries)
+                     rebuild_like, table_lane_spec, unify_dictionaries_many)
 
 
 def _flatten_for_exchange(table: Table):
@@ -94,15 +100,143 @@ def exchange_by_targets(table: Table, tgt, counts: np.ndarray) -> Table:
         return _rebuild(recipe, new_flat, new_valid, table.env)
 
 
+def even_partition_counts(total: int, w: int) -> np.ndarray:
+    """``total`` global rows split as evenly as possible over ``w``
+    partitions, the earlier partitions taking the remainder (the
+    reference's ``DivideRowsEvenly``)."""
+    total, w = int(total), int(w)
+    base = total // w
+    extra = total - base * w
+    return np.asarray([base + (1 if i < extra else 0) for i in range(w)],
+                      np.int64)
+
+
+def _order_preserving_targets(table: Table,
+                              dest_counts: np.ndarray) -> torch.Tensor:
+    """Per-row destination ranks (int32, the table's row layout) that give
+    global row i to the destination whose cumulative range holds i: a
+    sorted search of the int64 global positions against the destinations'
+    last positions.  Padding rows get W."""
+    env = table.env
+    w, cap, dev = env.world_size, table.capacity, env.device
+    vc = np.asarray(table.valid_counts, np.int64)
+    offs = np.concatenate([[0], np.cumsum(vc)[:-1]]).astype(np.int64)
+    bounds = torch.from_numpy(np.cumsum(dest_counts).astype(np.int64)
+                              - 1).to(dev)
+    # int64 global positions: past 2^31 rows in total they outgrow int32
+    gpos = (torch.from_numpy(offs).to(dev)[:, None]
+            + torch.arange(cap, dtype=torch.int64, device=dev)).reshape(-1)
+    t = torch.searchsorted(bounds, gpos).clamp_(0, w - 1).to(torch.int32)
+    return torch.where(live_mask(vc, cap, dev), t,
+                       torch.full((), w, dtype=torch.int32, device=dev))
+
+
+def repartition(table: Table, rows_per_partition=None) -> Table:
+    """Redistribute the rows keeping their global order: rank r ends with
+    ``rows_per_partition[r]`` rows (default: the even split).  The count
+    matrix is computed on the host: source s's global range intersected
+    with each destination's."""
+    env = table.env
+    w = env.world_size
+    total = table.row_count
+    if rows_per_partition is None:
+        dest = even_partition_counts(total, w)
+    else:
+        dest = np.asarray(rows_per_partition, np.int64)
+        if dest.shape != (w,) or dest.sum() != total:
+            raise InvalidError(
+                f"rows_per_partition must hold {w} counts summing to {total}")
+    if w == 1 or not table.column_count:
+        return table
+    if np.array_equal(dest, table.valid_counts):
+        return table
+    with timing.region("repart.targets"):
+        tgt = _order_preserving_targets(table, dest)
+    vc = np.asarray(table.valid_counts, np.int64)
+    soff = np.concatenate([[0], np.cumsum(vc)[:-1]])
+    dof = np.concatenate([[0], np.cumsum(dest)[:-1]])
+    lo, hi = soff[:, None], (soff + vc)[:, None]
+    counts = np.maximum(0, np.minimum(hi, dof + dest)
+                        - np.maximum(lo, dof)).astype(np.int64)
+    return exchange_by_targets(table, tgt, counts)
+
+
+def repad_table(table: Table, new_cap: int) -> Table:
+    """Change the per-shard capacity without moving rows: each shard keeps
+    its first ``new_cap`` rows or gains zero rows (the valid prefixes
+    must fit).  Bounds widen to include the padding's 0."""
+    cap = table.capacity
+    if new_cap == cap:
+        return table
+    if int(table.valid_counts.max(initial=0)) > new_cap:
+        raise InvalidError(f"valid rows exceed new capacity {new_cap}")
+    w = table.env.world_size
+
+    def repad(d):
+        blocks = d.view((w, cap) + tuple(d.shape[1:]))
+        if new_cap <= cap:
+            out = blocks[:, :new_cap]
+        else:
+            out = torch.cat([blocks, blocks.new_zeros(
+                (w, new_cap - cap) + tuple(d.shape[1:]))], dim=1)
+        return out.reshape((w * new_cap,) + tuple(d.shape[1:]))
+
+    cols = {}
+    for n, c in table.columns.items():
+        b = c.bounds
+        if b is not None and new_cap > cap:
+            b = (min(b[0], 0), max(b[1], 0))
+        cols[n] = Column(repad(c.data), c.type,
+                         None if c.validity is None else repad(c.validity),
+                         c.dictionary, bounds=b)
+    return Table(cols, table.env, table.valid_counts)
+
+
+def slice_table(table: Table, offset: int, length: int) -> Table:
+    """The global row range ``[offset, offset + length)``, distribution
+    kept: each rank keeps its overlap with the range, at one capacity
+    ``pow2ceil(max kept)`` (the reference's DistributedSlice)."""
+    env = table.env
+    cap, dev = table.capacity, env.device
+    vc = np.asarray(table.valid_counts, np.int64)
+    offs = np.concatenate([[0], np.cumsum(vc)[:-1]]).astype(np.int64)
+    lo, hi = int(offset), int(offset) + int(length)
+    kept = np.clip(np.minimum(offs + vc, hi) - np.maximum(offs, lo), 0, None)
+    gpos = (torch.from_numpy(offs).to(dev)[:, None]
+            + torch.arange(cap, dtype=torch.int64, device=dev)).reshape(-1)
+    keep = live_mask(vc, cap, dev) & (gpos >= lo) & (gpos < hi)
+    return compact_rows(table, keep, kept)
+
+
+def head(table: Table, n: int) -> Table:
+    return slice_table(table, 0, n)
+
+
+def tail(table: Table, n: int) -> Table:
+    total = table.row_count
+    n = min(n, total)
+    return slice_table(table, total - n, n)
+
+
 def filter_table(table: Table, flag: torch.Tensor) -> Table:
     """Keep the rows whose bool ``flag`` (the table's row layout) is set.
     Row order is preserved and every row stays on its shard; the output
     capacity is one ``pow2ceil`` over the shards' kept counts, pulled in
     one wait."""
-    env = table.env
-    w = env.world_size
+    w = table.env.world_size
     keep = flag & live_mask(table.valid_counts, table.capacity, flag.device)
     counts = host_array(keep.view(w, -1).sum(dim=1)).astype(np.int64)
+    return compact_rows(table, keep, counts)
+
+
+def compact_rows(table: Table, keep: torch.Tensor,
+                 counts: np.ndarray) -> Table:
+    """The rows flagged in ``keep`` (live rows only), each shard's in row
+    order at one capacity ``pow2ceil(max counts)``; ``counts`` are the
+    host per-shard flag counts.  The kept columns gather as one lane
+    matrix plus f64 side arrays."""
+    env = table.env
+    w = env.world_size
     out_cap = config.pow2ceil(int(counts.max()) if counts.size else 1)
     items = list(table.columns.items())
     datas, valids = col_arrays([c for _, c in items])
@@ -137,14 +271,14 @@ def concat_tables(tables: list[Table]) -> Table:
     col_sets = []
     for n in names:
         cs = [t.column(n) for t in tables]
-        if cs[0].type == LogicalType.STRING or len({c.type for c in cs}) > 1:
-            unify = unify_dictionaries if cs[0].type == LogicalType.STRING \
-                else promote_key_pair
+        if cs[0].type == LogicalType.STRING:
+            cs = unify_dictionaries_many(cs)
+        elif len({c.type for c in cs}) > 1:
             for i in range(1, len(cs)):
-                cs[0], cs[i] = unify(cs[0], cs[i])
-            # pairwise unification converges on cs[0]'s final form; bring
+                cs[0], cs[i] = promote_key_pair(cs[0], cs[i])
+            # pairwise promotion converges on cs[0]'s final type; bring
             # every earlier column to it in a second sweep
-            cs = [cs[0]] + [unify(cs[0], c)[1] for c in cs[1:]]
+            cs = [cs[0]] + [promote_key_pair(cs[0], c)[1] for c in cs[1:]]
         col_sets.append(cs)
     w = env.world_size
     vcs = np.stack([np.asarray(t.valid_counts, np.int64) for t in tables])

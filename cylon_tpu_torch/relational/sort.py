@@ -13,10 +13,10 @@ globally sorted, so ``grouped_by = by``.
 :func:`local_sort_table` sorts each shard on its own (the pipelined join
 sorts its build side by key and its probe side by range id with it).
 
-Not ported: the reference's lexical sort of hashed (high-cardinality)
-string keys, ``_expand_hashed_string_keys``: the port has no hashed
-strings yet (slice 8 of ROADMAP.md Queue 1), so every string key here is
-a sorted dictionary whose codes order like its strings.
+A hashed (high-cardinality) string key has codes that do not order like
+its strings: :func:`sort_table` first rewrites it into value-stable
+prefix lanes (:func:`_expand_hashed_string_keys`), sorts on those and
+drops them.  A sorted-dictionary key sorts on its codes directly.
 """
 
 from __future__ import annotations
@@ -25,7 +25,8 @@ import numpy as np
 import torch
 
 from .. import config
-from ..core.column import Column
+from ..core.column import Column, HashedStrings
+from ..core.dtypes import LogicalType
 from ..core.table import Table
 from ..ops import pack
 from ..ops.sort import sort_permutation, take_data
@@ -33,7 +34,7 @@ from ..parallel import shuffle
 from ..parallel.shards import map_shards, shard
 from ..status import InvalidError
 from ..utils import timing
-from ..utils.host import host_arrays
+from ..utils.host import host_array, host_arrays
 from .common import (PAD_L, col_arrays, live_mask, narrow32_flags,
                      sample_positions)
 from .repart import exchange_by_targets
@@ -135,6 +136,125 @@ def _target_fn(vc, cap: int, by_datas, by_valids, splitters, descendings,
                        torch.full((), w, dtype=torch.int32, device=dev))
 
 
+#: most u32 order lanes per hashed string key (64 prefix bytes); beyond
+#: them the key sorts on the dense rank of its distinct values instead
+MAX_ORDER_LANES = 16
+
+
+def _value_lanes(vs: np.ndarray, device) -> np.ndarray:
+    """``(len(vs), L)`` uint32 order lanes of distinct string values, in
+    ``vs``'s order: the first ceil(D / 4) big-endian byte lanes and the
+    byte length, or past :data:`MAX_ORDER_LANES` lanes one lane of the
+    dense rank.  D is fixed by the values in bytewise order — the order
+    the reference takes from pyarrow's ``sort_indices``.  Values of at
+    most 64 bytes find that order on ``device``: all their bytes as
+    lanes and then the length sort lexicographically as bytewise order
+    does (the length tells 'ab' from 'ab\\0').  Longer values sort on
+    the host as Python ``str``, whose code point order is UTF-8 byte
+    order."""
+    from .. import native
+    bufs = native.utf8_buffers(vs)
+    lens = np.diff(bufs[1]).astype(np.uint32)[:, None]
+    full = max(-(-int(lens.max(initial=0)) // 4), 1)
+    every = None
+    if full <= MAX_ORDER_LANES:
+        every = native.prefix_lanes(None, full, buffers=bufs)
+        keys = (np.concatenate([every, lens], axis=1)
+                ^ np.uint32(0x80000000)).view(np.int32)
+        mat = torch.from_numpy(np.ascontiguousarray(keys.T)).to(device)
+        order = host_array(pack.lex_sort_perm(pack.sort_words(
+            pack.KeyOps(tuple(mat), ("i",) * len(mat)))))
+        del mat
+    else:
+        listed = vs.tolist()
+        order = np.asarray(sorted(range(len(listed)),
+                                  key=listed.__getitem__), np.int64)
+        del listed
+    depth = native.max_adjacent_lcp(None, buffers=bufs, order=order) + 1
+    n_lanes = -(-depth // 4)
+    if n_lanes > MAX_ORDER_LANES:
+        ranks = np.empty((len(vs), 1), np.uint32)
+        ranks[order, 0] = np.arange(len(vs), dtype=np.uint32)
+        return ranks
+    head = every[:, :n_lanes] if every is not None \
+        else native.prefix_lanes(None, n_lanes, buffers=bufs)
+    return np.concatenate([head, lens], axis=1)
+
+
+def _expand_hashed_string_keys(table: Table, by: list, ascending):
+    """Rewrite hashed-string sort keys into value-stable big-endian byte
+    lanes, so the numeric sort gives lexical order.
+
+    Per hashed key: its store's distinct values in bytewise order fix the
+    depth D (one more than the longest common prefix of two adjacent
+    distinct values) at which every distinct value differs; each row's
+    first D bytes become ceil(D / 4) int32 lane columns (u32 big-endian,
+    sign-flipped), then one length lane, since zero fill cannot tell a
+    real trailing NUL from the end ('ab' and 'ab\\0').  Equal lane tuples
+    mean equal values, so the output is grouped by the original keys.
+    Past :data:`MAX_ORDER_LANES` lanes the key becomes one lane of the
+    dense rank of its distinct values.
+
+    The reference refuses this sort under several controllers, whose
+    per-process value stores cannot bound the common prefix across
+    processes; the port runs in one process, whose store holds every
+    value, so that case does not arise.
+
+    Returns ``(table2, by2, ascending2, original_by)``, or None when no
+    key is hashed."""
+    from .. import native
+    by_cols = [table.column(n) for n in by]
+    if not any(isinstance(c.dictionary, HashedStrings) for c in by_cols):
+        return None
+    env = table.env
+    descend = _norm_dirs(by, ascending)
+    w, cap = env.world_size, table.capacity
+    vc = np.asarray(table.valid_counts, np.int64)
+    live = np.zeros(w * cap, bool)
+    for i in range(w):
+        live[i * cap:i * cap + int(vc[i])] = True
+    new_by, new_asc, add_cols = [], [], {}
+    for n, c, desc in zip(by, by_cols, descend):
+        if not isinstance(c.dictionary, HashedStrings):
+            new_by.append(n)
+            new_asc.append(not desc)
+            continue
+        hs, vs = c.dictionary._lookup()
+        lanes = _value_lanes(np.asarray(vs, dtype=object), c.data.device)
+        n_lanes = lanes.shape[1]
+        codes = host_array(c.data)
+        cu = codes.view(np.uint64) if codes.dtype == np.int64 \
+            else codes.astype(np.uint64)
+        if len(hs):
+            idx = np.clip(np.searchsorted(hs, cu), 0, len(hs) - 1)
+            ok = live if c.validity is None \
+                else live & host_array(c.validity)
+            if bool((hs[idx][ok] != cu[ok]).any()):
+                raise InvalidError(
+                    f"sort on string column {n!r}: some rows' codes are "
+                    "missing from the column's value store")
+            row_lanes = lanes[idx]
+        else:
+            row_lanes = np.zeros((len(cu), n_lanes), np.uint32)
+        mat = (row_lanes ^ np.uint32(0x80000000)).view(np.int32)
+        # one upload for all of this key's lanes, lane-major so each
+        # lane column is a contiguous row
+        placed = torch.from_numpy(np.ascontiguousarray(mat.T)).to(
+            c.data.device)
+        for li in range(n_lanes):
+            lane_host = mat[:, li]
+            name = f"__strord_{n}_{li}"
+            while name in table:
+                name += "_"
+            bounds = ((int(lane_host.min()), int(lane_host.max()))
+                      if lane_host.size else None)
+            add_cols[name] = Column(placed[li], LogicalType.INT32,
+                                    c.validity, bounds=bounds)
+            new_by.append(name)
+            new_asc.append(not desc)
+    return table.with_columns(add_cols), new_by, new_asc, list(by)
+
+
 def sort_table(table: Table, by, ascending=True,
                nulls_position: str = "last", num_samples: int = 0,
                method: str = "initial") -> Table:
@@ -153,6 +273,18 @@ def sort_table(table: Table, by, ascending=True,
     if method not in ("initial", "regular"):
         raise InvalidError("sort method must be 'initial' or 'regular'")
     env = table.env
+    with timing.region("sort.string_lanes"):
+        expanded = _expand_hashed_string_keys(table, by, ascending)
+    if expanded is not None:
+        table2, by2, asc2, orig_by = expanded
+        out = sort_table(table2, by2, asc2, nulls_position, num_samples,
+                         method)
+        synth = set(by2) - set(orig_by)
+        res = Table({n: c for n, c in out.columns.items()
+                     if n not in synth}, env, out.valid_counts)
+        # equal lane tuples are equal values: grouped by the original keys
+        res.grouped_by = tuple(orig_by)
+        return res
     descendings = _norm_dirs(by, ascending)
     npos = pack.NULL_FIRST if nulls_position == "first" else pack.NULL_LAST
     w = env.world_size

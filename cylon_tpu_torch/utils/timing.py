@@ -8,6 +8,13 @@ QUEUE its work; ``block`` mode waits for the device at the end of every
 region, which gives each phase its device time but serializes the
 phases' overlap — use it for an attribution run, not a timed one.
 :func:`bump` counts an event (a route taken) whatever the mode.
+
+Regions by layer: ``shuffle.hash``/``shuffle.exchange`` (the exchange),
+``join.*`` and ``pipe.*`` (the joins), ``groupby.*``, ``sort.*`` (with
+``sort.string_lanes``, the host-side lanes of a hashed string key),
+``setop.flags``/``unique.flags`` (a set op's or unique's dense rank,
+flags and count pull), ``setop.materialize``/``unique.materialize`` (its
+compaction) and ``repart.targets`` (a repartition's destinations).
 """
 
 from __future__ import annotations

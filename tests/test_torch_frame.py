@@ -212,3 +212,71 @@ def test_frame_refusals():
     assert pct.DataFrame([np.arange(3), np.ones(3)],
                          env=p.env).columns == ["0", "1"]
     assert pct.DataFrame.from_table(p.table).table is p.table
+
+
+# ---------------------------------------------------------------------------
+# set operations, distinct rows, redistribution and row ranges
+# ---------------------------------------------------------------------------
+
+def _set_frames(seed=5):
+    rng = np.random.default_rng(seed)
+    a = pd.DataFrame({"k": rng.integers(0, 30, 200),
+                      "g": rng.integers(0, 3, 200)})
+    b = pd.DataFrame({"k": rng.integers(10, 40, 150),
+                      "g": rng.integers(0, 3, 150)})
+    return a, b
+
+
+def test_set_methods(worlds):
+    renv, penv = worlds
+    a, b = _set_frames()
+    ra, rb = rct.DataFrame(a, env=renv), rct.DataFrame(b, env=renv)
+    pa, pb = pct.DataFrame(a, env=penv), pct.DataFrame(b, env=penv)
+    for op in ("union", "intersect", "subtract"):
+        same(getattr(ra, op)(rb), getattr(pa, op)(pb))
+    for keep in ("first", "last"):
+        same(ra.drop_duplicates(["k"], keep=keep),
+             pa.drop_duplicates(["k"], keep=keep))
+    same(ra.drop_duplicates(), pa.drop_duplicates())
+    assert pa.isin(pa.union(pb)) is ra.isin(ra.union(rb)) is True
+    assert pa.isin(pb) is ra.isin(rb) is False
+    assert pa.equals(pa) is ra.equals(ra) is True
+    assert pa.equals(pb) is ra.equals(rb) is False
+    shuffled = a.sample(frac=1.0, random_state=2).reset_index(drop=True)
+    rs, ps = rct.DataFrame(shuffled, env=renv), pct.DataFrame(shuffled,
+                                                              env=penv)
+    assert pa.equals(ps, ordered=False) is ra.equals(rs, ordered=False) \
+        is True
+
+
+def test_redistribution_methods(worlds):
+    renv, penv = worlds
+    a, b = _set_frames()
+    ra, pa = rct.DataFrame(a, env=renv), pct.DataFrame(a, env=penv)
+    for n in (5, 77):
+        same(ra.head(n), pa.head(n))
+        same(ra.tail(n), pa.tail(n))
+    same(ra.head(), pa.head())
+    same(ra.shuffle("k"), pa.shuffle("k"))
+    rsub = ra.subtract(rct.DataFrame(b, env=renv))
+    psub = pa.subtract(pct.DataFrame(b, env=penv))
+    same(rsub.repartition(), psub.repartition())
+    w = penv.world_size
+    counts = [0] * (w - 1) + [len(a)]
+    same(ra.repartition(counts), pa.repartition(counts))
+    assert pa.repartition(counts).to_pydict() == pa.to_pydict()
+
+
+def test_set_methods_move_env(env1, env4):
+    """``env=`` runs the method on another world (both frames move)."""
+    a, b = _set_frames()
+    p1 = pct.CylonEnv(device="cpu")
+    p4 = pct.CylonEnv(VirtualMeshConfig(4), device="cpu")
+    ra, rb = rct.DataFrame(a, env=env1), rct.DataFrame(b, env=env1)
+    pa, pb = pct.DataFrame(a, env=p1), pct.DataFrame(b, env=p1)
+    out = pa.union(pb, env=p4)
+    assert out.env is p4
+    same(ra.union(rb, env=env4), out)
+    same(ra.drop_duplicates(["k"], env=env4),
+         pa.drop_duplicates(["k"], env=p4))
+    same(ra.repartition(env=env4), pa.repartition(env=p4))

@@ -28,6 +28,7 @@ from cylon_tpu_torch.exec import memory as pmemory
 from cylon_tpu_torch.ops import splitter_probe as sp
 from cylon_tpu_torch.relational.piece import PieceSource as PSource
 from cylon_tpu_torch.relational.sort import local_sort_table as p_lsort
+from test_torch_shuffle import assert_layout
 
 AGGS = [("a", "sum"), ("b", "sum"), ("a", "count"), ("b", "mean")]
 
@@ -531,3 +532,65 @@ def test_pipelined_how_edge_ranges(env1, penv, no_cap_cache, case, how):
     out = pct.pipelined_join(pl, pr, "k", "k", how=how, n_chunks=4)
     _assert_live_layout(r_pipe(rl, rr, "k", "k", how=how, n_chunks=4), out)
     assert out.row_count == len(pdf.merge(bdf, on="k", how=how))
+
+
+# ---------------------------------------------------------------------------
+# the chunked set operation and its row chunks
+# ---------------------------------------------------------------------------
+
+def _setop_frames(seed=11):
+    """Two frames of (k, s) rows with repeats within and across chunks,
+    a nullable key and a string column."""
+    rng = np.random.default_rng(seed)
+
+    def frame(n, lo):
+        k = pd.array(rng.integers(lo, lo + 40, n), dtype="Int64")
+        k[rng.random(n) < 0.05] = pd.NA
+        return pd.DataFrame({"k": k,
+                             "s": rng.choice(["x", "y", "z"], n)
+                             .astype(object)})
+
+    return frame(700, 0), frame(500, 20)
+
+
+@pytest.mark.parametrize("w", [1, 4])
+@pytest.mark.parametrize("op", ["union", "intersect", "subtract"])
+def test_pipelined_set_op_matches_reference(env1, penv, worlds4, monkeypatch,
+                                            w, op):
+    """``pipelined_set_op(n_chunks=3)`` against the reference's, layout
+    included; its rows equal the monolithic set operation's."""
+    from cylon_tpu.exec import pipelined_set_op as r_pipe_setop
+    renv, penv_w = _world(w, env1, penv, worlds4, monkeypatch)
+    a, b = _setop_frames()
+    ra, rb = rct.Table.from_pandas(a, renv), rct.Table.from_pandas(b, renv)
+    pa, pb = pct.Table.from_pandas(a, penv_w), pct.Table.from_pandas(b,
+                                                                     penv_w)
+    out = pct.pipelined_set_op(pa, pb, op, n_chunks=3)
+    assert_layout(r_pipe_setop(ra, rb, op, n_chunks=3), out)
+
+    def row_set(t):
+        d = t.to_pydict()
+        return sorted(zip([None if x is None or x != x else int(x)
+                           for x in d["k"]], d["s"]),
+                      key=lambda r: (r[0] is None, r[0] or 0, r[1]))
+
+    assert row_set(out) == row_set(pct.set_operation(pa, pb, op))
+
+
+@pytest.mark.parametrize("n_chunks", [1, 3, 5])
+def test_chunk_table_matches_reference(env1, penv, worlds4, monkeypatch,
+                                       n_chunks):
+    """Every chunk's layout, and the chunks in order cover the table."""
+    from cylon_tpu.exec import chunk_table as r_chunks
+    renv, penv4 = _world(4, env1, penv, worlds4, monkeypatch)
+    a, _ = _setop_frames()
+    rt, pt = rct.Table.from_pandas(a, renv), pct.Table.from_pandas(a, penv4)
+    rc, pc = r_chunks(rt, n_chunks), pct.chunk_table(pt, n_chunks)
+    assert len(pc) == len(rc) == max(n_chunks, 1)
+    for i in range(len(pc)):
+        assert_layout(rc[i], pc[i])
+    assert sum(c.row_count for c in pc) == pt.row_count
+    if n_chunks > 1:
+        assert_layout(rc[-1], pc[-1])
+        with pytest.raises(IndexError):
+            pc[n_chunks]

@@ -251,6 +251,8 @@ def test_import_boundary():
         "import cylon_tpu_torch.relational.sort, cylon_tpu_torch.frame\n"
         "import cylon_tpu_torch.relational.groupby\n"
         "import cylon_tpu_torch.relational.repart\n"
+        "import cylon_tpu_torch.relational.setops, cylon_tpu_torch.ops.setops\n"
+        "import cylon_tpu_torch.native\n"
         "import cylon_tpu_torch.ops.splitter_probe, cylon_tpu_torch.ops.sort\n"
         "import cylon_tpu_torch.utils.timing\n"
         "import cylon_tpu_torch.ops.hashing, cylon_tpu_torch.parallel.shuffle\n"
