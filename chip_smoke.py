@@ -1,7 +1,7 @@
 """Smoke run of cylon_tpu_torch on one CUDA card.
 
     python3 chip_smoke.py [--rows N] [--config3-rows N] [--fact-rows N]
-                          [--string-rows N]
+                          [--string-rows N] [--scan-rows N]
 
 Builds the package's CUDA kernels from the sources in this checkout (one
 nvcc per source, all at once), holds each against its plain PyTorch
@@ -117,11 +117,35 @@ Then the set operations, the redistributions and hashed string keys:
   ``equals``, even and specified repartitions, slices across shard
   boundaries, and a hashed-string join, groupby and sort (the crossover
   lowered to this size through the config knob), each against numpy;
-* ``strings_path``: two ``--string-rows`` tables (default 16,777,216)
+* ``strings_path``: two ``--string-rows`` tables (default 8,388,608)
   keyed by TPC-H's ``C_NAME`` format of bench.py's keys, above the
   crossover, so the keys hash on ingest (``setup_s``):
   ``merge(on="name").groupby("name").sum().sort_values("name")`` at
   W = 4, best of 3, decoded names and sums against numpy.
+
+Then the Series, the index, the streamed scan join and the breadth of
+the API, on bench.py's tables at ``--scan-rows`` per side (default
+125,829,120) at W = 4:
+
+* ``series_path``: TPC-H Q6's shape on df1 with a float64 column about
+  5% null — a mask of three comparisons combined with ``&``, the filter
+  ``df1[mask]``, two columns derived through ``__setitem__``, ``sum``,
+  ``mean``, ``count`` and ``nunique``, then ``set_index("k").loc[lo:hi]``,
+  an ``iloc`` range and ``isna``/``fillna``/``dropna``/``where``: best of
+  3 after a warm-up, each step's time, peak memory, the idle share; no
+  kernel launches;
+* ``scan_join_path``: df1 as 8 batches (``Table``s made from the host
+  arrays as the scan reaches them) through ``pipelined_scan_join`` against
+  df2 resident, into a ``GroupBySink``; equal to the BASELINE join →
+  groupby oracle, timed beside ``dist_path``; K1's launches there, and
+  K1 held bit-equal to its plain version (and timed) on the first batch's
+  shard 0 inputs, captured in a run with the fused pushdown's density
+  gate opened;
+* ``breadth_small``: 1M rows at W = 1, 3, 4 and 8 — decimal keys and
+  payloads of mixed scales through a join, a groupby sum, a sort, a
+  concat and a set op; a list payload through a join and a filter, and
+  its typed refusal as a key; Series ops with nulls, ``loc``, ``iloc``
+  and ``Row``/``Scalar``.
 
 Each route's kernel counts are set to 0 just before it and read just
 after.  Prints one JSON line per phase, then the kernel summary line, then
@@ -744,6 +768,7 @@ def dist_phases(ct, left, right, orc, n: int, need_k1: bool, routes: dict,
               "fused_groupby": split[0]["groupby_s"],
               "total": split[0]["total_s"]}})
     routes["monolithic_w4"] = d_counts
+    w4["dist_path"] = {"best_s": dbest, "peak_mem_bytes": d_peak}
     if "mono" in captured:
         w4["k1_monolithic"] = k1_check(wg, "w4_monolithic_shard0",
                                        *captured.pop("mono"), True,
@@ -1847,7 +1872,7 @@ def broadcast_path(ct, n_fact: int = FACT_ROWS, device=None) -> dict:
 # -- set operations, unique, equals, repartition, hashed string keys -------
 
 #: strings_path: rows per table; TPC-H's C_NAME format on bench.py's keys
-STRING_ROWS = 16_777_216
+STRING_ROWS = 8_388_608
 NAME_FORMAT = "Customer#%09d"
 
 
@@ -2245,6 +2270,419 @@ def strings_path(ct, n: int = STRING_ROWS, device=None,
     return rec
 
 
+#: series_path / scan_join_path: bench.py's df1 at 125,829,120 rows, read
+#: by the scan as 8 batches of 15,728,640 rows
+SCAN_ROWS, SCAN_BATCHES = 125_829_120, 8
+#: series_path's nullable float64 column: about this share of rows null
+SERIES_NULL_SHARE = 0.05
+#: series_path's query: keys in [mv/4, mv/2), payloads below mv/2
+SERIES_PHASES = {"filter": "q.filter", "derive": "q.derive",
+                 "reduce": "q.reduce", "nunique": "q.nunique",
+                 "loc": "q.loc", "iloc": "q.iloc", "nulls": "q.nulls"}
+#: the fused pushdown's segment space below which K1 is never asked for
+#: (relational/fused._win_size)
+K1_MIN_SEGMENTS = 1 << 20
+SCAN_PHASES = {"ingest": "scan.ingest", "shuffle": "join.shuffle",
+               "scan_join": "pipe.scan_join", "consume": "pipe.consume"}
+
+
+def series_inputs(left: dict, seed: int = 42):
+    """x: float64 values with a validity mask, about SERIES_NULL_SHARE of
+    the rows null, drawn from the seed (after bench.py's own draws)."""
+    rng = np.random.default_rng([seed, 8])
+    n = len(left["k"])
+    return rng.standard_normal(n) * 100.0, rng.random(n) >= SERIES_NULL_SHARE
+
+
+def series_frame(ct, left: dict, x, valid, env):
+    """df1's k and a plus the nullable x, through ``Table.from_host_columns``
+    (a float column with a validity mask: the dtype-faithful ingest)."""
+    from cylon_tpu_torch.core.dtypes import LogicalType
+    cols = {"k": ct.Column.from_numpy(left["k"]),
+            "a": ct.Column.from_numpy(left["a"]),
+            "x": ct.Column(x, LogicalType.FLOAT64, valid)}
+    return ct.DataFrame(_table=ct.Table.from_host_columns(cols, env))
+
+
+def series_query(df, mv: int):
+    """TPC-H Q6's shape on df1: a mask of three comparisons combined with
+    ``&``, ``df[mask]``, two derived columns through ``__setitem__``,
+    ``sum``/``mean``/``count``/``nunique``; then ``set_index("k").loc[lo:
+    hi]``, an ``iloc`` range and ``isna``/``fillna``/``dropna``/``where``
+    on the nullable column.  Each step is a timing region; the result is
+    a dict of host scalars."""
+    from cylon_tpu_torch.utils import timing
+    lo, hi, acut, n = mv // 4, mv // 2, mv // 2, len(df)
+
+    def run(times):
+        out = {}
+        t0 = time.perf_counter()
+        with timing.region("q.filter"):
+            m = (df["k"] >= lo) & (df["k"] < hi) & (df["a"] < acut)
+            f = df[m]
+        with timing.region("q.derive"):
+            f["rev"] = f["a"] * 3 - f["k"]
+            f["y"] = f["x"] * 0.5 + 1.0
+            sync_pull(f.table.column("y").data)
+        with timing.region("q.reduce"):
+            out["rev_sum"] = f["rev"].sum()
+            out["y_mean"] = f["y"].mean()
+            out["y_count"] = f["y"].count()
+        with timing.region("q.nunique"):
+            out["k_nunique"] = f["k"].nunique()
+        with timing.region("q.loc"):
+            li = df.set_index("k").loc[lo:hi]
+            out["loc_rows"] = len(li)
+            out["loc_a_sum"] = li["a"].sum()
+        with timing.region("q.iloc"):
+            il = df.iloc[n // 3:n // 3 + n // 10]
+            out["iloc_rows"] = len(il)
+            out["iloc_a_sum"] = il["a"].sum()
+        with timing.region("q.nulls"):
+            xs = df["x"]
+            out["isna"] = xs.isna().sum()
+            out["fillna_sum"] = xs.fillna(0.0).sum()
+            out["dropna_rows"] = len(df.dropna(subset=["x"]))
+            out["where_count"] = xs.where(df["k"] < hi).count()
+        times.append(time.perf_counter() - t0)
+        return out
+    return run
+
+
+def series_oracle(left: dict, x, valid, mv: int) -> dict:
+    """series_query's answers in numpy.  Integer sums are exact (below
+    2^63); a float sum carries its tolerance (``tol``)."""
+    k, a = left["k"], left["a"]
+    lo, hi, acut, n = mv // 4, mv // 2, mv // 2, len(k)
+    m = (k >= lo) & (k < hi) & (a < acut)
+    y = x[m & valid] * 0.5 + 1.0
+    loc = (k >= lo) & (k <= hi)
+    il = slice(n // 3, n // 3 + n // 10)
+    eps = np.finfo(np.float64).eps
+    return {"rev_sum": int((a[m] * 3 - k[m]).sum()),
+            "y_mean": float(y.sum() / len(y)), "y_count": len(y),
+            "k_nunique": len(np.unique(k[m])),
+            "loc_rows": int(loc.sum()), "loc_a_sum": int(a[loc].sum()),
+            "iloc_rows": n // 10, "iloc_a_sum": int(a[il].sum()),
+            "isna": int((~valid).sum()),
+            "fillna_sum": float(x[valid].sum()),
+            "dropna_rows": int(valid.sum()),
+            "where_count": int((valid & (k < hi)).sum()),
+            # a tree-ordered float64 sum of n values is within
+            # 64·eps·Σ|v| of any other (tests/test_torch_groupby_sort.py)
+            "tol": {"y_mean": 64 * eps * float(np.abs(y).sum()) / len(y),
+                    "fillna_sum": 64 * eps * float(np.abs(x[valid]).sum())}}
+
+
+def check_series(out: dict, orc: dict, label: str) -> int:
+    for key, want in orc.items():
+        if key == "tol":
+            continue
+        got = out[key]
+        tol = orc["tol"].get(key)
+        if (abs(got - want) > tol) if tol is not None else got != want:
+            raise AssertionError(f"{label}: {key} {got!r}, numpy says "
+                                 f"{want!r}")
+    return out["y_count"]
+
+
+def series_path(ct, left: dict, mv: int, device=None,
+                profile: bool = True) -> dict:
+    """series_query on df1 at W = 4: best of 3 after a warm-up, each
+    step's time, the peak memory, the idle share; no kernel launches."""
+    from cylon_tpu_torch.ctx.context import VirtualMeshConfig
+    env = ct.CylonEnv(VirtualMeshConfig(4), device=device)
+    x, valid = series_inputs(left)
+    t0 = time.perf_counter()
+    df = series_frame(ct, left, x, valid, env)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    orc = series_oracle(left, x, valid, mv)
+    del x, valid
+    rec = timed_path("series_path", series_query(df, mv),
+                     lambda out, label: check_series(out, orc, label),
+                     SERIES_PHASES, profile=profile)
+    no_kernels(rec, "series_path")
+    n = len(left["k"])
+    rec.update({"phase": "series_path", "world": 4, "rows": n,
+                "selected_rows": rec.pop("groups"), "setup_s": setup_s,
+                "null_rows": orc["isna"], "rows_per_s": n / rec["best_s"]})
+    return rec
+
+
+def scan_batches(ct, left: dict, env, batches: int = SCAN_BATCHES):
+    """df1 read as ``batches`` Tables of consecutive rows, each made from
+    the host arrays as the scan reaches it (region ``scan.ingest``)."""
+    from cylon_tpu_torch.utils import timing
+    n = len(left["k"])
+    step = -(-n // batches)
+    for i in range(0, n, step):
+        with timing.region("scan.ingest"):
+            t = ct.Table.from_pydict({"k": left["k"][i:i + step],
+                                      "a": left["a"][i:i + step]}, env)
+        yield t
+
+
+def scan_join_path(ct, left: dict, right: dict, orc: dict, device=None,
+                   profile: bool = True) -> dict:
+    """``pipelined_scan_join(batches, df2, "k", "k", sink=GroupBySink(
+    "k", [("a", "sum"), ("b", "sum")]))`` at W = 4: df1 streamed in
+    SCAN_BATCHES batches against df2 resident (shuffled once), equal to
+    the BASELINE join → groupby oracle.  K1 launches once per batch and
+    shard (the sink's fused pushdown) and is held bit-equal to its plain
+    version on the first batch's shard 0 inputs, and timed there."""
+    from cylon_tpu_torch.ctx.context import VirtualMeshConfig
+    from cylon_tpu_torch.ops import windowed_gather as wg
+    w = 4
+    env = ct.CylonEnv(VirtualMeshConfig(w), device=device)
+    t0 = time.perf_counter()
+    rt = ct.Table.from_pydict(right, env)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    def query(times):
+        t0 = time.perf_counter()
+        sink = ct.GroupBySink("k", [("a", "sum"), ("b", "sum")])
+        ct.pipelined_scan_join(scan_batches(ct, left, env), rt, "k", "k",
+                               sink=sink)
+        g = sink.finalize()
+        sync_pull(g.column("k").data)
+        times.append(time.perf_counter() - t0)
+        return g
+
+    rec = timed_path("scan_join_path", query,
+                     lambda g, label: check_dist(g, orc, w, label),
+                     SCAN_PHASES, profile=profile)
+    k1 = rec["kernel_counts"]["windowed_gather"]
+    if rec["kernel_counts"]["splitter_probe"]["launches"] != 0 \
+            or k1["launches"] % 4:
+        raise AssertionError(f"scan_join_path: kernel counts "
+                             f"{rec['kernel_counts']}; expected no K2 and "
+                             "K1 the same number of times per iteration")
+    # K1's inputs on the first batch's shard 0: the fused pushdown takes
+    # the windowed gather only above the group density wg.MIN_DENSITY
+    # (the reference's gate), which a batch against the whole resident
+    # build may not reach; the capture run opens the gate (its window
+    # from the measured density) so that K1 sees the batch's real lanes
+    # and run starts, and records the densities it met
+    from cylon_tpu_torch.relational import fused
+    captured, seen = {}, []
+    gate = fused._win_size
+
+    def opened(env_, sc, dens):
+        seen.append(dens)
+        return wg.pick_window(dens) if sc >= K1_MIN_SEGMENTS else 0
+
+    fused._SEG_CACHE.clear()
+    fused._win_size = opened
+    try:
+        with capturing(wg, "windowed_take_t", captured, "scan", keep_k1):
+            check_dist(query([]), orc, w, "scan_join_path capture run")
+    finally:
+        fused._win_size = gate
+        fused._SEG_CACHE.clear()
+    del rt, env
+    torch.cuda.empty_cache()
+    if "scan" not in captured:
+        raise AssertionError("scan_join_path: the capture run launched no "
+                             "K1")
+    rec["k1_first_batch"] = k1_check(wg, "scan_join_first_batch_shard0",
+                                     *captured.pop("scan"), timed=True)
+    rec["group_densities_seen"] = seen[:2 * SCAN_BATCHES]
+    rec["k1_min_density"] = wg.MIN_DENSITY
+    n = len(left["k"])
+    rec.update({"phase": "scan_join_path", "world": w,
+                "scan_rows": n, "build_rows": len(right["k"]),
+                "batches": SCAN_BATCHES, "batch_rows": -(-n // SCAN_BATCHES),
+                "k1_launches_per_iteration": k1["launches"] // 4,
+                "setup_s": setup_s,
+                "rows_per_s": (n + len(right["k"])) / rec["best_s"]})
+    return rec
+
+
+def breadth_inputs(n: int, seed: int = 17) -> dict:
+    """breadth_small's host columns: a key over n/8 values, a decimal key
+    (its quarters, scale 2 on the left and 3 on the right), a decimal
+    payload (tenths, scale 1), an int64 payload, a nullable int64 and a
+    nullable float64 (2% null each)."""
+    rng = np.random.default_rng(seed)
+    nk = max(n // 8, 1)
+    lk = rng.integers(0, nk, n).astype(np.int64)
+    rk = rng.integers(0, nk, n // 2).astype(np.int64)
+    return {"nk": nk, "lk": lk, "rk": rk,
+            "p": rng.integers(-10_000, 10_000, n).astype(np.int64),
+            "b": rng.integers(0, 1000, n // 2).astype(np.int64),
+            "v": rng.integers(-50, 50, n).astype(np.int64),
+            "vv": rng.random(n) >= 0.02,
+            "f": rng.standard_normal(n), "fv": rng.random(n) >= 0.02}
+
+
+def breadth_small_world(ct, d: dict, w: int, device=None) -> dict:
+    """One world of breadth_small (module docstring), against numpy."""
+    from cylon_tpu_torch.core.column import DecimalScale, PassthroughValues
+    from cylon_tpu_torch.core.dtypes import LogicalType as LT
+    from cylon_tpu_torch.ctx.context import VirtualMeshConfig
+    env = ct.CylonEnv(VirtualMeshConfig(w), device=device)
+    lk, rk, nk, n = d["lk"], d["rk"], d["nk"], len(d["lk"])
+    checks = 0
+
+    def dec(data, scale):
+        return ct.Column(data, LT.DECIMAL, None,
+                         DecimalScale(max(len(str(int(np.abs(data).max()))),
+                                          1), scale),
+                         bounds=(int(data.min()), int(data.max())))
+
+    ls = np.empty(n, dtype=object)
+    ls[:] = [[i, i % 7] for i in range(n)]
+    lt = ct.Table.from_host_columns({
+        "k": ct.Column.from_numpy(lk), "m": dec(lk * 25, 2),
+        "p": dec(d["p"], 1), "ls": ct.Column(
+            np.arange(n, dtype=np.int32), LT.LIST, None,
+            PassthroughValues(ls), bounds=(0, n - 1))}, env)
+    rt = ct.Table.from_host_columns({
+        "m": dec(rk * 250, 3), "b": ct.Column.from_numpy(d["b"])}, env)
+
+    # decimals: a join of mixed scales (rescaled to 3), a groupby sum
+    L, R = np.bincount(lk, minlength=nk), np.bincount(rk, minlength=nk)
+    sp = np.bincount(lk, d["p"], minlength=nk).astype(np.int64)
+    sb = np.bincount(rk, d["b"], minlength=nk).astype(np.int64)
+    j = ct.join_tables(lt, rt, "m", "m")
+    if j.column("m").dictionary != DecimalScale(
+            j.column("m").dictionary.precision, 3):
+        raise AssertionError(f"breadth W={w}: join key not at scale 3")
+    g = ct.groupby_aggregate(j, "m", [("p", "sum"), ("b", "sum")]) \
+        .host_columns()
+    keep = (L > 0) & (R > 0)
+    order = np.argsort(g["m"][0], kind="stable")
+    if not (np.array_equal(g["m"][0][order], np.nonzero(keep)[0] * 250)
+            and np.array_equal(g["p_sum"][0][order], (sp * R)[keep])
+            and np.array_equal(g["b_sum"][0][order], (sb * L)[keep])):
+        raise AssertionError(f"breadth W={w}: decimal join→groupby differs")
+    checks += 1
+    # the list payload rode the join: each row's list names its left row
+    jh = j.project(["k", "ls"]).to_pydict()
+    first = np.fromiter((v[0] for v in jh["ls"]), np.int64, len(jh["ls"]))
+    if len(first) != int((L * R).sum()) or not np.array_equal(
+            lk[first], jh["k"]):
+        raise AssertionError(f"breadth W={w}: list payload lost its rows")
+    checks += 1
+    del j, jh, first
+    # sort by (decimal key, decimal payload), concat of scales 2 and 3,
+    # a set op on rescaled keys, a groupby sum of a decimal payload
+    s = ct.sort_table(lt, ["m", "p"]).host_columns()
+    o = np.lexsort((d["p"], lk))
+    if not (np.array_equal(s["m"][0], lk[o] * 25)
+            and np.array_equal(s["p"][0], d["p"][o])):
+        raise AssertionError(f"breadth W={w}: decimal sort differs")
+    c = ct.concat_tables([lt.project(["m"]), rt.project(["m"])])
+    if c.column("m").dictionary.scale != 3 or not np.array_equal(
+            np.sort(c.host_columns()["m"][0]),
+            np.sort(np.concatenate([lk, rk]) * 250)):
+        raise AssertionError(f"breadth W={w}: decimal concat differs")
+    both = ct.set_operation(lt.project(["m"]), rt.project(["m"]),
+                            "intersect").host_columns()["m"][0]
+    if not np.array_equal(np.sort(both), np.nonzero(keep)[0] * 250):
+        raise AssertionError(f"breadth W={w}: decimal intersect differs")
+    g = ct.groupby_aggregate(lt, "m", [("p", "sum")]).host_columns()
+    o = np.argsort(g["m"][0], kind="stable")
+    if not (np.array_equal(g["m"][0][o], np.nonzero(L)[0] * 25)
+            and np.array_equal(g["p_sum"][0][o], sp[L > 0])):
+        raise AssertionError(f"breadth W={w}: decimal groupby differs")
+    checks += 4
+    # the list payload through a filter; its typed refusals as a key
+    df = ct.DataFrame(_table=lt)
+    f = df[df["k"] % 3 == 0].table.project(["k", "ls"]).to_pydict()
+    sel = np.nonzero(lk % 3 == 0)[0]
+    if not (np.array_equal(f["k"], lk[sel]) and np.array_equal(
+            np.fromiter((v[0] for v in f["ls"]), np.int64, len(sel)), sel)):
+        raise AssertionError(f"breadth W={w}: list payload filter differs")
+    for call, err in ((lambda: ct.join_tables(lt, lt, "ls", "ls"),
+                       ct.CylonTypeError),
+                      (lambda: ct.groupby_aggregate(lt, "ls", [("p", "sum")]),
+                       ct.InvalidError),
+                      (lambda: ct.sort_table(lt, "ls"), ct.InvalidError)):
+        try:
+            call()
+        except err:
+            continue
+        raise AssertionError(f"breadth W={w}: a list key was accepted")
+    checks += 2
+    del df, f
+
+    # Series with nulls, loc/iloc, Row/Scalar
+    vt = ct.Table.from_host_columns({
+        "k": ct.Column.from_numpy(lk),
+        "v": ct.Column(d["v"], LT.INT64, d["vv"]),
+        "f": ct.Column(d["f"], LT.FLOAT64, d["fv"])}, env)
+    df = ct.DataFrame(_table=vt)
+    vv, fv = d["vv"], d["fv"]
+    s = (df["v"] * 2 + df["k"]).where(df["f"] > 0)
+    ok = vv & fv & (d["f"] > 0)
+    want = (d["v"] * 2 + lk)[ok]
+    got = {"sum": s.sum(), "count": s.count(), "min": s.min(),
+           "max": s.max(), "nunique": s.nunique(),
+           "isna": df["f"].isna().sum(),
+           "mask": len(df[(df["v"] > 0) | (df["f"] < -1)])}
+    want = {"sum": int(want.sum()), "count": len(want),
+            "min": int(want.min()), "max": int(want.max()),
+            "nunique": len(np.unique(want)), "isna": int((~fv).sum()),
+            # validity propagates as AND: a null on either side is null
+            "mask": int((((d["v"] > 0) | (d["f"] < -1)) & vv & fv).sum())}
+    if got != want:
+        raise AssertionError(f"breadth W={w}: series {got} != {want}")
+    mean = df["f"].mean()
+    if abs(mean - d["f"][fv].mean()) > 1e-9:
+        raise AssertionError(f"breadth W={w}: mean {mean}")
+    checks += 1
+    ix = df.set_index("k")
+    labels = [int(lk[0]), int(lk[n // 2]), int(lk[-1])]
+    got = ix.loc[labels].table.host_columns()["k"][0]
+    if not np.array_equal(got, lk[np.isin(lk, labels)]):
+        raise AssertionError(f"breadth W={w}: loc by labels differs")
+    lo, hi = nk // 3, nk // 3 + 50
+    got = ix.loc[lo:hi].table.host_columns()["k"][0]
+    if not np.array_equal(got, lk[(lk >= lo) & (lk <= hi)]):
+        raise AssertionError(f"breadth W={w}: loc range differs")
+    pos = [n - 1, 3, n // 2, 3]
+    got = df.iloc[pos].table.host_columns()["k"][0]
+    if not np.array_equal(got, lk[pos]) or not np.array_equal(
+            df.iloc[n // 4:n // 4 + 1000].table.host_columns()["k"][0],
+            lk[n // 4:n // 4 + 1000]):
+        raise AssertionError(f"breadth W={w}: iloc differs")
+    r = df.row(n // 2 + 1)
+    i = n // 2 + 1
+    if r["k"] != lk[i] or r["v"] != (int(d["v"][i]) if vv[i] else None) \
+            or r.scalar("f").is_null != (not fv[i]) \
+            or r.scalar("v").type != LT.INT64:
+        raise AssertionError(f"breadth W={w}: row {r.to_dict()}")
+    checks += 4
+    return {"world": w, "rows": n, "checks": checks}
+
+
+def breadth_small(ct, worlds=(1, 3, 4, 8), n: int = 1_000_000,
+                  device=None) -> list:
+    """Decimal keys and payloads (mixed scales) through a join, a groupby
+    sum, a sort, a concat and a set op; a list payload through a join and
+    a filter, refused as a key; Series ops with nulls, ``loc``, ``iloc``
+    and ``Row``/``Scalar`` — at each world size, against numpy.  No
+    kernel launches."""
+    from cylon_tpu_torch.ops import splitter_probe as sp
+    from cylon_tpu_torch.ops import windowed_gather as wg
+    d = breadth_inputs(n)
+    out = []
+    for w in worlds:
+        wg.reset_counts()
+        sp.reset_counts()
+        t0 = time.perf_counter()
+        rec = breadth_small_world(ct, d, w, device)
+        rec.update({"seconds": time.perf_counter() - t0,
+                    "kernel_counts": {"windowed_gather": dict(wg.COUNTS),
+                                      "splitter_probe": dict(sp.COUNTS)}})
+        out.append(rec)
+    return out
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=125_000_000,
@@ -2255,6 +2693,8 @@ def main() -> int:
                     help="fact-table rows of the broadcast phase")
     ap.add_argument("--string-rows", type=int, default=STRING_ROWS,
                     help="rows per table of the hashed-string phase")
+    ap.add_argument("--scan-rows", type=int, default=SCAN_ROWS,
+                    help="rows per side of the series and scan-join phases")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this smoke run needs "
@@ -2533,10 +2973,30 @@ def main() -> int:
     emit(srec)
     del srec
     torch.cuda.empty_cache()
+
+    # -- the Series, the index and the streamed scan join on bench.py's
+    # tables at SCAN_ROWS rows, W = 4; breadth at 1M rows -------------------
+    left, right, mv = baseline_inputs(args.scan_rows)
+    srec = series_path(ct, left, mv)
+    routes["series_w4"] = srec["kernel_counts"]
+    emit(srec)
+    srec = scan_join_path(ct, left, right, oracle(left, right, mv))
+    srec["beside_monolithic_w4"] = w4["dist_path"]
+    routes["scan_join_w4"] = srec["kernel_counts"]
+    scan_k1 = srec.pop("k1_first_batch")
+    emit(srec)
+    emit(scan_k1)
+    del left, right, srec
+    torch.cuda.empty_cache()
+    for brec in breadth_small(ct):
+        no_kernels(brec, f"breadth_small W={brec['world']}")
+        emit({"phase": "breadth_small", "oracle": "equal", **brec})
     emit(exchange_gather_forms(dev))
     emit({"kernels": [{
         "name": "windowed_gather", "route": "cuda", "source": K1_SOURCE,
-        "replaces": K1_REPLACES, "launches": counts["launches"],
+        "replaces": K1_REPLACES,
+        "launches": counts["launches"]
+        + routes["scan_join_w4"]["windowed_gather"]["launches"],
         "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
         "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
@@ -2553,7 +3013,9 @@ def main() -> int:
         "w4": {route: {key: w4[check][key] for key in K1_KEYS}
                if check in w4 else None for route, check in (
                    ("monolithic_shard0", "k1_monolithic"),
-                   ("pipelined_shard0_piece0", "k1_pipelined_piece"))}}, {
+                   ("pipelined_shard0_piece0", "k1_pipelined_piece"))},
+        "scan_join_first_batch_shard0": {key: scan_k1[key]
+                                         for key in K1_KEYS}}, {
         "name": "splitter_probe", "route": "cuda", "source": K2_SOURCE,
         "replaces": K2_REPLACES,
         "launches": pipe_counts["splitter_probe"]["launches"],

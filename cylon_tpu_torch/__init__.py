@@ -13,7 +13,13 @@ and the sort-based groupby for every other table), the distributed
 sample sort ``sort_table``, the set operations (``set_operation``,
 ``unique_table``, ``equals``, and ``exec.pipelined_set_op`` over row
 chunks) and the redistributions (``repartition``, ``slice_table``,
-``head``, ``tail``).  A string column of high cardinality takes hashed
+``head``, ``tail``).  A column is a ``Series`` (arithmetic,
+comparisons, masks, null handling and reductions on the device); a frame
+has a label index with ``loc``/``iloc``.  Decimal (scaled int64) and
+list (host passthrough) columns, Arrow interop (``Table.from_arrow`` /
+``to_arrow``), file IO (``io``: CSV, Parquet, JSON, the streaming
+Parquet scan) and ``exec.pipelined_scan_join`` complete the API.  A
+string column of high cardinality takes hashed
 64-bit codes (``core.column.HashedStrings``, hashed on the host by
 ``native/strhash.cpp``, built with ``g++`` at first use).  World sizes above 1 run as a
 ``VirtualMeshConfig`` world, W ranks on one device: tables hash-shuffle
@@ -24,15 +30,20 @@ memory the same work runs through the range-partitioned
 ``exec.pipelined_join`` with a ``GroupBySink``, whose per-row range
 assignment is the hand-written CUDA kernel ``kernels/splitter_probe.cu``.
 
-The package imports torch and numpy only; pandas is touched only by
-``Table.from_pandas`` / ``to_pandas`` when the caller uses them.
+The package imports torch and numpy only; pandas and pyarrow are touched
+only by the pandas and Arrow conversions and the file IO, inside the
+calls, which raise ``CylonIOError`` naming the package when it is
+missing.
 """
 
+from . import io  # noqa: F401  (readers and writers; pyarrow/pandas lazily)
 from .core.column import Column
 from .core.dtypes import LogicalType
+from .core.row import Row, Scalar
 from .core.table import DeferredTable, Table
 from .ctx.context import CylonEnv, LocalConfig, VirtualMeshConfig
-from .exec import GroupBySink, chunk_table, pipelined_join, pipelined_set_op
+from .exec import (GroupBySink, chunk_table, pipelined_join,
+                   pipelined_scan_join, pipelined_set_op)
 from .frame import DataFrame, GroupByDataFrame, concat, read_pandas
 from .relational.groupby import groupby_aggregate
 from .relational.join import join_tables, join_tables_multi
@@ -41,16 +52,21 @@ from .relational.repart import (concat_tables, filter_table, head,
                                 slice_table, tail)
 from .relational.setops import equals, set_operation, unique_table
 from .relational.sort import local_sort_table, sort_table
-from .status import (CylonError, CylonKeyError, CylonTypeError,
-                     DeviceUnavailableError, InvalidError, KernelError)
+from .series import Series
+from .status import (CylonError, CylonIndexError, CylonIOError,
+                     CylonKeyError, CylonTypeError, DeviceUnavailableError,
+                     InvalidError, KernelError)
+from .utils.logging import set_log_level
 
-__all__ = ["Column", "CylonEnv", "CylonError", "CylonKeyError",
-           "CylonTypeError", "DataFrame", "DeferredTable",
-           "DeviceUnavailableError", "GroupByDataFrame", "GroupBySink",
-           "InvalidError", "KernelError", "LocalConfig", "LogicalType",
-           "Table", "VirtualMeshConfig", "chunk_table", "concat",
-           "concat_tables", "equals", "filter_table", "groupby_aggregate",
-           "head", "join_tables", "join_tables_multi", "local_sort_table",
-           "pipelined_join", "pipelined_set_op", "read_pandas",
-           "repad_table", "repartition", "set_operation", "shuffle_table",
-           "slice_table", "sort_table", "tail", "unique_table"]
+__all__ = ["Column", "CylonEnv", "CylonError", "CylonIOError",
+           "CylonIndexError", "CylonKeyError", "CylonTypeError",
+           "DataFrame", "DeferredTable", "DeviceUnavailableError",
+           "GroupByDataFrame", "GroupBySink", "InvalidError", "KernelError",
+           "LocalConfig", "LogicalType", "Row", "Scalar", "Series", "Table",
+           "VirtualMeshConfig", "chunk_table", "concat", "concat_tables",
+           "equals", "filter_table", "groupby_aggregate", "head", "io",
+           "join_tables", "join_tables_multi", "local_sort_table",
+           "pipelined_join", "pipelined_scan_join", "pipelined_set_op",
+           "read_pandas", "repad_table", "repartition", "set_log_level",
+           "set_operation", "shuffle_table", "slice_table", "sort_table",
+           "tail", "unique_table"]

@@ -2,7 +2,8 @@
 
 A :class:`LogicalType` names the user-visible type; the physical
 representation is a fixed-width tensor (strings are dictionary-encoded to
-int32 codes with a host-side value table).  Unlike the reference there is
+int32 codes with a host-side value table, decimals are scaled int64, and
+list cells are int32 row codes into a host value store).  Unlike the reference there is
 no x64 opt-out: 64-bit types always stay 64-bit.
 """
 
@@ -32,6 +33,8 @@ class LogicalType(enum.Enum):
     STRING = "string"          # dictionary-encoded, codes int32
     DATE64 = "datetime64[ns]"  # physical int64 nanoseconds
     TIMEDELTA = "timedelta64[ns]"
+    DECIMAL = "decimal"        # physical int64, scaled by DecimalScale
+    LIST = "list"              # host passthrough: int32 codes into values
 
 
 _NUMERIC_NP = {
@@ -67,9 +70,10 @@ _NUMPY = {v: k for k, v in _TORCH.items()}
 
 def physical_np_dtype(lt: LogicalType) -> np.dtype:
     """The numpy dtype of the device representation of ``lt``."""
-    if lt == LogicalType.STRING:
+    if lt in (LogicalType.STRING, LogicalType.LIST):
         return np.dtype(np.int32)
-    if lt in (LogicalType.DATE64, LogicalType.TIMEDELTA):
+    if lt in (LogicalType.DATE64, LogicalType.TIMEDELTA,
+              LogicalType.DECIMAL):
         return np.dtype(np.int64)
     return np.dtype(_NUMERIC_NP[lt])
 

@@ -86,6 +86,17 @@ class Table:
         return _ingest(cols, env or default_env())
 
     @staticmethod
+    def from_arrow(at, env: CylonEnv | None = None) -> "Table":
+        """From a pyarrow.Table by direct buffer conversion
+        (core/arrow_interop.py); pyarrow is the caller's."""
+        from .arrow_interop import table_from_arrow
+        return table_from_arrow(at, env)
+
+    @staticmethod
+    def from_numpy(names, arrays, env: CylonEnv | None = None) -> "Table":
+        return Table.from_pydict(dict(zip(names, arrays)), env)
+
+    @staticmethod
     def from_host_columns(cols: Mapping[str, Column],
                           env: CylonEnv | None = None) -> "Table":
         """Place already-typed HOST columns (numpy data and validity,
@@ -222,6 +233,13 @@ class Table:
         return {k: (pulled[2 * i], pulled[2 * i + 1])
                 for i, k in enumerate(self.columns)}
 
+    def host_column(self, name: str):
+        """``(data, validity|None)`` host arrays of one column's live rows
+        in global order."""
+        c = self.column(name)
+        one = Table({name: c}, self._env, self.valid_counts)
+        return one.host_columns()[name]
+
     def to_pydict(self) -> dict:
         """{name: decoded numpy array} of the live rows in global order
         (strings decoded, nulls as NaN/None)."""
@@ -234,8 +252,21 @@ class Table:
 
     def to_pandas(self):
         """pandas DataFrame of the live rows; pandas is imported only here."""
-        import pandas as pd
-        return pd.DataFrame(self.to_pydict())
+        from ..status import require
+        return require("pandas").DataFrame(self.to_pydict())
+
+    def to_arrow(self):
+        """pyarrow.Table of the live rows (core/arrow_interop.py)."""
+        from .arrow_interop import table_to_arrow
+        return table_to_arrow(self)
+
+    def to_pylist(self) -> list[dict]:
+        """One ``{column: value}`` dict per live row, in global order;
+        numbers as Python scalars, nulls as None (NaN in float columns),
+        datetimes as numpy datetime64."""
+        cols = {k: (list(v) if v.dtype.kind in "Mm" else v.tolist())
+                for k, v in self.to_pydict().items()}
+        return [dict(zip(cols, vals)) for vals in zip(*cols.values())]
 
     def __repr__(self) -> str:  # pragma: no cover
         return (f"Table(rows={self.row_count}, cols={self.column_names}, "
@@ -312,7 +343,10 @@ class DeferredTable(Table):
 
 
 def _place(host: np.ndarray, env: CylonEnv) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(host)).to(env.device)
+    host = np.ascontiguousarray(host)
+    if not host.flags.writeable:   # an Arrow buffer's view
+        host = host.copy()
+    return torch.from_numpy(host).to(env.device)
 
 
 def _ingest(cols: dict[str, Column], env: CylonEnv) -> Table:

@@ -42,6 +42,8 @@ class Ledger:
         self._lock = threading.RLock()
         self._names = 0
         self._bytes = 0
+        #: the largest balance since the last reset_stats()
+        self.peak = 0
 
     def balance(self) -> int:
         return self._bytes
@@ -56,6 +58,7 @@ class Ledger:
             reg = Registration(f"{base}#{self._names}", nbytes)
             self._live[reg.owner] = reg
             self._bytes += reg.nbytes
+            self.peak = max(self.peak, self._bytes)
         if anchor is not None:
             try:
                 weakref.finalize(anchor, self.release, reg)
@@ -78,6 +81,15 @@ class Ledger:
 _LEDGER = Ledger()
 
 
+def ledger() -> Ledger:
+    return _LEDGER
+
+
+def reset_stats() -> None:
+    """Restart the peak from the current balance."""
+    _LEDGER.peak = _LEDGER.balance()
+
+
 def register(base: str, arrays, anchor=None) -> Registration:
     return _LEDGER.register(base, arrays, anchor=anchor)
 
@@ -90,13 +102,19 @@ def register_table(base: str, table, anchor=None) -> Registration | None:
     from ..core.table import DeferredTable
     if isinstance(table, DeferredTable) and not table.materialized:
         return None
-    arrays = []
-    for c in table.columns.values():
-        arrays.append(c.data)
-        if c.validity is not None:
-            arrays.append(c.validity)
-    return _LEDGER.register(base, arrays,
+    return _LEDGER.register(base, _table_arrays(table),
                             anchor=table if anchor is None else anchor)
+
+
+def _table_arrays(table) -> list:
+    return [a for c in table.columns.values() for a in (c.data, c.validity)
+            if a is not None]
+
+
+def table_nbytes(table) -> int:
+    """Device bytes of a materialized Table's columns (data + validity)."""
+    return sum(int(a.numel()) * int(a.element_size())
+               for a in _table_arrays(table))
 
 
 def release(reg) -> None:

@@ -42,11 +42,15 @@ the sort-based groupby over them.
 :func:`pipelined_set_op` streams one side of a set operation through
 row chunks (:func:`chunk_table`) against the other side shuffled once,
 and takes one distinct pass over the partials.
+:func:`pipelined_scan_join` streams a scan's batches (an iterator of
+Tables, ``io.scan_parquet_dist``) against a resident build side shuffled
+once.
 
 Left out, as in no run of the reference by default: the spill prefetch
 of host-resident sources, the checkpoint stage and the recovery
 injectors (slice 11), plan nodes and traces (slice 12), and the serving
-tier's interleave point at each chunk boundary (slice 13).
+tier's interleave point at each chunk or batch boundary and its
+admission of a scan batch (slice 13).
 """
 
 from __future__ import annotations
@@ -69,7 +73,7 @@ from ..relational.join import join_tables
 from ..relational.piece import PieceSource
 from ..relational.repart import concat_tables, shuffle_table
 from ..relational.sort import local_sort_table
-from ..status import InvalidError
+from ..status import CylonIOError, InvalidError
 from ..utils import timing
 from ..utils.host import host_arrays
 from . import memory
@@ -523,3 +527,83 @@ def pipelined_join(left: Table, right: Table, left_on, right_on,
         # the per-shard concatenation keeps the grouped contract
         out.grouped_by = tuple(left_on)
     return out
+
+
+# ---------------------------------------------------------------------------
+# streamed scan join
+# ---------------------------------------------------------------------------
+
+def pipelined_scan_join(scan, build: Table, scan_on, build_on,
+                        how: str = "inner", suffixes=("_x", "_y"),
+                        sink=None):
+    """Join a stream of scan batches (any iterable of Tables on the build
+    side's world, such as ``io.scan_parquet_dist``) against a resident
+    ``build`` table.  The build side is promoted and (at W > 1) shuffled
+    once; each batch is admitted on the ledger, registered, shuffled,
+    joined with the resident build and consumed — ``sink(result)`` when a
+    sink is given (the join defers, so a ``GroupBySink`` takes the fused
+    pushdown), then released.  The scan side never sits in memory whole.
+
+    Batches partition the scan's rows and every scan row's matches lie in
+    the resident build, so ``inner`` and ``left`` (left = the scan side)
+    are complete per batch; ``right`` and ``outer`` would need unmatched
+    build rows tracked across batches and raise ``InvalidError``, as do
+    dictionary-coded keys (strings, decimals: their codes are per batch
+    and cannot hash-colocate with the once-shuffled build).  Returns the
+    list of sink results, or the batches' joins concatenated."""
+    if how not in ("inner", "left"):
+        raise InvalidError(
+            "pipelined_scan_join supports how in ('inner','left'): "
+            "right/outer need cross-batch unmatched-build bookkeeping — "
+            "materialize the read and use pipelined_join instead")
+    scan_on = [scan_on] if isinstance(scan_on, str) else list(scan_on)
+    build_on = [build_on] if isinstance(build_on, str) else list(build_on)
+    env = build.env
+    w = env.world_size
+    bwork = None
+    outs: list = []
+    n_batches = 0
+    for batch in scan:
+        n_batches += 1
+        check_same_env(batch, build)
+        # promotion against the already promoted build columns is
+        # batch-independent for numeric keys: the build promotes once
+        bk = [batch.column(n) for n in scan_on]
+        rk = [(build if bwork is None else bwork).column(n)
+              for n in build_on]
+        pairs = [promote_key_pair(a, b) for a, b in zip(bk, rk)]
+        if any(p.dictionary is not None for pair in pairs for p in pair):
+            raise InvalidError(
+                "pipelined_scan_join: dictionary-encoded join keys "
+                "are per-batch-coded and cannot hash-colocate "
+                "against a once-shuffled build — materialize the "
+                "read and use pipelined_join")
+        batch = batch.with_columns(
+            {n: p for n, (p, _) in zip(scan_on, pairs)})
+        if bwork is None:
+            bwork = build.with_columns(
+                {n: p for n, (_, p) in zip(build_on, pairs)})
+            if w > 1:
+                with timing.region("join.shuffle"):
+                    bwork = shuffle_table(bwork, build_on)   # ONCE
+            memory.register_table("scan_build", bwork)
+        memory.ensure_headroom(env, memory.table_nbytes(batch))
+        reg = memory.register_table("scan_batch", batch)
+        if w > 1:
+            with timing.region("join.shuffle"):
+                batch = shuffle_table(batch, scan_on)
+        with timing.region("pipe.scan_join"):
+            res = join_tables(batch, bwork, scan_on, build_on, how=how,
+                              suffixes=suffixes, assume_colocated=True,
+                              allow_defer=sink is not None)
+        del batch
+        with timing.region("pipe.consume"):
+            outs.append(sink(res) if sink is not None else res)
+        del res
+        memory.release(reg)
+    if n_batches == 0:
+        raise CylonIOError("pipelined_scan_join: the scan yielded "
+                           "no batches")
+    if sink is not None:
+        return outs
+    return concat_tables(outs) if len(outs) > 1 else outs[0]

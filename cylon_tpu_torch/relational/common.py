@@ -2,7 +2,8 @@
 ``cylon_tpu/relational/common.py`` the join, groupby, sort and set ops
 read): the bounded prediction cache, per-shard liveness masks, sample
 positions, int32-narrowing flags, lane specs, string-dictionary
-unification (sorted or hashed), key promotion, result-table assembly,
+unification (sorted or hashed), key promotion with the decimal rescale
+and the list-key refusal, result-table assembly,
 the filter flag of a bool column and the same-world check."""
 
 from __future__ import annotations
@@ -10,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.column import Column, HashedStrings
+from ..core.column import Column, DecimalScale, HashedStrings
 from ..core.dtypes import LogicalType, np_dtype_of, physical_np_dtype
 from ..core.table import Table
 from ..ctx.context import CylonEnv
@@ -168,12 +169,22 @@ def unify_dictionaries_many(cols: list[Column]) -> list[Column]:
 
 
 def promote_key_pair(a: Column, b: Column) -> tuple[Column, Column]:
-    """Make a cross-table key pair comparable: unify string dictionaries or
-    promote numerics to a common logical type."""
+    """Make a cross-table key pair comparable: unify string dictionaries,
+    rescale decimals to a common scale, or promote numerics to a common
+    logical type.  A list column is never a key."""
+    if LogicalType.LIST in (a.type, b.type):
+        raise CylonTypeError(
+            "list passthrough columns cannot be keys (codes are row ids, "
+            "not value-equal); they carry through joins as payload only")
     if (a.type == LogicalType.STRING) != (b.type == LogicalType.STRING):
         raise CylonTypeError(f"cannot join {a.type} with {b.type}")
     if a.type == LogicalType.STRING:
         return unify_dictionaries(a, b)
+    if (a.type == LogicalType.DECIMAL) != (b.type == LogicalType.DECIMAL):
+        raise CylonTypeError(
+            f"cannot join {a.type} with {b.type}; rescale explicitly")
+    if a.type == LogicalType.DECIMAL:
+        return rescale_decimal_pair(a, b)
     if a.type == b.type:
         return a, b
     common = np.promote_types(physical_np_dtype(a.type),
@@ -182,6 +193,36 @@ def promote_key_pair(a: Column, b: Column) -> tuple[Column, Column]:
         raise CylonTypeError(f"no common key type for {a.type}/{b.type}")
     lt = LogicalType(common.name)
     return a.cast(lt), b.cast(lt)
+
+
+def rescale_decimal_pair(a: Column, b: Column) -> tuple[Column, Column]:
+    """Bring two DECIMAL columns to one scale (the larger): the scaled
+    ints then compare and join exactly."""
+    a, b = rescale_decimals_many([a, b])
+    return a, b
+
+
+def rescale_decimals_many(cs: list[Column]) -> list[Column]:
+    """Bring N DECIMAL columns to ONE common scale, the largest, in one
+    pass, with a precision that covers every column's rescaled digits
+    (past 18 digits :class:`DecimalScale` raises).  One pass matters:
+    pairwise promotion would leave middle columns at a stale scale under
+    the final dictionary."""
+    scales = [c.dictionary for c in cs]
+    if all(s == scales[0] for s in scales[1:]):
+        return list(cs)
+    scale = max(s.scale for s in scales)
+    target = DecimalScale(max(s.precision + scale - s.scale for s in scales),
+                          scale)
+
+    def up(c: Column, own: DecimalScale) -> Column:
+        f = 10 ** (scale - own.scale)
+        bounds = ((c.bounds[0] * f, c.bounds[1] * f)
+                  if c.bounds is not None else None)
+        return Column(c.data * f if f != 1 else c.data, LogicalType.DECIMAL,
+                      c.validity, target, bounds=bounds)
+
+    return [up(c, s) for c, s in zip(cs, scales)]
 
 
 def build_table(names, out_datas, out_valids, types, dicts,

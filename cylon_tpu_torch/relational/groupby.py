@@ -528,7 +528,15 @@ def _groupby_aggregate_impl(table: Table, by: list, specs, ddof: int) -> Table:
     env = table.env
     by_cols = [table.column(n) for n in by]
     val_cols = [table.column(c) for c, _, _, _ in specs]
+    for n, col in zip(by, by_cols):
+        if col.type == LogicalType.LIST:
+            raise InvalidError(
+                f"groupby on list passthrough column {n!r} is not "
+                "supported (codes are row ids, not value-equal)")
     for (c, op, _, _), col in zip(specs, val_cols):
+        if col.type == LogicalType.LIST and op != "count":
+            raise InvalidError(
+                f"agg {op!r} not valid for list passthrough column {c!r}")
         if col.type == LogicalType.STRING and op not in ("count", "nunique",
                                                          "min", "max"):
             raise InvalidError(f"agg {op!r} not valid for string column {c!r}")

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from .. import config
-from ..core.column import Column
+from ..core.column import Column, PassthroughValues
 from ..core.dtypes import LogicalType
 from ..core.table import Table
 from ..ctx.context import CylonEnv
@@ -33,6 +33,7 @@ from ..status import InvalidError
 from ..utils import timing
 from ..utils.host import host_array
 from .common import (build_table, col_arrays, live_mask, promote_key_pair,
+                     rescale_decimals_many,
                      rebuild_like, table_lane_spec, unify_dictionaries_many)
 
 
@@ -273,6 +274,18 @@ def concat_tables(tables: list[Table]) -> Table:
         cs = [t.column(n) for t in tables]
         if cs[0].type == LogicalType.STRING:
             cs = unify_dictionaries_many(cs)
+        elif all(c.type == LogicalType.LIST for c in cs):
+            # one value store; later tables' codes shift by the lengths
+            # of the stores before them
+            vals = [c.dictionary.values for c in cs]
+            offs = np.cumsum([0] + [len(v) for v in vals[:-1]])
+            merged = PassthroughValues(np.concatenate(vals))
+            hi = max(len(merged) - 1, 0)
+            cs = [Column(c.data + int(o), LogicalType.LIST, c.validity,
+                         merged, bounds=(0, hi))
+                  for c, o in zip(cs, offs)]
+        elif all(c.type == LogicalType.DECIMAL for c in cs):
+            cs = rescale_decimals_many(cs)
         elif len({c.type for c in cs}) > 1:
             for i in range(1, len(cs)):
                 cs[0], cs[i] = promote_key_pair(cs[0], cs[i])

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from .. import config
+from ..core.dtypes import LogicalType
 from ..core.table import Table
 from ..ops import pack
 from ..ops import setops as setk
@@ -59,6 +60,11 @@ def unique_table(table: Table, subset=None, keep: str = "first") -> Table:
     subset = list(subset) if subset is not None else table.column_names
     if keep not in ("first", "last"):
         raise InvalidError("keep must be 'first' or 'last'")
+    for n in subset:
+        if table.column(n).type == LogicalType.LIST:
+            raise InvalidError(
+                f"unique on list passthrough column {n!r} is not supported "
+                "(codes are row ids, not value-equal)")
     if env.world_size > 1:
         table = shuffle_table(table, subset)
     w, cap = env.world_size, table.capacity
@@ -106,6 +112,12 @@ def set_operation(a: Table, b: Table, op: str,
     semantics.  At W > 1 both tables shuffle on the full row first;
     ``assume_colocated=True`` skips the shuffle and the schema alignment
     (the pipelined set op aligns and shuffles the resident side once)."""
+    for t in (a, b):
+        for n in t.column_names:
+            if t.column(n).type == LogicalType.LIST:
+                raise InvalidError(
+                    f"set op on a table with list passthrough column {n!r} "
+                    "is not supported (rows are compared by value)")
     return _set_operation_impl(a, b, op, assume_colocated)
 
 

@@ -270,6 +270,11 @@ def sort_table(table: Table, by, ascending=True,
     by = [by] if isinstance(by, str) else list(by)
     if not by:
         raise InvalidError("sort needs at least one key column")
+    for n in by:
+        if table.column(n).type == LogicalType.LIST:
+            raise InvalidError(
+                f"sort on list passthrough column {n!r} is not supported "
+                "(codes are row ids, not value-ordered)")
     if method not in ("initial", "regular"):
         raise InvalidError("sort method must be 'initial' or 'regular'")
     env = table.env

@@ -54,6 +54,26 @@ class CylonKeyError(CylonError):
     code = Code.KeyError
 
 
+class CylonIndexError(CylonError):
+    code = Code.IndexError
+
+
+class CylonIOError(CylonError):
+    code = Code.IOError
+
+
+def require(module: str):
+    """Import an optional package (pyarrow, pandas) for an IO or interop
+    call, or raise :class:`CylonIOError` naming it: the card machine has
+    neither, and no call carries on without the package it needs."""
+    import importlib
+    try:
+        return importlib.import_module(module)
+    except ImportError as e:
+        raise CylonIOError(
+            f"{module} is not installed; this call needs it") from e
+
+
 class NumericOverflowError(CylonError):
     """The armed saturation guard (ops/groupby.guard_saturation) found an
     int64 sum/count at the rail: the aggregate has wrapped or is one

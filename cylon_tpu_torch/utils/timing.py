@@ -1,26 +1,39 @@
-"""Per-phase timers (port of the region part of ``cylon_tpu/utils/timing.py``).
+"""Per-phase timers (port of ``cylon_tpu/utils/timing.py``).
 
 :func:`region` accumulates host seconds per named phase in a process-wide
 table while timing is on (``CYLON_TPU_TORCH_TIMING`` = ``async`` or
-``block``, or :func:`enable`); off, it costs one flag read.  Device work
-is queued asynchronously, so an ``async`` region records the host time to
-QUEUE its work; ``block`` mode waits for the device at the end of every
-region, which gives each phase its device time but serializes the
-phases' overlap — use it for an attribution run, not a timed one.
-:func:`bump` counts an event (a route taken) whatever the mode.
+``block``, or :func:`enable`); off, it costs one flag read and one store
+(the last-region breadcrumb, :func:`last_region`).  Device work is queued
+asynchronously, so an ``async`` region records the host time to QUEUE its
+work; ``block`` mode waits for the device at the end of every region,
+which gives each phase its device time but serializes the phases'
+overlap — use it for an attribution run, not a timed one.
+:func:`maybe_block` waits for a tensor's device in ``block`` mode only,
+and :func:`sync_region` times a deliberate host wait under ``name +
+".block"``, so :func:`split_snapshot` can split a phase into its dispatch
+and its wait.  :func:`bump` counts an event and :func:`add_bytes`
+attributes host<->device bytes to a phase, whatever the mode.
+
+:func:`attribution_scope` opens a private phase table for the calling
+thread: inside it every region is timed (whatever the mode), bumps and
+bytes land in it too, and :func:`last_region` answers from it.  The
+process-wide table keeps accumulating as before.
 
 Regions by layer: ``shuffle.hash``/``shuffle.exchange`` (the exchange),
-``join.*`` and ``pipe.*`` (the joins), ``groupby.*``, ``sort.*`` (with
-``sort.string_lanes``, the host-side lanes of a hashed string key),
-``setop.flags``/``unique.flags`` (a set op's or unique's dense rank,
-flags and count pull), ``setop.materialize``/``unique.materialize`` (its
-compaction) and ``repart.targets`` (a repartition's destinations).
+``join.*`` and ``pipe.*`` (the joins; ``pipe.scan_join`` and
+``pipe.consume`` per batch of a streamed scan join), ``groupby.*``,
+``sort.*`` (with ``sort.string_lanes``, the host-side lanes of a hashed
+string key), ``setop.flags``/``unique.flags`` (a set op's or unique's
+dense rank, flags and count pull), ``setop.materialize``/
+``unique.materialize`` (its compaction) and ``repart.targets`` (a
+repartition's destinations).
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
 
 import torch
@@ -29,6 +42,15 @@ import torch
 _MODE = [os.environ.get("CYLON_TPU_TORCH_TIMING") or None]
 #: name -> [total_seconds, call_count]
 _ACCUM: dict[str, list] = {}
+#: name -> bytes attributed (add_bytes)
+_BYTES: dict[str, int] = {}
+#: the most recently entered region ("" before the first)
+_LAST_REGION = [""]
+#: per-thread stack of open attribution scopes
+_SCOPE_TLS = threading.local()
+
+#: snapshot-key suffix of a deliberate host wait (sync_region)
+BLOCK_SUFFIX = ".block"
 
 
 def enable(mode: str | None) -> None:
@@ -38,10 +60,66 @@ def enable(mode: str | None) -> None:
     _MODE[0] = mode
 
 
+class AttributionScope:
+    """One thread's private phase table (:func:`attribution_scope`)."""
+
+    __slots__ = ("tag", "last", "_accum", "_bytes")
+
+    def __init__(self, tag: str = ""):
+        self.tag = tag
+        self.last = ""
+        self._accum: dict[str, list] = {}
+        self._bytes: dict[str, int] = {}
+
+    def _add(self, name: str, dt: float) -> None:
+        acc = self._accum.setdefault(name, [0.0, 0])
+        acc[0] += dt
+        acc[1] += 1
+
+    def total_seconds(self) -> float:
+        return sum(v[0] for v in self._accum.values())
+
+    def snapshot(self) -> dict:
+        """{name: seconds}, as the module's :func:`snapshot`."""
+        return {k: v[0] for k, v in self._accum.items()}
+
+    def counts(self) -> dict:
+        return {k: v[1] for k, v in self._accum.items()}
+
+    def bytes(self) -> dict:
+        return dict(self._bytes)
+
+
+def _scope() -> AttributionScope | None:
+    stack = getattr(_SCOPE_TLS, "stack", None)
+    return stack[-1] if stack else None
+
+
+@contextlib.contextmanager
+def attribution_scope(tag: str = ""):
+    """Route this thread's regions, bumps and bytes into a private
+    :class:`AttributionScope` as well, until exit; nested scopes shadow.
+    Yields the scope, whose table outlives the block."""
+    sc = AttributionScope(tag)
+    stack = getattr(_SCOPE_TLS, "stack", None)
+    if stack is None:
+        stack = _SCOPE_TLS.stack = []
+    stack.append(sc)
+    try:
+        yield sc
+    finally:
+        stack.pop()
+
+
 @contextlib.contextmanager
 def region(name: str):
+    sc = _scope()
+    if sc is not None:
+        sc.last = name
+    else:
+        _LAST_REGION[0] = name
     mode = _MODE[0]
-    if mode is None:
+    if mode is None and sc is None:
         yield
         return
     t0 = time.perf_counter()
@@ -50,9 +128,52 @@ def region(name: str):
     finally:
         if mode == "block" and torch.cuda.is_available():
             torch.cuda.synchronize()
-        acc = _ACCUM.setdefault(name, [0.0, 0])
-        acc[0] += time.perf_counter() - t0
-        acc[1] += 1
+        dt = time.perf_counter() - t0
+        if mode is not None:
+            acc = _ACCUM.setdefault(name, [0.0, 0])
+            acc[0] += dt
+            acc[1] += 1
+        if sc is not None:
+            sc._add(name, dt)
+
+
+@contextlib.contextmanager
+def sync_region(name: str):
+    """Time a deliberate host wait under ``name + ".block"``."""
+    with region(name if name.endswith(BLOCK_SUFFIX)
+                else name + BLOCK_SUFFIX):
+        yield
+
+
+def split_snapshot(snap: dict) -> tuple[dict, dict]:
+    """Split a :func:`snapshot` into ``(dispatch, block)`` maps: the
+    ``.block`` regions land in ``block`` under their base name."""
+    dispatch, block = {}, {}
+    for k, v in snap.items():
+        if k.endswith(BLOCK_SUFFIX):
+            block[k[:-len(BLOCK_SUFFIX)]] = v
+        else:
+            dispatch[k] = v
+    return dispatch, block
+
+
+def maybe_block(x) -> None:
+    """Wait for the device work feeding ``x`` (a tensor or a list of
+    them) only in ``block`` mode, so a region can charge its device work
+    to itself in an attribution run without serializing a timed one."""
+    if _MODE[0] != "block":
+        return
+    xs = x if isinstance(x, (list, tuple)) else [x]
+    devs = {t.device for t in xs if isinstance(t, torch.Tensor) and t.is_cuda}
+    for d in devs:
+        torch.cuda.synchronize(d)
+
+
+def last_region() -> str:
+    """The most recently entered region ("" before the first); inside an
+    attribution scope, the scope's."""
+    sc = _scope()
+    return sc.last if sc is not None else _LAST_REGION[0]
 
 
 def bump(name: str) -> None:
@@ -60,10 +181,26 @@ def bump(name: str) -> None:
     whether timing is on or off (:func:`counts`)."""
     acc = _ACCUM.setdefault(name, [0.0, 0])
     acc[1] += 1
+    sc = _scope()
+    if sc is not None:
+        sc._add(name, 0.0)
+
+
+def add_bytes(name: str, nbytes: int) -> None:
+    """Attribute ``nbytes`` of host<->device traffic to phase ``name``,
+    whether timing is on or off (:func:`byte_counts`)."""
+    _BYTES[name] = _BYTES.get(name, 0) + int(nbytes)
+    _ACCUM.setdefault(name, [0.0, 0])
+    sc = _scope()
+    if sc is not None:
+        sc._bytes[name] = sc._bytes.get(name, 0) + int(nbytes)
 
 
 def reset() -> None:
+    """Clear the phase table, the bytes and the last-region breadcrumb."""
     _ACCUM.clear()
+    _BYTES.clear()
+    _LAST_REGION[0] = ""
 
 
 def snapshot() -> dict:
@@ -75,3 +212,9 @@ def counts() -> dict:
     """{name: occurrences} of every region and event since the last
     :func:`reset`."""
     return {k: v[1] for k, v in _ACCUM.items()}
+
+
+def byte_counts() -> dict:
+    """{name: bytes} attributed by :func:`add_bytes` since the last
+    :func:`reset`."""
+    return dict(_BYTES)

@@ -197,8 +197,13 @@ def test_projection_concat_and_env_move(worlds, env1):
 def test_frame_refusals():
     p = pct.DataFrame({"k": np.arange(4), "v": np.arange(4.0)},
                       env=pct.CylonEnv(device="cpu"))
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        p["k"]
+    # a single column is a Series (ported): the reference's values
+    assert isinstance(p["k"], pct.Series)
+    np.testing.assert_array_equal(
+        p["k"].to_numpy(),
+        rct.DataFrame({"k": np.arange(4)},
+                      env=rct.CylonEnv(config=rct.LocalConfig()))["k"]
+        .to_numpy())
     with pytest.raises(pct.CylonKeyError):
         p["nope"]
     with pytest.raises(pct.CylonKeyError):

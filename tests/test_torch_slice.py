@@ -207,11 +207,11 @@ def test_windowed_route_and_win_ok_redispatch(env1, penv, monkeypatch,
 def test_refusals(penv):
     t = pct.Table.from_pydict({"k": np.arange(10), "v": np.arange(10)}, penv)
     # a plain table's groupby takes the sort-based groupby (ported); a
-    # single DataFrame column would be a Series, which is not
+    # single DataFrame column is a Series (ported)
     out = pct.groupby_aggregate(t, "k", [("v", "sum")]).to_pydict()
     np.testing.assert_array_equal(out["v_sum"], np.arange(10))
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        pct.DataFrame(t)["v"]
+    v = pct.DataFrame(t)["v"]
+    assert isinstance(v, pct.Series) and v.sum() == 45
     # a left join answers (ported): the reference's rows
     rt = rct.Table.from_pydict({"k": np.arange(10), "v": np.arange(10)},
                                rct.CylonEnv(config=rct.LocalConfig()))
