@@ -1,7 +1,8 @@
 """Smoke run of cylon_tpu_torch on one CUDA card.
 
     python3 chip_smoke.py [--rows N] [--config3-rows N] [--fact-rows N]
-                          [--string-rows N] [--scan-rows N]
+                          [--string-rows N] [--scan-rows N] [--skew-rows N]
+                          [--tpch-scale SF]
 
 Builds the package's CUDA kernels from the sources in this checkout (one
 nvcc per source, all at once), holds each against its plain PyTorch
@@ -40,7 +41,9 @@ device-local permutation), both routes each time:
   assigns it;
 * ``dist_path``: W = 4 at ``--rows`` per side in total, the monolithic
   route timed like the W = 1 one, with its phase split (hash, exchange,
-  join, fused groupby) and K1 launched once per shard per iteration;
+  skew detect, join, fused groupby) and K1 launched once per shard per
+  iteration; ``dist_path_unarmed``: the same join with the port's skew
+  split off, timed and profiled, so what arming costs a uniform join;
 * ``dist_pipelined_path``: the same tables through the pipelined route,
   ``n_chunks = max(2, ceil(rows per rank / 21M))``, K2 launched on every
   shard;
@@ -147,12 +150,44 @@ the API, on bench.py's tables at ``--scan-rows`` per side (default
   its typed refusal as a key; Series ops with nulls, ``loc``, ``iloc``
   and ``Row``/``Scalar``.
 
+Then the adaptive skew split and TPC-H, BASELINE configurations 5 and 4:
+
+* ``skew_small``: 1M rows a side, 90% of the probe rows on one key, at
+  W = 1 (the route off), 3, 4 and 8 — every join type, a two-column key,
+  a float64 key, a heavy NULL key and a dictionary-string key, each held
+  to its rows per key (``np.bincount``), on the even layout, and row for
+  row equal to the same join unsplit; the fused join → groupby-sum (the
+  heavy partials combined), a min/max groupby that takes the split
+  output unstitched, and the replication guard (a build side heavy on
+  the same key keeps the hash plan);
+* ``skew_path``: bench.py's ``--skew=0.9`` tables at ``--skew-rows`` per
+  side (default 125,829,120) at W = 4 through ``join_tables`` ->
+  ``groupby_aggregate`` (the fused pushdown with the heavy partials
+  combined): best of 3 after a warm-up, rows/s, peak memory, the phase
+  split (detect, exact counts, the split exchange, the join, the fused
+  groupby, the combine), a profile and the idle share, the probe's
+  shards after the split exchange (largest within 1.25x the mean), the
+  plan's ``summary()``, K1 and K2 launches with the group densities the
+  pushdown met; the materialized inner join with its stitch timed; the
+  same query unsplit (the port's switch off) at the largest size the
+  card takes; all against the join -> groupby oracle;
+* ``tpch_small``: all 21 TPC-H queries at SF 0.05 on the card at W = 1,
+  4 and 8, each held against the same query of the port on the CPU on
+  the same generated tables (integers, dates and strings equal, floats
+  to rtol 1e-9 plus 64·eps·Σ(|v| + v²) over the tables' floats);
+* ``tpch_path``: TPC-H at ``--tpch-scale`` (default SF 10) at W = 8, the
+  generator's and the upload's seconds, then Q1, Q3, Q5 and Q6, each
+  best of 3 after a warm-up with its peak memory, phase split, profile,
+  idle share and K1/K2 launches, against numpy oracles (the keys are
+  aranges, so each join is an index lookup).
+
 Each route's kernel counts are set to 0 just before it and read just
 after.  Prints one JSON line per phase, then the kernel summary line, then
 the card's name and power limit as nvidia-smi reports them, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
 nonzero without the last line.  It needs a CUDA device and fails without
-one.
+one.  ``--string-rows`` must stay at 4,000,000 or more, where
+``strings_path``'s names hash.
 """
 
 from __future__ import annotations
@@ -764,6 +799,7 @@ def dist_phases(ct, left, right, orc, n: int, need_k1: bool, routes: dict,
               "hash_both_sides": phases.get("shuffle.hash", 0.0),
               "exchange_both_sides": phases.get("shuffle.exchange", 0.0),
               "shuffle_total": phases.get("join.shuffle", 0.0),
+              "skew_detect": phases.get("skew.detect", 0.0),
               "join": split[0]["join_s"] - phases.get("join.shuffle", 0.0),
               "fused_groupby": split[0]["groupby_s"],
               "total": split[0]["total_s"]}})
@@ -781,6 +817,30 @@ def dist_phases(ct, left, right, orc, n: int, need_k1: bool, routes: dict,
     prof["phase"] = "profile_dist"
     prof["device_idle_share_of_best"] = 1.0 - prof["device_busy_s"] / dbest
     emit(prof)
+
+    # the same uniform join with the port's split off: what the armed
+    # route's detect (a sample pull, the sketch on the host) costs a join
+    # that finds no heavy key, in time and in device idle share
+    from cylon_tpu_torch import config as pconfig
+    utimes = []
+    pconfig.SKEW_SPLIT = False
+    try:
+        for _ in range(4):                      # a warm-up, then 3
+            g = step(ct, lt, rt, utimes)
+        check_dist(g, orc, w, "dist_path unarmed")
+        del g
+        torch.cuda.empty_cache()
+        uprof = profile_step(ct, lt, rt)
+    finally:
+        pconfig.SKEW_SPLIT = True
+    ubest = min(t["total_s"] for t in utimes[1:])
+    emit({"phase": "dist_path_unarmed", "world": w, "rows_per_side": n,
+          "iterations": utimes, "best_s": ubest, "armed_best_s": dbest,
+          "arming_cost_s": dbest - ubest,
+          "armed_skew_detect_s": phases.get("skew.detect", 0.0),
+          "device_idle_share_of_best": 1.0 - uprof["device_busy_s"] / ubest,
+          "armed_device_idle_share_of_best":
+              prof["device_idle_share_of_best"], "oracle": "equal"})
 
     # dist_pipelined_path: the same tables through the pipelined route
     nc = max(2, -(-(n // w) // PIECE_ROWS))
@@ -1345,17 +1405,20 @@ JOIN_PHASES = {"shuffle": "join.shuffle", "sort_count": "join.sort_count",
 def how_oracle(lk, a, rk, b, n_keys: int, how: str) -> dict:
     """The ``how`` join of {k: lk, a} with {k: rk, b}, per key id in
     [0, n_keys): its output rows, and over the valid payloads the sum and
-    count of ``a`` and of ``b`` (int64; the float64 bincounts stay exact
-    below 2^53, checked).  A matched key gives L·R rows; an unmatched
-    left (right) key gives L (R) rows with a null ``b`` (``a``) where the
-    join type keeps it."""
+    count of ``a`` and of ``b`` (int64).  A matched key gives L·R rows;
+    an unmatched left (right) key gives L (R) rows with a null ``b``
+    (``a``) where the join type keeps it.  The payloads are non-negative
+    and each key's sums (sa·R, sb·L) stay below 2^53 (both checked, key
+    by key), so these float64 bincounts and :func:`check_join`'s are
+    exact."""
     L = np.bincount(lk, minlength=n_keys)
     R = np.bincount(rk, minlength=n_keys)
     sa = np.bincount(lk, a, minlength=n_keys)
     sb = np.bincount(rk, b, minlength=n_keys)
-    if max(sa.max() * max(R.max(), 1), sb.max() * max(L.max(), 1)) \
-            >= 2.0 ** 53:
-        raise AssertionError("oracle sums leave the exact float64 range")
+    if min(np.min(a, initial=0), np.min(b, initial=0)) < 0 \
+            or max((sa * np.maximum(R, 1)).max(initial=0),
+                   (sb * np.maximum(L, 1)).max(initial=0)) >= 2.0 ** 53:
+        raise AssertionError("oracle sums leave the exact range")
     SA, SB = sa.astype(np.int64), sb.astype(np.int64)
     both = (L > 0) & (R > 0)
     lonly = (L > 0) & (R == 0) & (how in ("left", "outer"))
@@ -1377,12 +1440,15 @@ def key_ids(host, n_keys: int, second=None) -> np.ndarray:
     return k if kv is None else np.where(kv, k, n_keys - 1)
 
 
-def check_join(out, orc, label: str, second=None) -> int:
+def check_join(out, orc, label: str, second=None, kid=None) -> int:
     """A join's output rows against :func:`how_oracle`: per key, the rows
-    and the sums and counts of the valid payloads."""
+    and the sums and counts of the valid payloads.  ``kid``: the output
+    rows' key ids when the key is not an integer column (a float or a
+    string key mapped back to its id)."""
     host = out.host_columns()
     n_keys = len(orc["rows"])
-    kid = key_ids(host, n_keys, second)
+    if kid is None:
+        kid = key_ids(host, n_keys, second)
     got = {"rows": np.bincount(kid, minlength=n_keys)}
     for col, s, c in (("a", "sa", "ca"), ("b", "sb", "cb")):
         d, v = host[col]
@@ -2683,6 +2749,661 @@ def breadth_small(ct, worlds=(1, 3, 4, 8), n: int = 1_000_000,
 
 
 
+#: the skew route's phases and the timing regions that hold them
+SKEW_PHASES = {"detect": "skew.detect", "finalize_counts": "skew.finalize",
+               "split_exchange": "skew.split_exchange",
+               "join_sort_count": "join.sort_count",
+               "heavy_partial_combine": "skew.partial_combine"}
+#: bench.py --skew=0.9: the probe's share of rows on the one hot key
+SKEW_SHARE = 0.9
+#: configuration 5 at W = 4: the rows per side in total of dist_path
+SKEW_ROWS = 125_829_120
+
+
+def skew_inputs(n: int, skew: float = SKEW_SHARE, seed: int = 42):
+    """bench.py's ``--skew`` tables (same generator, same draw order):
+    keys uniform in [0, 0.9 n), a ``skew`` share of probe rows on
+    ``hot = max_val // 2``, and ``hot`` exactly once on the build side."""
+    rng = np.random.default_rng(seed)
+    mv = max(int(n * 0.9), 1)
+    hot = np.int64(mv // 2)
+    lk = rng.integers(0, mv, n).astype(np.int64)
+    lk = np.where(rng.random(n) < skew, hot, lk)
+    a = rng.integers(0, mv, n).astype(np.int64)
+    rk = rng.integers(0, mv, n).astype(np.int64)
+    rk[rk == hot] = hot + 1
+    rk[0] = hot
+    b = rng.integers(0, mv, n).astype(np.int64)
+    return {"k": lk, "a": a}, {"k": rk, "b": b}, mv, int(hot)
+
+
+def same_rows(a: dict, b: dict, label: str) -> None:
+    """Two ``to_pydict`` results equal column by column, row by row."""
+    if list(a) != list(b):
+        raise AssertionError(f"{label}: columns {list(a)} != {list(b)}")
+    for name in a:
+        x, y = np.asarray(a[name]), np.asarray(b[name])
+        if x.shape != y.shape or not bool(np.all(
+                (x == y) | ((x != x) & (y != y)))):
+            raise AssertionError(f"{label}: column {name} differs")
+
+
+def skew_small_inputs(n: int, seed: int = 23) -> dict:
+    """skew_small's host columns: bench.py-like keys uniform in [0, mv)
+    on both sides, 90% of the probe rows on ``hot`` and ``hot`` once on
+    the build side; int64 payloads; a second key column in [0, 4) whose
+    hot rows all hold 1; validity masks for the heavy-NULL case (the hot
+    rows null on the probe, one null row on the build side)."""
+    rng = np.random.default_rng(seed)
+    mv = max(int(n * 0.9), 1)
+    hot = mv // 2
+    lk = rng.integers(0, mv, n)
+    is_hot = rng.random(n) < SKEW_SHARE
+    lk[is_hot] = hot
+    rk = rng.integers(0, mv, n)
+    rk[rk == hot] = hot + 1
+    rk[0] = hot
+    lc = rng.integers(0, 4, n)
+    lc[is_hot] = 1
+    rc = rng.integers(0, 4, n)
+    rc[0] = 1
+    rvalid = np.ones(n, bool)
+    rvalid[0] = False
+    return {"mv": mv, "hot": hot, "lk": lk, "rk": rk,
+            "a": rng.integers(0, mv, n), "b": rng.integers(0, mv, n),
+            "lc": lc, "rc": rc, "lvalid": ~is_hot, "rvalid": rvalid}
+
+
+def skew_small_world(ct, d: dict, w: int, device=None) -> dict:
+    """Every check of skew_small at world size ``w`` (module docstring);
+    returns the plans' summaries by case."""
+    from cylon_tpu_torch import config as pconfig
+    from cylon_tpu_torch.ctx.context import VirtualMeshConfig
+    from cylon_tpu_torch.relational import skew
+    from cylon_tpu_torch.utils import timing
+    env = ct.CylonEnv(VirtualMeshConfig(w), device=device)
+    n, mv = len(d["lk"]), d["mv"]
+    plans = {}
+
+    def run(label, fn):
+        """The join under the split, then unsplit (the port's switch off):
+        the same rows in the same order; the plan set exactly when
+        W > 1; a materialized output on the even layout."""
+        skew.record_plan(None)
+        out = fn()
+        plan = skew.last_plan()
+        if (plan is not None) != (w > 1):
+            raise AssertionError(f"{label}: plan {plan} at W = {w}")
+        if plan is not None:
+            plans[label] = plan.summary()
+            if not np.array_equal(out.valid_counts,
+                                  even_counts(out.row_count, w)):
+                raise AssertionError(f"{label}: valid counts "
+                                     f"{out.valid_counts} not even")
+            if out.grouped_by is not None:
+                raise AssertionError(f"{label}: grouped_by {out.grouped_by}")
+        got = out.to_pydict()
+        pconfig.SKEW_SPLIT = False
+        try:
+            plain = fn().to_pydict()
+        finally:
+            pconfig.SKEW_SPLIT = True
+        same_rows(got, plain, f"{label} against the unsplit plan")
+        return out
+
+    def keyed(k, valid, dtype, **cols):
+        key = ct.Column.from_numpy(k.astype(dtype))
+        key = ct.Column(key.data, key.type, valid, key.dictionary,
+                        bounds=key.bounds)
+        return ct.Table.from_host_columns(
+            {"k": key, **{c: ct.Column.from_numpy(v)
+                          for c, v in cols.items()}}, env)
+
+    lt = ct.Table.from_pydict({"k": d["lk"], "a": d["a"]}, env)
+    rt = ct.Table.from_pydict({"k": d["rk"], "b": d["b"]}, env)
+    for how in JOIN_HOWS:
+        label = f"skew_small W={w} {how}"
+        if how == "right":
+            # the probe of a right join is its right table
+            out = run(label, lambda: ct.join_tables(rt, lt, "k", "k",
+                                                    how="right"))
+            orc = how_oracle(d["rk"], d["b"], d["lk"], d["a"], mv, "right")
+            orc = {"rows": orc["rows"], "sa": orc["sb"], "ca": orc["cb"],
+                   "sb": orc["sa"], "cb": orc["ca"]}
+        else:
+            out = run(label, lambda: ct.join_tables(lt, rt, "k", "k",
+                                                    how=how))
+            orc = how_oracle(d["lk"], d["a"], d["rk"], d["b"], mv, how)
+        check_join(out, orc, label)
+        del out
+
+    # a two-column key, a float64 key, a heavy NULL key, a string key
+    lt2 = ct.Table.from_pydict({"k": d["lk"], "c": d["lc"], "a": d["a"]},
+                               env)
+    rt2 = ct.Table.from_pydict({"k": d["rk"], "c": d["rc"], "b": d["b"]},
+                               env)
+    label = f"skew_small W={w} two-column key"
+    out = run(label, lambda: ct.join_tables(lt2, rt2, ["k", "c"], ["k", "c"],
+                                            how="inner"))
+    check_join(out, how_oracle(d["lk"] * 4 + d["lc"], d["a"],
+                               d["rk"] * 4 + d["rc"], d["b"], mv * 4,
+                               "inner"), label, second="c")
+    del lt2, rt2, out
+    ltf = keyed(d["lk"], None, np.float64, a=d["a"])
+    rtf = keyed(d["rk"], None, np.float64, b=d["b"])
+    label = f"skew_small W={w} float64 key"
+    out = run(label, lambda: ct.join_tables(ltf, rtf, "k", "k", how="left"))
+    check_join(out, how_oracle(d["lk"], d["a"], d["rk"], d["b"], mv, "left"),
+               label, kid=out.host_columns()["k"][0].astype(np.int64))
+    del ltf, rtf, out
+    ltn = keyed(d["lk"], d["lvalid"], np.int64, a=d["a"])
+    rtn = keyed(d["rk"], d["rvalid"], np.int64, b=d["b"])
+    label = f"skew_small W={w} heavy NULL key"
+    out = run(label, lambda: ct.join_tables(ltn, rtn, "k", "k",
+                                            how="inner"))
+    check_join(out, how_oracle(np.where(d["lvalid"], d["lk"], mv), d["a"],
+                               np.where(d["rvalid"], d["rk"], mv), d["b"],
+                               mv + 1, "inner"), label)
+    if w > 1 and plans[label]["rows_probe"] != [int((~d["lvalid"]).sum())]:
+        raise AssertionError(f"{label}: plan {plans[label]}")
+    del ltn, rtn, out
+    lts = ct.Table.from_host_columns(
+        {"k": d["lnames"], "a": ct.Column.from_numpy(d["a"])}, env)
+    rts = ct.Table.from_host_columns(
+        {"k": d["rnames"], "b": ct.Column.from_numpy(d["b"])}, env)
+    label = f"skew_small W={w} string key"
+    out = run(label, lambda: ct.join_tables(lts, rts, "k", "k", how="outer"))
+    names = np.asarray(out.to_pydict()["k"], dtype=str)
+    check_join(out, how_oracle(d["lk"], d["a"], d["rk"], d["b"], mv,
+                               "outer"),
+               label, kid=np.char.lstrip(names, "key").astype(np.int64))
+    del lts, rts, out, names
+
+    # the fused join -> groupby-sum (the heavy partials combine) and a
+    # min/max groupby that declines the pushdown (the split layout taken
+    # unstitched)
+    orc = how_oracle(d["lk"], d["a"], d["rk"], d["b"], mv, "inner")
+    timing.reset()
+    skew.record_plan(None)
+    g = ct.groupby_aggregate(ct.join_tables(lt, rt, "k", "k"), "k",
+                             [("a", "sum"), ("b", "sum")])
+    check_join_sums(g, orc, f"skew_small W={w} fused groupby")
+    combined = timing.counts().get("skew.partial_combine", 0)
+    if combined != int(w > 1) or (skew.last_plan() is None) == (w > 1):
+        raise AssertionError(f"skew_small W={w} fused groupby: "
+                             f"{combined} heavy-partial combines")
+    timing.reset()
+    g = ct.groupby_aggregate(ct.join_tables(lt, rt, "k", "k"), "k",
+                             [("a", "min"), ("a", "max"), ("b", "sum")])
+    host = g.host_columns()
+    keys = np.nonzero(orc["rows"] > 0)[0]
+    order = np.argsort(host["k"][0], kind="stable")
+    amin = np.full(mv, np.iinfo(np.int64).max)
+    amax = np.full(mv, np.iinfo(np.int64).min)
+    np.minimum.at(amin, d["lk"], d["a"])
+    np.maximum.at(amax, d["lk"], d["a"])
+    if not (np.array_equal(host["k"][0][order], keys)
+            and np.array_equal(host["a_min"][0][order], amin[keys])
+            and np.array_equal(host["a_max"][0][order], amax[keys])
+            and np.array_equal(host["b_sum"][0][order], orc["sb"][keys])):
+        raise AssertionError(f"skew_small W={w} min/max groupby differs "
+                             "from the oracle")
+    elided = timing.counts().get("skew.stitch_elided", 0)
+    if elided != int(w > 1) or "join.skew_stitch" in timing.counts():
+        raise AssertionError(f"skew_small W={w} min/max groupby: stitch "
+                             f"elided {elided} times")
+    del g, host
+
+    # the replication guard: the build side heavy on the same key (70% of
+    # its 2,000 rows, so that W times them passes twice the build at
+    # W >= 3) keeps the hash plan; the broadcast route off and the
+    # guard's row floor lowered so that this size reaches it
+    nb = 2000
+    rkg = d["rk"][:nb].copy()
+    rkg[: int(0.7 * nb)] = d["hot"]
+    rtg = ct.Table.from_pydict({"k": rkg, "b": d["b"][:nb]}, env)
+    saved = (pconfig.BROADCAST_JOIN_ROWS, pconfig.SKEW_GUARD_ROWS)
+    pconfig.BROADCAST_JOIN_ROWS, pconfig.SKEW_GUARD_ROWS = 0, 128
+    try:
+        skew.record_plan(None)
+        timing.reset()
+        g = ct.groupby_aggregate(ct.join_tables(lt, rtg, "k", "k"), "k",
+                                 [("a", "sum"), ("b", "sum")])
+    finally:
+        pconfig.BROADCAST_JOIN_ROWS, pconfig.SKEW_GUARD_ROWS = saved
+    check_join_sums(g, how_oracle(d["lk"], d["a"], rkg, d["b"][:nb], mv,
+                                  "inner"),
+                    f"skew_small W={w} replication guard")
+    if skew.last_plan() is not None \
+            or "join.skew_split" in timing.counts():
+        raise AssertionError(f"skew_small W={w}: the guard let a heavy "
+                             "build key split")
+    return {"world": w, "rows_per_side": n, "plans": plans,
+            "cases": list(plans) if w > 1 else "route off at W = 1"}
+
+
+def skew_small(ct, worlds=(1, 3, 4, 8), n: int = 1_000_000,
+               device=None) -> list:
+    """The skew split's cases at every world size, each against numpy."""
+    from cylon_tpu_torch.ops import splitter_probe as sp
+    from cylon_tpu_torch.ops import windowed_gather as wg
+    d = skew_small_inputs(n)
+    # the string keys' host columns (sorted dictionaries), built once
+    for side in "lr":
+        d[f"{side}names"] = ct.Column.from_numpy(
+            np.char.add("key", d[f"{side}k"].astype(str)))
+    recs = []
+    for w in worlds:
+        wg.reset_counts()
+        sp.reset_counts()
+        rec = skew_small_world(ct, d, w, device)
+        rec["kernel_counts"] = {"windowed_gather": dict(wg.COUNTS),
+                                "splitter_probe": dict(sp.COUNTS)}
+        recs.append(rec)
+    return recs
+
+
+def skew_path(ct, n: int = SKEW_ROWS, device=None,
+              profile: bool = True) -> dict:
+    """BASELINE configuration 5 at W = 4: bench.py's ``--skew=0.9`` tables
+    at ``n`` rows per side through ``join_tables`` -> ``groupby_aggregate
+    ("k", sum)``, the fused pushdown with the heavy partials combined;
+    best of 3 after a warm-up, phase split, profile, K1/K2 launches and
+    the fused pushdown's group densities; the split exchange's probe
+    shards; the materialized inner join with its stitch timed; the same
+    query unsplit (the port's switch off), at the largest size the card
+    takes; everything against the join -> groupby oracle."""
+    from cylon_tpu_torch import config as pconfig
+    from cylon_tpu_torch.ctx.context import VirtualMeshConfig
+    from cylon_tpu_torch.ops import windowed_gather as wg
+    from cylon_tpu_torch.relational import fused
+    from cylon_tpu_torch.relational import join as pjoin
+    from cylon_tpu_torch.relational import skew
+    from cylon_tpu_torch.utils import timing
+    w = 4
+    t0 = time.perf_counter()
+    left, right, mv, hot = skew_inputs(n)
+    orc = how_oracle(left["k"], left["a"], right["k"], right["b"], mv,
+                     "inner")
+    gen_s = time.perf_counter() - t0
+    env = ct.CylonEnv(VirtualMeshConfig(w), device=device)
+    t0 = time.perf_counter()
+    lt = ct.Table.from_pydict(left, env)
+    rt = ct.Table.from_pydict(right, env)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    steps = []
+
+    def query(times):
+        g = step(ct, lt, rt, steps)
+        times.append(steps[-1]["total_s"])
+        return g
+
+    # the split exchange alone: the plan and the probe's shards after it
+    lsh, rsh, plan = pjoin._shuffle_for_join(lt, rt, ["k"], ["k"], "inner",
+                                             env)
+    if not isinstance(plan, skew.SkewPlan):
+        raise AssertionError(f"skew_path: no plan voted ({plan})")
+    probe_shards = [int(c) for c in lsh.valid_counts]
+    mean = float(np.mean(probe_shards))
+    if max(probe_shards) > 1.25 * mean:
+        raise AssertionError(f"skew_path: probe shards {probe_shards} after "
+                             "the split exchange exceed 1.25x their mean")
+    del lsh, rsh
+    dens, gate = [], fused._win_size
+
+    def recording(env_, sc, d_):
+        dens.append(d_)
+        return gate(env_, sc, d_)
+
+    fused._SEG_CACHE.clear()
+    fused._win_size = recording
+    try:
+        rec = timed_path("skew_path", query,
+                         lambda g, label: check_join_sums(g, orc, label),
+                         SKEW_PHASES, profile=profile)
+    finally:
+        fused._win_size = gate
+    # the fifth run is timed_path's split run: its groupby is the fused
+    # pushdown plus the heavy-partial combine
+    rec["phase_split_s"]["fused_groupby"] = (
+        steps[4]["groupby_s"]
+        - rec["phase_split_regions_s"].get("skew.partial_combine", 0.0))
+    rec["phase_split_s"]["rest"] = rec["phase_split_total_s"] - sum(
+        v for k_, v in rec["phase_split_s"].items() if k_ != "rest")
+    if skew.last_plan() is None:
+        raise AssertionError("skew_path: the timed runs took no plan")
+    rec.update({"phase": "skew_path", "world": w, "rows_per_side": n,
+                "skew": SKEW_SHARE, "hot_key": hot, "gen_s": gen_s,
+                "setup_s": setup_s, "rows_per_s": 2 * n / rec["best_s"],
+                "plan": plan.summary(), "probe_shards": probe_shards,
+                "probe_shard_max_over_mean": max(probe_shards) / mean,
+                "group_densities_seen": dens,
+                "k1_min_density": wg.MIN_DENSITY,
+                "join_rows": int(orc["rows"].sum())})
+
+    # the materialized inner join, its stitch timed (one stitch)
+    torch.cuda.empty_cache()
+    timing.enable("block")
+    timing.reset()
+    t0 = time.perf_counter()
+    j = ct.join_tables(lt, rt, "k", "k", how="inner", allow_defer=False)
+    t1 = time.perf_counter()
+    _ = j.column("k")                       # the first access stitches
+    sync_pull(j.column("k").data)
+    t2 = time.perf_counter()
+    regions = timing.snapshot()
+    timing.enable(None)
+    check_join(j, orc, "skew_path materialized join")
+    if not np.array_equal(j.valid_counts, even_counts(j.row_count, w)):
+        raise AssertionError(f"skew_path: stitched counts {j.valid_counts}")
+    rec["stitch"] = {
+        "join_s": t1 - t0, "stitch_s": t2 - t1,
+        "regions_s": {r: regions.get(r, 0.0) for r in (
+            "skew.stitch_count", "skew.stitch_pos", "skew.stitch_place",
+            "place.targets", "place.exchange", "place.sort")},
+        "valid_counts": [int(c) for c in j.valid_counts],
+        "rows_per_s": int(j.row_count) / (t2 - t1)}
+    del j
+    torch.cuda.empty_cache()
+
+    # the unsplit leg: the same query with the port's switch off, at the
+    # largest size the card takes (halving on a device refusal)
+    refusals, size = [], n
+    pconfig.SKEW_SPLIT = False
+    try:
+        while True:
+            try:
+                if size == n:
+                    ul, ur, uorc = lt, rt, orc
+                else:
+                    sl, sr, smv, _ = skew_inputs(size)
+                    uorc = how_oracle(sl["k"], sl["a"], sr["k"], sr["b"],
+                                      smv, "inner")
+                    ul = ct.Table.from_pydict(sl, env)
+                    ur = ct.Table.from_pydict(sr, env)
+                utimes = []
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                for _ in range(2):          # a warm-up, then one timed
+                    t0 = time.perf_counter()
+                    g = step(ct, ul, ur)
+                    utimes.append(time.perf_counter() - t0)
+                check_join_sums(g, uorc, "skew_path unsplit")
+                peak = torch.cuda.max_memory_allocated()
+                # the hash plan's probe shards, for the record
+                lsh, _, _ = pjoin._shuffle_for_join(ul, ur, ["k"], ["k"],
+                                                    "inner", env)
+                unsplit_shards = [int(c) for c in lsh.valid_counts]
+                del lsh
+                break
+            except (torch.cuda.OutOfMemoryError, NotImplementedError) as e:
+                refusals.append({"rows_per_side": size,
+                                 "error": f"{type(e).__name__}: "
+                                          f"{str(e)[:300]}"})
+                g = ul = ur = None
+                torch.cuda.empty_cache()
+                size //= 2
+                if size < 1_000_000:
+                    raise
+    finally:
+        pconfig.SKEW_SPLIT = True
+    torch.cuda.reset_peak_memory_stats()
+    del g, ul, ur
+    rec["unsplit"] = {"rows_per_side": size, "refusals": refusals,
+                      "probe_shards": unsplit_shards,
+                      "iterations": utimes, "best_s": utimes[-1],
+                      "rows_per_s": 2 * size / utimes[-1],
+                      "peak_mem_bytes": peak, "oracle": "equal"}
+    del lt, rt, env
+    torch.cuda.empty_cache()
+    return rec
+
+
+#: TPC-H's scale of tpch_small and tpch_path (BASELINE configuration 4)
+TPCH_SMALL_SCALE = 0.05
+TPCH_SCALE = 10.0
+TPCH_QUERIES = ("q1", "q3", "q4", "q5", "q6", "q7", "q8", "q9", "q10",
+                "q11", "q12", "q13", "q14", "q15", "q16", "q17", "q18",
+                "q19", "q20", "q21", "q22")
+TPCH_PATH_QUERIES = ("q1", "q3", "q5", "q6")
+
+
+def tpch_columns(x) -> dict:
+    """A TPC-H result's columns as numpy arrays, dates as int64
+    nanoseconds: a result frame's, or an oracle's dict as it is."""
+    cols = x if isinstance(x, dict) else x.to_pydict()
+    out = {}
+    for name, c in cols.items():
+        c = np.asarray(c)
+        if c.dtype.kind == "M":
+            c = c.astype("datetime64[ns]").astype(np.int64)
+        out[name] = c
+    return out
+
+
+def same_tpch(got, want, label: str, scales=None) -> int:
+    """A TPC-H result against the expected one (the same query on the CPU,
+    or :func:`tpch_oracle`'s columns): the same columns in the same order,
+    integer, date and string columns equal, float columns to rtol 1e-9
+    plus atol ``64·eps·S``.  ``S`` is ``scales[name]`` where given (Σ|e|
+    over the terms the column sums, for a column whose terms may differ
+    in sign), else Σ|y| over the expected column itself: every other
+    float column of the 21 queries is a value passed through, or a sum,
+    mean or ratio of sums of terms of one sign, so Σ|y| is what its
+    values aggregate.  Returns the result's rows."""
+    eps64 = np.finfo(np.float64).eps
+    scales = scales or {}
+    if isinstance(want, float):
+        if not abs(got - want) <= (1e-9 + 64 * eps64) * abs(want):
+            raise AssertionError(f"{label}: {got} != {want}")
+        return 1
+    g, w_ = tpch_columns(got), tpch_columns(want)
+    if list(g) != list(w_):
+        raise AssertionError(f"{label}: columns {list(g)} != {list(w_)}")
+    for name, y in w_.items():
+        x = g[name]
+        if x.shape != y.shape:
+            raise AssertionError(f"{label}: {name} has {x.shape} rows, "
+                                 f"expected {y.shape}")
+        if y.dtype.kind == "f":
+            s = scales.get(name, float(np.abs(y).sum()))
+            ok = np.allclose(x, y, rtol=1e-9, atol=64 * eps64 * s,
+                             equal_nan=True)
+        else:
+            ok = bool(np.all(x == y))
+        if not ok:
+            raise AssertionError(f"{label}: column {name} differs")
+    return len(next(iter(w_.values()), ()))
+
+
+def q9_profit_scale(cols: dict) -> float:
+    """Σ|amount| over every lineitem row, an upper bound of the terms any
+    Q9 group sums (amount = l_extendedprice·(1 − l_discount) −
+    ps_supplycost·l_quantity may take either sign)."""
+    li, ps = cols["lineitem"], cols["partsupp"]
+    q = np.asarray(li["l_quantity"].data, np.float64)
+    return float((np.asarray(li["l_extendedprice"].data)
+                  * (1.0 - np.asarray(li["l_discount"].data))).sum()
+                 + np.asarray(ps["ps_supplycost"].data).max() * q.sum())
+
+
+def tpch_small(ct, worlds=(1, 4, 8), scale: float = TPCH_SMALL_SCALE,
+               device=None) -> list:
+    """All 21 TPC-H queries at ``scale`` on the card at each world size,
+    each held against the same query of the port on the CPU on the same
+    generated tables; K1/K2 launches per query."""
+    from cylon_tpu_torch import tpch
+    from cylon_tpu_torch.ctx.context import VirtualMeshConfig
+    from cylon_tpu_torch.ops import splitter_probe as sp
+    from cylon_tpu_torch.ops import windowed_gather as wg
+    scales = {"q9": {"sum_profit": q9_profit_scale(
+        tpch.generate_columns(scale, 0))}}
+    recs = []
+    for w in worlds:
+        env = ct.CylonEnv(VirtualMeshConfig(w), device=device)
+        cenv = ct.CylonEnv(VirtualMeshConfig(w), device="cpu")
+        dfs = tpch.generate_tables(scale, env, 0)
+        cdfs = tpch.generate_tables(scale, cenv, 0)
+        launches, rows, card_s = {}, {}, {}
+        for q in TPCH_QUERIES:
+            wg.reset_counts()
+            sp.reset_counts()
+            t0 = time.perf_counter()
+            got = getattr(tpch, q)(dfs, env=env)
+            if not isinstance(got, float):
+                sync_pull(got.table.column(got.table.column_names[0]).data)
+            card_s[q] = time.perf_counter() - t0
+            launches[q] = {"windowed_gather": wg.COUNTS["launches"],
+                           "splitter_probe": sp.COUNTS["launches"]}
+            want = getattr(tpch, q)(cdfs, env=cenv)
+            same_tpch(got, want, f"tpch_small W={w} {q}", scales.get(q))
+            rows[q] = None if isinstance(got, float) else got.table.row_count
+        recs.append({"phase": "tpch_small", "world": w, "scale": scale,
+                     "queries": len(TPCH_QUERIES), "oracle": "equal",
+                     "against": "the port on the CPU", "result_rows": rows,
+                     "card_first_s": card_s, "kernel_launches": launches})
+        del dfs, cdfs, env, cenv
+    return recs
+
+
+def tpch_oracle(cols: dict) -> dict:
+    """Q1, Q3, Q5 and Q6 in numpy over the generated host columns; the
+    keys c_custkey, o_orderkey, s_suppkey and n_nationkey are aranges, so
+    every join is an index lookup and every group an ``np.unique``."""
+    from cylon_tpu_torch import tpch
+
+    def h(table, name):
+        return np.asarray(cols[table][name].data)
+
+    def strings(table, name, value):
+        c = cols[table][name]
+        return int(np.searchsorted(c.dictionary, value))
+
+    li = {n: h("lineitem", n) for n in (
+        "l_orderkey", "l_suppkey", "l_quantity", "l_extendedprice",
+        "l_discount", "l_tax", "l_returnflag", "l_linestatus",
+        "l_shipdate")}
+    out = {}
+    # Q1
+    m = li["l_shipdate"] <= tpch._ts("1998-09-02")
+    rf_d = cols["lineitem"]["l_returnflag"].dictionary
+    ls_d = cols["lineitem"]["l_linestatus"].dictionary
+    gid = li["l_returnflag"][m].astype(np.int64) * len(ls_d) \
+        + li["l_linestatus"][m]
+    u, inv = np.unique(gid, return_inverse=True)
+    price, disc = li["l_extendedprice"][m], li["l_discount"][m]
+    dp = price * (1.0 - disc)
+    cnt = np.bincount(inv)
+    out["q1"] = {
+        "l_returnflag": rf_d[u // len(ls_d)].astype(str),
+        "l_linestatus": ls_d[u % len(ls_d)].astype(str),
+        "l_quantity_sum": np.bincount(inv, li["l_quantity"][m]),
+        "l_extendedprice_sum": np.bincount(inv, price),
+        "disc_price_sum": np.bincount(inv, dp),
+        "charge_sum": np.bincount(inv, dp * (1.0 + li["l_tax"][m])),
+        "l_quantity_mean": np.bincount(inv, li["l_quantity"][m]) / cnt,
+        "l_extendedprice_mean": np.bincount(inv, price) / cnt,
+        "l_discount_mean": np.bincount(inv, disc) / cnt,
+        "l_orderkey_count": cnt}
+    # Q6
+    lo, hi = tpch._ts("1994-01-01"), tpch._ts("1995-01-01")
+    m = ((li["l_shipdate"] >= lo) & (li["l_shipdate"] < hi)
+         & (li["l_discount"] >= 0.06 - 0.011)
+         & (li["l_discount"] <= 0.06 + 0.011) & (li["l_quantity"] < 24))
+    out["q6"] = float((li["l_extendedprice"][m] * li["l_discount"][m]).sum())
+    # Q3
+    t = tpch._ts("1995-03-15")
+    odate, ocust = h("orders", "o_orderdate"), h("orders", "o_custkey")
+    seg = h("customer", "c_mktsegment") == strings(
+        "customer", "c_mktsegment", "BUILDING")
+    okeep = seg[ocust] & (odate < t)
+    m = okeep[li["l_orderkey"]] & (li["l_shipdate"] > t)
+    rev = np.bincount(li["l_orderkey"][m],
+                      (li["l_extendedprice"] * (1.0 - li["l_discount"]))[m],
+                      minlength=len(odate))
+    has = np.bincount(li["l_orderkey"][m], minlength=len(odate)) > 0
+    keys = np.nonzero(has)[0]
+    top = keys[np.lexsort((odate[keys], -rev[keys]))][:10]
+    out["q3"] = {"l_orderkey": top, "revenue": rev[top],
+                 "o_orderdate": odate[top],
+                 "o_shippriority": h("orders", "o_shippriority")[top]}
+    # Q5
+    lo, hi = tpch._ts("1994-01-01"), tpch._ts("1995-01-01")
+    asia = strings("region", "r_name", "ASIA")
+    nat_in = h("nation", "n_regionkey") == h("region", "r_regionkey")[
+        h("region", "r_name") == asia][0]
+    o = li["l_orderkey"]
+    cn = h("customer", "c_nationkey")[ocust[o]]
+    sn = h("supplier", "s_nationkey")[li["l_suppkey"]]
+    m = (odate[o] >= lo) & (odate[o] < hi) & (cn == sn) & nat_in[sn]
+    rev = np.bincount(sn[m], (li["l_extendedprice"]
+                              * (1.0 - li["l_discount"]))[m], minlength=25)
+    nk = np.nonzero(np.bincount(sn[m], minlength=25) > 0)[0]
+    nk = nk[np.argsort(-rev[nk], kind="stable")]
+    nd = cols["nation"]["n_name"].dictionary
+    out["q5"] = {"n_name": nd[h("nation", "n_name")[nk]].astype(str),
+                 "revenue": rev[nk]}
+    return out
+
+
+def tpch_path(ct, scale: float = TPCH_SCALE, device=None,
+              profile: bool = True) -> list:
+    """BASELINE configuration 4: TPC-H at ``scale`` on a W = 8 world, Q3
+    and Q5 with the scans Q1 and Q6, each best of 3 after a warm-up with
+    its peak memory, phase split, profile (idle share) and K1/K2
+    launches, against a numpy oracle."""
+    from cylon_tpu_torch import tpch
+    from cylon_tpu_torch.ctx.context import VirtualMeshConfig
+    w = 8
+    t0 = time.perf_counter()
+    cols = tpch.generate_columns(scale, 0)
+    gen_s = time.perf_counter() - t0
+    env = ct.CylonEnv(VirtualMeshConfig(w), device=device)
+    t0 = time.perf_counter()
+    dfs = {name: ct.DataFrame(ct.Table.from_host_columns(c, env))
+           for name, c in cols.items()}
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    orc = tpch_oracle(cols)
+    rows = {name: int(c[next(iter(c))].data.shape[0])
+            for name, c in cols.items()}
+    del cols
+    recs = []
+    for q in TPCH_PATH_QUERIES:
+        def query(times, q=q):
+            t0 = time.perf_counter()
+            out = getattr(tpch, q)(dfs, env=env)
+            if not isinstance(out, float):
+                sync_pull(out.table.column(out.table.column_names[0]).data)
+            times.append(time.perf_counter() - t0)
+            return out
+
+        rec = timed_path(f"tpch_path {q}", query,
+                         lambda out, label, q=q: same_tpch(
+                             out, orc[q], label),
+                         {"join_shuffle": "join.shuffle",
+                          "join_sort_count": "join.sort_count",
+                          "join_materialize": "join.materialize",
+                          "groupby_raw": "groupby.raw",
+                          "groupby_combine": "groupby.combine",
+                          "groupby_shuffle": "groupby.shuffle",
+                          "groupby_final": "groupby.final",
+                          "sort_sample": "sort.sample",
+                          "sort_exchange": "sort.exchange",
+                          "sort_local": "sort.local",
+                          "semi": "join.semi"}, profile=profile)
+        rec.update({"phase": "tpch_path", "query": q, "world": w,
+                    "scale": scale, "table_rows": rows, "gen_s": gen_s,
+                    "upload_s": upload_s, "setup_s": gen_s + upload_s,
+                    "lineitem_rows_per_s": rows["lineitem"] / rec["best_s"]})
+        recs.append(rec)
+    del dfs, env
+    torch.cuda.empty_cache()
+    return recs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=125_000_000,
@@ -2695,6 +3416,10 @@ def main() -> int:
                     help="rows per table of the hashed-string phase")
     ap.add_argument("--scan-rows", type=int, default=SCAN_ROWS,
                     help="rows per side of the series and scan-join phases")
+    ap.add_argument("--skew-rows", type=int, default=SKEW_ROWS,
+                    help="rows per side of the skewed join (configuration 5)")
+    ap.add_argument("--tpch-scale", type=float, default=TPCH_SCALE,
+                    help="TPC-H scale factor of tpch_path (configuration 4)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this smoke run needs "
@@ -2991,6 +3716,23 @@ def main() -> int:
     for brec in breadth_small(ct):
         no_kernels(brec, f"breadth_small W={brec['world']}")
         emit({"phase": "breadth_small", "oracle": "equal", **brec})
+
+    # -- the adaptive skew split and TPC-H: BASELINE configurations 5
+    # (W = 4) and 4 (W = 8) --------------------------------------------------
+    for srec in skew_small(ct):
+        emit({"phase": "skew_small", "oracle": "equal", **srec})
+    srec = skew_path(ct, args.skew_rows)
+    routes["skew_path_w4"] = srec["kernel_counts"]
+    emit(srec)
+    del srec
+    torch.cuda.empty_cache()
+    for trec in tpch_small(ct, scale=min(TPCH_SMALL_SCALE, args.tpch_scale)):
+        emit(trec)
+    for trec in tpch_path(ct, args.tpch_scale):
+        routes[f"tpch_path_{trec['query']}_w8"] = trec["kernel_counts"]
+        emit(trec)
+    del trec
+    torch.cuda.empty_cache()
     emit(exchange_gather_forms(dev))
     emit({"kernels": [{
         "name": "windowed_gather", "route": "cuda", "source": K1_SOURCE,

@@ -1,8 +1,7 @@
 """Configuration for cylon_tpu_torch: the subset of ``cylon_tpu/config.py``
 that the joins, the groupby paths, the sample sort and the
 range-partitioned pipeline read, under ``CYLON_TPU_TORCH_*`` environment
-names.  The reference's ``SKEW_SPLIT`` switch has no counterpart yet: the
-port has no skew split (ROADMAP.md, slice 10).
+names.
 
 PyTorch holds int64/float64 natively, so there is no x64 switch: device
 columns always keep their 64-bit types.  The reference's
@@ -72,6 +71,22 @@ SKEW_MAX_KEYS = 8
 #: GUARD_ROWS rows.
 SKEW_GUARD_RATIO = 2.0
 SKEW_GUARD_ROWS = 65536
+
+# The adaptive skew-split join (relational/skew.py): heavy probe keys
+# found by the weighted Misra-Gries sketch (obs/sketch.py) split over a
+# contiguous rank group, their build rows replicate to that group, and
+# the output stitches back bit- and order-equal to the unsplit hash plan.
+#: Master switch (default armed; ``0`` is the unsplit hash plan for
+#: inner/left/right/outer — semi/anti keep the round-robin spread):
+SKEW_SPLIT = _env_flag("CYLON_TPU_TORCH_SKEW_SPLIT", True)
+#: A key must also hold at least this share of the probe side before it
+#: splits (1/W alone is too eager at large worlds for the stitch's pass):
+SKEW_SPLIT_SHARE = float(os.environ.get("CYLON_TPU_TORCH_SKEW_SPLIT_SHARE",
+                                        "0.05"))
+#: A key of estimated share s splits over ceil(s * W * FACTOR) ranks,
+#: clamped to [2, W] and to its exact row count:
+SKEW_FANOUT_FACTOR = float(os.environ.get(
+    "CYLON_TPU_TORCH_SKEW_FANOUT_FACTOR", "1.25"))
 
 
 #: High-cardinality string crossover: a column of at least MIN_ROWS rows

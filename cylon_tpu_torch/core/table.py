@@ -279,7 +279,8 @@ class DeferredTable(Table):
     An upstream operator (join) hands its pre-materialization state
     (``op_state``) to a compatible downstream consumer (the groupby
     pushdown, relational/fused.py) without paying for the intermediate
-    table; any other access runs ``thunk()`` -> dict[str, Column].  Column
+    table; any other access runs ``thunk()`` -> dict[str, Column], or a
+    whole Table whose layout the DeferredTable adopts.  Column
     names, counts and capacity answer from ``meta`` = (names, types, dicts,
     has_nulls) and do not materialize."""
 
@@ -318,7 +319,17 @@ class DeferredTable(Table):
             # drop the fused-consumer state BEFORE materializing: it pins
             # N-long device buffers the thunk does not read
             self.op_state = None
-            self._cols = dict(thunk())
+            out = thunk()
+            if isinstance(out, Table):
+                # the producer rebuilt the rows on another layout (the
+                # skew stitch's even layout): adopt its counts, capacity
+                # and grouping with its columns
+                self._cols = dict(out.columns)
+                self._valid = out.valid_counts
+                self._cap = out.capacity
+                self.grouped_by = out.grouped_by
+            else:
+                self._cols = dict(out)
         return self._cols
 
     @property

@@ -259,9 +259,13 @@ def count_groups(gid, mask) -> torch.Tensor:
     return (torch.where(mask, gid, -1).max() + 1).to(torch.int32)
 
 
-def _rows_cmp_splitters(keyops: KeyOps, splitter_ops: tuple):
+def rows_cmp_splitters(keyops: KeyOps, splitter_ops: tuple):
     """(gt, eq) (n, S) bool pairs: row i's key tuple strictly greater than
-    / equal to splitter j's under the operand order."""
+    / equal to splitter j's under the operand order.  The skew split
+    (relational/skew.py) names its heavy keys and ranks rows against
+    them with it, so membership and order agree bit for bit with the
+    join sort's own key order (float canonicalization, null flags and
+    narrow lanes included)."""
     n = keyops.n
     s = splitter_ops[0].shape[0]
     dev = keyops.ops[0].device
@@ -279,7 +283,7 @@ def rows_gt_splitters(keyops: KeyOps, splitter_ops: tuple) -> torch.Tensor:
     """(n, S) bool: row i's key tuple strictly greater than splitter j's
     (the sample sort's range assignment: a row's destination is the
     number of splitters strictly below it)."""
-    gt, _ = _rows_cmp_splitters(keyops, splitter_ops)
+    gt, _ = rows_cmp_splitters(keyops, splitter_ops)
     return gt
 
 
@@ -289,7 +293,7 @@ def rows_ge_splitters(keyops: KeyOps, splitter_ops: tuple) -> torch.Tensor:
     build side, so a probe key equal to splitter j belongs to the range j
     opens.  Unsigned operands (int64 holding [0, 2^32)) compare as their
     values, which is the reference's uint32 order."""
-    gt, eq = _rows_cmp_splitters(keyops, splitter_ops)
+    gt, eq = rows_cmp_splitters(keyops, splitter_ops)
     return gt | eq
 
 

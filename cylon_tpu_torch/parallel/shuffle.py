@@ -18,10 +18,10 @@ a world of more than :data:`MAX_WORLD` ranks.
 (NCCL ``all_to_all_single`` with split sizes from the count sidecar, or
 peer copies under one controller) slots in behind the same interface.
 :func:`skew_targets` routes a semi/anti join's probe side with its heavy
-keys spread round-robin (relational/join.py).  Not ported (ROADMAP.md):
-the skew-split plan's targets (slice 10), the two-hop topology route,
-the receive-budget guard and its ledger registration, the integrity
-audit and the comm counters.
+keys spread round-robin (relational/join.py); :func:`skew_split_targets`
+routes the adaptive skew split's probe side (relational/skew.py).  Not
+ported (ROADMAP.md): the two-hop topology route, the receive-budget guard
+and its ledger registration, the integrity audit and the comm counters.
 """
 
 from __future__ import annotations
@@ -69,6 +69,60 @@ def skew_targets(env, h: torch.Tensor, valid_counts,
     live = live_mask(valid_counts, n // w, h.device)
     return torch.where(live, tgt, torch.full((), w, dtype=torch.int32,
                                              device=h.device))
+
+
+def skew_split_targets(env, key_datas, key_valids, valid_counts, need_nf,
+                       narrow, tuple_ops, src_off, fanout,
+                       start) -> torch.Tensor:
+    """Global ``(W·cap,)`` int32 targets of the adaptive skew split's probe
+    side, for the plan facade (relational/skew.py), which derives every
+    sidecar.  Light rows hash as usual.  Row ``j`` of heavy key ``k``, in
+    global (source rank, source position) order, goes to rank
+    ``(start[k] + j mod fanout[k]) mod W``: each member of the key's
+    group receives a fixed-stride, order-preserving subsequence of the
+    key's rows, and every source's heavy rows spread over the whole
+    group.  A row is heavy when its key operands equal one of the K
+    tuples' (``tuple_ops``, ops/pack.rows_cmp_splitters).  ``src_off``
+    (W, K) holds each key's rows on the lower ranks; the within-key index
+    is int64, since one heavy key can pass 2^31 rows.  Padding rows get
+    target W."""
+    from ..ops import pack
+    w = len(valid_counts)
+    cap = key_datas[0].shape[0] // w
+    dev = key_datas[0].device
+    live = live_mask(valid_counts, cap, dev)
+    with_valids = any(v is not None for v in key_valids)
+    h = hashing.hash_rows(list(key_datas),
+                          list(key_valids) if with_valids else None)
+    tgt = hashing.partition_targets(h, w)
+    del h
+    ko_r = pack.key_operands(list(key_datas), list(key_valids),
+                             need_null_flags=need_nf, narrow32=narrow)
+    _gt, eq = pack.rows_cmp_splitters(ko_r, tuple_ops)
+    del ko_r, _gt
+    eq &= live[:, None]
+    heavy = eq.any(dim=1)
+    # the first equal tuple, as the reference's argmax (bool has none)
+    kidx = eq.to(torch.uint8).argmax(dim=1)
+    # the heavy tuples are distinct, so a row matches one key at most: its
+    # index among its key's rows on its shard is a per-shard running
+    # count of that key's flags
+    loc = torch.zeros(eq.shape[0], dtype=torch.int64, device=dev)
+    for k in range(eq.shape[1]):
+        ek = eq[:, k].view(w, cap).to(torch.int32)
+        ck = (torch.cumsum(ek, 1, dtype=torch.int32) - ek).reshape(-1)
+        loc = torch.where(eq[:, k], ck.to(torch.int64), loc)
+        del ek, ck
+    shard_of = torch.arange(w, device=dev).repeat_interleave(cap)
+    soff = torch.from_numpy(np.asarray(src_off, np.int64)).to(dev)
+    fan = torch.from_numpy(np.asarray(fanout, np.int64)).to(dev)
+    st = torch.from_numpy(np.asarray(start, np.int64)).to(dev)
+    j = soff[shard_of, kidx] + loc
+    del loc, shard_of
+    tgt_h = ((st[kidx] + j % fan[kidx]) % w).to(torch.int32)
+    tgt = torch.where(heavy, tgt_h, tgt)
+    return torch.where(live, tgt, torch.full((), w, dtype=torch.int32,
+                                             device=dev))
 
 
 def count_targets(env, tgt: torch.Tensor) -> np.ndarray:

@@ -256,3 +256,49 @@ def check_same_env(a: Table, b: Table) -> CylonEnv:
         raise InvalidError("tables belong to different worlds: "
                            f"{a.env!r} and {b.env!r}")
     return a.env
+
+
+def sample_key_rows(table: Table, key_names: list, m: int | None = None):
+    """Shard-weighted sample of FULL key tuples for the skew-split
+    detector (relational/skew.py): ``(values, valids, hashes, weights,
+    total_rows)``.  ``values``/``valids`` are per-key-column host arrays
+    of the sampled data and validity bits (so a heavy tuple, nulls
+    included, can go back to the device as an operand-space constant),
+    ``hashes`` the routing hash (ops/hashing.hash_rows) of each sampled
+    row as uint32, and ``weights`` each shard's live row count split
+    evenly over its ``m`` samples.  The rows are the reference's:
+    :func:`sample_positions` over each shard's live prefix.  None for an
+    empty table.  One gather of W·m rows and one host pull."""
+    from .. import config
+    from ..ops import hashing
+    from ..utils.host import host_arrays
+
+    total = int(table.valid_counts.sum())
+    if total == 0:
+        return None
+    w = table.env.world_size
+    if m is None:
+        m = config.SKEW_SAMPLE
+    m = min(max(int(table.capacity), 1), int(m))
+    cols = [table.column(n) for n in key_names]
+    cap = table.capacity
+    vc = np.asarray(table.valid_counts, np.int64)
+    datas, valids = col_arrays(cols)
+    dev = datas[0].device
+    pos = np.concatenate([r * cap + sample_positions(int(vc[r]), m, cap)
+                          for r in range(w)]).astype(np.int64)
+    idx = torch.from_numpy(pos).to(dev)
+    sd = [d[idx] for d in datas]
+    sv = [torch.ones(len(pos), dtype=torch.bool, device=dev)
+          if v is None else v[idx] for v in valids]
+    # the hash is elementwise: hashing the sampled rows alone gives the
+    # sampled rows' hashes
+    outs = host_arrays(sd + sv + [hashing.hash_rows(sd, sv)])
+    nk = len(cols)
+    vals, vls, hashes = outs[:nk], outs[nk:2 * nk], outs[-1]
+    keep = np.repeat(vc > 0, m)
+    if not keep.any():
+        return None
+    per_shard_w = np.repeat(np.where(vc > 0, vc / max(m, 1), 0.0), m)
+    return ([v[keep] for v in vals], [v[keep] for v in vls],
+            hashes[keep].astype(np.uint32), per_shard_w[keep], total)

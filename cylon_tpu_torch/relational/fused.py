@@ -70,6 +70,15 @@ class JoinState(NamedTuple):
     cap_l: int
     cap_r: int
     all_live: bool
+    #: the finalized skew plan (relational/skew.SkewPlan) when the join
+    #: took the skew split: a heavy key's rows span its rank group, so
+    #: the fused rows of those keys are per-member PARTIALS that
+    #: ``skew.combine_heavy_partials`` folds.  None for the hash plan.
+    skew_plan: object = None
+    #: with ``skew_plan``: materializes the SPLIT-layout join output
+    #: without the stitch, for a groupby the pushdown declines
+    #: (``skew.consume_unstitched``)
+    pre_thunk: object = None
 
     @staticmethod
     def from_reference_state(fields, device) -> "JoinState":
@@ -299,6 +308,12 @@ def try_begin_join_groupby(table: Table, by: list, specs: list, ddof: int):
         return None
     if tuple(by) != state.key_names:
         return None
+    # under a skew plan the heavy keys' fused rows are partials, which
+    # combine only for ops whose finalized value is additive in the probe
+    # chunks; mean/var/std take the materialize path (unstitched)
+    if state.skew_plan is not None and any(
+            op not in ("sum", "count", "sumsq") for _, op, _q, _n in specs):
+        return None
     vspecs = []
     for col, op, _q, _name in specs:
         if op not in PUSHDOWN_OPS:
@@ -396,6 +411,12 @@ def try_begin_join_groupby(table: Table, by: list, specs: list, ddof: int):
         out = _result_table(env, by, by_cols, key_out, kval_out, res_names,
                             res_d, res_v, res_types, res_dicts, n_groups)
         out = _shrink(out, n_groups)
+        if state.skew_plan is not None:
+            # sum each heavy key's member rows onto its home rank's row:
+            # the unsplit fused plan's table, layout and all
+            from .skew import combine_heavy_partials
+            return combine_heavy_partials(out, list(by), res_names,
+                                          state.skew_plan)
         out.grouped_by = tuple(by)
         return out
 

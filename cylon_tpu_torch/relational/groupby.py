@@ -514,6 +514,11 @@ def groupby_aggregate(table: Table, by, aggs, ddof: int = 1) -> Table:
     order, ``grouped_by = by``.  Null keys form their own group."""
     by = [by] if isinstance(by, str) else list(by)
     specs = _normalize_aggs(aggs)
+    # a stitch-deferred skew join hands over its split layout: an
+    # aggregation cannot observe row order or placement, so the stitch
+    # never runs for a join → groupby
+    from .skew import consume_unstitched
+    table = consume_unstitched(table)
     # an unmaterialized inner join grouped by its keys aggregates off the
     # pre-expansion state; it must run before any column access below,
     # which would materialize the join
@@ -521,6 +526,8 @@ def groupby_aggregate(table: Table, by, aggs, ddof: int = 1) -> Table:
     pushed = try_join_groupby_pushdown(table, by, specs, ddof)
     if pushed is not None:
         return pushed
+    # a deferred skew join the pushdown declined: its split layout too
+    table = consume_unstitched(table, include_deferred=True)
     return _groupby_aggregate_impl(table, by, specs, ddof)
 
 

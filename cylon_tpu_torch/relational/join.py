@@ -5,9 +5,11 @@ and the N-way ``join_tables_multi``.
 At world size W > 1 the sides are first co-located
 (:func:`_shuffle_for_join`): both hash-shuffle on the join keys
 (relational/repart.shuffle_table), or a small side is replicated to every
-shard and the other stays in place (the broadcast route), or, for semi
-and anti joins whose probe side holds a heavy key, the heavy keys' build
-rows replicate and their probe rows spread round-robin.  Then every
+shard and the other stays in place (the broadcast route), or, when the
+probe side holds a heavy key, the adaptive skew split (relational/
+skew.py) spreads it over a rank group for inner/left/right/outer joins,
+and for semi and anti joins the heavy keys' build rows replicate and
+their probe rows spread round-robin.  Then every
 shard runs the local kernel (parallel/shards.map_shards), the two-phase
 single-sort merge of ``ops/join.py``:
 
@@ -28,11 +30,14 @@ join keys aggregates straight off the sorted state (relational/fused.py);
 any other access rebuilds the carry from the held state with scans alone
 and materializes.  Every other join type materializes.
 
+Under a skew plan the output stitches back into the unsplit hash plan's
+global row order on first access (``skew.stitch_join_output``); a
+groupby takes the split layout as it is (``skew.consume_unstitched``),
+and the fused pushdown combines the heavy keys' partial rows.
+
 The packed-piece entry joins two :class:`~cylon_tpu_torch.relational.
 piece.PackedPiece` windows of the pipelined join (exec/pipeline.py) with
-the same kernels.  The skew split and its stitch are slice 10 of
-ROADMAP.md Queue 1: the port takes the reference's unsplit plan
-(``SKEW_SPLIT`` off).
+the same kernels.
 """
 
 from __future__ import annotations
@@ -54,9 +59,10 @@ from ..utils.host import host_array
 from .common import (PAD_L, PAD_R, build_table, check_same_env, col_arrays,
                      live_mask, narrow32_flags, promote_key_pair,
                      table_lane_spec)
+from . import skew as skewmod
 from .piece import PackedPiece
-from .repart import (concat_tables, exchange_by_targets, filter_table,
-                     shuffle_table)
+from .repart import (concat_tables, even_partition_counts,
+                     exchange_by_targets, filter_table, shuffle_table)
 
 HOW = ("inner", "left", "right", "outer", "semi", "anti")
 
@@ -232,8 +238,8 @@ def _plan_outputs(plan, ldat, lval, l_ok, rdat, rval, r_ok):
 
 
 # ---------------------------------------------------------------------------
-# co-location at W > 1: the hash plan, the broadcast route and the semi/anti
-# heavy-key spread (reference ``_shuffle_for_join`` without the skew split)
+# co-location at W > 1: the hash plan, the broadcast route, the adaptive
+# skew split and the semi/anti heavy-key spread
 # ---------------------------------------------------------------------------
 
 def _key_hashes(table: Table, key_names) -> torch.Tensor:
@@ -293,15 +299,22 @@ def _heavy_flag(h: torch.Tensor, heavy) -> torch.Tensor:
 def _shuffle_for_join(lwork: Table, rwork: Table, left_on, right_on,
                       how: str, env):
     """Co-locate equal keys across the W shards.  Returns ``(lwork, rwork,
-    split)``; ``split`` is True when the output will not be co-located by
-    key (the broadcast route or the semi/anti spread), which turns off
-    ``grouped_by`` and the deferred join.
+    split)``; ``split`` is False (the hash plan), True when the output
+    will not be co-located by key and has no plan (the broadcast route or
+    the semi/anti spread), which turns off ``grouped_by`` and the
+    deferred join, or the finalized :class:`~.skew.SkewPlan`, which the
+    caller stitches.
 
     * Broadcast: a side of at most ``BROADCAST_JOIN_ROWS`` rows, facing
       one at least 4x its size, replicates to every shard and the big
       side does not move.  Only a side whose unmatched rows are never
       emitted may replicate: the right side for inner/left/semi/anti,
       the left side for inner/right.  A side of 0 rows always qualifies.
+    * Skew split (inner/left/right/outer, ``SKEW_SPLIT`` armed): the
+      probe side (the right table of a right join, else the left) is
+      sampled; a finalized plan splits each heavy key's probe rows over
+      its rank group and replicates its build rows to that group
+      (``skew.split_exchange``).
     * Semi/anti spread: when the probe (left) side's sample shows a heavy
       key, the build rows of the heavy keys replicate, the other build
       rows hash, and the probe's heavy rows spread round-robin — unless
@@ -320,6 +333,26 @@ def _shuffle_for_join(lwork: Table, rwork: Table, left_on, right_on,
             and rwork.row_count >= 4 * max(lwork.row_count, 1)):
         timing.bump("join.broadcast")
         return allgather_table(lwork), rwork, True
+
+    if how in ("inner", "left", "right", "outer") and config.SKEW_SPLIT:
+        if how == "right":
+            probe, probe_on, build, build_on = rwork, right_on, lwork, left_on
+        else:
+            probe, probe_on, build, build_on = lwork, left_on, rwork, right_on
+        with timing.region("skew.detect"):
+            plan = skewmod.detect(probe, probe_on, env)
+        if plan is not None:
+            with timing.region("skew.finalize"):
+                plan = skewmod.finalize_or_none(plan, probe, probe_on,
+                                                build, build_on)
+        if plan is not None:
+            skewmod.adopt(plan, env)
+            with timing.region("skew.split_exchange"):
+                probe_out, build_out = skewmod.split_exchange(
+                    probe, probe_on, build, build_on, plan)
+            if how == "right":
+                return build_out, probe_out, plan
+            return probe_out, build_out, plan
 
     if how in ("semi", "anti"):
         heavy = _heavy_keys(lwork, left_on, env)
@@ -442,6 +475,7 @@ def join_tables(left: Table, right: Table, left_on, right_on,
                                                     right_on, how, env)
         lkey_cols = [lwork.column(n) for n in left_on]
         rkey_cols = [rwork.column(n) for n in right_on]
+    skew_plan = split if isinstance(split, skewmod.SkewPlan) else None
 
     l_datas, l_valids = col_arrays(lkey_cols)
     r_datas, r_valids = col_arrays(rkey_cols)
@@ -556,16 +590,20 @@ def join_tables(left: Table, right: Table, left_on, right_on,
     if allow_defer is None:
         allow_defer = True
     # the broadcast route and the semi/anti spread leave equal keys on
-    # several shards: no fused pushdown and no grouped_by there
+    # several shards with no plan to restore them: no fused pushdown and
+    # no grouped_by there.  A skew plan defers like the hash plan: the
+    # fused consumer combines the heavy keys' partials, any other access
+    # materializes through the stitch.
     defer = (config.DEFER_JOIN and how == "inner" and carry_emit
-             and carry_match and coalesce and allow_defer and not split)
+             and carry_match and coalesce and allow_defer
+             and (skew_plan is not None or not split))
     if defer:
         with timing.region("join.sort_count"):
             n_dev, idx_s_s, bnd_s, pl_s = count(slim=True)
             counts = host_array(n_dev).astype(np.int64).reshape(w)
         out_cap = config.pow2ceil(int(counts.max()))
 
-        def thunk():
+        def materialize_cols():
             # the slim state holds the sorted payloads and (idx_s, bnd);
             # the carry rebuilds from scans alone — no second sort
             def carry_of(r):
@@ -580,19 +618,40 @@ def join_tables(left: Table, right: Table, left_on, right_on,
                     for nme, d, v, t, dc, b in
                     zip(names, out_d, out_v, types, dicts, bounds)}
 
+        def pre_table():
+            # the SPLIT-layout output without the stitch, for a groupby
+            # the fused pushdown declined (skew.consume_unstitched)
+            return Table(materialize_cols(), env, counts)
+
+        def thunk():
+            if skew_plan is None:
+                return materialize_cols()
+            with timing.region("join.skew_stitch"):
+                return skewmod.stitch_join_output(
+                    pre_table(), list(left_on), skew_plan, how, None)
+
         from .fused import JoinState
+        if skew_plan is not None:
+            total = int(counts.sum())
+            d_counts = even_partition_counts(total, w)
+            d_cap = config.pow2ceil(int(d_counts.max()) if total else 1)
+        else:
+            d_counts, d_cap = counts, out_cap
         state = JoinState(
             vcl=vcl, vcr=vcr, idx_s=idx_s_s, bnd=bnd_s, pl_s=pl_s,
             lspec=lspec, rspec=rspec, plan=tuple(plan),
             names=tuple(names), types=tuple(types), dicts=tuple(dicts),
             key_names=tuple(left_on), cap_l=cap_l, cap_r=cap_r,
-            all_live=all_live)
+            all_live=all_live, skew_plan=skew_plan,
+            pre_thunk=pre_table if skew_plan is not None else None)
         out = DeferredTable(
-            env, counts, out_cap, thunk,
+            env, d_counts, d_cap, thunk,
             (tuple(names), tuple(types), tuple(dicts),
              tuple(bool(e[-1]) for e in plan)),
             op_state=state)
-        out.grouped_by = tuple(left_on)
+        # a split layout is not co-located (heavy keys span their rank
+        # groups), and the stitched one is the even layout
+        out.grouped_by = None if skew_plan is not None else tuple(left_on)
         return out
 
     with timing.region("join.sort_count"):
@@ -605,11 +664,53 @@ def join_tables(left: Table, right: Table, left_on, right_on,
             pl_s, out_cap)
     out = build_table(names, out_d, out_v, types, dicts, counts, env,
                       bounds=bounds)
+    if skew_plan is not None:
+        return _stitch_deferred(out, carry, skew_plan, how, coalesce,
+                                left_on, right_on, overlap, suffixes,
+                                (tuple(names), tuple(types), tuple(dicts),
+                                 tuple(bool(e[-1]) for e in plan)))
     if coalesce and not split:
         # join output rows are key-grouped per shard (sorted merge order)
         # and keys co-located across shards (hash shuffle)
         out.grouped_by = tuple(left_on)
     return out
+
+
+def _stitch_deferred(pre: Table, carry, skew_plan, how: str, coalesce: bool,
+                     left_on, right_on, overlap, suffixes, meta):
+    """A materialized skew join's result: a DeferredTable on the even
+    layout whose first data access runs the stitch
+    (``skew.stitch_join_output``) and whose ``op_state`` hands a groupby
+    the split-layout table ``pre`` instead (``skew.StitchState``)."""
+    env = pre.env
+    w = env.world_size
+    un_counts = None
+    if how == "outer":
+        # each shard's appended unmatched-right rows (the carry's `un`
+        # flags): the stitch's zone B
+        un_counts = host_array(carry[5].view(w, -1).sum(
+            dim=1, dtype=torch.int64)).astype(np.int64)
+    if coalesce:
+        key_out = list(left_on)
+    elif how == "right":
+        key_out = [n + suffixes[1] if n in overlap else n for n in right_on]
+    else:
+        key_out = [n + suffixes[0] if n in overlap else n for n in left_on]
+    total = pre.row_count
+    dest = even_partition_counts(total, w)
+
+    def stitch_thunk():
+        with timing.region("join.skew_stitch"):
+            return skewmod.stitch_join_output(pre, key_out, skew_plan, how,
+                                              un_counts)
+
+    dt = DeferredTable(env, dest,
+                       config.pow2ceil(int(dest.max()) if total else 1),
+                       stitch_thunk, meta,
+                       op_state=skewmod.StitchState(pre, skew_plan, how,
+                                                    un_counts, key_out))
+    dt.grouped_by = None
+    return dt
 
 
 def join_tables_multi(tables: list, ons: list, how: str = "inner",

@@ -11,8 +11,8 @@ source position) receive order puts the rows back in global order.
 :func:`slice_table`, :func:`head` and :func:`tail` keep each rank's
 overlap with a global row range where it is.
 
-Not ported: ``place_by_global_pos``, the skew stitch's placement by
-caller-computed positions (slice 10 of ROADMAP.md Queue 1).
+:func:`place_by_global_pos` places rows on the even layout by global
+positions its caller computed (the skew stitch, relational/skew.py).
 """
 
 from __future__ import annotations
@@ -130,6 +130,75 @@ def _order_preserving_targets(table: Table,
     t = torch.searchsorted(bounds, gpos).clamp_(0, w - 1).to(torch.int32)
     return torch.where(live_mask(vc, cap, dev), t,
                        torch.full((), w, dtype=torch.int32, device=dev))
+
+
+def place_by_global_pos(table: Table, pos: torch.Tensor,
+                        total: int) -> Table:
+    """Redistribute ``table``'s rows onto the even order-preserving layout
+    (:func:`even_partition_counts`) by their caller-computed GLOBAL row
+    positions ``pos`` (int64, the table's row layout; padding rows carry
+    the ``total`` sentinel), which must be a permutation of
+    ``[0, total)``.  Destination d owns positions ``[dof[d], dof[d] +
+    dest[d])``; its rows arrive in (source rank, source position) order
+    and land at their own slots ``pos - dof[d]``, so the result reads back
+    in position order — the merge half of the skew stitch (relational/
+    skew.stitch_join_output).  Raises :class:`InvalidError` when the
+    received counts are not the even layout, or when a destination's
+    positions are not its own range once each (a repeated position whose
+    counts still match)."""
+    env = table.env
+    w = env.world_size
+    total = int(total)
+    if total == 0 or not table.column_count:
+        return table
+    dev = env.device
+    dest = even_partition_counts(total, w)
+    bounds = torch.from_numpy(np.cumsum(dest).astype(np.int64) - 1).to(dev)
+    with timing.region("place.targets"):
+        t = torch.searchsorted(bounds, pos).clamp_(0, w - 1).to(torch.int32)
+        tgt = torch.where(live_mask(table.valid_counts, table.capacity, dev),
+                          t, torch.full((), w, dtype=torch.int32, device=dev))
+        del t
+        counts = shuffle.count_targets(env, tgt)
+    with timing.region("place.exchange"):
+        flat, recipe = _flatten_for_exchange(table)
+        new_flat, new_valid = shuffle.exchange(env, tgt, counts,
+                                               flat + (pos,))
+        del flat, tgt
+    if not np.array_equal(np.asarray(new_valid, np.int64), dest):
+        raise InvalidError(
+            f"place_by_global_pos: received counts {list(new_valid)} do "
+            f"not match the even layout {list(dest)} — positions are not "
+            "a permutation of the claimed total")
+    with timing.region("place.sort"):
+        out_cap = new_flat[0].shape[0] // w
+        dof = torch.from_numpy(np.concatenate([[0], np.cumsum(dest)[:-1]])
+                               .astype(np.int64)).to(dev)
+        # received row q of destination d belongs at slot d·out_cap +
+        # pos - dof[d]; a padding row keeps its own slot.  When the slots
+        # are a permutation, one scatter of the row numbers inverts it and
+        # one gather per array puts every shard in position order (the
+        # clamp and the identity start keep every index in range even
+        # for positions that break the contract).  A repeated slot leaves
+        # another unwritten, whose identity entry then fails slot[inv] ==
+        # q: one compare and one pull find it
+        q = torch.arange(w * out_cap, dtype=torch.int64, device=dev)
+        d = q // out_cap
+        slot = torch.where(live_mask(new_valid, out_cap, dev),
+                           d * out_cap + (new_flat[-1] - dof[d]).clamp(
+                               0, out_cap - 1), q)
+        del d
+        inv = q.clone()
+        inv[slot] = q
+        if not bool(torch.equal(slot[inv], q)):
+            raise InvalidError(
+                "place_by_global_pos: positions are not a permutation of "
+                "the claimed total — a destination received a repeated "
+                "position")
+        del q, slot
+        sorted_flat = [a[inv] for a in new_flat[:-1]]
+        del inv, new_flat
+    return _rebuild(recipe, sorted_flat, new_valid, env)
 
 
 def repartition(table: Table, rows_per_partition=None) -> Table:

@@ -74,6 +74,13 @@ def require(module: str):
             f"{module} is not installed; this call needs it") from e
 
 
+class ExecutionError(CylonError):
+    """A plan's own accounting failed at run time (the skew stitch's
+    segment sums, relational/skew.py)."""
+
+    code = Code.ExecutionError
+
+
 class NumericOverflowError(CylonError):
     """The armed saturation guard (ops/groupby.guard_saturation) found an
     int64 sum/count at the rail: the aggregate has wrapped or is one

@@ -8,9 +8,9 @@ descending), every ``agg`` spelling, the naming of ``quantile`` and
 ``median`` results, the other aggregation methods, ``sort_values``
 methods, ``drop``/``rename``/projection, ``concat``, moving a frame to
 another env, the frame's accessors, ``merge`` with every ``how`` and
-``join`` with its default "left".  The port has no skew split, so the
-reference runs with ``SKEW_SPLIT`` off, and both packages with
-``BROADCAST_JOIN_ROWS`` at 0 (as in tests/test_torch_distributed.py).
+``join`` with its default "left".  Both packages run the skew split at
+its default, armed, and with ``BROADCAST_JOIN_ROWS`` at 0 (as in
+tests/test_torch_distributed.py).
 
 Held: the table layout (``valid_counts``, capacity, ``grouped_by``,
 column names and dtypes), validity, integers and strings bit-equal, and
@@ -30,8 +30,7 @@ from test_torch_groupby_sort import _scale, assert_same
 
 
 @pytest.fixture(autouse=True)
-def unsplit_reference(monkeypatch):
-    monkeypatch.setattr(rconfig, "SKEW_SPLIT", False)
+def same_routes(monkeypatch):
     monkeypatch.setattr(rconfig, "BROADCAST_JOIN_ROWS", 0)
     monkeypatch.setattr(pconfig, "BROADCAST_JOIN_ROWS", 0)
     # the reference materializes a join at the capacity an earlier call

@@ -57,8 +57,7 @@ def _release_compiled_programs():
 
 
 @pytest.fixture(autouse=True)
-def unsplit_reference(monkeypatch):
-    monkeypatch.setattr(rconfig, "SKEW_SPLIT", False)
+def same_routes(monkeypatch):
     monkeypatch.setattr(rconfig, "BROADCAST_JOIN_ROWS", 0)
     monkeypatch.setattr(pconfig, "BROADCAST_JOIN_ROWS", 0)
     rjoin._CAP_CACHE.clear()

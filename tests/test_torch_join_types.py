@@ -13,9 +13,11 @@ probe, the broadcast route and the N-way join.
 Held: values bit for bit (floats too: a join moves values, it adds
 none) and the whole layout — ``valid_counts``, capacity, every shard's
 rows in order and its padding, validity, bounds and ``grouped_by`` —
-and the same typed errors.  The port has no skew split (slice 10), so
-the reference runs with ``SKEW_SPLIT`` off, its unsplit plan.  Both
-packages take the broadcast route at the same ``BROADCAST_JOIN_ROWS``:
+and the same typed errors.  Both packages run the skew split at its
+default, armed: the heavy-key and skewed-probe cases take it at W > 1,
+and the output is the stitched one (tests/test_torch_skew.py holds the
+split itself).  Both packages take the broadcast route at the same
+``BROADCAST_JOIN_ROWS``:
 0 unless a case sets both to another value; a side of 0 rows takes the
 route even then.  The reference's join capacity cache is cleared before
 each case."""
@@ -44,7 +46,6 @@ ALL_HOWS = HOWS + ["semi", "anti"]
 
 @pytest.fixture(autouse=True)
 def same_routes(monkeypatch):
-    monkeypatch.setattr(rconfig, "SKEW_SPLIT", False)
     set_broadcast(monkeypatch, 0)
     # the reference materializes a join at the capacity an earlier call
     # with the same signature needed, when that is larger (its

@@ -322,11 +322,10 @@ def worlds4(env4):
 
 
 def _world(w, env1, penv, worlds4, monkeypatch):
-    """(reference env, port env) at world size ``w``, both packages on the
-    plain hash plan at W > 1."""
+    """(reference env, port env) at world size ``w``, both packages with
+    the broadcast route off at W > 1 (the skew split armed in both)."""
     if w == 1:
         return env1, penv
-    monkeypatch.setattr(rconfig, "SKEW_SPLIT", False)
     monkeypatch.setattr(rconfig, "BROADCAST_JOIN_ROWS", 0)
     monkeypatch.setattr(pconfig, "BROADCAST_JOIN_ROWS", 0)
     return worlds4[w]
@@ -487,7 +486,6 @@ def test_pipelined_how_null_and_string_keys(env4, how, monkeypatch,
     """Null-key and dictionary-string groups stay whole in one range
     (tests/test_pipeline.py::test_pipelined_join_null_and_string_keys)."""
     from cylon_tpu_torch.ctx.context import VirtualMeshConfig
-    monkeypatch.setattr(rconfig, "SKEW_SPLIT", False)
     monkeypatch.setattr(rconfig, "BROADCAST_JOIN_ROWS", 0)
     rng = np.random.default_rng(8)
     n = 1500

@@ -41,7 +41,6 @@ from test_torch_shuffle import assert_layout
 
 @pytest.fixture(autouse=True)
 def same_routes(monkeypatch):
-    monkeypatch.setattr(rconfig, "SKEW_SPLIT", False)
     monkeypatch.setattr(rconfig, "BROADCAST_JOIN_ROWS", 0)
     monkeypatch.setattr(pconfig, "BROADCAST_JOIN_ROWS", 0)
     rjoin._CAP_CACHE.clear()
