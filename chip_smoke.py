@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--rows N] [--config3-rows N] [--fact-rows N]
                           [--string-rows N] [--scan-rows N] [--skew-rows N]
-                          [--tpch-scale SF]
+                          [--tpch-scale SF] [--oom-rows N]
 
 Builds the package's CUDA kernels from the sources in this checkout (one
 nvcc per source, all at once), holds each against its plain PyTorch
@@ -120,7 +120,7 @@ Then the set operations, the redistributions and hashed string keys:
   ``equals``, even and specified repartitions, slices across shard
   boundaries, and a hashed-string join, groupby and sort (the crossover
   lowered to this size through the config knob), each against numpy;
-* ``strings_path``: two ``--string-rows`` tables (default 8,388,608)
+* ``strings_path``: two ``--string-rows`` tables (default 4,194,304)
   keyed by TPC-H's ``C_NAME`` format of bench.py's keys, above the
   crossover, so the keys hash on ingest (``setup_s``):
   ``merge(on="name").groupby("name").sum().sort_values("name")`` at
@@ -181,6 +181,44 @@ Then the adaptive skew split and TPC-H, BASELINE configurations 5 and 4:
   idle share and K1/K2 launches, against numpy oracles (the keys are
   aranges, so each join is an index lookup).
 
+Then recovery: the spill tiers, the retry ladder and a real device OOM:
+
+* ``spill_path`` (after ``scan_join_path``, on its tables): the W = 4
+  pipelined route (GroupBySink + ``pipelined_join``, n_chunks 2)
+  unspilled, then under a ledger budget (``CYLON_TPU_TORCH_HBM_BUDGET``)
+  reckoned from the ledger — the piece loop's admissions less the left
+  packed source — so that source evicts to pinned host memory and every
+  one of its windows is uploaded: best of 3 after a warm-up each, the
+  budget, the bytes evicted and uploaded per iteration, the uploads'
+  device time and the share of it that overlapped kernels, the prefetch
+  depth (1), both peaks and idle shares, K1/K2 launches; bit-equal to the
+  unspilled result and to the oracle; K1 and K2 held bit-equal to their
+  plain versions on the spilled route's first-launch inputs (shard 0);
+  then (``depth2``) under a budget that still evicts the left source and
+  holds two window pairs, so the next piece's windows upload before the
+  current piece joins (prefetch depth 2): best of 3, peak, the uploads'
+  overlap, bit-equal to the unspilled result, the same bytes uploaded;
+* ``recovery_small`` (after ``breadth_small``): 1M rows a side at W = 1,
+  3, 4 and 8 — pipelined inner, left and outer joins (n_chunks 3) with
+  and without a ``GroupBySink`` and ``pipelined_set_op``, under a 4 KiB
+  device budget (every source evicts) and then with a 4 KiB host budget
+  and a temporary spill directory (pages written, verified, read back,
+  the directory empty after), each equal to the same run unbudgeted and
+  to numpy; injected faults with their expected ``recovery_events()``:
+  ``groupby.device_oom=device_oom`` (the 4-chunk rung),
+  ``join.piece_cap=capacity`` (the cap-halving rung),
+  ``spill.upload=spill_stall`` under a 0.5 s watchdog (a
+  ``RankDesyncError``), ``groupby.device_oom=desync`` (no rung: the
+  typed abort) and, at W > 1, ``shuffle.recv_guard=predicted`` with a
+  spillable source resident (the spill rung);
+* ``oom_path`` (last): the monolithic join → groupby at W = 1 and
+  ``--oom-rows`` a side (default 402,653,184), which the card cannot
+  hold: the first attempt must raise ``torch.cuda.OutOfMemoryError``,
+  classified ``DeviceOOMError``, and the ladder's chunked retry must give
+  the oracle's answer; the failed attempt's and the recovery's times and
+  peaks, the events and the ladder that caught it.  Any other phase fails
+  if it records a recovery event.
+
 Each route's kernel counts are set to 0 just before it and read just
 after.  Prints one JSON line per phase, then the kernel summary line, then
 the card's name and power limit as nvidia-smi reports them, and last
@@ -223,6 +261,9 @@ def emit(obj) -> None:
     differences between lines give each phase's share of the run."""
     if "phase" in obj:
         obj = {**obj, "clock_s": time.perf_counter()}
+        # only oom_path and recovery_small's injected cases may retry,
+        # and they drain their events before they print
+        no_recovery(f"phase {obj['phase']}")
     print(json.dumps(obj), flush=True)
 
 
@@ -1938,7 +1979,7 @@ def broadcast_path(ct, n_fact: int = FACT_ROWS, device=None) -> dict:
 # -- set operations, unique, equals, repartition, hashed string keys -------
 
 #: strings_path: rows per table; TPC-H's C_NAME format on bench.py's keys
-STRING_ROWS = 8_388_608
+STRING_ROWS = 4_194_304
 NAME_FORMAT = "Customer#%09d"
 
 
@@ -3404,6 +3445,582 @@ def tpch_path(ct, scale: float = TPCH_SCALE, device=None,
     return recs
 
 
+# ---------------------------------------------------------------------------
+# recovery: the spill tiers, the retry ladder and a real device OOM
+# ---------------------------------------------------------------------------
+
+#: oom_path's rows per side: the monolithic join → groupby peaks at 31.2
+#: GB at 125,000,000 rows a side on the card (PERF.md §2), about 100 GB
+#: at 3·2^27 rows, past the card's 80 GB; the tables are 12.9 GB
+OOM_ROWS = 402_653_184
+#: regions of the spilled pipelined route's phase split
+SPILL_PHASES = {"shuffle": "join.shuffle", "build_sort": "pipe.build_sort",
+                "bounds": "pipe.bounds", "targets": "pipe.targets",
+                "probe_sort": "pipe.probe_sort",
+                "phase_sync": "pipe.phase_sync", "pack": "pipe.pack",
+                "evict": "spill.evict", "upload": "spill.upload",
+                "piece_join": "pipe.piece_join", "consume": "pipe.consume"}
+
+
+@contextlib.contextmanager
+def knobs(**values):
+    """Set ``cylon_tpu_torch.config`` values for the block."""
+    from cylon_tpu_torch import config as pconfig
+    old = {k: getattr(pconfig, k) for k in values}
+    for k, v in values.items():
+        setattr(pconfig, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(pconfig, k, v)
+
+
+def recovery_events() -> list:
+    """The recovery events recorded since the last drain, as (site, kind,
+    action) triples, and drain them."""
+    from cylon_tpu_torch.exec import recovery
+    return [(e["site"], e["kind"], e["action"])
+            for e in recovery.drain_events()]
+
+
+def no_recovery(label: str) -> None:
+    """Fail when anything was retried: outside oom_path and the injected
+    cases a recovery event is a fault."""
+    ev = recovery_events()
+    if ev:
+        raise AssertionError(f"{label}: recovery events {ev}")
+
+
+def same_tables(a, b, label: str) -> None:
+    """Two tables' live rows equal bit for bit, per shard, validity
+    included."""
+    if not np.array_equal(np.asarray(a.valid_counts),
+                          np.asarray(b.valid_counts)):
+        raise AssertionError(f"{label}: shard counts differ")
+    ha, hb = a.host_columns(), b.host_columns()
+    if list(ha) != list(hb):
+        raise AssertionError(f"{label}: columns differ")
+    for name in ha:
+        (da, va), (db, vb) = ha[name], hb[name]
+        if da.dtype != db.dtype or not np.array_equal(da, db) \
+                or (va is None) != (vb is None) \
+                or (va is not None and not np.array_equal(va, vb)):
+            raise AssertionError(f"{label}: column {name} differs")
+
+
+def spill_pages(root: str) -> list:
+    import glob
+    import os
+    return glob.glob(os.path.join(root, "**", "*.spill.npy"), recursive=True)
+
+
+def recovery_small(ct, worlds=(1, 3, 4, 8), n: int = 1_000_000,
+                   device=None) -> list:
+    """The spill tiers and the retry ladder at ``n`` rows a side, W = 1,
+    3, 4 and 8 (module docstring), each result against numpy and every
+    spilled run equal to the same run unspilled."""
+    import gc
+    import tempfile
+    from cylon_tpu_torch.ctx.context import VirtualMeshConfig
+    from cylon_tpu_torch.exec import memory, recovery
+    from cylon_tpu_torch.relational.piece import PieceSource
+    from cylon_tpu_torch.status import RankDesyncError
+    left, right, mv = baseline_inputs(n, seed=31)
+    hows = ("inner", "left", "outer")
+    orcs = {h: how_oracle(left["k"], left["a"], right["k"], right["b"], mv,
+                          h) for h in hows}
+    subtract = np.setdiff1d(left["k"], right["k"])
+    recs = []
+    for w in worlds:
+        env = ct.CylonEnv(VirtualMeshConfig(w), device=device)
+        lt = ct.Table.from_pydict(left, env)
+        rt = ct.Table.from_pydict(right, env)
+        lk = ct.Table.from_pydict({"k": left["k"]}, env)
+        rk = ct.Table.from_pydict({"k": right["k"]}, env)
+        tag = f"recovery_small W={w}"
+
+        def joins():
+            out = {}
+            for how in hows:
+                out[how] = ct.pipelined_join(lt, rt, "k", "k", how=how,
+                                             n_chunks=3)
+                sink = ct.GroupBySink("k", [("a", "sum"), ("b", "sum")])
+                ct.pipelined_join(lt, rt, "k", "k", how=how, n_chunks=3,
+                                  sink=sink)
+                out[how + "_sink"] = sink.finalize()
+            out["subtract"] = ct.pipelined_set_op(lk, rk, "subtract",
+                                                  n_chunks=3)
+            return out
+
+        def check(out, label):
+            for how in hows:
+                check_join(out[how], orcs[how], f"{label} {how}")
+                check_join_sums(out[how + "_sink"], orcs[how],
+                                f"{label} {how} sink")
+            if not np.array_equal(np.sort(out["subtract"].to_pydict()["k"]),
+                                  subtract):
+                raise AssertionError(f"{label} subtract differs")
+
+        gc.collect()
+        base = joins()
+        check(base, tag)
+        no_recovery(tag)
+        rec = {"phase": "recovery_small", "world": w, "rows_per_side": n,
+               "oracle": "equal"}
+
+        def spilled(label, **kn):
+            gc.collect()
+            memory.reset_stats()
+            with knobs(**kn):
+                out = joins()
+            st = memory.stats()
+            for name, t in out.items():
+                same_tables(t, base[name], f"{label} {name}")
+            no_recovery(label)
+            if st["spill_events"] < 1 or st["bytes_readmitted"] < 1:
+                raise AssertionError(f"{label}: nothing spilled ({st})")
+            return st
+
+        # forced eviction: every admission evicts the cold packed source
+        st = spilled(f"{tag} evicted", HBM_BUDGET_BYTES=4096)
+        rec["evicted"] = {k: st[k] for k in ("spill_events", "bytes_spilled",
+                                              "readmit_events",
+                                              "bytes_readmitted")}
+        # the disk tier: host pages past a 4 KiB host budget go to disk
+        with tempfile.TemporaryDirectory() as d:
+            st = spilled(f"{tag} disk", HBM_BUDGET_BYTES=4096,
+                         HOST_BUDGET_BYTES=4096, SPILL_DIR=d)
+            if st["disk_pages_demoted"] < 1 or st["bytes_from_disk"] < 1:
+                raise AssertionError(f"{tag} disk: no page round trip {st}")
+            # a whole registration through every tier and back
+            with knobs(HOST_BUDGET_BYTES=4096, SPILL_DIR=d):
+                src = PieceSource(lt, 8)
+                before = [a.cpu().numpy().tobytes() for a in src.arrs]
+                memory.evict(src._reg)
+                if memory.demote(src._reg) < 1:
+                    raise AssertionError(f"{tag}: demotion wrote nothing")
+                after = [a.cpu().numpy().tobytes()
+                         for a in memory.readmit(src._reg)]
+                if after != before:
+                    raise AssertionError(f"{tag}: disk round trip differs")
+                promoted = memory.stats()["disk_pages_promoted"]
+                del src
+            gc.collect()
+            left_over = spill_pages(d)
+            if left_over or promoted < 1:
+                raise AssertionError(f"{tag}: pages left {left_over}, "
+                                     f"promoted {promoted}")
+            rec["disk"] = {k: st[k] for k in (
+                "disk_pages_demoted", "bytes_to_disk", "bytes_from_disk",
+                "disk_events")}
+            rec["disk"]["pages_promoted_on_readmit"] = promoted
+            rec["disk"]["pages_left"] = 0
+
+        # injected faults: each case's events and its answer
+        def injected(spec, expect, run, check_out=None, raises=None, **kn):
+            gc.collect()
+            recovery.install_faults(spec)
+            try:
+                with knobs(**kn):
+                    if raises is None:
+                        out = run()
+                    else:
+                        try:
+                            run()
+                        except raises as e:
+                            out = e
+                        else:
+                            raise AssertionError(f"{tag} {spec}: no "
+                                                 f"{raises.__name__}")
+                ev = recovery_events()
+            finally:
+                recovery.install_faults("")
+            if ev != expect:
+                raise AssertionError(f"{tag} {spec}: events {ev}, expected "
+                                     f"{expect}")
+            if check_out is not None:
+                check_out(out)
+            return {"spec": spec, "events": ev}
+
+        def join_groupby():
+            return ct.groupby_aggregate(ct.join_tables(lt, rt, "k", "k"),
+                                        "k", [("a", "sum"), ("b", "sum")])
+
+        def sink_run(nc):
+            sink = ct.GroupBySink("k", [("a", "sum"), ("b", "sum")])
+            ct.pipelined_join(lt, rt, "k", "k", how="inner", n_chunks=nc,
+                              sink=sink)
+            return sink.finalize()
+
+        def sums(label):
+            return lambda g: check_join_sums(g, orcs["inner"], label)
+
+        def at_upload(e):
+            if e.site != "spill.upload":
+                raise AssertionError(f"{tag}: the stall surfaced at {e.site}")
+
+        cases = [
+            injected("groupby.device_oom=device_oom",
+                     [("groupby.device_oom", "device_oom", "injected"),
+                      ("groupby", "device_oom", "retry_chunks_4")],
+                     join_groupby, sums(f"{tag} groupby OOM")),
+            injected("join.piece_cap=capacity",
+                     [("join.piece_cap", "capacity", "injected"),
+                      ("join", "capacity", "retry_chunks_8")],
+                     lambda: recovery.run_with_recovery(
+                         lambda: sink_run(4), True, sink_run, "join",
+                         env=env), sums(f"{tag} piece cap")),
+            injected("spill.upload=spill_stall",
+                     [("spill.upload", "desync", "watchdog")],
+                     lambda: sink_run(3), at_upload,
+                     raises=RankDesyncError, HBM_BUDGET_BYTES=4096,
+                     EXCHANGE_WATCHDOG_S=0.5),
+            injected("groupby.device_oom=desync",
+                     [("groupby.device_oom", "desync", "injected"),
+                      ("groupby", "desync", "abort")],
+                     join_groupby, raises=RankDesyncError)]
+        if w > 1:
+            # a predicted receive-guard fault with a spillable packed
+            # source resident: the spill rung first, no chunk escalation
+            aux = PieceSource(ct.Table.from_pydict(left, env), 8)
+            cases.append(injected(
+                "shuffle.recv_guard=predicted",
+                [("join", "predicted", "spill_retry")], join_groupby,
+                sums(f"{tag} spill rung")))
+            if not aux.spilled:
+                raise AssertionError(f"{tag}: the spill rung evicted "
+                                     "nothing")
+            del aux
+        rec["injected"] = cases
+        recs.append(rec)
+        del lt, rt, lk, rk, base, env
+        gc.collect()
+        memory.reset_stats()
+        torch.cuda.empty_cache()
+    return recs
+
+
+def stream_profile(run) -> dict:
+    """One ``run()`` under torch.profiler, read from its trace's
+    intervals: the device's busy time as the union of every kernel, copy
+    and memset interval on any stream (a sum would count the side
+    stream's uploads twice where they overlap kernels), and the
+    host-to-device copies' device time with the part of it that
+    overlapped kernels on other streams."""
+    import os
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    evs = trace.get("traceEvents", []) if isinstance(trace, dict) else trace
+    copies, kernels, busy = [], [], []
+    for e in evs:
+        cat, name = e.get("cat", ""), e.get("name", "")
+        if e.get("ph") != "X" or cat not in ("kernel", "gpu_memcpy",
+                                             "gpu_memset"):
+            continue
+        iv = (float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)),
+              (e.get("args") or {}).get("stream"))
+        busy.append(iv)
+        if cat == "gpu_memcpy" and "HtoD" in name:
+            copies.append(iv)
+        elif cat == "kernel":
+            kernels.append(iv)
+
+    def union(ivs):
+        total, end = 0.0, float("-inf")
+        for a, b, _ in sorted(ivs):
+            if b > end:
+                total += b - max(a, end)
+                end = b
+        return total
+
+    overlap = sum(union([(max(ka, a), min(kb, b), None)
+                         for ka, kb, ks in kernels
+                         if ks != s and ka < b and kb > a])
+                  for a, b, s in copies)
+    total = sum(b - a for a, b, _ in copies)
+    return {"device_busy_s": union(busy) / 1e6,
+            "htod_copies": len(copies), "upload_device_ms": total / 1e3,
+            "upload_overlapped_ms": overlap / 1e3,
+            "upload_overlap_share": overlap / total if total else 0.0}
+
+
+def spill_path(ct, left: dict, right: dict, orc: dict, device=None,
+               profile: bool = True) -> dict:
+    """``dist_pipelined_path``'s route (GroupBySink + pipelined_join) at
+    W = 4 on ``left``/``right``, unspilled and then under a device budget
+    that holds the piece loop's admissions less one side's packed
+    source, so that source lives in pinned host memory through the whole
+    piece loop and every one of its windows is uploaded.  Both best of 3
+    after a warm-up, bit-equal to each other and to the oracle; the
+    evicted and uploaded bytes, the upload's device time and its overlap
+    with compute, and K1 and K2 held to their plain versions on the
+    spilled route's first-launch inputs (shard 0)."""
+    import gc
+    from cylon_tpu_torch.ctx.context import VirtualMeshConfig
+    from cylon_tpu_torch.exec import memory
+    from cylon_tpu_torch.ops import splitter_probe as sp
+    from cylon_tpu_torch.ops import windowed_gather as wg
+    w = 4
+    n = len(left["k"])
+    nc = max(2, -(-(n // w) // PIECE_ROWS))
+    env = ct.CylonEnv(VirtualMeshConfig(w), device=device)
+    lt, rt = ct.Table.from_pydict(left, env), ct.Table.from_pydict(right,
+                                                                   env)
+
+    def query(times):
+        t0 = time.perf_counter()
+        g = pipelined_step(ct, lt, rt, nc)
+        times.append(time.perf_counter() - t0)
+        return g
+
+    def check(g, label):
+        return check_dist(g, orc, w, label)
+
+    gc.collect()
+    plain = timed_path("spill_path unspilled", query, check, SPILL_PHASES,
+                       profile=profile)
+    no_recovery("spill_path unspilled")
+    # the budget, from the ledger: the second admission's balance, less
+    # the first packed source, plus the second source and its scratch
+    calls, admit = [], memory.ensure_headroom
+
+    def spy(env_, need, scratch=0, site="spill.evict"):
+        calls.append((memory.balance(), int(need), int(scratch)))
+        return admit(env_, need, scratch, site)
+
+    memory.ensure_headroom = spy
+    try:
+        g_plain = query([])
+    finally:
+        memory.ensure_headroom = admit
+    if len(calls) != 2:
+        raise AssertionError(f"spill_path: admissions {calls}")
+    (b0, need_l, scr), (b1, need_r, scr_r) = calls
+    budget = b1 - need_l + need_r + scr_r
+    depths, loop, depth_fn = [], [], memory.prefetch_depth
+
+    def depth_spy(env_, pair):
+        depths.append(depth_fn(env_, pair))
+        loop.append((memory.balance(), int(pair)))
+        return depths[-1]
+
+    gc.collect()
+    with knobs(HBM_BUDGET_BYTES=budget):
+        memory.reset_stats()
+        memory.prefetch_depth = depth_spy
+        try:
+            g_spill = query([])
+        finally:
+            memory.prefetch_depth = depth_fn
+        st = memory.stats()
+        log = memory.eviction_log()
+        same_tables(g_spill, g_plain, "spill_path spilled vs unspilled")
+        if st["spill_events"] != 1 or st["bytes_readmitted"] < 1 \
+                or set(depths) != {1}:
+            raise AssertionError(f"spill_path: one source must evict and "
+                                 f"every window upload at prefetch depth "
+                                 f"1 ({st}, {log}, {depths})")
+        del g_spill
+        gc.collect()
+        spilled = timed_path("spill_path", query, check, SPILL_PHASES,
+                             profile=profile)
+        streams = stream_profile(lambda: query([])) if profile else None
+        captured = {}
+        with capturing(sp, "count_ge_splitters", captured, "probe"), \
+                capturing(wg, "windowed_take_t", captured, "piece",
+                          keep_k1):
+            check_dist(query([]), orc, w, "spill_path capture run")
+    no_recovery("spill_path")
+    # the prefetch-ahead schedule: a budget that still evicts the first
+    # source and holds two window pairs, so prefetch_depth is 2 and piece
+    # r+1's windows upload before piece r joins
+    two_pairs = max(b for b, _ in loop) + 2 * max(p for _, p in loop)
+    if two_pairs >= b1 + need_r + scr_r:
+        raise AssertionError(f"spill_path: a budget of two window pairs "
+                             f"({two_pairs} B) would not evict")
+    depths1 = list(depths)
+    depths.clear()
+    gc.collect()
+    with knobs(HBM_BUDGET_BYTES=two_pairs):
+        memory.reset_stats()
+        memory.prefetch_depth = depth_spy
+        try:
+            g_two = query([])
+        finally:
+            memory.prefetch_depth = depth_fn
+        depths2 = list(depths)
+        st2 = memory.stats()
+        same_tables(g_two, g_plain, "spill_path depth 2 vs unspilled")
+        if st2["spill_events"] != 1 or set(depths2) != {2} \
+                or st2["bytes_readmitted"] != st["bytes_readmitted"]:
+            raise AssertionError(f"spill_path depth 2: one source must "
+                                 f"evict and the same windows upload "
+                                 f"({st2}, {depths2})")
+        del g_two, g_plain
+        gc.collect()
+        ahead = timed_path("spill_path depth 2", query, check, SPILL_PHASES,
+                           profile=False)
+        streams2 = stream_profile(lambda: query([])) if profile else None
+    no_recovery("spill_path depth 2")
+    counts = spilled["kernel_counts"]
+    runs = 4                                    # the warm-up and 3 timed
+    if counts["splitter_probe"]["launches"] != runs * w \
+            or counts["windowed_gather"]["launches"] != runs * w * nc:
+        raise AssertionError(f"spill_path kernel counts {counts}: expected "
+                             "K2 once per shard and K1 once per shard and "
+                             "piece per iteration")
+    k1 = k1_check(wg, "w4_spilled_shard0_piece0", *captured.pop("piece"),
+                  timed=True)
+    k2 = k2_check(sp, "w4_spilled_shard0", *captured.pop("probe"),
+                  timed=True)
+    del lt, rt, env, captured
+    gc.collect()
+    memory.reset_stats()
+    torch.cuda.empty_cache()
+    rec = {"phase": "spill_path", "world": w, "rows_per_side": n,
+           "n_chunks": nc, "budget_bytes": budget,
+           "admissions": [{"balance": b, "need": nd, "scratch": sc}
+                          for b, nd, sc in calls],
+           "evicted_owners_per_iteration": log,
+           "bytes_evicted_per_iteration": st["bytes_spilled"],
+           "bytes_uploaded_per_iteration": st["bytes_readmitted"],
+           "windows_uploaded_per_iteration": st["readmit_events"],
+           "prefetch_depths": depths1, "streams": streams,
+           "best_s": spilled["best_s"],
+           "rows_per_s": 2 * n / spilled["best_s"],
+           "unspilled_best_s": plain["best_s"],
+           "unspilled_rows_per_s": 2 * n / plain["best_s"],
+           "iterations": spilled["iterations"],
+           "unspilled_iterations": plain["iterations"],
+           "peak_mem_bytes": spilled["peak_mem_bytes"],
+           "unspilled_peak_mem_bytes": plain["peak_mem_bytes"],
+           "groups": spilled["groups"], "oracle": "equal",
+           "bit_equal_to_unspilled": True,
+           "kernel_counts": counts,
+           "unspilled_kernel_counts": plain["kernel_counts"],
+           "phase_split_s": spilled["phase_split_s"],
+           "unspilled_phase_split_s": plain["phase_split_s"],
+           "k1_spilled_piece": k1, "k2_spilled": k2,
+           "depth2": {"budget_bytes": two_pairs, "prefetch_depths": depths2,
+                      "bytes_uploaded_per_iteration":
+                          st2["bytes_readmitted"],
+                      "best_s": ahead["best_s"],
+                      "rows_per_s": 2 * n / ahead["best_s"],
+                      "iterations": ahead["iterations"],
+                      "peak_mem_bytes": ahead["peak_mem_bytes"],
+                      "streams": streams2,
+                      "phase_split_s": ahead["phase_split_s"],
+                      "bit_equal_to_unspilled": True}}
+    if profile:
+        # the idle share from the union of busy intervals: the uploads run
+        # on a side stream, so a sum of kernel times can pass the wall
+        rec["device_idle_share_of_best"] = \
+            1.0 - streams["device_busy_s"] / spilled["best_s"]
+        rec["unspilled_device_idle_share_of_best"] = \
+            plain["profile"]["device_idle_share_of_best"]
+        rec["profile"] = spilled["profile"]
+    return rec
+
+
+def oom_path(ct, n: int = OOM_ROWS, device=None) -> dict:
+    """The BASELINE join → groupby-sum through the monolithic entry
+    (``join_tables`` → ``groupby_aggregate``) at W = 1 and ``n`` rows a
+    side, a size the monolithic route cannot hold on the card: its first
+    attempt must raise a real ``torch.cuda.OutOfMemoryError``, classified
+    as ``DeviceOOMError``, and the retry ladder's chunked route must give
+    the oracle's answer.  One run; the failed attempt's time and peak,
+    the recovery's time and peak (the peak counted from the retry's
+    start, after the failed attempt's memory was released), the events
+    and the ladder (join or groupby) that caught it."""
+    from cylon_tpu_torch.exec import recovery
+    from cylon_tpu_torch.ops import splitter_probe as sp
+    from cylon_tpu_torch.ops import windowed_gather as wg
+    t0 = time.perf_counter()
+    left, right, mv = baseline_inputs(n)
+    orc = oracle(left, right, mv)
+    env = ct.CylonEnv(device=device)
+    lt, rt = ct.Table.from_pydict(left, env), ct.Table.from_pydict(right,
+                                                                   env)
+    del left, right
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tables_bytes = torch.cuda.memory_allocated()
+    seen, starts = [], []
+    classify, empty = recovery.classify, recovery._empty_cache
+
+    def classify_spy(e):
+        fault = classify(e)
+        seen.append({"error": type(e).__name__,
+                     "fault": None if fault is None else type(fault).__name__,
+                     "at_s": time.perf_counter() - t1,
+                     "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                     "message": str(e)[:240]})
+        return fault
+
+    def retry_start():
+        empty()
+        starts.append({"at_s": time.perf_counter() - t1,
+                       "allocated_bytes": torch.cuda.memory_allocated()})
+        torch.cuda.reset_peak_memory_stats()
+
+    recovery_events()
+    wg.reset_counts()
+    sp.reset_counts()
+    recovery.classify, recovery._empty_cache = classify_spy, retry_start
+    t1 = time.perf_counter()
+    try:
+        g = step(ct, lt, rt)
+    finally:
+        recovery.classify, recovery._empty_cache = classify, empty
+    total_s = time.perf_counter() - t1
+    recovery_peak = torch.cuda.max_memory_allocated()
+    counts = {"windowed_gather": dict(wg.COUNTS),
+              "splitter_probe": dict(sp.COUNTS)}
+    events = recovery_events()
+    out = g.to_pydict()
+    order = np.argsort(out["k"], kind="stable")
+    for name in ("k", "a_sum", "b_sum"):
+        if not np.array_equal(out[name][order], orc[name]):
+            raise AssertionError(f"oom_path: {name} differs from the "
+                                 "numpy oracle")
+    del g, lt, rt, out
+    torch.cuda.empty_cache()
+    if not seen or seen[0]["error"] != "OutOfMemoryError" \
+            or seen[0]["fault"] != "DeviceOOMError":
+        raise AssertionError(f"oom_path: the first attempt did not raise "
+                             f"torch.cuda.OutOfMemoryError ({seen}); raise "
+                             "the size")
+    retries = [e for e in events if e[2].startswith("retry_chunks_")]
+    if not retries or retries[0][1] != "device_oom" or not starts:
+        raise AssertionError(f"oom_path: no chunked retry ({events})")
+    card = torch.cuda.get_device_properties(0).total_memory
+    if recovery_peak >= card:
+        raise AssertionError("oom_path: the recovery's peak reached the "
+                             "card's memory")
+    return {"phase": "oom_path", "world": 1, "rows_per_side": n,
+            "groups": int(len(orc["k"])), "setup_s": setup_s,
+            "tables_bytes": tables_bytes, "card_bytes": card,
+            "classified": seen, "events": events,
+            "caught_by": retries[0][0],
+            "failed_attempt_s": seen[0]["at_s"],
+            "failed_attempt_peak_bytes": seen[0]["peak_mem_bytes"],
+            "retry_starts": starts,
+            "recovery_s": total_s - starts[0]["at_s"],
+            "recovery_peak_bytes": recovery_peak, "total_s": total_s,
+            "kernel_counts": counts, "oracle": "equal"}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=125_000_000,
@@ -3420,6 +4037,8 @@ def main() -> int:
                     help="rows per side of the skewed join (configuration 5)")
     ap.add_argument("--tpch-scale", type=float, default=TPCH_SCALE,
                     help="TPC-H scale factor of tpch_path (configuration 4)")
+    ap.add_argument("--oom-rows", type=int, default=OOM_ROWS,
+                    help="rows per side of oom_path (must not fit the card)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this smoke run needs "
@@ -3705,17 +4324,30 @@ def main() -> int:
     srec = series_path(ct, left, mv)
     routes["series_w4"] = srec["kernel_counts"]
     emit(srec)
-    srec = scan_join_path(ct, left, right, oracle(left, right, mv))
+    scan_orc = oracle(left, right, mv)
+    srec = scan_join_path(ct, left, right, scan_orc)
     srec["beside_monolithic_w4"] = w4["dist_path"]
     routes["scan_join_w4"] = srec["kernel_counts"]
     scan_k1 = srec.pop("k1_first_batch")
     emit(srec)
     emit(scan_k1)
-    del left, right, srec
+    del srec
+    torch.cuda.empty_cache()
+    # -- the spilled pipelined route on the same tables, W = 4 ------------
+    srec = spill_path(ct, left, right, scan_orc)
+    routes["spill_path_w4"] = srec["kernel_counts"]
+    w4["k1_spilled_piece"] = srec.pop("k1_spilled_piece")
+    w4["k2_spilled"] = srec.pop("k2_spilled")
+    emit(srec)
+    emit(w4["k1_spilled_piece"])
+    emit(w4["k2_spilled"])
+    del left, right, srec, scan_orc
     torch.cuda.empty_cache()
     for brec in breadth_small(ct):
         no_kernels(brec, f"breadth_small W={brec['world']}")
         emit({"phase": "breadth_small", "oracle": "equal", **brec})
+    for rrec in recovery_small(ct):
+        emit(rrec)
 
     # -- the adaptive skew split and TPC-H: BASELINE configurations 5
     # (W = 4) and 4 (W = 8) --------------------------------------------------
@@ -3733,12 +4365,18 @@ def main() -> int:
         emit(trec)
     del trec
     torch.cuda.empty_cache()
+    # -- a real device OOM, recovered by the retry ladder ----------------
+    orec = oom_path(ct, args.oom_rows)
+    routes["oom_path_w1"] = orec["kernel_counts"]
+    emit(orec)
+    del orec
     emit(exchange_gather_forms(dev))
     emit({"kernels": [{
         "name": "windowed_gather", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES,
         "launches": counts["launches"]
-        + routes["scan_join_w4"]["windowed_gather"]["launches"],
+        + routes["scan_join_w4"]["windowed_gather"]["launches"]
+        + routes["spill_path_w4"]["windowed_gather"]["launches"],
         "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
         "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
@@ -3755,12 +4393,14 @@ def main() -> int:
         "w4": {route: {key: w4[check][key] for key in K1_KEYS}
                if check in w4 else None for route, check in (
                    ("monolithic_shard0", "k1_monolithic"),
-                   ("pipelined_shard0_piece0", "k1_pipelined_piece"))},
+                   ("pipelined_shard0_piece0", "k1_pipelined_piece"),
+                   ("spilled_shard0_piece0", "k1_spilled_piece"))},
         "scan_join_first_batch_shard0": {key: scan_k1[key]
                                          for key in K1_KEYS}}, {
         "name": "splitter_probe", "route": "cuda", "source": K2_SOURCE,
         "replaces": K2_REPLACES,
-        "launches": pipe_counts["splitter_probe"]["launches"],
+        "launches": pipe_counts["splitter_probe"]["launches"]
+        + routes["spill_path_w4"]["splitter_probe"]["launches"],
         "max_abs_err": rec2["max_abs_err"], "ms": rec2["ms"],
         "kernel_ms": rec2["kernel_ms"], "scalar_ms": rec2["scalar_ms"],
         "general_ms": rec2["general_ms"],
@@ -3772,7 +4412,9 @@ def main() -> int:
         "w4": {"pipelined_shard0": {key: w4["k2_pipelined"][key]
                                     for key in K2_KEYS},
                "outer_pipelined_shard0": {
-                   key: w4["k2_outer_pipelined"][key] for key in K2_KEYS}}}]})
+                   key: w4["k2_outer_pipelined"][key] for key in K2_KEYS},
+               "spilled_shard0": {key: w4["k2_spilled"][key]
+                                  for key in K2_KEYS}}}]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

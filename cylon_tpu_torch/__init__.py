@@ -28,7 +28,12 @@ routes every row to the reference's rank, and every shard then runs the
 world-1 operators.  Above the card's
 memory the same work runs through the range-partitioned
 ``exec.pipelined_join`` with a ``GroupBySink``, whose per-row range
-assignment is the hand-written CUDA kernel ``kernels/splitter_probe.cu``.
+assignment is the hand-written CUDA kernel ``kernels/splitter_probe.cu``;
+``join_tables``, ``groupby_aggregate`` and ``set_operation`` take that
+chunked route on their own when the card runs out of memory (the retry
+ladder, ``exec.recovery``), and a memory ledger over budget evicts cold
+packed sources to host memory and past a host budget to disk
+(``exec.memory``).
 
 The package imports torch and numpy only; pandas and pyarrow are touched
 only by the pandas and Arrow conversions and the file IO, inside the

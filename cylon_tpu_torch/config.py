@@ -13,8 +13,11 @@ and ``PALLAS_PROBE`` switches select second paths of the pipelined join
 (materialized pieces, a pull per setup phase, XLA instead of the probe
 kernel); the port keeps one path each — packed pieces, one batched pull,
 the splitter-probe kernel on the card — and so has no switch for them.
-The ledger's budget is the card's memory (exec/memory.py); the
-reference's ``HBM_BUDGET`` override comes with the spill tier.
+The memory ledger's budget, the spill tiers and the exchange's receive
+guard and watchdog (exec/memory.py, exec/recovery.py) take the
+reference's knobs under the port's names, at the reference's defaults;
+the fault-injection spec is ``CYLON_TPU_TORCH_FAULTS``, read by
+exec/recovery.py.
 """
 
 from __future__ import annotations
@@ -99,6 +102,40 @@ STRING_HASH_MIN_ROWS = int(os.environ.get("CYLON_TPU_TORCH_STRING_HASH_MIN",
                                           str(4_000_000)))
 STRING_HASH_RATIO = float(os.environ.get(
     "CYLON_TPU_TORCH_STRING_HASH_RATIO", "0.5"))
+
+
+#: Per-shard exchange RECEIVE ceiling in bytes (on the card only): a
+#: receive predicted from the count sidecar above it raises
+#: ``PredictedResourceExhausted`` before anything is allocated
+#: (parallel/shuffle.py), and the ladder streams instead.
+EXCHANGE_RECV_BUDGET_BYTES = int(os.environ.get(
+    "CYLON_TPU_TORCH_EXCHANGE_RECV_BUDGET", str(12 * 1024**3)))
+
+#: Device budget of the resident-allocation ledger (exec/memory.py), in
+#: bytes.  0 (default): one card's total memory — every rank of a
+#: VirtualMeshConfig world lives on that card — and no limit on the CPU.
+#: Set it below the resident working set to force the host spill tier.
+HBM_BUDGET_BYTES = int(os.environ.get("CYLON_TPU_TORCH_HBM_BUDGET", "0"))
+
+#: Host spill tier switch (``0`` disables eviction; the ledger keeps
+#: accounting).
+SPILL_ENABLED = _env_flag("CYLON_TPU_TORCH_SPILL", True)
+
+#: Host budget of the disk tier: bytes of host-resident spill pages before
+#: the coldest demote to spill files (0 = unlimited, disk tier off — no
+#: filesystem writes at all).
+HOST_BUDGET_BYTES = int(os.environ.get("CYLON_TPU_TORCH_HOST_BUDGET", "0"))
+
+#: Root directory of the disk tier's spill pages (``<dir>/rank0/<owner>
+#: .a<j>.s<k>.spill.npy``); empty: a private temporary directory made at
+#: the first demotion.  Spill pages live as long as the process.
+SPILL_DIR = os.environ.get("CYLON_TPU_TORCH_SPILL_DIR", "")
+
+#: Exchange watchdog deadline in seconds (0 = off): blocking transfers
+#: and host pulls that do not finish in time raise ``RankDesyncError``
+#: (exec/recovery.exchange_watchdog) instead of blocking forever.
+EXCHANGE_WATCHDOG_S = float(os.environ.get("CYLON_TPU_TORCH_WATCHDOG_S",
+                                           "0"))
 
 
 #: Distributed-sort splitter samples per shard (``0``: scale with the

@@ -29,8 +29,17 @@ join.
 The setup phases (build sort, range bounds, probe targets, probe sort)
 chain on device tensors with no host wait in between; their two host
 sidecars — the range boundaries and the per-range probe counts — come back
-in ONE batched pull after the probe sort.  The splitters stay on the
-device: K2 reads them from device memory.
+in ONE batched pull after the probe sort (:func:`_pull_phase_outputs`,
+where a fault of any queued phase surfaces typed).  The splitters stay
+on the device: K2 reads them from device memory.
+
+The packed sources are spillable ledger owners (exec/memory.py): when
+the budget cannot hold both, the colder evicts to pinned host memory and
+each piece uploads its window alone, on a side stream.  Piece r+1's
+windows are uploaded while piece r computes (:class:`_PieceFuture`; the
+depth is :func:`memory.prefetch_depth`'s), and a typed fault raised while
+preparing a piece ahead is held until that piece is consumed, so the
+retry ladder sees faults in the same order either way.
 
 Every ``how`` of the reference streams: ranges partition the KEY space,
 so a key's rows on both sides meet in one piece, and an unmatched row of
@@ -46,11 +55,9 @@ and takes one distinct pass over the partials.
 Tables, ``io.scan_parquet_dist``) against a resident build side shuffled
 once.
 
-Left out, as in no run of the reference by default: the spill prefetch
-of host-resident sources, the checkpoint stage and the recovery
-injectors (slice 11), plan nodes and traces (slice 12), and the serving
-tier's interleave point at each chunk or batch boundary and its
-admission of a scan batch (slice 13).
+Left out: the durable checkpoint stage (slice 11b), plan nodes and
+traces (slice 12), and the serving tier's interleave point at each chunk
+or batch boundary and its admission of a scan batch (slice 13).
 """
 
 from __future__ import annotations
@@ -73,7 +80,7 @@ from ..relational.join import join_tables
 from ..relational.piece import PieceSource
 from ..relational.repart import concat_tables, shuffle_table
 from ..relational.sort import local_sort_table
-from ..status import CylonIOError, InvalidError
+from ..status import CylonError, CylonIOError, InvalidError
 from ..utils import timing
 from ..utils.host import host_arrays
 from . import memory
@@ -156,6 +163,9 @@ def pipelined_set_op(a: Table, b: Table, op: str, n_chunks: int = 4):
         b = shuffle_table(b, names)     # the resident side, once
     parts = []
     for chunk in chunk_table(a, n_chunks):
+        # each chunk's copy is admitted on the ledger: under pressure the
+        # cold spillable owners evict to host memory
+        memory.ensure_headroom(env, memory.table_nbytes(chunk))
         if op == "union":
             # unique_table shuffles the chunk itself
             parts.append(unique_table(chunk))
@@ -348,6 +358,44 @@ def _range_counts(sorted_ids: torch.Tensor, n_ranges: int) -> torch.Tensor:
     return torch.diff(torch.searchsorted(sorted_ids, edges))
 
 
+def _pull_phase_outputs(devs: list):
+    """THE pre-loop host wait: one batched pull of the queued setup
+    phases' outputs (range boundaries, per-range probe counts).  A fault
+    raised by any of those phases surfaces here, classified onto the
+    fault taxonomy; ``pipe.phase_sync`` is its injector site."""
+    from .recovery import classify, maybe_inject
+    maybe_inject("pipe.phase_sync")
+    try:
+        return host_arrays(devs)
+    except Exception as e:  # noqa: BLE001 — re-raised typed when a fault
+        fault = classify(e)
+        if fault is None:
+            raise
+        raise fault from e
+
+
+class _PieceFuture:
+    """One range piece's windows, prepared ahead of their consumption (for
+    a host-resident source, the window uploads).  A typed fault raised
+    while preparing (a piece-cap overflow, an injected spill fault) is
+    held and raised when the piece is consumed — where the schedule
+    without prefetch raises it; a foreign exception raises at once."""
+
+    __slots__ = ("_pieces", "_fault")
+
+    def __init__(self, thunk):
+        self._pieces = self._fault = None
+        try:
+            self._pieces = thunk()
+        except CylonError as e:
+            self._fault = e
+
+    def get(self):
+        if self._fault is not None:
+            raise self._fault
+        return self._pieces
+
+
 def pipelined_join(left: Table, right: Table, left_on, right_on,
                    how: str = "inner", n_chunks: int = 4,
                    suffixes=("_x", "_y"), sink=None):
@@ -455,7 +503,7 @@ def pipelined_join(left: Table, right: Table, left_on, right_on,
     with timing.region("pipe.phase_sync"):
         # THE pre-loop host wait: every setup phase above was queued with
         # no pull in between; one batched pull brings both back
-        b_host, pc_host = host_arrays([b_dev, pc_dev])
+        b_host, pc_host = _pull_phase_outputs([b_dev, pc_dev])
     b = np.asarray(b_host, np.int64).reshape(w, n_ranges - 1)
     pcounts = np.asarray(pc_host, np.int64).reshape(w, n_ranges)
     bb = np.concatenate([np.zeros((w, 1), np.int64), b, n_r[:, None]],
@@ -491,12 +539,35 @@ def pipelined_join(left: Table, right: Table, left_on, right_on,
                 "outer": any_l or any_r}[how]
 
     live_ranges = [r for r in range(n_ranges) if qualifies(r)]
+
+    def make_pieces(r):
+        # window descriptors: the slice and unpack run inside the join (a
+        # host-resident source uploads its window here)
+        return (src_l.packed(l_starts[:, r], pcounts[:, r], caps_l[r]),
+                src_r.packed(r_starts[:, r], r_lens[:, r], caps_r[r]))
+
+    def prefetch_ok(r) -> bool:
+        # upload piece r's windows while the piece before it computes,
+        # when a source is host-resident and the budget holds two window
+        # pairs; resident sources make free descriptors, so none is made
+        # early
+        if not (src_l.spilled or src_r.spilled):
+            return False
+        pair = w * (caps_l[r] * memory.spec_row_bytes(src_l.spec)
+                    + caps_r[r] * memory.spec_row_bytes(src_r.spec))
+        return memory.prefetch_depth(env, pair) > 1
+
+    def piece_future(r):
+        return _PieceFuture(lambda: make_pieces(r))
+
     outs = []
     with timing.region("pipe.piece_loop"):
-        for r in live_ranges:
-            # window descriptors: the slice and unpack run inside the join
-            piece_l = src_l.packed(l_starts[:, r], pcounts[:, r], caps_l[r])
-            piece_r = src_r.packed(r_starts[:, r], r_lens[:, r], caps_r[r])
+        nxt = piece_future(live_ranges[0]) if live_ranges else None
+        for i, r in enumerate(live_ranges):
+            piece_l, piece_r = nxt.get()
+            nxt = None
+            if i + 1 < len(live_ranges) and prefetch_ok(live_ranges[i + 1]):
+                nxt = piece_future(live_ranges[i + 1])
             with timing.region("pipe.piece_join"):
                 res_r = join_tables(piece_l, piece_r, left_on, right_on,
                                     how=how, suffixes=suffixes,
@@ -506,6 +577,8 @@ def pipelined_join(left: Table, right: Table, left_on, right_on,
             with timing.region("pipe.consume"):
                 outs.append(sink(res_r) if sink is not None else res_r)
             del res_r
+            if nxt is None and i + 1 < len(live_ranges):
+                nxt = piece_future(live_ranges[i + 1])
         if not outs:
             # no range qualified (an inner join with no overlapping
             # keys): one empty piece pair keeps the output schema path

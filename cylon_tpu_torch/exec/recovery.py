@@ -1,0 +1,575 @@
+"""Failure recovery: classification, injection, consensus and the retry
+ladder (port of ``cylon_tpu/exec/recovery.py``).
+
+1. **Fault taxonomy** (classes in :mod:`cylon_tpu_torch.status`):
+   ``PredictedResourceExhausted`` (a guard fired before any allocation),
+   ``DeviceOOMError`` (the card ran out of memory for real),
+   ``CapacityOverflowError`` (a pow2 piece or output capacity was
+   exceeded), ``RankDesyncError`` (a watchdog deadline passed) and
+   ``DataIntegrityError``.  :func:`classify` is the one place that reads
+   runtime error text: ``torch.cuda.OutOfMemoryError`` and a
+   ``RuntimeError`` saying ``CUDA out of memory`` / ``CUDA error: out of
+   memory`` (a CUB or cuBLAS workspace that failed) become
+   ``DeviceOOMError``; a sticky CUDA error (an illegal memory access, a
+   launch failure) is never an OOM and propagates.
+
+2. **The retry ladder** (:func:`run_with_recovery`): a predicted OOM first
+   takes the spill rung — resident state evicts to host memory
+   (exec/memory.spill_for_retry) and the same configuration runs again —
+   then an OOM retries the caller's chunked fallback at 4 and then 16
+   chunks, a capacity overflow takes one cap-halving step (8 chunks), a
+   disk-tier corruption or an integrity fault one recompute (4 chunks);
+   nested ladders never escalate (the outer one owns the rungs), and
+   every step is recorded (:func:`recovery_events`) and counted in the
+   timing stats (``recovery.<site>.<kind>.<action>``).  Before a retry the
+   failed attempt's frames are cleared and the allocator's cache emptied,
+   so the retry does not run beside the failed attempt's memory.
+
+3. **Fault injection** (``CYLON_TPU_TORCH_FAULTS="site[:rank][:nth]=
+   kind[@session]"``): each fault is raised at its named site, so every
+   rung runs on the CPU.  The grammar takes every site and kind the
+   reference takes, so a spec written for it parses here; the sites of
+   modules not ported yet (checkpoints, the scheduler, streams, the
+   compile and integrity tiers) never probe, and nothing tags a serving
+   session yet, so an ``@session`` spec never fires.
+
+4. **Exchange watchdog** (:func:`exchange_watchdog`): with
+   ``CYLON_TPU_TORCH_WATCHDOG_S`` set, a blocking transfer runs under a
+   deadline and a hang surfaces as ``RankDesyncError``.
+
+Consensus: one process drives every rank of a ``VirtualMeshConfig``
+world, so each vote's local value is the agreed one — the reference's
+single-controller branch.  Only the votes that ported code takes are
+here (the guard, the spill rung, the eviction count, the skew plan); the
+others come with their callers (checkpoints, preemption, streams, the
+topology route, the integrity audit), and the multi-process wire with
+the multi-card transport.  Not ported here: the ladder's resumable final
+rung (``_resumable`` hands the fault back unchanged until durable
+checkpoints come), and ``compiler_crash_signatures``/
+``prime_compiler_probe``, which classify XLA compiler deaths and wait
+for the compile tier.
+"""
+
+from __future__ import annotations
+
+import errno
+import os
+import threading
+import traceback
+
+import torch
+
+from .. import config
+from ..status import (CapacityOverflowError, CheckpointCorruptError, Code,
+                      CylonError, DeviceOOMError, FAULT_TYPES,
+                      PredictedResourceExhausted, RankDesyncError)
+
+#: injection site names, the reference's (exec/recovery.SITES there)
+SITES = ("shuffle.recv_guard", "join.piece_cap", "groupby.device_oom",
+         "exchange.stall", "spill.evict", "spill.upload",
+         "disk.write", "disk.read",
+         "ckpt.write", "ckpt.load", "ckpt.reshard", "pipe.phase_sync",
+         "stream.append", "stream.watermark", "obs.export",
+         "sched.preempt", "compile.build",
+         "exchange.corrupt", "audit.verify")
+
+#: fault kinds of the injection grammar: ``spill_stall`` hangs a spill
+#: transfer inside the watchdog; ``corrupt`` flips a spill page's byte
+#: after hashing (``disk.write``) or fails its check (``disk.read``);
+#: ``enospc`` fails a page write with ``OSError(ENOSPC)``; ``kill``
+#: SIGKILLs and ``term`` SIGTERMs the process at the site
+KINDS = ("predicted", "device_oom", "capacity", "desync", "stall",
+         "spill_stall", "corrupt", "enospc", "kill", "term")
+
+
+# ---------------------------------------------------------------------------
+# classification — the one place that reads runtime error text
+# ---------------------------------------------------------------------------
+
+_OOM_MARKERS = ("CUDA out of memory", "CUDA error: out of memory",
+                "RESOURCE_EXHAUSTED")
+#: errors that leave the CUDA context unusable: never retried in process
+_STICKY_MARKERS = ("illegal memory access", "launch failure",
+                   "device-side assert", "illegal instruction",
+                   "misaligned address")
+
+
+def _oom_text(s: str) -> bool:
+    return (any(m in s for m in _OOM_MARKERS)
+            and not any(m in s for m in _STICKY_MARKERS))
+
+
+def is_oom(e: Exception) -> bool:
+    """Device out-of-memory: a taxonomy OOM, ``torch.cuda.
+    OutOfMemoryError``, or a foreign error carrying CUDA's text."""
+    if isinstance(e, (PredictedResourceExhausted, DeviceOOMError,
+                      torch.cuda.OutOfMemoryError)):
+        return True
+    return _oom_text(str(e))
+
+
+def classify(e: Exception) -> CylonError | None:
+    """Map an exception onto the fault taxonomy, or None (not a fault:
+    re-raise it).  Typed faults pass through; a ``CheckpointCorruptError``
+    from a ``disk.*`` site is a fault (its owner's data exists nowhere
+    else, so the ladder recomputes); ``torch.cuda.OutOfMemoryError`` and a
+    foreign error with CUDA's out-of-memory text become ``DeviceOOMError``
+    (``PredictedResourceExhausted`` when the text says ``(predicted)``),
+    the original on ``__cause__``.  A sticky CUDA error is not a fault."""
+    if isinstance(e, FAULT_TYPES):
+        return e
+    if isinstance(e, CheckpointCorruptError):
+        return e if str(getattr(e, "site", "") or "").startswith("disk.") \
+            else None
+    if isinstance(e, CylonError):
+        return None
+    if is_oom(e):
+        s = str(e)
+        cls = (PredictedResourceExhausted if "(predicted)" in s
+               else DeviceOOMError)
+        fault = cls(s)
+        fault.__cause__ = e
+        return fault
+    return None
+
+
+# ---------------------------------------------------------------------------
+# fault injection
+# ---------------------------------------------------------------------------
+
+class _FaultSpec:
+    __slots__ = ("site", "rank", "nth", "kind", "session", "fired")
+
+    def __init__(self, site: str, rank, nth, kind: str, session=None):
+        self.site = site
+        self.rank = rank        # int or None (= every rank)
+        self.nth = nth          # int (1-based) or None (= every occurrence)
+        self.kind = kind
+        self.session = session  # str or None (= any session)
+        self.fired = False
+
+
+_FAULTS: list[_FaultSpec] | None = None   # None: parse the env at first use
+_HITS: dict = {}    # occurrence counters: site -> n
+
+
+def _parse_faults(spec: str) -> list[_FaultSpec]:
+    out = []
+    for entry in spec.split(","):
+        entry = entry.strip()
+        if not entry:
+            continue
+        lhs, _, kind = entry.partition("=")
+        kind, _, session = kind.strip().partition("@")
+        session = session.strip() or None
+        kind = kind.strip()
+        if kind not in KINDS:
+            raise ValueError(
+                f"CYLON_TPU_TORCH_FAULTS: unknown kind {kind!r} in "
+                f"{entry!r}; kinds: {KINDS}")
+        parts = lhs.strip().split(":")
+        site = parts[0]
+        if site not in SITES:
+            raise ValueError(
+                f"CYLON_TPU_TORCH_FAULTS: unknown site {site!r} in "
+                f"{entry!r}; sites: {SITES}")
+        rank = None
+        nth: int | None = 1
+        if len(parts) > 1 and parts[1] not in ("", "*"):
+            rank = int(parts[1])
+        if len(parts) > 2:
+            nth = None if parts[2] == "*" else int(parts[2])
+        if len(parts) > 3:
+            raise ValueError(
+                f"CYLON_TPU_TORCH_FAULTS: bad entry {entry!r} "
+                "(grammar: site[:rank][:nth]=kind[@session])")
+        out.append(_FaultSpec(site, rank, nth, kind, session))
+    return out
+
+
+def install_faults(spec: str | None) -> None:
+    """(Re)program the injector: ``spec`` in the env grammar, ``""`` to
+    disarm, ``None`` to read ``CYLON_TPU_TORCH_FAULTS``.  Resets the
+    occurrence counters, the one-shot flags and the event log."""
+    global _FAULTS
+    _HITS.clear()
+    _EVENTS.clear()
+    if spec is None:
+        spec = os.environ.get("CYLON_TPU_TORCH_FAULTS", "")
+    _FAULTS = _parse_faults(spec)
+
+
+def _installed() -> list[_FaultSpec]:
+    """The installed specs; at first use, ``CYLON_TPU_TORCH_FAULTS``'s
+    (parsed without resetting the counters or the event log)."""
+    global _FAULTS
+    if _FAULTS is None:
+        _FAULTS = _parse_faults(os.environ.get("CYLON_TPU_TORCH_FAULTS", ""))
+    return _FAULTS
+
+
+def probe(site: str) -> tuple[str | None, bool]:
+    """Probe the injector at ``site`` → ``(kind, armed)``: the kind firing
+    at this occurrence (consuming one-shot specs) or None, and whether any
+    spec could still fire at this site.  One process is rank 0 of its
+    world's every vote, so a rank-selective spec fires for rank 0 only.
+    No ported code tags a thread with a serving session (the scheduler
+    does, slice 13), so an ``@session`` spec never fires and, its
+    session's count still 0, stays armed — as in the reference on an
+    untagged thread."""
+    faults = _installed()
+    if not faults:
+        return None, False
+    _HITS[site] = hit = _HITS.get(site, 0) + 1
+    armed = any(f.site == site and (f.nth is None or f.session is not None
+                                    or f.nth >= hit) for f in faults)
+    kind = None
+    for f in faults:
+        if f.site != site or f.fired or f.session is not None:
+            continue
+        if f.rank is not None and f.rank != 0:
+            continue
+        if f.nth is not None and f.nth != hit:
+            continue
+        f.fired = f.nth is not None
+        kind = f.kind
+        break
+    return kind, armed
+
+
+def injected(site: str) -> str | None:
+    """Count one occurrence at ``site``; the kind firing there, or None."""
+    return probe(site)[0]
+
+
+def faults_declare(site: str) -> bool:
+    """Whether any installed spec names ``site`` (counts no occurrence)."""
+    return any(f.site == site for f in _installed())
+
+
+def make_fault(kind: str, site: str) -> Exception:
+    """The exception of an injected fault.  ``device_oom`` is a FOREIGN
+    ``RuntimeError`` with CUDA's text, so injection runs :func:`classify`
+    as a real allocator failure does."""
+    if kind == "predicted":
+        return PredictedResourceExhausted(
+            f"RESOURCE_EXHAUSTED (predicted): injected fault at {site}",
+            site=site)
+    if kind == "device_oom":
+        return RuntimeError(
+            f"CUDA error: out of memory (injected device OOM at {site})")
+    if kind == "capacity":
+        return CapacityOverflowError(f"injected capacity overflow at {site}",
+                                     site=site)
+    if kind == "corrupt":
+        return CheckpointCorruptError(f"injected corruption at {site}",
+                                      site=site)
+    if kind == "enospc":
+        return OSError(errno.ENOSPC, f"injected ENOSPC at {site}")
+    return RankDesyncError(f"injected rank desync at {site}", site=site,
+                           phase=_last_phase())
+
+
+def maybe_inject(site: str, intercept: tuple = ()) -> str | None:
+    """Raise the fault armed at ``site`` (nothing when none is).  ``kill``
+    and ``term`` signal the process instead; kinds in ``intercept`` are
+    returned for the site to handle (a disk write flips a byte on
+    ``corrupt``)."""
+    kind = injected(site)
+    if kind is None:
+        return None
+    if kind in ("kill", "term"):
+        import signal
+        if kind == "term":
+            _record(site, kind, "sigterm")
+        os.kill(os.getpid(), signal.SIGKILL if kind == "kill"
+                else signal.SIGTERM)
+        return None
+    if kind in intercept:
+        return kind
+    _record(site, kind, "injected")
+    raise make_fault(kind, site)
+
+
+# ---------------------------------------------------------------------------
+# recovery-event log
+# ---------------------------------------------------------------------------
+
+_EVENTS: list[dict] = []
+_tls = threading.local()        # the ladder's nesting depth, per thread
+
+
+def _last_phase() -> str:
+    from ..utils import timing
+    return timing.last_region()
+
+
+def _record(site: str, kind: str, action: str) -> None:
+    from ..utils import timing
+    from ..utils.logging import log
+    _EVENTS.append({"site": site, "kind": kind, "action": action})
+    timing.bump(f"recovery.{site}.{kind}.{action}")
+    log.warning("recovery: %s fault at %s -> %s", kind, site, action)
+
+
+def recovery_events() -> list[dict]:
+    """Events since the last :func:`reset_events`/:func:`drain_events`,
+    each ``{"site", "kind", "action"}``, oldest first."""
+    return list(_EVENTS)
+
+
+def drain_events() -> list[dict]:
+    out = list(_EVENTS)
+    _EVENTS.clear()
+    return out
+
+
+def reset_events() -> None:
+    _EVENTS.clear()
+
+
+# ---------------------------------------------------------------------------
+# consensus, single-controller: the local value is the agreed one
+# ---------------------------------------------------------------------------
+
+_WIRE = 1 << 20
+
+
+def consensus_code(env, code) -> Code:
+    """The agreed (max) status code over the world's ranks."""
+    return Code(int(code))
+
+
+def guard_consensus(env, local_fault: bool) -> bool:
+    """Raise/proceed agreement of a capacity guard, taken before the
+    exchange starts: True when any rank's guard fired."""
+    return consensus_code(env, Code.OutOfMemory if local_fault
+                          else Code.OK) != Code.OK
+
+
+def spill_consensus(env, local_need: bool) -> bool:
+    """Agreement to take the spill rung: True when any rank can spill."""
+    return consensus_code(env, Code.SpillRequired if local_need
+                          else Code.OK) == Code.SpillRequired
+
+
+def count_consensus(env, n: int) -> int:
+    """Max-agree a small count (the spill tier's eviction and demotion
+    counts): every rank then evicts as many owners."""
+    return min(max(int(n), 0), _WIRE - 1)
+
+
+def skew_plan_consensus(env, plan_hash: int) -> None:
+    """Adopt-one-plan agreement of the adaptive skew split (relational/
+    skew.py): every rank votes its plan's hash before the split exchange
+    starts; a rank whose hash differed would raise ``RankDesyncError``.
+    One process computes the plan once for every rank, so the vote
+    passes."""
+
+
+# ---------------------------------------------------------------------------
+# exchange watchdog
+# ---------------------------------------------------------------------------
+
+def exchange_watchdog(site: str, thunk, timeout_s: float | None = None,
+                      stalled: bool | None = None):
+    """Run a blocking transfer or pull under ``CYLON_TPU_TORCH_WATCHDOG_S``
+    (or ``timeout_s``): off (0) it is a plain call; on, the thunk runs in
+    a worker thread and a miss of the deadline raises ``RankDesyncError``
+    carrying the site and the last region entered.  The ``stall`` kind at
+    ``exchange.stall`` simulates the hang; ``stalled=True`` forces it (the
+    spill tier's ``spill_stall``)."""
+    t = config.EXCHANGE_WATCHDOG_S if timeout_s is None else float(timeout_s)
+    if t <= 0:
+        return thunk()
+    if stalled is None:
+        stalled = injected("exchange.stall")
+    box: dict = {}
+
+    def run():
+        if stalled:
+            import time
+            time.sleep(4 * t)        # the data never arrives
+            return
+        try:
+            box["value"] = thunk()
+        except BaseException as e:  # noqa: BLE001 — re-raised on the caller
+            box["error"] = e
+
+    th = threading.Thread(target=run, daemon=True,
+                          name=f"cylon-watchdog-{site}")
+    th.start()
+    th.join(t)
+    if "error" in box:
+        raise box["error"]
+    if "value" not in box:
+        _record(site, "desync", "watchdog")
+        raise RankDesyncError(
+            f"exchange watchdog: no progress at {site} within {t:g}s — a "
+            "transfer hung", site=site, phase=_last_phase())
+    return box["value"]
+
+
+# ---------------------------------------------------------------------------
+# bounded IO retry
+# ---------------------------------------------------------------------------
+
+#: transient-OSError retries taken by retry_io, every site together
+IO_RETRIES = [0]
+
+#: errnos that no short backoff heals: the caller's degrade path owns them
+_NON_TRANSIENT_ERRNOS = frozenset(
+    getattr(errno, name)
+    for name in ("ENOSPC", "EDQUOT", "EROFS", "ENOENT", "EISDIR")
+    if hasattr(errno, name))
+
+
+def retry_io(fn, site: str, attempts: int = 3, base_delay_s: float = 0.05,
+             on_retry=None):
+    """Run a filesystem thunk with at most ``attempts`` tries, backing off
+    ``base · 2^i`` seconds on a transient ``OSError``; a non-transient
+    errno (ENOSPC, EDQUOT, EROFS, ENOENT, EISDIR) and every other
+    exception raise at once.  ``on_retry`` runs once per retry."""
+    import time
+    from ..utils import timing
+    from ..utils.logging import log
+    last: OSError | None = None
+    for i in range(max(int(attempts), 1)):
+        if i:
+            IO_RETRIES[0] += 1
+            timing.bump(f"io_retry.{site}")
+            if on_retry is not None:
+                on_retry()
+            log.warning("%s: transient OSError (%s); retry %d/%d after "
+                        "%.3fs backoff", site, last, i, attempts - 1,
+                        base_delay_s * (2 ** (i - 1)))
+            time.sleep(base_delay_s * (2 ** (i - 1)))
+        try:
+            return fn()
+        except OSError as e:
+            if e.errno in _NON_TRANSIENT_ERRNOS:
+                raise
+            last = e
+    raise last
+
+
+# ---------------------------------------------------------------------------
+# the retry ladder
+# ---------------------------------------------------------------------------
+
+#: chunk counts of the fallback per fault code: an OOM streams at 4, then
+#: 16 chunks; a capacity overflow takes one cap-halving step (8 chunks
+#: halve the 4-chunk default's pieces); a disk-tier corruption or an
+#: integrity fault recomputes once at the base configuration
+RETRY_RUNGS = {Code.OutOfMemory: (4, 16), Code.CapacityError: (8,),
+               Code.SerializationError: (4,), Code.IntegrityFault: (4,)}
+
+
+def _resumable(exc, label: str):
+    """The ladder's final rung: with durable checkpoints armed, an
+    unrecoverable fault becomes a resumable abort.  Checkpoints are not
+    ported yet, so the fault comes back unchanged."""
+    return exc
+
+
+def _release_frames(e: BaseException) -> None:
+    """Clear the locals of every frame a failed attempt's exception chain
+    holds, so the tensors they reference go back to the allocator before
+    the retry (the traceback's lines stay printable)."""
+    seen = set()
+    while e is not None and id(e) not in seen:
+        seen.add(id(e))
+        if e.__traceback__ is not None:
+            traceback.clear_frames(e.__traceback__)
+        e = e.__cause__ or e.__context__
+
+
+def _empty_cache() -> None:
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.empty_cache()
+
+
+def _attempt(fn, label: str = ""):
+    """``(result, fault)``; a non-fault exception propagates."""
+    try:
+        return fn(), None
+    except Exception as e:  # noqa: BLE001 — classify filters
+        fault = classify(e)
+        if fault is None:
+            exc = _resumable(e, label)
+            if exc is e:
+                raise
+            raise exc from e
+        _release_frames(e)
+        return None, fault
+
+
+def run_with_recovery(primary, can_fallback: bool, fallback, label: str,
+                      env=None):
+    """``primary()`` under the retry ladder: classify any fault, then
+    either return, retry (the spill rung, then ``fallback(n_chunks)`` on
+    the :data:`RETRY_RUNGS` schedule) or raise the typed fault.  A
+    fallback that re-enters a guarded operator gets no rungs of its own.
+    ``env`` names the world the consensus votes over (local here)."""
+    nested = getattr(_tls, "depth", 0) > 0
+
+    def agree(fault):
+        code = Code.OK if fault is None else consensus_code(env, fault.code)
+        return code, fault
+
+    result, fault = _attempt(primary, label)
+    agreed, fault = agree(fault)
+    if agreed == Code.OK:
+        return result
+    kind = getattr(fault, "kind", "fault")
+
+    # the spill rung: a predicted fault fired before any allocation, so
+    # evicting resident state and running the same configuration again
+    # discards no completed work
+    if not nested and isinstance(fault, PredictedResourceExhausted):
+        from . import memory
+        local_can = config.SPILL_ENABLED and memory.spillable_bytes() > 0
+        if spill_consensus(env, local_can):
+            memory.spill_for_retry()
+            from ..utils.logging import log
+            _record(label, kind, "spill_retry")
+            log.warning("%s %s fault; spill rung: resident state evicted "
+                        "to host, retrying at the same configuration",
+                        label, kind)
+            _empty_cache()
+            _tls.depth = getattr(_tls, "depth", 0) + 1
+            try:
+                result, fault = _attempt(primary, label)
+            finally:
+                _tls.depth -= 1
+            agreed, fault = agree(fault)
+            if agreed == Code.OK:
+                return result
+            kind = getattr(fault, "kind", kind)
+
+    rungs = RETRY_RUNGS.get(agreed, ())
+    if not rungs or not can_fallback or nested:
+        _record(label, kind, "abort")
+        raise _resumable(fault, label)
+
+    from ..utils.logging import log
+    last = fault
+    _tls.depth = getattr(_tls, "depth", 0) + 1
+    try:
+        for nc in rungs:
+            _record(label, kind, f"retry_chunks_{nc}")
+            log.warning("%s %s fault (%s); retry via the chunked fallback "
+                        "with %d chunks", label, kind, type(last).__name__,
+                        nc)
+            _empty_cache()
+            result, fault = _attempt(lambda: fallback(nc), label)
+            agreed, fault = agree(fault)
+            if agreed == Code.OK:
+                return result
+            last, kind = fault, getattr(fault, "kind", kind)
+            if agreed not in RETRY_RUNGS:
+                break
+    finally:
+        _tls.depth -= 1
+    _record(label, kind, "abort")
+    raise _resumable(last, label)

@@ -19,9 +19,16 @@ a world of more than :data:`MAX_WORLD` ranks.
 peer copies under one controller) slots in behind the same interface.
 :func:`skew_targets` routes a semi/anti join's probe side with its heavy
 keys spread round-robin (relational/join.py); :func:`skew_split_targets`
-routes the adaptive skew split's probe side (relational/skew.py).  Not
-ported (ROADMAP.md): the two-hop topology route, the receive-budget guard
-and its ledger registration, the integrity audit and the comm counters.
+routes the adaptive skew split's probe side (relational/skew.py).
+
+A hash shuffle's exchange runs the receive-budget guard first
+(``guard=True``, :func:`_recv_guard`): the largest destination's receive,
+known from the count sidecar, above ``EXCHANGE_RECV_BUDGET_BYTES`` raises
+``PredictedResourceExhausted`` before anything is allocated, and the
+retry ladder streams instead.  The count pull runs under the exchange
+watchdog.  Not ported (ROADMAP.md): the two-hop topology route, the
+receive buffers' ledger registration, the integrity audit and the comm
+counters.
 """
 
 from __future__ import annotations
@@ -135,23 +142,65 @@ def count_targets(env, tgt: torch.Tensor) -> np.ndarray:
     w = env.world_size
     by_src = tgt.view(w, -1)
     counts = torch.stack([(by_src == d).sum(dim=1) for d in range(w)], dim=1)
-    return host_array(counts).astype(np.int64)
+    from ..exec.recovery import exchange_watchdog
+    return exchange_watchdog("exchange.counts",
+                             lambda: host_array(counts)).astype(np.int64)
 
 
-def exchange(env, tgt: torch.Tensor, counts: np.ndarray, cols: tuple):
+def _guard_applies(env) -> bool:
+    """Whether the receive budget binds: on the card only (a CPU run's
+    receive lives in host memory)."""
+    return env.on_cuda
+
+
+def _recv_guard(env, out_cap: int, row_bytes: int) -> None:
+    """The receive-budget guard, decided before the exchange allocates:
+    the per-destination receive ``out_cap · row_bytes`` above
+    ``EXCHANGE_RECV_BUDGET_BYTES`` (where :func:`_guard_applies`) raises
+    ``PredictedResourceExhausted``.
+    The ledger's colder spillable owners evict first to make room for
+    the receive (``memory.try_free``).  An injected kind at
+    ``shuffle.recv_guard`` raises that kind."""
+    from ..exec import memory, recovery
+    from ..status import PredictedResourceExhausted
+    need = int(out_cap) * int(row_bytes)
+    memory.try_free(env, need)
+    over = bool(_guard_applies(env)
+                and need > config.EXCHANGE_RECV_BUDGET_BYTES)
+    kind, armed = recovery.probe("shuffle.recv_guard")
+    if (over or armed) and recovery.guard_consensus(
+            env, over or kind is not None):
+        if kind is not None and kind != "predicted":
+            raise recovery.make_fault(kind, "shuffle.recv_guard")
+        raise PredictedResourceExhausted(
+            f"RESOURCE_EXHAUSTED (predicted): exchange receive allocation "
+            f"{need} B at {row_bytes} B/row exceeds "
+            f"CYLON_TPU_TORCH_EXCHANGE_RECV_BUDGET "
+            f"({config.EXCHANGE_RECV_BUDGET_BYTES} B); one destination "
+            "shard would materialize the bulk of the table",
+            site="shuffle.recv_guard")
+
+
+def exchange(env, tgt: torch.Tensor, counts: np.ndarray, cols: tuple,
+             guard: bool = False):
     """Move every array of ``cols`` (each ``(W·cap, ...)``, source-major)
     to its rows' target ranks.  Destination shard d receives its rows
     ordered by (source rank, source position) in the first
     ``counts[:, d].sum()`` rows of an ``out_cap``-row block, zeros after,
     with ``out_cap = pow2ceil(max rows any destination receives)``.
     Returns ``(new_cols, new_valid_counts)``, the counts being
-    ``counts.sum(axis=0)``."""
+    ``counts.sum(axis=0)``.  ``guard``: run the receive-budget guard
+    first (hash shuffles, whose callers sit under the OOM fallbacks)."""
     w = counts.shape[0]
     if w > MAX_WORLD:
         raise InvalidError(f"the exchange sorts its targets as uint8 keys: "
                            f"world size must be at most {MAX_WORLD}, got {w}")
     per_dest = counts.sum(axis=0).astype(np.int64)
     out_cap = config.pow2ceil(int(per_dest.max()) if per_dest.size else 1)
+    if guard:
+        _recv_guard(env, out_cap, sum(
+            c.element_size() * int(np.prod(c.shape[1:], dtype=np.int64))
+            for c in cols))
     # stable: equal targets keep their global (source-major) order
     order = torch.sort(tgt.to(torch.uint8), stable=True).indices
     starts = np.concatenate([[0], np.cumsum(per_dest)])

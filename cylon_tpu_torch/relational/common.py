@@ -4,7 +4,8 @@ read): the bounded prediction cache, per-shard liveness masks, sample
 positions, int32-narrowing flags, lane specs, string-dictionary
 unification (sorted or hashed), key promotion with the decimal rescale
 and the list-key refusal, result-table assembly,
-the filter flag of a bool column and the same-world check."""
+the filter flag of a bool column, the same-world check, and the
+operators' OOM fallback (:func:`run_with_oom_fallback`)."""
 
 from __future__ import annotations
 
@@ -33,6 +34,21 @@ class BoundedCache(dict):
         if key not in self and len(self) >= self.maxlen:
             self.pop(next(iter(self)))
         self[key] = value
+
+
+def run_with_oom_fallback(primary, can_fallback: bool, fallback, label: str,
+                          env=None):
+    """``primary()`` under the retry ladder (exec/recovery.
+    run_with_recovery): an OOM retries ``fallback(4)`` then
+    ``fallback(16)`` — the operator's chunked route on the same device —
+    after the spill rung for a predicted one; a capacity overflow takes
+    one cap-halving step.  Shared by ``join_tables``,
+    ``groupby_aggregate`` and ``set_operation``.  The operators' one entry
+    to the ladder, under the reference's name so its counterpart is found
+    (``cylon_tpu/relational/common.py``); the OOM test itself is
+    exec/recovery.is_oom, the one place that reads runtime error text."""
+    from ..exec.recovery import run_with_recovery
+    return run_with_recovery(primary, can_fallback, fallback, label, env=env)
 
 
 def live_mask(vc, cap: int, device) -> torch.Tensor:

@@ -511,14 +511,38 @@ def groupby_aggregate(table: Table, by, aggs, ddof: int = 1) -> Table:
     var/std/sumsq/nunique/quantile/median.  Returns the key columns + one
     column per agg named ``{col}_{op}`` (``{col}_quantile_{q:g}`` for an
     explicit quantile), one row per group, each shard's groups in key
-    order, ``grouped_by = by``.  Null keys form their own group."""
-    by = [by] if isinstance(by, str) else list(by)
-    specs = _normalize_aggs(aggs)
+    order, ``grouped_by = by``.  Null keys form their own group.
+
+    A device OOM retries as a chunked streaming aggregation (a
+    ``GroupBySink`` over ``chunk_table(table, n)``, n = 4 then 16) under
+    the retry ladder (exec/recovery.run_with_recovery), when every op
+    decomposes through public partials (sum/count/min/max/mean/var/std)."""
+    from ..exec.pipeline import GroupBySink, chunk_table
+    from .common import run_with_oom_fallback
     # a stitch-deferred skew join hands over its split layout: an
     # aggregation cannot observe row order or placement, so the stitch
     # never runs for a join → groupby
     from .skew import consume_unstitched
     table = consume_unstitched(table)
+
+    def fallback(nc):
+        sink = GroupBySink(by, aggs, ddof=ddof)
+        for ch in chunk_table(table, nc):
+            sink(ch)
+        return sink.finalize()
+
+    return run_with_oom_fallback(
+        lambda: _groupby_attempt(table, by, aggs, ddof),
+        can_fallback=all(a[1] in GroupBySink._DECOMP for a in aggs),
+        fallback=fallback, label="groupby", env=table.env)
+
+
+def _groupby_attempt(table, by, aggs, ddof: int) -> Table:
+    from ..exec.recovery import maybe_inject
+    maybe_inject("groupby.device_oom")   # the device-OOM test point
+    by = [by] if isinstance(by, str) else list(by)
+    specs = _normalize_aggs(aggs)
+    from .skew import consume_unstitched
     # an unmaterialized inner join grouped by its keys aggregates off the
     # pre-expansion state; it must run before any column access below,
     # which would materialize the join

@@ -448,12 +448,38 @@ def join_tables(left: Table, right: Table, left_on, right_on,
     is skipped.  ``left``/``right`` may be :class:`~cylon_tpu_torch.relational.
     piece.PackedPiece` window descriptors instead of Tables (the pipelined
     range loop): the window slice and key unpack then run inside the
-    join."""
+    join; pieces have no fallback (they are the streaming decomposition).
+
+    A device OOM retries through the range-partitioned pipeline
+    (exec/pipeline.pipelined_join) at 4 and then 16 ranges, under the
+    retry ladder (exec/recovery.run_with_recovery): each range's sort
+    scratch and output are a fraction of the monolith's.  Ranges
+    partition the key space, so the fallback holds for inner, left,
+    right and outer joins with coalesced keys."""
+    from .common import run_with_oom_fallback
     if how not in HOW:
         raise InvalidError(f"how must be one of {HOW}, got {how!r}")
     if isinstance(left, PackedPiece) or isinstance(right, PackedPiece):
         return _join_packed_entry(left, right, left_on, right_on, how,
                                   suffixes, coalesce_keys, allow_defer)
+
+    def fallback(nc):
+        from ..exec.pipeline import pipelined_join
+        return pipelined_join(left, right, left_on, right_on, how=how,
+                              n_chunks=nc, suffixes=suffixes)
+
+    return run_with_oom_fallback(
+        lambda: _join_tables_impl(left, right, left_on, right_on, how,
+                                  suffixes, coalesce_keys, assume_colocated,
+                                  allow_defer),
+        can_fallback=(not assume_colocated and coalesce_keys
+                      and how not in ("semi", "anti")),
+        fallback=fallback, label="join", env=left.env)
+
+
+def _join_tables_impl(left: Table, right: Table, left_on, right_on,
+                      how: str, suffixes, coalesce_keys: bool,
+                      assume_colocated: bool, allow_defer) -> Table:
     env = check_same_env(left, right)
     left_on = [left_on] if isinstance(left_on, str) else list(left_on)
     right_on = [right_on] if isinstance(right_on, str) else list(right_on)
@@ -618,17 +644,37 @@ def join_tables(left: Table, right: Table, left_on, right_on,
                     for nme, d, v, t, dc, b in
                     zip(names, out_d, out_v, types, dicts, bounds)}
 
+        # a deferred materialization OOMs outside join_tables' ladder: it
+        # takes the same chunked fallback, whose whole Table the
+        # DeferredTable adopts
+        from .common import run_with_oom_fallback
+
+        def fb(nc):
+            from ..exec.pipeline import pipelined_join
+            return pipelined_join(left, right, left_on, right_on, how=how,
+                                  n_chunks=nc, suffixes=suffixes)
+
+        def split_table():
+            return Table(materialize_cols(), env, counts)
+
         def pre_table():
             # the SPLIT-layout output without the stitch, for a groupby
             # the fused pushdown declined (skew.consume_unstitched)
-            return Table(materialize_cols(), env, counts)
+            return run_with_oom_fallback(split_table, True, fb,
+                                         "deferred-join materialize",
+                                         env=env)
 
-        def thunk():
+        def mat():
             if skew_plan is None:
                 return materialize_cols()
             with timing.region("join.skew_stitch"):
                 return skewmod.stitch_join_output(
-                    pre_table(), list(left_on), skew_plan, how, None)
+                    split_table(), list(left_on), skew_plan, how, None)
+
+        def thunk():
+            return run_with_oom_fallback(mat, True, fb,
+                                         "deferred-join materialize",
+                                         env=env)
 
         from .fused import JoinState
         if skew_plan is not None:
@@ -1029,6 +1075,8 @@ def _join_packed_entry(left, right, left_on, right_on, how: str, suffixes,
     if (pl is not None and pr is not None
             and how in ("inner", "left", "right", "outer")
             and _packed_keys_compatible(pl, pr, left_on, right_on)):
+        from ..exec.recovery import maybe_inject
+        maybe_inject("join.piece_cap")   # the cap-overflow test point
         return _join_packed_impl(pl, pr, left_on, right_on, how, suffixes,
                                  coalesce_keys, bool(allow_defer))
     # a piece joined with a Table, or keys the lanes cannot promote:

@@ -15,6 +15,11 @@ piece is ever unpacked into full columns and re-packed.
 The source owns the arrays and every piece aliases them; pieces never
 outlive the source.  :meth:`PackedPiece.to_table` materializes a window:
 the reference the packed join is held equal to.
+
+The packed arrays are a spillable ledger registration (exec/memory.py):
+under memory pressure they evict to host memory, and a host-resident
+source uploads each piece's window alone (``memory.upload_window``), the
+uploaded arrays being the window itself.
 """
 
 from __future__ import annotations
@@ -37,13 +42,17 @@ class PackedPiece:
     LogicalType, dictionary, bounds)`` parallel to ``spec.cols``."""
 
     __slots__ = ("env", "spec", "meta", "arrs", "starts", "lens",
-                 "piece_cap")
+                 "piece_cap", "ready")
 
-    def __init__(self, env, spec, meta, arrs, starts, lens, piece_cap: int):
+    def __init__(self, env, spec, meta, arrs, starts, lens, piece_cap: int,
+                 ready=None):
         self.env = env
         self.spec = spec
         self.meta = meta
         self.arrs = arrs
+        #: an uploaded window's copy event: the consumer's stream waits on
+        #: it at the first read (:meth:`window`)
+        self.ready = ready
         self.starts = np.asarray(starts, np.int64)
         self.lens = np.asarray(lens, np.int64)
         self.piece_cap = int(piece_cap)
@@ -72,6 +81,10 @@ class PackedPiece:
     def window(self, r: int = 0):
         """Shard r's (lane-matrix window | None, tuple of f64 windows):
         views of the source's arrays, no copy."""
+        if self.ready is not None:
+            torch.cuda.current_stream(self.arrs[0].device).wait_event(
+                self.ready)
+            self.ready = None
         block = self.arrs[0].shape[0] // self.env.world_size
         s, cap = r * block + int(self.starts[r]), self.piece_cap
         has_mat = self.spec.n_lanes > 0
@@ -112,10 +125,12 @@ class PieceSource:
     descriptor.  The caller drops its reference to the table: the packed
     arrays carry everything.
 
-    Admission goes straight to the ledger (exec/memory.ensure_headroom):
-    the reference routes it through the serving tier's scheduler
-    (slice 13).  ``scratch_bytes`` folds the piece join's transient sort
-    operands into that decision."""
+    Admission goes straight to the ledger (exec/memory.ensure_headroom),
+    which evicts colder spillable owners when the budget is short; the
+    reference routes it through the serving tier's scheduler (slice 13).
+    ``scratch_bytes`` folds the piece join's transient sort operands into
+    that decision.  The packed arrays register as spillable: while they
+    are host-resident each piece uploads its window alone."""
 
     def __init__(self, table: Table, pad: int, drop: tuple = (),
                  scratch_bytes: int = 0):
@@ -149,13 +164,35 @@ class PieceSource:
                 side = torch.zeros(w * rows, dtype=c.data.dtype, device=dev)
                 side.view(w, rows)[:, :cap] = c.data.view(w, cap)
                 arrs.append(side)
-        self.arrs = tuple(arrs)
-        memory.register("piece_src", self.arrs, anchor=self)
+        self._reg = memory.register("piece_src", tuple(arrs),
+                                    spillable=True, world=w, anchor=self)
+
+    @property
+    def arrs(self) -> tuple | None:
+        """The device arrays while resident, None while spilled."""
+        from ..exec import memory
+        return memory.device_arrays(self._reg)
+
+    @property
+    def spilled(self) -> bool:
+        return self._reg.spilled
 
     def packed(self, starts, lens, piece_cap: int | None = None
                ) -> PackedPiece:
+        from ..exec import memory
         lens = np.asarray(lens, np.int64)
         if piece_cap is None:
             piece_cap = config.pow2ceil(max(int(lens.max(initial=0)), 1))
-        return PackedPiece(self.env, self.spec, self.meta, self.arrs,
-                           starts, lens, piece_cap)
+        memory.touch(self._reg)
+        if not self._reg.spilled:
+            return PackedPiece(self.env, self.spec, self.meta, self.arrs,
+                               starts, lens, piece_cap)
+        # host-resident: upload this window alone, byte-identical to the
+        # resident slice; the uploaded arrays ARE the window, so every
+        # shard's window starts at row 0
+        w = self.env.world_size
+        arrs, ready = memory.upload_window(
+            self._reg, np.asarray(starts, np.int64), int(piece_cap))
+        return PackedPiece(self.env, self.spec, self.meta, arrs,
+                           np.zeros(w, np.int64), lens, piece_cap,
+                           ready=ready)

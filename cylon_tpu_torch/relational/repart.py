@@ -89,14 +89,19 @@ def shuffle_table(table: Table, key_names) -> Table:
         datas, valids = col_arrays(keys)
         tgt = shuffle.hash_targets(env, datas, valids, table.valid_counts)
         counts = shuffle.count_targets(env, tgt)
-    return exchange_by_targets(table, tgt, counts)
+    # hash shuffles run under the join/groupby/set-op OOM fallbacks: the
+    # receive-budget guard may refuse a receive before it is allocated
+    return exchange_by_targets(table, tgt, counts, guard=True)
 
 
-def exchange_by_targets(table: Table, tgt, counts: np.ndarray) -> Table:
-    """Exchange with caller-computed per-row targets."""
+def exchange_by_targets(table: Table, tgt, counts: np.ndarray,
+                        guard: bool = False) -> Table:
+    """Exchange with caller-computed per-row targets; ``guard``: run the
+    exchange's receive-budget guard."""
     with timing.region("shuffle.exchange"):
         flat, recipe = _flatten_for_exchange(table)
-        new_flat, new_valid = shuffle.exchange(table.env, tgt, counts, flat)
+        new_flat, new_valid = shuffle.exchange(table.env, tgt, counts, flat,
+                                               guard=guard)
         del flat
         return _rebuild(recipe, new_flat, new_valid, table.env)
 

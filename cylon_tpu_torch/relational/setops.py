@@ -16,11 +16,9 @@ Timing regions (utils/timing.py): ``unique.flags`` / ``setop.flags``
 ``setop.materialize`` (the compaction), inside the shuffle's own
 ``shuffle.hash`` and ``shuffle.exchange``.
 
-The reference refuses list passthrough columns here; the port has no
-such columns yet (slice 1's remainder), so there is nothing to refuse.
-Not ported: the reference's device-OOM fallback of ``set_operation`` into
-``exec.pipelined_set_op`` (``run_with_oom_fallback``, slice 11 of
-ROADMAP.md Queue 1); the streaming route is called directly instead.
+A device OOM in :func:`set_operation` retries through the chunked
+``exec.pipelined_set_op`` at 4 and then 16 chunks, under the retry
+ladder (``relational/common.run_with_oom_fallback``).
 """
 
 from __future__ import annotations
@@ -111,14 +109,24 @@ def set_operation(a: Table, b: Table, op: str,
     """union / intersect / subtract of two tables' rows with distinct-row
     semantics.  At W > 1 both tables shuffle on the full row first;
     ``assume_colocated=True`` skips the shuffle and the schema alignment
-    (the pipelined set op aligns and shuffles the resident side once)."""
+    (the pipelined set op aligns and shuffles the resident side once).
+    A device OOM streams ``a`` through ``pipelined_set_op``."""
+    from .common import run_with_oom_fallback
     for t in (a, b):
         for n in t.column_names:
             if t.column(n).type == LogicalType.LIST:
                 raise InvalidError(
                     f"set op on a table with list passthrough column {n!r} "
                     "is not supported (rows are compared by value)")
-    return _set_operation_impl(a, b, op, assume_colocated)
+
+    def fb(nc):
+        from ..exec.pipeline import pipelined_set_op
+        return pipelined_set_op(a, b, op, n_chunks=nc)
+
+    return run_with_oom_fallback(
+        lambda: _set_operation_impl(a, b, op, assume_colocated),
+        can_fallback=not assume_colocated, fallback=fb, label="set_op",
+        env=a.env)
 
 
 def _set_operation_impl(a: Table, b: Table, op: str,

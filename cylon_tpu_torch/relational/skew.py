@@ -35,12 +35,12 @@ Every predicate here runs over the whole ``(W·cap,)`` row layout at once:
 the comparisons are elementwise, and the per-shard quantities (counts,
 running indices) are reductions over the ``(W, cap)`` view.
 
-Waiting for their slices (ROADMAP.md): the consensus vote of the plan
-hash (``exec/recovery.skew_plan_consensus``, slice 11 — one process drives
-every rank here, so no rank can disagree), the ``obs/plan`` annotations
-and ``obs/metrics`` counters (slice 12; :func:`adopt` bumps
-``timing.counts()["join.skew_split"]``) and the stitch's integrity audit
-(slice 16).
+:func:`adopt` votes the plan hash (``exec/recovery.skew_plan_consensus``)
+before the split exchange starts; one process drives every rank here, so
+the vote is its single-controller form.  Waiting for their slices
+(ROADMAP.md): the ``obs/plan`` annotations and ``obs/metrics`` counters
+(slice 12; :func:`adopt` bumps ``timing.counts()["join.skew_split"]``)
+and the stitch's integrity audit (slice 16).
 """
 
 from __future__ import annotations
@@ -333,10 +333,12 @@ def detect(probe: Table, key_names, env) -> SkewPlan | None:
 
 
 def adopt(plan: SkewPlan, env) -> None:
-    """Record the finalized plan (:func:`last_plan`) and count the split
-    join (``timing.counts()["join.skew_split"]``).  The reference votes
-    the plan hash over its consensus wire first; that vote waits for the
-    recovery slice, and one process drives every rank here."""
+    """Vote the finalized plan's hash (``exec/recovery.
+    skew_plan_consensus``) before the split's first exchange, then record
+    the plan (:func:`last_plan`) and count the split join
+    (``timing.counts()["join.skew_split"]``)."""
+    from ..exec.recovery import skew_plan_consensus
+    skew_plan_consensus(env, plan.plan_hash())
     record_plan(plan)
     timing.bump("join.skew_split")
 

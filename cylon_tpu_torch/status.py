@@ -4,6 +4,10 @@ A copy of the subset of ``cylon_tpu/status.py`` that the ported path
 raises, with the same names and codes, so callers can assert on the same
 error categories in both packages.  Two errors are the port's own: a
 missing CUDA device and a kernel that did not build or launch.
+
+The fault taxonomy (:data:`FAULT_TYPES`) is what the retry ladder
+(exec/recovery.py) dispatches on: a fault is recovered by a rung, any
+other error propagates.
 """
 
 from __future__ import annotations
@@ -24,7 +28,14 @@ class Code(enum.IntEnum):
     IndexError = 7
     UnknownError = 9
     NotImplemented = 10
+    SerializationError = 11
     ExecutionError = 42
+    #: the spill tier's consensus vote (exec/recovery.spill_consensus);
+    #: never raised
+    SpillRequired = 46
+    #: a conservation law or content fingerprint failed
+    #: (:class:`DataIntegrityError`)
+    IntegrityFault = 51
 
 
 class CylonError(Exception):
@@ -96,12 +107,95 @@ class NumericOverflowError(CylonError):
         self.column = column
 
 
+class PredictedResourceExhausted(CylonError, MemoryError):
+    """A capacity guard fired BEFORE any device allocation (the exchange's
+    receive-budget guard, parallel/shuffle.py): device memory is untouched,
+    so a retry in the same process at a degraded configuration is safe.
+    The message keeps ``RESOURCE_EXHAUSTED (predicted)``, as the
+    reference's does."""
+
+    code = Code.OutOfMemory
+    kind = "predicted"
+
+    def __init__(self, msg: str = "", site: str | None = None):
+        super().__init__(msg)
+        self.site = site
+
+
+class DeviceOOMError(CylonError):
+    """The device ran out of memory for real: a ``torch.cuda.
+    OutOfMemoryError``, or a ``RuntimeError`` carrying CUDA's
+    out-of-memory text, mapped here by ``exec/recovery.classify`` (the one
+    place that reads runtime error text); the original rides
+    ``__cause__``."""
+
+    code = Code.OutOfMemory
+    kind = "device_oom"
+
+    def __init__(self, msg: str = "", site: str | None = None):
+        super().__init__(msg)
+        self.site = site
+
+
 class CapacityOverflowError(CylonError):
     """A pow2-bucketed static capacity (piece cap, output cap) was exceeded
-    by the actual row counts: the planned shape cannot hold the data."""
+    by the actual row counts: the planned shape cannot hold the data.  The
+    remedy is a re-plan at a smaller piece size (the ladder's cap-halving
+    rung), not a memory retry."""
 
     code = Code.CapacityError
     kind = "capacity"
+
+    def __init__(self, msg: str = "", site: str | None = None):
+        super().__init__(msg)
+        self.site = site
+
+
+class RankDesyncError(CylonError):
+    """Ranks stopped advancing together, or a transfer hung: the exchange
+    watchdog's deadline passed (exec/recovery.exchange_watchdog), or a
+    consensus vote disagreed.  Carries the site and the last timing region
+    entered."""
+
+    code = Code.ExecutionError
+    kind = "desync"
+
+    def __init__(self, msg: str = "", site: str | None = None,
+                 phase: str | None = None):
+        super().__init__(msg)
+        self.site = site
+        self.phase = phase
+
+
+class DataIntegrityError(CylonError):
+    """Data in flight was lost, duplicated or changed: a conservation law
+    or a content fingerprint failed at ``site`` in ``phase``.  A fault: the
+    ladder recomputes the stage once, then aborts."""
+
+    code = Code.IntegrityFault
+    kind = "integrity"
+
+    def __init__(self, msg: str = "", site: str | None = None,
+                 phase: str | None = None):
+        super().__init__(msg)
+        self.site = site
+        self.phase = phase
+
+
+#: the recovery-fault types, in one tuple for isinstance dispatch
+FAULT_TYPES = (PredictedResourceExhausted, DeviceOOMError,
+               CapacityOverflowError, RankDesyncError, DataIntegrityError)
+
+
+class CheckpointCorruptError(CylonError):
+    """A spill page failed its content-hash check, or could not be read
+    back whole (the disk tier, exec/memory.py).  At a ``disk.*`` site it is
+    a fault: the owner's data exists nowhere else, so the ladder
+    recomputes the stage — corruption degrades to recompute, never to a
+    wrong answer."""
+
+    code = Code.SerializationError
+    kind = "corrupt"
 
     def __init__(self, msg: str = "", site: str | None = None):
         super().__init__(msg)

@@ -40,3 +40,18 @@ def sync_pull(x) -> None:
     """Wait until everything feeding tensor ``x`` has run."""
     if isinstance(x, torch.Tensor) and x.is_cuda:
         torch.cuda.synchronize(x.device)
+
+
+def host_shard_blocks(x: torch.Tensor, w: int, out=None) -> list:
+    """Copy a ``(W·rows, ...)`` tensor — W shards, each a row block — to
+    host memory and return its W row blocks (views of one host tensor).
+    From the card the copy lands in pinned memory (``out`` when given, a
+    pinned tensor of ``x``'s shape and dtype, reused across pulls) and is
+    waited on; on the CPU it is a copy.  The spill tier's eviction pull
+    (exec/memory.py)."""
+    if out is None:
+        out = torch.empty(x.shape, dtype=x.dtype, pin_memory=x.is_cuda)
+    out.copy_(x.detach(), non_blocking=x.is_cuda)
+    if x.is_cuda:
+        torch.cuda.synchronize(x.device)
+    return list(out.chunk(w, dim=0)) if x.shape[0] else [out] * w

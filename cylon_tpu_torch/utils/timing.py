@@ -25,8 +25,12 @@ Regions by layer: ``shuffle.hash``/``shuffle.exchange`` (the exchange),
 ``sort.*`` (with ``sort.string_lanes``, the host-side lanes of a hashed
 string key), ``setop.flags``/``unique.flags`` (a set op's or unique's
 dense rank, flags and count pull), ``setop.materialize``/
-``unique.materialize`` (its compaction) and ``repart.targets`` (a
-repartition's destinations).
+``unique.materialize`` (its compaction), ``repart.targets`` (a
+repartition's destinations), and the spill tier's ``spill.evict``,
+``spill.upload``, ``disk.write`` and ``disk.read`` (exec/memory.py, each
+with its bytes).  The retry ladder counts every recovery event as
+``recovery.<site>.<kind>.<action>`` (exec/recovery.py), in
+:func:`counts` and in :func:`snapshot`'s keys.
 """
 
 from __future__ import annotations

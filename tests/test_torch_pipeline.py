@@ -213,9 +213,10 @@ def test_sinkless_rows_match_reference(env1, penv, kind):
 def test_admission_over_budget_needs_spill_tier(penv, monkeypatch,
                                                 refused):
     """A device budget a packed source does not fit in — the first one
-    alone, or the second beside the first: where the reference would
-    evict to host memory, the port raises naming the spill tier's slice,
-    and the ledger keeps no trace of the refused run."""
+    alone, or the second beside the first: the admission of the second
+    evicts the first (the LRU spillable owner) to host memory, whose
+    pieces then upload one window at a time; the join completes equal to
+    the unbudgeted run, and the ledger drains afterwards."""
     left, right = _data("baseline")
     pl = pct.Table.from_pandas(pd.DataFrame(left), penv)
     pr = pct.Table.from_pandas(pd.DataFrame(right), penv)
@@ -226,16 +227,20 @@ def test_admission_over_budget_needs_spill_tier(penv, monkeypatch,
         return admit(env, need, scratch)
 
     monkeypatch.setattr(pmemory, "ensure_headroom", spy)
-    pct.pipelined_join(pl, pr, "k", "k", n_chunks=2)   # no limit on the CPU
+    base = pct.pipelined_join(pl, pr, "k", "k", n_chunks=2)  # no limit
     assert len(needs) == 2 and min(needs) > 0
     gc.collect()
     balance = pmemory.balance()
     budget = balance + needs[0] - (refused == "first_source")
     monkeypatch.setattr(pmemory, "budget_bytes", lambda env: budget)
     needs.clear()
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        pct.pipelined_join(pl, pr, "k", "k", n_chunks=2)
-    assert len(needs) == (1 if refused == "first_source" else 2)
+    pmemory.reset_stats()
+    got = pct.pipelined_join(pl, pr, "k", "k", n_chunks=2)
+    assert len(needs) == 2
+    log = pmemory.eviction_log()
+    assert len(log) == 1 and log[0].startswith("piece_src#"), log
+    assert pmemory.stats()["bytes_readmitted"] > 0
+    _assert_same(base, got)
     gc.collect()
     assert pmemory.balance() == balance
 
