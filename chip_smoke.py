@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--rows N] [--config3-rows N] [--fact-rows N]
                           [--string-rows N] [--scan-rows N] [--skew-rows N]
-                          [--tpch-scale SF] [--oom-rows N]
+                          [--tpch-scale SF] [--oom-rows N] [--ckpt-dir DIR]
 
 Builds the package's CUDA kernels from the sources in this checkout (one
 nvcc per source, all at once), holds each against its plain PyTorch
@@ -218,6 +218,38 @@ Then recovery: the spill tiers, the retry ladder and a real device OOM:
   the oracle's answer; the failed attempt's and the recovery's times and
   peaks, the events and the ladder that caught it.  Any other phase fails
   if it records a recovery event.
+
+Then durable checkpoints (exec/checkpoint.py, exec/preempt.py), under a
+fresh checkpoint root in ``--ckpt-dir`` (default the system's temporary
+directory), removed at the end:
+
+* ``ckpt_path`` (after ``spill_path``, on its tables; it fails unless the
+  root's disk holds the tables and four checkpoints): ``GroupBySink`` +
+  ``pipelined_join(n_chunks=4)`` + ``finalize`` at W = 4, unarmed and
+  armed in this process, best of 3 after a warm-up each — seconds, peak
+  memory, bytes checkpointed, the write side's D2H, encode, sha256, file
+  write and commit regions; bit-equal to each other and to the oracle,
+  and the unarmed run writes nothing.  Then child processes of this
+  script (``--ckpt-child``) on the same tables, from ``.npy`` files
+  written once: one SIGKILLed by an injected ``ckpt.write`` ``kill`` at
+  its third write (rc -9; the manifest holds pieces 0 and 1, every page
+  it names verifies); its resume at W = 4 (2 pieces fast-forwarded, K1
+  only on the 2 recomputed pieces, K2 once per shard; K1 and K2 held
+  bit-equal to their plain versions on its first launches' inputs); one
+  with a preemption grace armed and a ``term`` injected at its second
+  write, which must drain into a ``ResumableAbort`` naming the root, and
+  its resume; the complete W = 4 stage resumed at W = 2 (every piece
+  re-sharded, the mismatch counted once) and a second W = 2 resume (a
+  plain fast-forward).  Each child's result is held bit-equal to the
+  uninterrupted run (a digest of its rows sorted by key); a child that
+  exits otherwise than expected fails the phase;
+* ``ckpt_small``: tests/test_checkpoint.py's scenarios at 1M rows a side
+  and W = 1, 3, 4 and 8 — sinkless and sink resume, a partial prefix, a
+  corrupt page (recomputed), a plan-token mismatch (started over), a
+  staged-only manifest (ignored), a persistent injected ``device_oom``
+  after two commits (the ladder's final rung, a ``ResumableAbort``, then
+  the resume) — and the re-shards 4 -> 2, 4 -> 1 and 2 -> 4, each held
+  to the uninterrupted run.
 
 Each route's kernel counts are set to 0 just before it and read just
 after.  Prints one JSON line per phase, then the kernel summary line, then
@@ -4021,6 +4053,659 @@ def oom_path(ct, n: int = OOM_ROWS, device=None) -> dict:
             "kernel_counts": counts, "oracle": "equal"}
 
 
+# ---------------------------------------------------------------------------
+# durable checkpoints: kill and resume, the preemption drain, the re-shard
+# ---------------------------------------------------------------------------
+
+#: pieces of the checkpointed pipelined route
+CKPT_CHUNKS = 4
+#: the exit code of a child that left through a ResumableAbort
+DRAIN_RC = 3
+#: the write side's timing regions (exec/checkpoint.py)
+CKPT_REGIONS = ("ckpt.write", "ckpt.d2h", "ckpt.encode", "ckpt.sha",
+                "ckpt.file_write", "ckpt.commit", "ckpt.load",
+                "ckpt.reshard")
+#: the checkpoint switches, cleared around every unarmed run
+CKPT_VARS = ("CYLON_TPU_TORCH_CKPT_DIR", "CYLON_TPU_TORCH_RESUME",
+             "CYLON_TPU_TORCH_FAULTS", "CYLON_TPU_TORCH_PREEMPT_GRACE_S")
+
+
+@contextlib.contextmanager
+def ckpt_env(**values):
+    """Set the checkpoint switches (``CKPT_DIR``, ``RESUME``, ``FAULTS``
+    as ``CYLON_TPU_TORCH_<name>``) for the block, the others unset; a new
+    fault spec is installed, the stage sequence and the counters start
+    over, as in a fresh process."""
+    import os
+    from cylon_tpu_torch.exec import checkpoint, recovery
+    old = {k: os.environ.pop(k, None) for k in CKPT_VARS}
+    for k, v in values.items():
+        os.environ[f"CYLON_TPU_TORCH_{k}"] = str(v)
+    recovery.install_faults(None)
+    checkpoint.reset_stages()
+    checkpoint.reset_stats()
+    try:
+        yield checkpoint
+    finally:
+        for k in CKPT_VARS:
+            os.environ.pop(k, None)
+            if old[k] is not None:
+                os.environ[k] = old[k]
+        recovery.install_faults(None)
+        checkpoint.reset_stages()
+
+
+def result_digest(g) -> dict:
+    """sha256 of a sink result's live rows sorted by key (unique per
+    group), column by column, and its group count: two results with equal
+    digests hold the same groups bit for bit, whatever their layout."""
+    import hashlib
+    cap = g.capacity
+    dev = g.column("k").data.device
+    vc = torch.as_tensor(np.asarray(g.valid_counts), device=dev)
+    mask = (torch.arange(cap, device=dev)[None, :] < vc[:, None]).reshape(-1)
+    k = g.column("k").data[mask]
+    order = torch.argsort(k)
+    out = {"groups": int(k.shape[0])}
+    for name in ("k", "a_sum", "b_sum"):
+        col = g.column(name).data[mask][order].cpu().numpy()
+        out[name] = hashlib.sha256(np.ascontiguousarray(col)).hexdigest()
+    return out
+
+
+def sorted_rows(t, keys) -> list:
+    """A table's live rows as host arrays, sorted by ``keys``."""
+    h = t.host_columns()
+    names = list(h)
+    order = np.lexsort([h[k][0] for k in keys][::-1])
+    return [(n, h[n][0][order]) for n in names]
+
+
+def same_sorted_rows(a, b, keys, label: str) -> None:
+    """Two tables' live rows equal bit for bit once sorted by ``keys``
+    (their layouts may differ)."""
+    ra, rb = sorted_rows(a, keys), sorted_rows(b, keys)
+    if [n for n, _ in ra] != [n for n, _ in rb]:
+        raise AssertionError(f"{label}: columns differ")
+    for (na, xa), (_, xb) in zip(ra, rb):
+        if xa.dtype != xb.dtype or not np.array_equal(xa, xb):
+            raise AssertionError(f"{label}: column {na} differs")
+
+
+def manifest_of(root: str) -> dict:
+    """The manifest of the one stage under ``root``'s rank0."""
+    import os
+    rank = os.path.join(root, "rank0")
+    stages = sorted(os.listdir(rank))
+    if len(stages) != 1:
+        raise AssertionError(f"{root}: stages {stages}, expected one")
+    with open(os.path.join(rank, stages[0], "MANIFEST.json"),
+              encoding="utf-8") as f:
+        return {"dir": os.path.join(rank, stages[0]), **json.load(f)}
+
+
+def verify_pages(man: dict) -> int:
+    """Every page and meta sidecar the manifest names verifies its sha256;
+    returns their bytes."""
+    import hashlib
+    import os
+    import pickle
+    total = 0
+    for i, entry in man["pieces"].items():
+        with open(os.path.join(man["dir"], entry["meta"]), "rb") as f:
+            raw = f.read()
+        if hashlib.sha256(raw).hexdigest() != entry["sha"]:
+            raise AssertionError(f"piece {i}: meta sidecar fails its hash")
+        total += len(raw)
+        for page in pickle.loads(raw)["pages"]:
+            with open(os.path.join(man["dir"], page["file"]), "rb") as f:
+                praw = f.read()
+            if hashlib.sha256(praw).hexdigest() != page["sha"]:
+                raise AssertionError(f"piece {i}: page {page['file']} "
+                                     "fails its hash")
+            total += len(praw)
+    return total
+
+
+def ckpt_child(spec: dict) -> int:
+    """One process of ``ckpt_path``: the BASELINE tables from the
+    parent's ``.npy`` files at ``spec["world"]``, one GroupBySink +
+    pipelined_join + finalize under the checkpoint switches the parent
+    set in the environment.  Prints one JSON line: the run's seconds, K1
+    and K2 launches, the checkpoint counters, the recovery events and the
+    result's digest; with ``capture``, K1 and K2 also held bit-equal to
+    their plain versions on the inputs of their first launch.  A
+    ``ResumableAbort`` prints its token and exits ``DRAIN_RC``."""
+    import os
+    t_start = time.perf_counter()
+    import cylon_tpu_torch as ct
+    from cylon_tpu_torch.ctx.context import VirtualMeshConfig
+    from cylon_tpu_torch.exec import checkpoint, recovery
+    from cylon_tpu_torch.ops import splitter_probe as sp
+    from cylon_tpu_torch.ops import windowed_gather as wg
+    from cylon_tpu_torch.utils import timing
+    data = spec["data"]
+    cols = {name: np.load(os.path.join(data, f"{name}.npy"))
+            for name in ("lk", "a", "rk", "b")}
+    env = ct.CylonEnv(VirtualMeshConfig(spec["world"]),
+                      device=spec.get("device"))
+    lt = ct.Table.from_pydict({"k": cols["lk"], "a": cols["a"]}, env)
+    rt = ct.Table.from_pydict({"k": cols["rk"], "b": cols["b"]}, env)
+    del cols
+    if env.on_cuda:
+        torch.cuda.synchronize()
+    rec = {"phase": "ckpt_child", "mode": spec["mode"],
+           "world": spec["world"], "pid": os.getpid(),
+           "setup_s": time.perf_counter() - t_start}
+    wg.reset_counts()
+    sp.reset_counts()
+    checkpoint.reset_stats()
+    captured: dict = {}
+    t0 = time.perf_counter()
+    try:
+        with contextlib.ExitStack() as stack:
+            sc = stack.enter_context(timing.attribution_scope())
+            if spec.get("capture"):
+                stack.enter_context(capturing(sp, "count_ge_splitters",
+                                              captured, "probe"))
+                stack.enter_context(capturing(wg, "windowed_take_t",
+                                              captured, "piece", keep_k1))
+            g = pipelined_step(ct, lt, rt, spec["n_chunks"])
+    except ct.ResumableAbort as e:
+        rec.update(run_s=time.perf_counter() - t0, aborted=True,
+                   token=e.token, message=str(e)[:400],
+                   stats=checkpoint.stats(), events=recovery_events())
+        print(json.dumps(rec), flush=True)
+        return DRAIN_RC
+    rec["run_s"] = time.perf_counter() - t0
+    rec["regions_s"] = {r: v for r, v in sc.snapshot().items()
+                        if r in CKPT_REGIONS}
+    rec["kernel_counts"] = {"windowed_gather": dict(wg.COUNTS),
+                            "splitter_probe": dict(sp.COUNTS)}
+    rec["stats"] = checkpoint.stats()
+    rec["events"] = recovery_events()
+    rec["digest"] = result_digest(g)
+    del g, lt, rt
+    if spec.get("capture") and env.on_cuda:
+        torch.cuda.empty_cache()
+        if "piece" in captured:
+            rec["k1"] = k1_check(wg, "ckpt_resume_first_recomputed_piece",
+                                 *captured.pop("piece"), timed=True)
+        rec["k2"] = k2_check(sp, "ckpt_resume_shard0",
+                             *captured.pop("probe"), timed=True)
+    rec["wall_s"] = time.perf_counter() - t_start
+    print(json.dumps(rec), flush=True)
+    return 0
+
+
+def run_child(spec: dict, expect_rc: int, label: str, **switches) -> dict:
+    """Run :func:`ckpt_child` in a fresh process under the checkpoint
+    switches (``CYLON_TPU_TORCH_<name>``); fails unless it exits
+    ``expect_rc``.  Returns its JSON line (empty for a killed child), with
+    the process's wall seconds and exit code."""
+    import os
+    env = {k: v for k, v in os.environ.items() if k not in CKPT_VARS}
+    env.update({f"CYLON_TPU_TORCH_{k}": str(v) for k, v in switches.items()})
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--ckpt-child", json.dumps(spec)], env=env,
+                       capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    if p.returncode != expect_rc:
+        raise AssertionError(
+            f"ckpt_path {label}: the child exited {p.returncode}, expected "
+            f"{expect_rc}\n{p.stdout[-2000:]}\n{p.stderr[-4000:]}")
+    lines = [ln for ln in p.stdout.splitlines() if ln.startswith("{")]
+    rec = json.loads(lines[-1]) if lines else {}
+    if expect_rc in (0, DRAIN_RC) and not lines:
+        raise AssertionError(f"ckpt_path {label}: the child printed no "
+                             f"result\n{p.stderr[-4000:]}")
+    rec.update(process_wall_s=wall, rc=p.returncode)
+    return rec
+
+
+def ckpt_inprocess(ct, lt, rt, orc, root: str, nc: int):
+    """Unarmed and armed ``GroupBySink`` + ``pipelined_join`` on the W = 4
+    tables, each best of 3 after a warm-up in this process: seconds, peak
+    memory, K1/K2 launches, the bytes checkpointed and the write side's
+    regions per armed iteration; both results bit-equal to each other (the
+    same layout and :func:`result_digest`; the unarmed result is released
+    before the armed leg, so the peaks compare) and to the oracle, and
+    the unarmed leg writes nothing and enters no checkpoint region.
+    Returns the record and the result's digest."""
+    import os
+    from cylon_tpu_torch.ops import splitter_probe as sp
+    from cylon_tpu_torch.ops import windowed_gather as wg
+    from cylon_tpu_torch.utils import timing
+    w = lt.env.world_size
+    legs = {}
+    results = {}
+    for leg in ("unarmed", "armed"):
+        switches = {"CKPT_DIR": os.path.join(root, "armed")} \
+            if leg == "armed" else {}
+        with ckpt_env(**switches) as checkpoint:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            wg.reset_counts()
+            sp.reset_counts()
+            its = []
+            for _ in range(4):
+                checkpoint.reset_stages()
+                checkpoint.reset_stats()
+                with timing.attribution_scope() as sc:
+                    t0 = time.perf_counter()
+                    g = pipelined_step(ct, lt, rt, nc)
+                    its.append({"s": time.perf_counter() - t0,
+                                "bytes_checkpointed":
+                                    checkpoint.stats()["bytes_checkpointed"],
+                                "pieces_committed":
+                                    checkpoint.stats()["checkpoint_events"],
+                                "regions_s": {
+                                    r: v for r, v in sc.snapshot().items()
+                                    if r in CKPT_REGIONS}})
+            counts = {"windowed_gather": dict(wg.COUNTS),
+                      "splitter_probe": dict(sp.COUNTS)}
+            peak = torch.cuda.max_memory_allocated()
+        if leg == "unarmed":
+            check_dist(g, orc, w, "ckpt_path unarmed")
+        results[leg] = (np.asarray(g.valid_counts).tolist(), g.capacity,
+                        result_digest(g))
+        del g
+        best = min(its[1:], key=lambda it: it["s"])
+        legs[leg] = {"iterations": its, "first_s": its[0]["s"],
+                     "best_s": best["s"], "peak_mem_bytes": peak,
+                     "kernel_counts": counts,
+                     "bytes_checkpointed_per_iteration":
+                         best["bytes_checkpointed"],
+                     "write_split_s": best["regions_s"]}
+    if results["armed"] != results["unarmed"]:
+        raise AssertionError("ckpt_path: the armed result differs from the "
+                             "unarmed one")
+    digest = results["unarmed"][2]
+    un = legs["unarmed"]
+    if un["bytes_checkpointed_per_iteration"] or any(
+            it["regions_s"] for it in un["iterations"]):
+        raise AssertionError("ckpt_path: the unarmed leg checkpointed")
+    if os.listdir(root) != ["armed"]:
+        raise AssertionError(f"ckpt_path: files outside the armed root: "
+                             f"{os.listdir(root)}")
+    legs["armed_overhead_s"] = legs["armed"]["best_s"] - un["best_s"]
+    legs["pieces"] = legs["armed"]["iterations"][0]["pieces_committed"]
+    import shutil
+    shutil.rmtree(os.path.join(root, "armed"))
+    return legs, digest
+
+
+def ckpt_path(ct, left: dict, right: dict, orc: dict, root: str,
+              device=None) -> dict:
+    """The checkpointed BASELINE route at W = 4 (module docstring): the
+    armed and unarmed legs in this process, then the kill, resume,
+    preempt and re-shard children, each held to the uninterrupted
+    result."""
+    import os
+    import shutil
+    from cylon_tpu_torch.ctx.context import VirtualMeshConfig
+    w, nc = 4, CKPT_CHUNKS
+    n = len(left["k"])
+    table_bytes = sum(v.nbytes for v in (*left.values(), *right.values()))
+    # the tables as .npy once, and at most four checkpoints of the sink's
+    # partials (three int64 columns, their pow2 padding)
+    need = table_bytes + 4 * 2 * 24 * len(orc["k"])
+    free = shutil.disk_usage(root).free
+    if free < need:
+        raise AssertionError(f"ckpt_path: {free} bytes free under {root}, "
+                             f"the phase needs {need}")
+    env = ct.CylonEnv(VirtualMeshConfig(w), device=device)
+    lt, rt = ct.Table.from_pydict(left, env), ct.Table.from_pydict(right,
+                                                                   env)
+    rec = {"phase": "ckpt_path", "world": w, "rows_per_side": n,
+           "n_chunks": nc, "ckpt_root_free_bytes": free,
+           "ckpt_root_needed_bytes": need}
+    legs, digest = ckpt_inprocess(ct, lt, rt, orc, root, nc)
+    rec.update(legs)
+    pieces = rec["pieces"]
+    per_it = rec["unarmed"]["kernel_counts"]
+    un_k1 = per_it["windowed_gather"]["launches"] // 4
+    un_k2 = per_it["splitter_probe"]["launches"] // 4
+    del lt, rt
+    torch.cuda.empty_cache()
+
+    data = os.path.join(root, "data")
+    os.makedirs(data)
+    t0 = time.perf_counter()
+    for name, arr in (("lk", left["k"]), ("a", left["a"]),
+                      ("rk", right["k"]), ("b", right["b"])):
+        np.save(os.path.join(data, f"{name}.npy"), arr)
+    rec["npy_write_s"] = time.perf_counter() - t0
+
+    def spec(mode, world=w, capture=False):
+        return {"mode": mode, "data": data, "world": world,
+                "n_chunks": nc, "capture": capture, "device": device}
+
+    def same(child, label):
+        if child["digest"] != digest:
+            raise AssertionError(f"ckpt_path {label}: result differs from "
+                                 "the uninterrupted run")
+
+    on_card = device is None
+    a_root = os.path.join(root, "A")
+    # kill: SIGKILL at the third checkpoint write, two pieces committed
+    kill = run_child(spec("kill"), -9, "kill", CKPT_DIR=a_root,
+                     FAULTS="ckpt.write::3=kill")
+    man = manifest_of(a_root)
+    if sorted(man["pieces"], key=int) != ["0", "1"] or man["complete"]:
+        raise AssertionError(f"ckpt_path kill: manifest pieces "
+                             f"{sorted(man['pieces'])}, expected 0 and 1")
+    committed_bytes = verify_pages(man)
+    named = {e["meta"] for e in man["pieces"].values()}
+    stray = sorted(f for f in os.listdir(man["dir"])
+                   if f.startswith("piece_") and f.endswith(".meta")
+                   and f not in named)
+    # resume at W = 4: two pieces fast-forwarded, the rest recomputed
+    t_kill_end = time.perf_counter()
+    res = run_child(spec("resume", capture=True), 0, "resume",
+                    CKPT_DIR=a_root, RESUME=1)
+    kill_to_resume_s = time.perf_counter() - t_kill_end
+    same(res, "resume")
+    st = res["stats"]
+    if st["resume_fast_forwarded_pieces"] != 2 \
+            or st["checkpoint_events"] != pieces - 2:
+        raise AssertionError(f"ckpt_path resume: counters {st}")
+    rk = res["kernel_counts"]
+    if on_card and (rk["splitter_probe"]["launches"] != un_k2
+                    or rk["windowed_gather"]["launches"]
+                    != un_k1 * (pieces - 2) // pieces):
+        raise AssertionError(f"ckpt_path resume: kernel counts {rk}, "
+                             f"uninterrupted K1 {un_k1}, K2 {un_k2}")
+    if not manifest_of(a_root)["complete"]:
+        raise AssertionError("ckpt_path resume: the stage is not complete")
+    # the preemption drain: SIGTERM at the second write, drained at the
+    # next piece boundary, then resumed
+    b_root = os.path.join(root, "B")
+    pre = run_child(spec("preempt"), DRAIN_RC, "preempt", CKPT_DIR=b_root,
+                    PREEMPT_GRACE_S=30, FAULTS="ckpt.write::2=term")
+    if pre["token"] != os.path.abspath(b_root) or not any(
+            e[1:] == ["preempt", "drain"] for e in pre["events"]):
+        raise AssertionError(f"ckpt_path preempt: token {pre['token']}, "
+                             f"events {pre['events']}")
+    drained = pre["stats"]["checkpoint_events"]
+    pres = run_child(spec("preempt_resume"), 0, "preempt resume",
+                     CKPT_DIR=b_root, RESUME=1)
+    same(pres, "preempt resume")
+    if pres["stats"]["resume_fast_forwarded_pieces"] != drained:
+        raise AssertionError(f"ckpt_path preempt resume: {pres['stats']}, "
+                             f"{drained} pieces were committed")
+    shutil.rmtree(b_root)
+    # the elastic re-shard: the complete W = 4 stage resumed at W = 2,
+    # then a second W = 2 resume is a plain fast-forward
+    el = run_child(spec("reshard_w2", world=2), 0, "reshard",
+                   CKPT_DIR=a_root, RESUME=1)
+    same(el, "reshard")
+    st = el["stats"]
+    if (st["resume_resharded_pieces"] != pieces
+            or st["resume_world_mismatch"] != 1
+            or st["resume_fast_forwarded_pieces"] != pieces
+            or manifest_of(a_root)["world"] != 2):
+        raise AssertionError(f"ckpt_path reshard: counters {st}")
+    el2 = run_child(spec("resume_w2", world=2), 0, "second W=2 resume",
+                    CKPT_DIR=a_root, RESUME=1)
+    same(el2, "second W=2 resume")
+    st = el2["stats"]
+    if (st["resume_resharded_pieces"] or st["resume_world_mismatch"]
+            or st["checkpoint_events"]
+            or st["resume_fast_forwarded_pieces"] != pieces):
+        raise AssertionError(f"ckpt_path second W=2 resume: {st}")
+    children = {"kill": kill, "resume": res, "preempt": pre,
+                "preempt_resume": pres, "reshard_w2": el,
+                "resume_w2": el2}
+    rec.update({
+        "uninterrupted_first_s": rec["unarmed"]["first_s"],
+        "uninterrupted_best_s": rec["unarmed"]["best_s"],
+        "kill_rc": kill["rc"], "kill_process_s": kill["process_wall_s"],
+        "manifest_after_kill": sorted(man["pieces"], key=int),
+        "committed_bytes_verified": committed_bytes,
+        "unnamed_meta_after_kill": stray,
+        "resume_fast_forwarded_pieces": 2,
+        "resume_run_s": res["run_s"], "resume_setup_s": res["setup_s"],
+        "resume_process_s": res["process_wall_s"],
+        "kill_to_resume_s": kill_to_resume_s,
+        "preempt_rc": pre["rc"], "preempt_token": pre["token"],
+        "preempt_pieces_committed": drained,
+        "reshard_run_s": el["run_s"],
+        "reshard_regions_s": el["regions_s"],
+        "reshard_process_s": el["process_wall_s"],
+        "resume_regions_s": res["regions_s"],
+        "second_w2_resume_run_s": el2["run_s"],
+        "children": {k: {key: v.get(key) for key in (
+            "rc", "setup_s", "run_s", "wall_s", "process_wall_s", "stats",
+            "events", "kernel_counts", "regions_s")}
+            for k, v in children.items()},
+        "oracle": "equal"})
+    if on_card:
+        if "k1" not in res and un_k1:
+            raise AssertionError("ckpt_path resume: K1 was not captured")
+        rec["k1_resume"] = res.get("k1")
+        rec["k2_resume"] = res.get("k2")
+    rec["kernel_counts"] = {
+        name: {"launches": rec["unarmed"]["kernel_counts"][name]["launches"]
+               + rec["armed"]["kernel_counts"][name]["launches"]
+               + sum((c.get("kernel_counts") or {}).get(name, {}).get(
+                   "launches", 0) for c in children.values())}
+        for name in ("windowed_gather", "splitter_probe")}
+    return rec
+
+
+def ckpt_small(ct, root: str, worlds=(1, 3, 4, 8), n: int = 1_000_000,
+               device=None):
+    """tests/test_checkpoint.py's scenarios at ``n`` rows a side (module
+    docstring), each held to the uninterrupted run; yields one record per
+    world and one for the re-shards."""
+    import os
+    import shutil
+    from cylon_tpu_torch.ctx.context import VirtualMeshConfig
+    from cylon_tpu_torch.exec import recovery
+    left, right, mv = baseline_inputs(n, seed=31)
+    orc = oracle(left, right, mv)
+    seq = [0]
+
+    def fresh_root():
+        seq[0] += 1
+        return os.path.join(root, f"small{seq[0]}")
+
+    def join(lt, rt, nc=CKPT_CHUNKS):
+        return ct.pipelined_join(lt, rt, "k", "k", how="inner", n_chunks=nc)
+
+    def sink_run(lt, rt, nc=CKPT_CHUNKS):
+        return pipelined_step(ct, lt, rt, nc)
+
+    def expect(st, label, **want):
+        bad = {k: (st[k], v) for k, v in want.items() if st[k] != v}
+        if bad:
+            raise AssertionError(f"ckpt_small {label}: counters {bad}")
+
+    def edit_manifest(r, fn):
+        man = manifest_of(r)
+        path = os.path.join(man.pop("dir"), "MANIFEST.json")
+        fn(man, path)
+
+    for w in worlds:
+        env = ct.CylonEnv(VirtualMeshConfig(w), device=device)
+        lt = ct.Table.from_pydict(left, env)
+        rt = ct.Table.from_pydict(right, env)
+        with ckpt_env():
+            base_j = join(lt, rt)
+            base_s = sink_run(lt, rt)
+            base_j3 = join(lt, rt, 3)
+        check_dist(base_s, orc, w, f"ckpt_small W={w}")
+        cases = {}
+        for mode, run, base, same in (
+                ("sinkless", join, base_j, same_tables),
+                ("sink", sink_run, base_s, same_tables)):
+            r = fresh_root()
+            with ckpt_env(CKPT_DIR=r) as ck:
+                same(run(lt, rt), base, f"ckpt_small W={w} {mode} armed")
+                n_p = ck.stats()["checkpoint_events"]
+            with ckpt_env(CKPT_DIR=r, RESUME=1) as ck:
+                same(run(lt, rt), base, f"ckpt_small W={w} {mode} resume")
+                expect(ck.stats(), f"W={w} {mode} resume",
+                       resume_fast_forwarded_pieces=n_p,
+                       checkpoint_events=0)
+            cases[f"{mode}_resume"] = {"pieces": n_p}
+            shutil.rmtree(r)
+        # partial prefix: the last piece's commit dropped
+        r = fresh_root()
+        with ckpt_env(CKPT_DIR=r) as ck:
+            join(lt, rt)
+            n_p = ck.stats()["checkpoint_events"]
+
+        def drop_last(man, path):
+            del man["pieces"][str(max(int(k) for k in man["pieces"]))]
+            man["epoch"] -= 1
+            man["complete"] = False
+            with open(path, "w", encoding="utf-8") as f:
+                json.dump(man, f)
+
+        edit_manifest(r, drop_last)
+        with ckpt_env(CKPT_DIR=r, RESUME=1) as ck:
+            same_tables(join(lt, rt), base_j, f"ckpt_small W={w} prefix")
+            expect(ck.stats(), f"W={w} prefix",
+                   resume_fast_forwarded_pieces=n_p - 1,
+                   checkpoint_events=1)
+        cases["partial_prefix"] = {"restored": n_p - 1, "recomputed": 1}
+        # a corrupt page: the stage recomputes
+        man = manifest_of(r)
+        page = os.path.join(man["dir"], "piece_0.p0")
+        raw = bytearray(open(page, "rb").read())
+        raw[len(raw) // 2] ^= 0xFF
+        with open(page, "wb") as f:
+            f.write(bytes(raw))
+        with ckpt_env(CKPT_DIR=r, RESUME=1) as ck:
+            same_tables(join(lt, rt), base_j, f"ckpt_small W={w} corrupt")
+            st = ck.stats()
+            expect(st, f"W={w} corrupt", resume_fast_forwarded_pieces=0)
+            if st["corrupt_pages"] < 1 or recovery_events() != [
+                    ("ckpt.load", "corrupt", "recompute")]:
+                raise AssertionError(f"ckpt_small W={w} corrupt: {st}")
+        cases["corrupt_page"] = {"recomputed": n_p}
+        shutil.rmtree(r)
+        # a plan-token mismatch (another chunk count) starts over
+        r = fresh_root()
+        with ckpt_env(CKPT_DIR=r):
+            join(lt, rt)
+        with ckpt_env(CKPT_DIR=r, RESUME=1) as ck:
+            same_tables(join(lt, rt, 3), base_j3,
+                        f"ckpt_small W={w} token mismatch")
+            expect(ck.stats(), f"W={w} token mismatch",
+                   resume_fast_forwarded_pieces=0)
+        shutil.rmtree(r)
+        cases["token_mismatch"] = "recomputed"
+        # a staged-only manifest is ignored
+        r = fresh_root()
+        with ckpt_env(CKPT_DIR=r):
+            join(lt, rt)
+        man = manifest_of(r)
+        mpath = os.path.join(man["dir"], "MANIFEST.json")
+        os.replace(mpath, mpath + ".staged")
+        with ckpt_env(CKPT_DIR=r, RESUME=1) as ck:
+            same_tables(join(lt, rt), base_j, f"ckpt_small W={w} staged")
+            expect(ck.stats(), f"W={w} staged",
+                   resume_fast_forwarded_pieces=0)
+        shutil.rmtree(r)
+        cases["staged_only"] = "ignored"
+        # a persistent device OOM after two commits: the ladder's final
+        # rung, then the resume
+        r = fresh_root()
+        spec = ",".join(f"ckpt.write::{i}=device_oom" for i in range(3, 12))
+        with ckpt_env(CKPT_DIR=r, FAULTS=spec) as ck:
+            try:
+                recovery.run_with_recovery(
+                    lambda nc=CKPT_CHUNKS: sink_run(lt, rt, nc), True,
+                    lambda nc: sink_run(lt, rt, nc), "sink", env=env)
+            except ct.ResumableAbort as e:
+                from cylon_tpu_torch.status import DeviceOOMError
+                if not isinstance(e.__cause__, DeviceOOMError) \
+                        or e.token != os.path.abspath(r):
+                    raise
+            else:
+                raise AssertionError(f"ckpt_small W={w}: no ResumableAbort")
+            ev = recovery_events()
+            expect(ck.stats(), f"W={w} oom", checkpoint_events=2)
+            if ev[-1] != ("sink", "device_oom", "resumable_abort"):
+                raise AssertionError(f"ckpt_small W={w} oom: events {ev}")
+        with ckpt_env(CKPT_DIR=r, RESUME=1) as ck:
+            same_tables(sink_run(lt, rt), base_s, f"ckpt_small W={w} oom")
+            expect(ck.stats(), f"W={w} oom resume",
+                   resume_fast_forwarded_pieces=2)
+        shutil.rmtree(r)
+        cases["oom_final_rung"] = {"events": len(ev), "restored": 2}
+        yield {"phase": "ckpt_small", "world": w, "rows_per_side": n,
+               "cases": cases, "oracle": "equal"}
+        del lt, rt, base_j, base_s, base_j3
+        torch.cuda.empty_cache()
+    # the re-shards, each against the uninterrupted run at the old world
+    envs = {}
+    reshards = {}
+    for w_from, w_to in ((4, 2), (4, 1), (2, 4)):
+        tabs = {}
+        for w in (w_from, w_to):
+            if w not in envs:
+                envs[w] = ct.CylonEnv(VirtualMeshConfig(w), device=device)
+            tabs[w] = (ct.Table.from_pydict(left, envs[w]),
+                       ct.Table.from_pydict(right, envs[w]))
+        for mode, run, keys in (("sinkless", join, ["k", "a", "b"]),
+                                ("sink", sink_run, ["k"])):
+            r = fresh_root()
+            with ckpt_env(CKPT_DIR=r) as ck:
+                base = run(*tabs[w_from])
+                n_p = ck.stats()["checkpoint_events"]
+            label = f"ckpt_small {w_from}->{w_to} {mode}"
+            with ckpt_env(CKPT_DIR=r, RESUME=1) as ck:
+                same_sorted_rows(run(*tabs[w_to]), base, keys, label)
+                expect(ck.stats(), label, resume_resharded_pieces=n_p,
+                       resume_world_mismatch=1,
+                       resume_fast_forwarded_pieces=n_p)
+                if recovery_events() != [("ckpt.reshard", "world_mismatch",
+                                           "detected")]:
+                    raise AssertionError(f"{label}: events")
+            with ckpt_env(CKPT_DIR=r, RESUME=1) as ck:
+                same_sorted_rows(run(*tabs[w_to]), base, keys,
+                                 label + " again")
+                expect(ck.stats(), label + " again",
+                       resume_resharded_pieces=0, resume_world_mismatch=0,
+                       resume_fast_forwarded_pieces=n_p, checkpoint_events=0)
+            reshards[f"{w_from}->{w_to}_{mode}"] = {"pieces": n_p}
+            shutil.rmtree(r)
+        del tabs
+        torch.cuda.empty_cache()
+    yield {"phase": "ckpt_small", "world": "reshard", "rows_per_side": n,
+           "cases": reshards, "oracle": "equal"}
+
+
+@contextlib.contextmanager
+def ckpt_root(parent=None):
+    """A fresh checkpoint root (under ``parent``, or the system's
+    temporary directory), removed at the end."""
+    import shutil
+    import tempfile
+    root = tempfile.mkdtemp(prefix="cylon_ckpt_", dir=parent)
+    try:
+        yield root
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def ckpt_phases(ct, left, right, orc, root, device=None,
+                small_rows: int = 1_000_000):
+    """``ckpt_path`` on ``left``/``right``, then ``ckpt_small`` at
+    ``small_rows`` a side; yields the phase records (the K1/K2 checks of
+    the resumed run after ``ckpt_path``'s)."""
+    crec = ckpt_path(ct, left, right, orc, root, device=device)
+    checks = [crec.pop(key, None) for key in ("k1_resume", "k2_resume")]
+    yield crec
+    yield from (c for c in checks if c is not None)
+    yield from ckpt_small(ct, root, n=small_rows, device=device)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=125_000_000,
@@ -4039,7 +4724,14 @@ def main() -> int:
                     help="TPC-H scale factor of tpch_path (configuration 4)")
     ap.add_argument("--oom-rows", type=int, default=OOM_ROWS,
                     help="rows per side of oom_path (must not fit the card)")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="where ckpt_path and ckpt_small make their fresh "
+                    "checkpoint root (default: the system's temporary "
+                    "directory)")
+    ap.add_argument("--ckpt-child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.ckpt_child is not None:
+        return ckpt_child(json.loads(args.ckpt_child))
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this smoke run needs "
               "the card", file=sys.stderr)
@@ -4341,7 +5033,18 @@ def main() -> int:
     emit(srec)
     emit(w4["k1_spilled_piece"])
     emit(w4["k2_spilled"])
-    del left, right, srec, scan_orc
+    del srec
+    torch.cuda.empty_cache()
+    # -- durable checkpoints on the same tables: kill, resume, preempt,
+    # re-shard (W = 4), then the small scenarios ---------------------------
+    with ckpt_root(args.ckpt_dir) as root:
+        for crec in ckpt_phases(ct, left, right, scan_orc, root):
+            if crec["phase"] == "ckpt_path":
+                routes["ckpt_path_w4"] = crec["kernel_counts"]
+            elif crec["phase"] in ("k1", "k2"):
+                w4[f"{crec['phase']}_ckpt_resume"] = crec
+            emit(crec)
+    del left, right, scan_orc
     torch.cuda.empty_cache()
     for brec in breadth_small(ct):
         no_kernels(brec, f"breadth_small W={brec['world']}")
@@ -4376,7 +5079,8 @@ def main() -> int:
         "replaces": K1_REPLACES,
         "launches": counts["launches"]
         + routes["scan_join_w4"]["windowed_gather"]["launches"]
-        + routes["spill_path_w4"]["windowed_gather"]["launches"],
+        + routes["spill_path_w4"]["windowed_gather"]["launches"]
+        + routes["ckpt_path_w4"]["windowed_gather"]["launches"],
         "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
         "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
@@ -4394,13 +5098,16 @@ def main() -> int:
                if check in w4 else None for route, check in (
                    ("monolithic_shard0", "k1_monolithic"),
                    ("pipelined_shard0_piece0", "k1_pipelined_piece"),
-                   ("spilled_shard0_piece0", "k1_spilled_piece"))},
+                   ("spilled_shard0_piece0", "k1_spilled_piece"),
+                   ("ckpt_resume_shard0_first_recomputed_piece",
+                    "k1_ckpt_resume"))},
         "scan_join_first_batch_shard0": {key: scan_k1[key]
                                          for key in K1_KEYS}}, {
         "name": "splitter_probe", "route": "cuda", "source": K2_SOURCE,
         "replaces": K2_REPLACES,
         "launches": pipe_counts["splitter_probe"]["launches"]
-        + routes["spill_path_w4"]["splitter_probe"]["launches"],
+        + routes["spill_path_w4"]["splitter_probe"]["launches"]
+        + routes["ckpt_path_w4"]["splitter_probe"]["launches"],
         "max_abs_err": rec2["max_abs_err"], "ms": rec2["ms"],
         "kernel_ms": rec2["kernel_ms"], "scalar_ms": rec2["scalar_ms"],
         "general_ms": rec2["general_ms"],
@@ -4414,7 +5121,9 @@ def main() -> int:
                "outer_pipelined_shard0": {
                    key: w4["k2_outer_pipelined"][key] for key in K2_KEYS},
                "spilled_shard0": {key: w4["k2_spilled"][key]
-                                  for key in K2_KEYS}}}]})
+                                  for key in K2_KEYS},
+               "ckpt_resume_shard0": {key: w4["k2_ckpt_resume"][key]
+                                      for key in K2_KEYS}}}]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

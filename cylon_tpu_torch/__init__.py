@@ -60,15 +60,16 @@ from .relational.sort import local_sort_table, sort_table
 from .series import Series
 from .status import (CylonError, CylonIndexError, CylonIOError,
                      CylonKeyError, CylonTypeError, DeviceUnavailableError,
-                     InvalidError, KernelError)
+                     InvalidError, KernelError, ResumableAbort)
 from .utils.logging import set_log_level
 
 __all__ = ["Column", "CylonEnv", "CylonError", "CylonIOError",
            "CylonIndexError", "CylonKeyError", "CylonTypeError",
            "DataFrame", "DeferredTable", "DeviceUnavailableError",
            "GroupByDataFrame", "GroupBySink", "InvalidError", "KernelError",
-           "LocalConfig", "LogicalType", "Row", "Scalar", "Series", "Table",
-           "VirtualMeshConfig", "chunk_table", "concat", "concat_tables",
+           "LocalConfig", "LogicalType", "ResumableAbort", "Row", "Scalar",
+           "Series", "Table", "VirtualMeshConfig", "chunk_table", "concat",
+           "concat_tables",
            "equals", "filter_table", "groupby_aggregate", "head", "io",
            "join_tables", "join_tables_multi", "local_sort_table",
            "pipelined_join", "pipelined_scan_join", "pipelined_set_op",

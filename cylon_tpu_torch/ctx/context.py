@@ -88,6 +88,11 @@ class CylonEnv:
         self.device = _resolve(devs.pop() if device is None
                                else torch.device(device))
         self._world = int(self.config.world_size)
+        # spot semantics: arm the SIGTERM grace drain when
+        # CYLON_TPU_TORCH_PREEMPT_GRACE_S declares a budget (one env read
+        # and no handler otherwise)
+        from ..exec.preempt import install as _install_preempt
+        _install_preempt()
         self.serial = CylonEnv._next_serial
         CylonEnv._next_serial += 1
 

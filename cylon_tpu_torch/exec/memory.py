@@ -40,9 +40,10 @@ Eviction and demotion counts go through ``recovery.count_consensus``
 as in the reference; one process drives every rank, so the count is the
 local one.  Not ported: the reference's ``reuse`` admission credit for
 buffers donated into the allocating program (the port donates nothing),
-the serving tier's per-session eviction counts (slice 13), the
-window-lifetime registrations of the streaming tier (slice 14) and
-``put_blocks``, the checkpoint restore's upload (slice 11b).
+the serving tier's per-session eviction counts (slice 13) and the
+window-lifetime registrations of the streaming tier (slice 14).
+:func:`put_blocks` is the durable checkpoint restore's upload
+(exec/checkpoint.py), through the same window copy.
 
 Injector sites: ``spill.evict`` (``predicted`` simulates pressure and
 evicts one owner; ``stall``/``spill_stall`` hang the eviction's pull),
@@ -817,6 +818,34 @@ def _upload(hosts, device, stall: bool = False) -> tuple:
                                    timeout_s=_stall_timeout(True),
                                    stalled=True)
     return devs
+
+
+def put_blocks(blocks, device) -> torch.Tensor:
+    """W host row blocks of one shape and dtype (numpy arrays or CPU
+    tensors) -> one ``(W·rows, ...)`` tensor on ``device``: the
+    checkpoint restore's upload boundary (exec/checkpoint.py), through the
+    spill tier's window copy, so a restored piece is byte-identical to the
+    tensor its pages were pulled from.  On the card the blocks are staged
+    in one pinned host tensor and copied on the device's side stream, and
+    the current stream waits on the copy's event; on the CPU it is a
+    copy."""
+    host = [torch.from_numpy(np.ascontiguousarray(b))
+            if isinstance(b, np.ndarray) else b for b in blocks]
+    w, rows = len(host), int(host[0].shape[0])
+    device = torch.device(device)
+    if device.type != "cuda":
+        return _put_window(host, [0] * w, rows, device, None)
+    staged = torch.empty((w * rows,) + tuple(host[0].shape[1:]),
+                         dtype=host[0].dtype, pin_memory=True)
+    for i, b in enumerate(host):
+        staged[i * rows:(i + 1) * rows].copy_(b)
+    consumer = torch.cuda.current_stream(device)
+    stream = _side_stream(device)
+    out = _put_window([staged[i * rows:(i + 1) * rows] for i in range(w)],
+                      [0] * w, rows, device, stream)
+    out.record_stream(consumer)
+    consumer.wait_event(stream.record_event())
+    return out
 
 
 def upload_window(reg: Registration, starts, window: int):

@@ -55,9 +55,17 @@ and takes one distinct pass over the partials.
 Tables, ``io.scan_parquet_dist``) against a resident build side shuffled
 once.
 
-Left out: the durable checkpoint stage (slice 11b), plan nodes and
-traces (slice 12), and the serving tier's interleave point at each chunk
-or batch boundary and its admission of a scan batch (slice 13).
+With ``CYLON_TPU_TORCH_CKPT_DIR`` set, the range loop is a durable
+checkpoint stage (exec/checkpoint.py): each completed piece — a sinkless
+piece output, or a ``GroupBySink``'s partial at its adoption — is saved
+and committed, a resume (``CYLON_TPU_TORCH_RESUME=1``) starts the loop
+past the committed prefix (or re-shards a whole stage committed at
+another world), and with a preemption grace armed a SIGTERM drains at the
+next piece boundary.
+
+Left out: plan nodes and traces (slice 12), and the serving tier's
+interleave point at each chunk or batch boundary and its admission of a
+scan batch (slice 13).
 """
 
 from __future__ import annotations
@@ -80,10 +88,11 @@ from ..relational.join import join_tables
 from ..relational.piece import PieceSource
 from ..relational.repart import concat_tables, shuffle_table
 from ..relational.sort import local_sort_table
-from ..status import CylonError, CylonIOError, InvalidError
+from ..status import (CheckpointCorruptError, CylonError, CylonIOError,
+                      InvalidError)
 from ..utils import timing
 from ..utils.host import host_arrays
-from . import memory
+from . import checkpoint, memory
 
 
 class _LazyChunks(Sequence):
@@ -220,6 +229,8 @@ class GroupBySink:
         self._regs: list = []      # ledger registrations of the partials
         self._pending = []         # dispatched fused pieces, meta unread
         self._disjoint = False
+        self._ckpt = None          # durable checkpoint Stage
+        self._adopted = 0          # partials adopted = checkpoint index
 
     def mark_key_disjoint(self) -> None:
         """Caller guarantee: no group key occurs in more than one piece
@@ -244,11 +255,29 @@ class GroupBySink:
         self._adopt(groupby_aggregate(chunk, self.by, list(self._chunk_aggs)))
         return None
 
-    def _adopt(self, part: Table) -> None:
-        """Keep one piece's partial, accounted in the ledger until
-        ``finalize`` releases it."""
+    def attach_checkpoint(self, stage) -> None:
+        """Arm durable checkpoints (exec/checkpoint.py): each adopted
+        partial is saved and committed.  Partials are adopted in
+        consumption order (the pending queue is FIFO), so the adoption
+        counter is the piece index."""
+        self._ckpt = stage
+
+    def restore_partial(self, part: Table) -> None:
+        """Adopt a partial restored from a checkpoint without saving it
+        again: bit-identical to the partial the interrupted process
+        computed, so ``finalize`` equals an uninterrupted run's."""
         self._parts.append(part)
         self._regs.append(memory.register_table("sink_part", part))
+        self._adopted += 1
+
+    def _adopt(self, part: Table) -> None:
+        """Keep one piece's partial, accounted in the ledger until
+        ``finalize`` releases it, and checkpoint it when armed."""
+        self._parts.append(part)
+        self._regs.append(memory.register_table("sink_part", part))
+        if self._ckpt is not None:
+            self._ckpt.save_piece(self._adopted, part)
+        self._adopted += 1
 
     def flush_pending(self) -> None:
         """Resolve every dispatched piece now."""
@@ -540,6 +569,35 @@ def pipelined_join(left: Table, right: Table, left_on, right_on,
 
     live_ranges = [r for r in range(n_ranges) if qualifies(r)]
 
+    # the durable checkpoint stage (exec/checkpoint.py): armed only when
+    # CYLON_TPU_TORCH_CKPT_DIR is set; otherwise no file, region or vote
+    stage = None
+    if (checkpoint.enabled() and live_ranges
+            and (sink is None or isinstance(sink, GroupBySink))):
+        # the consumption mode is part of the plan: a sink stage keeps
+        # partial aggregates, a sinkless one piece outputs.  The base
+        # token names the workload and holds nothing of the layout (the
+        # global row totals guard against changed inputs); the full token
+        # folds in the world, the piece capacities and the range counts
+        mode = (("nosink", tuple(suffixes)) if sink is None else
+                ("sink", tuple(sink.by), tuple(sink._chunk_aggs),
+                 sink.ddof))
+        base = checkpoint.plan_token(
+            "pipelined_join", how, tuple(left_on), tuple(right_on),
+            n_ranges, mode, int(pcounts.sum()), int(r_lens.sum()))
+        token = checkpoint.plan_token(
+            base, w, tuple(caps_l), tuple(caps_r),
+            tuple(int(x) for x in pcounts.sum(axis=0)),
+            tuple(int(x) for x in r_lens.sum(axis=0)))
+        stage = checkpoint.open_stage(env, "pipelined_join", token,
+                                      base_token=base)
+        if sink is not None:
+            sink.attach_checkpoint(stage)
+    start, outs, adopted_whole = 0, [], False
+    if stage is not None and checkpoint.resume_requested():
+        start, outs, adopted_whole = _resume_stage(stage, env, sink,
+                                                   len(live_ranges))
+
     def make_pieces(r):
         # window descriptors: the slice and unpack run inside the join (a
         # host-resident source uploads its window here)
@@ -560,10 +618,11 @@ def pipelined_join(left: Table, right: Table, left_on, right_on,
     def piece_future(r):
         return _PieceFuture(lambda: make_pieces(r))
 
-    outs = []
     with timing.region("pipe.piece_loop"):
-        nxt = piece_future(live_ranges[0]) if live_ranges else None
-        for i, r in enumerate(live_ranges):
+        # a fast-forwarded piece gets no future: nothing of it uploads
+        nxt = (piece_future(live_ranges[start])
+               if start < len(live_ranges) else None)
+        for i in range(start, len(live_ranges)):
             piece_l, piece_r = nxt.get()
             nxt = None
             if i + 1 < len(live_ranges) and prefetch_ok(live_ranges[i + 1]):
@@ -576,7 +635,20 @@ def pipelined_join(left: Table, right: Table, left_on, right_on,
             del piece_l, piece_r
             with timing.region("pipe.consume"):
                 outs.append(sink(res_r) if sink is not None else res_r)
+            if stage is not None and sink is None:
+                # a sinkless piece boundary: the piece output is the
+                # completed-piece state (a GroupBySink saves its partials
+                # as it adopts them)
+                stage.save_piece(i, res_r)
             del res_r
+            if stage is not None and checkpoint.drain_requested(env):
+                # a preemption notice, agreed: settle the sink's pending
+                # piece (its partial commits), drop a piece prepared
+                # ahead, and leave through the typed drain
+                if sink is not None:
+                    sink.flush_pending()
+                nxt = None
+                checkpoint.drain_abort("pipelined_join")
             if nxt is None and i + 1 < len(live_ranges):
                 nxt = piece_future(live_ranges[i + 1])
         if not outs:
@@ -592,14 +664,77 @@ def pipelined_join(left: Table, right: Table, left_on, right_on,
                                 assume_colocated=True,
                                 allow_defer=sink is not None)
             outs.append(sink(res_r) if sink is not None else res_r)
+    if stage is not None:
+        # mark the stage complete (one more commit) once every consumed
+        # piece is durable: a resume at another world adopts only whole
+        # stages
+        if sink is not None:
+            sink.flush_pending()
+        stage.mark_complete()
     if sink is not None:
         return outs
     out = concat_tables(outs)
-    if left_on == right_on:
+    if left_on == right_on and not adopted_whole:
         # pieces are key-grouped, in key-range order, and keys co-located:
-        # the per-shard concatenation keeps the grouped contract
+        # the per-shard concatenation keeps the grouped contract.  Pieces
+        # adopted across a world change were re-blocked in global order
+        # and keep neither
         out.grouped_by = tuple(left_on)
     return out
+
+
+def _resume_stage(stage, env, sink, n_live: int):
+    """The resume of a checkpointed stage: restore the committed prefix
+    (a plain fast-forward) or re-shard a whole stage committed at another
+    world, vote the prefix every rank adopts, and hand the restored pieces
+    to the sink (or keep them as piece outputs).  Returns ``(start, outs,
+    adopted_whole)``: the first piece to compute, the outputs so far and
+    whether a re-sharded stage was adopted whole (then it is re-committed
+    in this world's layout and nothing is left to compute)."""
+    from .recovery import ckpt_resume_consensus
+    restored: list = []
+    foreign = stage.foreign is not None
+    if stage.resuming:
+        while len(restored) < n_live and stage.has_piece(len(restored)):
+            try:
+                restored.append(stage.load_piece(len(restored)))
+            except CheckpointCorruptError as e:
+                checkpoint.corrupt_fallback(stage, len(restored), e)
+                break
+    elif foreign and stage.foreign_complete:
+        try:
+            restored = stage.load_foreign_pieces()
+        except CheckpointCorruptError as e:
+            checkpoint.corrupt_fallback(stage, 0, e)
+            restored = []
+    start = ckpt_resume_consensus(env, len(restored))
+    adopted_whole = False
+    if foreign:
+        # all or nothing: old-layout pieces cannot splice into a
+        # new-layout loop (foreign restores are not counted yet)
+        if start != len(restored) or not restored:
+            start, restored = 0, []
+        else:
+            checkpoint.note_reshard(start)
+            adopted_whole = True
+            # the first commit after a re-shard rewrites the adopted state
+            # in this world's layout, so a second resume here is a plain
+            # fast-forward and the old world's dirs read as stale
+            stage.begin_rewrite()
+            for i, tbl in enumerate(restored):
+                stage.save_piece(i, tbl)
+            stage.mark_complete()
+            start = n_live
+    elif len(restored) > start:
+        checkpoint.unrestore(len(restored) - start)
+    outs: list = []
+    for tbl in restored[:(len(restored) if adopted_whole else start)]:
+        if sink is not None:
+            sink.restore_partial(tbl)
+            outs.append(None)       # a GroupBySink call returns None too
+        else:
+            outs.append(tbl)
+    return start, outs, adopted_whole
 
 
 # ---------------------------------------------------------------------------

@@ -29,25 +29,31 @@ ladder (port of ``cylon_tpu/exec/recovery.py``).
    kind[@session]"``): each fault is raised at its named site, so every
    rung runs on the CPU.  The grammar takes every site and kind the
    reference takes, so a spec written for it parses here; the sites of
-   modules not ported yet (checkpoints, the scheduler, streams, the
-   compile and integrity tiers) never probe, and nothing tags a serving
-   session yet, so an ``@session`` spec never fires.
+   modules not ported yet (the scheduler, streams, the compile and
+   integrity tiers) never probe, and nothing tags a serving session yet,
+   so an ``@session`` spec never fires.
 
-4. **Exchange watchdog** (:func:`exchange_watchdog`): with
+4. **The final rung** (:func:`_resumable`): with durable checkpoints
+   armed (exec/checkpoint.py), a ``DeviceOOMError`` no rung cured
+   flushes the checkpoint session and becomes a typed ``ResumableAbort``
+   carrying the resume token; a fresh process run with
+   ``CYLON_TPU_TORCH_RESUME=1`` fast-forwards past the committed pieces.
+
+5. **Exchange watchdog** (:func:`exchange_watchdog`): with
    ``CYLON_TPU_TORCH_WATCHDOG_S`` set, a blocking transfer runs under a
    deadline and a hang surfaces as ``RankDesyncError``.
 
 Consensus: one process drives every rank of a ``VirtualMeshConfig``
 world, so each vote's local value is the agreed one — the reference's
 single-controller branch.  Only the votes that ported code takes are
-here (the guard, the spill rung, the eviction count, the skew plan); the
-others come with their callers (checkpoints, preemption, streams, the
-topology route, the integrity audit), and the multi-process wire with
-the multi-card transport.  Not ported here: the ladder's resumable final
-rung (``_resumable`` hands the fault back unchanged until durable
-checkpoints come), and ``compiler_crash_signatures``/
+here (the guard, the spill rung, the eviction count, the skew plan, the
+checkpoint commit and resume, the preemption drain); the others come
+with their callers (the scheduler's preempt decision, slice 13; streams;
+the topology route; the integrity audit), and the multi-process wire
+with the multi-card transport.  Not ported here: the final rung's
+compiler-crash branch, and ``compiler_crash_signatures``/
 ``prime_compiler_probe``, which classify XLA compiler deaths and wait
-for the compile tier.
+for the compile tier (slice 16).
 """
 
 from __future__ import annotations
@@ -62,7 +68,8 @@ import torch
 from .. import config
 from ..status import (CapacityOverflowError, CheckpointCorruptError, Code,
                       CylonError, DeviceOOMError, FAULT_TYPES,
-                      PredictedResourceExhausted, RankDesyncError)
+                      PredictedResourceExhausted, RankDesyncError,
+                      ResumableAbort)
 
 #: injection site names, the reference's (exec/recovery.SITES there)
 SITES = ("shuffle.recv_guard", "join.piece_cap", "groupby.device_oom",
@@ -359,6 +366,40 @@ def count_consensus(env, n: int) -> int:
     return min(max(int(n), 0), _WIRE - 1)
 
 
+def drain_consensus(env, local_flag: bool) -> bool:
+    """Preemption drain agreement (exec/checkpoint.drain_requested): True
+    when any rank received a preemption notice, so every rank drains at
+    the same piece boundary."""
+    return consensus_code(env, Code.PreemptDrain if local_flag
+                          else Code.OK) == Code.PreemptDrain
+
+
+#: epoch field width of the checkpoint wires
+_CKPT_EPOCH_BASE = 1 << 20
+
+
+def ckpt_commit_consensus(env, epoch: int) -> int:
+    """Phase 2 of the checkpoint's two-phase manifest commit: every rank
+    has staged its manifest and votes ``Code.CkptCommit`` with its staged
+    epoch; only then does any rank publish it.  A diverging epoch raises
+    ``RankDesyncError``; one process stages every rank's epoch, so the
+    vote passes."""
+    epoch = int(epoch)
+    if not 0 <= epoch < _CKPT_EPOCH_BASE:
+        raise ValueError(f"checkpoint epoch {epoch} out of wire range")
+    return epoch
+
+
+def ckpt_resume_consensus(env, n: int) -> int:
+    """Min-agree the resume fast-forward count (exec/pipeline): every
+    rank fast-forwards the fewest pieces any rank restored and
+    verified."""
+    n = int(n)
+    if not 0 <= n < _CKPT_EPOCH_BASE:
+        raise ValueError(f"resume fast-forward count {n} out of wire range")
+    return n
+
+
 def skew_plan_consensus(env, plan_hash: int) -> None:
     """Adopt-one-plan agreement of the adaptive skew split (relational/
     skew.py): every rank votes its plan's hash before the split exchange
@@ -466,10 +507,26 @@ RETRY_RUNGS = {Code.OutOfMemory: (4, 16), Code.CapacityError: (8,),
 
 
 def _resumable(exc, label: str):
-    """The ladder's final rung: with durable checkpoints armed, an
-    unrecoverable fault becomes a resumable abort.  Checkpoints are not
-    ported yet, so the fault comes back unchanged."""
-    return exc
+    """The ladder's final rung: with durable checkpoints armed
+    (``CYLON_TPU_TORCH_CKPT_DIR``), a ``DeviceOOMError`` no in-process
+    rung cured (the CUDA context may not be trusted) flushes the
+    checkpoint session and becomes a :class:`ResumableAbort` carrying the
+    resume token, the fault on ``__cause__``, recorded as
+    ``resumable_abort``.  Anything else, or unarmed, comes back
+    unchanged.  The reference also takes an exhausted compiler-crash
+    ladder here; that branch comes with the compile tier (slice 16)."""
+    from . import checkpoint
+    if not checkpoint.enabled() or not isinstance(exc, DeviceOOMError):
+        return exc
+    token = checkpoint.flush_for_abort(label)
+    _record(label, exc.kind, "resumable_abort")
+    ra = ResumableAbort(
+        f"{label}: unrecoverable {exc.kind} fault with durable checkpoints "
+        f"armed — committed piece state flushed; rerun the same workload "
+        f"in a FRESH process with CYLON_TPU_TORCH_RESUME=1 to fast-forward "
+        f"past committed pieces (resume token: {token})", token=token)
+    ra.__cause__ = exc
+    return ra
 
 
 def _release_frames(e: BaseException) -> None:

@@ -33,6 +33,12 @@ class Code(enum.IntEnum):
     #: the spill tier's consensus vote (exec/recovery.spill_consensus);
     #: never raised
     SpillRequired = 46
+    #: the checkpoint commit and resume votes (exec/recovery.
+    #: ckpt_commit_consensus, ckpt_resume_consensus); never raised
+    CkptCommit = 47
+    #: the preemption drain vote (exec/recovery.drain_consensus); never
+    #: raised
+    PreemptDrain = 48
     #: a conservation law or content fingerprint failed
     #: (:class:`DataIntegrityError`)
     IntegrityFault = 51
@@ -200,6 +206,24 @@ class CheckpointCorruptError(CylonError):
     def __init__(self, msg: str = "", site: str | None = None):
         super().__init__(msg)
         self.site = site
+
+
+class ResumableAbort(CylonError):
+    """The retry ladder's final rung (exec/recovery, exec/checkpoint): a
+    fault no in-process rung can cure (a real device OOM) arrived with
+    durable checkpoints armed, or a preemption notice drained the piece
+    loop.  Committed piece state is on disk, and a fresh process run with
+    ``CYLON_TPU_TORCH_RESUME=1`` fast-forwards past it bit-identically.
+    ``token`` is the resume token (the checkpoint root's absolute path);
+    the original fault, if any, rides ``__cause__``.  Never retried in
+    process."""
+
+    code = Code.ExecutionError
+    kind = "resumable"
+
+    def __init__(self, msg: str = "", token: str | None = None):
+        super().__init__(msg)
+        self.token = token
 
 
 class DeviceUnavailableError(CylonError):
