@@ -9,7 +9,9 @@ nvcc per source, all at once), holds each against its plain PyTorch
 version on the card, then drives the BASELINE workload (bench.py's inner
 join of two int64 {k, payload} tables, seed 42, keys uniform in
 [0, 0.9 n), then a groupby-sum on the join key) through the package's
-public entry points and checks every result against a numpy oracle:
+public entry points and checks every result against a numpy oracle
+(the BASELINE oracle takes its per-key sums on the card with torch, held
+equal to numpy's at 1M rows first):
 
 * the monolithic route, ``join_tables`` -> ``groupby_aggregate``, at 1M
   rows per side and at ``--rows`` per side (default 125M);
@@ -50,6 +52,23 @@ device-local permutation), both routes each time:
 * at both W = 4 routes, K1 and K2 held bit-equal against their plain
   versions, and timed, on the inputs of their first launch (shard 0),
   captured in each route's attribution run;
+* ``obs_path``: observability over the same pipelined step on the same
+  tables — the unarmed step (a warm-up, then 3; no file written, no plan
+  node, comm entry or trace event); ``obs.explain`` of the pipelined
+  step (the ``pipelined_join`` node, route ``range_pipeline``, its
+  ``join.piece`` and ``shuffle`` children) and of the monolithic one
+  (``join`` route ``hash`` or ``skew_split``, ``groupby`` route
+  ``fused_pushdown``); ``obs.explain_analyze`` of the pipelined step
+  with the comm matrix and the flight recorder armed (a warm-up, then
+  3): each run's ``reconcile()`` within the reference's tolerances, its
+  comm matrix's sums equal to the exchange counters' increments, the
+  exported Chrome trace parsed with one complete event per region call;
+  every result bit-equal to the unarmed one, K2 once per shard and K1
+  once per shard and piece per iteration; the registry's Prometheus text
+  and JSON snapshot; the key profile of a 90%-hot copy of the key within
+  2x of the truth; then the env's ``gather`` (rank 0, in global order),
+  ``bcast`` (rank 0's block on every shard), ``allreduce`` (sum, min,
+  max against numpy) and ``barrier`` on the left table, timed;
 * ``exchange``: ``hash_rows`` and ``shuffle_table`` of one side at W = 4,
   timed with CUDA events against their byte bounds, beside one stable
   ``torch.sort`` of the same int32 targets; the count sidecar also at
@@ -237,8 +256,10 @@ directory), removed at the end:
   only on the 2 recomputed pieces, K2 once per shard; K1 and K2 held
   bit-equal to their plain versions on its first launches' inputs); one
   with a preemption grace armed and a ``term`` injected at its second
-  write, which must drain into a ``ResumableAbort`` naming the root, and
-  its resume; the complete W = 4 stage resumed at W = 2 (every piece
+  write, which must drain into a ``ResumableAbort`` naming the root —
+  with the flight recorder armed (``CYLON_TPU_TORCH_TRACE``), leaving a
+  ``TRACE_POSTMORTEM.json`` in the root whose last events hold
+  ``ckpt.write`` spans — and its resume; the complete W = 4 stage resumed at W = 2 (every piece
   re-sharded, the mismatch counted once) and a second W = 2 resume (a
   plain fast-forward).  Each child's result is held bit-equal to the
   uninterrupted run (a digest of its rows sorted by key); a child that
@@ -690,9 +711,48 @@ def baseline_inputs(n: int, seed: int = 42, unique: float = 0.9):
 
 
 def oracle(left, right, mv):
-    """Per key: L, R, SA, SB by bincount; the join→groupby answer is
-    keys where L>0 and R>0, sum_a = SA·R, sum_b = SB·L.  bincount weights
-    are float64; every partial sum here stays below 2^53, so exact."""
+    """Per key: L, R, SA, SB; the join→groupby answer is keys where L>0
+    and R>0, sum_a = SA·R, sum_b = SB·L.  With a card the four per-key
+    sums are taken there (:func:`card_oracle`; a host bincount of
+    402,653,184 keys takes tens of seconds), else by :func:`host_oracle`;
+    both are exact and give the same arrays."""
+    if torch.cuda.is_available():
+        return card_oracle(left, right, mv)
+    return host_oracle(left, right, mv)
+
+
+def card_oracle(left, right, mv):
+    """:func:`oracle` with the per-key counts and sums as int64
+    ``bincount``/``index_add_`` on the card (exact: every partial sum
+    stays below 2^53), pulled to numpy."""
+    dev = torch.device("cuda")
+
+    def per_key(k, v):
+        kt = torch.from_numpy(k).to(dev)
+        cnt = torch.bincount(kt, minlength=mv)
+        tot = torch.zeros(mv, dtype=torch.int64, device=dev).index_add_(
+            0, kt, torch.from_numpy(v).to(dev))
+        return cnt, tot
+
+    L, sa = per_key(left["k"], left["a"])
+    R, sb = per_key(right["k"], right["b"])
+    if max(int(sa.max()) * int(R.max()), int(sb.max()) * int(L.max())) \
+            >= 2 ** 53:
+        raise AssertionError("oracle sums leave the exact float64 range")
+    keep = (L > 0) & (R > 0)
+    out = {"k": keep.nonzero().squeeze(1), "a_sum": (sa * R)[keep],
+           "b_sum": (sb * L)[keep], "L": L, "R": R, "sa": sa,
+           "keep": keep}
+    rows = int((L * R).sum())
+    out = {name: t.cpu().numpy() for name, t in out.items()}
+    del L, R, sa, sb, keep
+    torch.cuda.empty_cache()
+    return {**out, "rows": rows}
+
+
+def host_oracle(left, right, mv):
+    """:func:`oracle` by numpy ``bincount``: float64 weights, exact since
+    every partial sum stays below 2^53."""
     L = np.bincount(left["k"], minlength=mv)
     R = np.bincount(right["k"], minlength=mv)
     sa = np.bincount(left["k"], left["a"], minlength=mv)
@@ -784,6 +844,343 @@ def profile_step(ct, lt, rt, top: int = 12, step_fn=None) -> dict:
         "aten_ops_ms": [[e.key, dev_us(e, False) / 1e3, e.count]
                         for e in sorted(ops, key=lambda e: -dev_us(e, False))
                         [:top]]}
+
+
+def obs_files() -> dict:
+    """The files in the working directory and the temporary directory:
+    an unarmed run must add none."""
+    import os
+    import tempfile
+    return {d: sorted(os.listdir(d)) for d in (os.getcwd(),
+                                               tempfile.gettempdir())}
+
+
+def same_result(a, b, label: str) -> None:
+    """Two results of one query on one world: the same layout, every
+    column equal bit for bit on the device."""
+    if not np.array_equal(a.valid_counts, b.valid_counts) \
+            or a.column_names != b.column_names:
+        raise AssertionError(f"{label}: the layout differs from the "
+                             "unarmed run")
+    for name in a.column_names:
+        if not torch.equal(a.column(name).data, b.column(name).data):
+            raise AssertionError(f"{label}: column {name} differs from "
+                                 "the unarmed run")
+
+
+def same_groups(a, b, label: str) -> None:
+    """Two join → groupby results on one world with the same groups on
+    each shard, in the same order, their sums equal bit for bit (the
+    routes may pad their shards differently)."""
+    if not np.array_equal(a.valid_counts, b.valid_counts):
+        raise AssertionError(f"{label}: groups per shard differ")
+    ca, cb = a.capacity, b.capacity
+    for name in ("k", "a_sum", "b_sum"):
+        da, db = a.column(name).data, b.column(name).data
+        for r, v in enumerate(np.asarray(a.valid_counts, np.int64)):
+            if not torch.equal(da[r * ca:r * ca + v], db[r * cb:r * cb + v]):
+                raise AssertionError(f"{label}: shard {r}'s {name} differs")
+
+
+def obs_path(ct, lt, rt, left: dict, orc: dict, n: int, nc: int,
+             need_k1: bool) -> dict:
+    """Observability over the W = 4 pipelined BASELINE step on
+    ``dist_pipelined_path``'s tables (module docstring): the unarmed run
+    (no file, no trace event, no plan node, no comm entry), ``explain``
+    of the pipelined and the monolithic step, ``explain_analyze`` with
+    the comm matrix and the flight recorder armed (a warm-up, then 3
+    runs), the registry's exposition, then the env's collectives on the
+    left table."""
+    import os
+    import tempfile
+    from cylon_tpu_torch.core.column import Column
+    from cylon_tpu_torch.obs import comm, metrics, plan, rank_report, trace
+    from cylon_tpu_torch.ops import splitter_probe as sp
+    from cylon_tpu_torch.ops import windowed_gather as wg
+    from cylon_tpu_torch.utils import timing
+    w = lt.env.world_size
+    env = lt.env
+    rec = {"phase": "obs_path", "world": w, "rows_per_side": n,
+           "n_chunks": nc}
+
+    total = {"splitter_probe": 0, "windowed_gather": 0}
+
+    def launches():
+        """The launches since the counts were last set to 0, added to the
+        phase's total."""
+        got = {"splitter_probe": sp.COUNTS["launches"],
+               "windowed_gather": wg.COUNTS["launches"]}
+        for key in total:
+            total[key] += got[key]
+        wg.reset_counts()
+        sp.reset_counts()
+        return got
+
+    def expect(counts, runs, label):
+        if counts["splitter_probe"] != w * runs or (
+                need_k1 and counts["windowed_gather"] != w * nc * runs):
+            raise AssertionError(f"obs_path {label}: kernel launches "
+                                 f"{counts}, expected K2 {w} and K1 "
+                                 f"{w * nc} per iteration")
+
+    # -- unarmed: every switch off, nothing recorded or written ------------
+    if (trace.armed() or comm.armed() or plan.active() or rank_report.armed()
+            or os.environ.get("CYLON_TPU_TORCH_METRICS_JSON")
+            or timing._TRACE[0] is not None):
+        raise AssertionError("obs_path: an observability switch is on")
+
+    def refuse(what):
+        def boom(*a, **k):
+            raise AssertionError(f"obs_path unarmed: {what}")
+        return boom
+
+    files0 = obs_files()
+    push, record = plan._push_node, comm.record
+    plan._push_node = refuse("a plan node was opened")
+    comm.record = refuse("a comm entry was recorded")
+    wg.reset_counts()
+    sp.reset_counts()
+    times = []
+    try:
+        for _ in range(4):                          # a warm-up, then 3
+            base = pipelined_step(ct, lt, rt, nc, times)
+    finally:
+        plan._push_node, comm.record = push, record
+    rec["unarmed_kernel_launches"] = launches()
+    expect(rec["unarmed_kernel_launches"], 4, "unarmed")
+    if obs_files() != files0 or comm.matrix() is not None:
+        raise AssertionError("obs_path unarmed: a file or a comm entry "
+                             "appeared")
+    check_dist(base, orc, w, "obs_path unarmed")
+    unarmed_best = min(t["total_s"] for t in times[1:])
+    rec["unarmed"] = {"iterations": times, "best_s": unarmed_best,
+                      "files_written": 0, "trace_events": 0,
+                      "plan_nodes": 0, "comm_entries": 0}
+
+    # -- explain: the static trees ----------------------------------------
+    t0 = time.perf_counter()
+    qp = ct.obs.explain(pipelined_step, ct, lt, rt, nc)
+    rec["explain_s"] = time.perf_counter() - t0
+    rec["explain_kernel_launches"] = launches()
+    expect(rec["explain_kernel_launches"], 1, "explain")
+    same_result(qp.result, base, "obs_path explain")
+    root = qp.roots[0]
+    kids = [c.op for c in root.children]
+    if (root.op != "pipelined_join" or root.attrs.get("route")
+            != "range_pipeline" or root.attrs.get("n_ranges") != nc
+            or kids.count("join.piece") != nc or kids.count("shuffle") != 2):
+        raise AssertionError(f"obs_path explain: tree {qp.static_dict()}")
+    rec["explain_tree"] = qp.static_dict()
+    qm = ct.obs.explain(step, ct, lt, rt)
+    same_groups(qm.result, base, "obs_path explain (monolithic)")
+    rec["explain_monolithic_kernel_launches"] = launches()
+    if need_k1 and rec["explain_monolithic_kernel_launches"][
+            "windowed_gather"] != w:
+        raise AssertionError("obs_path explain (monolithic): K1 launches "
+                             f"{rec['explain_monolithic_kernel_launches']}")
+    roots = {r.op: r for r in qm.roots}
+    if roots["join"].attrs.get("route") not in ("hash", "skew_split") or \
+            roots["groupby"].attrs.get("route") != "fused_pushdown":
+        raise AssertionError(f"obs_path explain (monolithic): tree "
+                             f"{qm.static_dict()}")
+    rec["explain_monolithic_tree"] = qm.static_dict()
+    del qp, qm, roots, root
+
+    # -- explain_analyze with the comm matrix and the recorder armed ------
+    with tempfile.TemporaryDirectory(prefix="obs_path_") as tmp:
+        comm.arm()
+        comm.reset()
+        trace.arm(path=os.path.join(tmp, "trace.json"))
+        runs, expected_x = [], {}
+        try:
+            for i in range(4):                      # a warm-up, then 3
+                rows0 = metrics.counter("exchange_rows_total").value
+                bytes0 = metrics.counter("exchange_bytes_total").value
+                times = []
+                t0 = time.perf_counter()
+                qa = ct.obs.explain_analyze(pipelined_step, ct, lt, rt, nc,
+                                            times)
+                wall = time.perf_counter() - t0
+                same_result(qa.result, base, f"obs_path analyze run {i}")
+                events = dict(timing._EVENT_COUNTS)
+                for name, v in qa.global_phases.items():
+                    expected_x[name] = expected_x.get(name, 0) \
+                        + v["n"] - events.get(name, 0)
+                recn = qa.reconcile()
+                bad = [k for k, s in recn["per_phase_node_s"].items()
+                       if abs(s - qa.global_phases[k]["s"])
+                       > max(2e-3, 1e-4 * abs(qa.global_phases[k]["s"]))]
+                if recn["node_s"] > recn["phase_s"] + 1e-6 or abs(
+                        recn["unattributed_s"]) > max(
+                            0.05 * recn["phase_s"], 0.02) or bad:
+                    raise AssertionError(f"obs_path analyze run {i}: "
+                                         f"reconcile {recn}, regions {bad}")
+                cm = qa.comm
+                drows = metrics.counter("exchange_rows_total").value - rows0
+                dbytes = metrics.counter("exchange_bytes_total").value \
+                    - bytes0
+                mr, mb = np.asarray(cm["rows"]), np.asarray(cm["bytes"])
+                # the matrix and the counters are two records of the same
+                # count matrix; the inputs give an independent total: each
+                # live row of both sides crosses the exchange once a run
+                if (int(mr.sum()) != 2 * n or int(mr.sum()) != drows
+                        or int(mb.sum()) != dbytes
+                        or cm["total_rows"] != drows
+                        or mb.sum(axis=1).tolist() != cm["row_sums_bytes"]
+                        or mb.sum(axis=0).tolist() != cm["col_sums_bytes"]):
+                    raise AssertionError(f"obs_path analyze run {i}: comm "
+                                         f"matrix {cm} against counter "
+                                         f"deltas {drows} rows, {dbytes} B")
+                prof = qa.roots[0].heavy
+                if prof is None or prof["heavy"] or \
+                        prof["max_key_share"] >= 0.05:
+                    raise AssertionError(f"obs_path analyze: key profile "
+                                         f"{prof} on uniform keys")
+                runs.append({"s": times[0]["total_s"], "wall_s": wall,
+                             "reconcile": {k: recn[k] for k in (
+                                 "node_s", "phase_s", "unattributed_s")},
+                             "comm_total_rows": cm["total_rows"],
+                             "comm_total_bytes": cm["total_bytes"]})
+                del qa
+            rec["analyze_kernel_launches"] = launches()
+            expect(rec["analyze_kernel_launches"], 4, "analyze")
+            rec["comm_matrix_rows"] = cm["rows"]
+            rec["comm_matrix_bytes"] = cm["bytes"]
+            rec["comm_exchanges_per_run"] = cm["exchanges"]
+            rec_t = trace.recorder()
+            n_events, dropped = rec_t._n, rec_t.dropped
+            path = trace.export()
+            size = os.path.getsize(path)
+            with open(path, encoding="utf-8") as f:
+                doc = json.load(f)
+            got_x = {}
+            for e in doc["traceEvents"]:
+                if e["ph"] == "X":
+                    got_x[e["name"]] = got_x.get(e["name"], 0) + 1
+            dispatch = got_x.pop("pipe.piece_dispatch", 0)
+            want_x = {k: v for k, v in expected_x.items() if v}
+            if dropped or got_x != want_x or dispatch != 4 * nc:
+                raise AssertionError(
+                    f"obs_path trace: complete events {got_x} (and "
+                    f"{dispatch} piece dispatches), regions called "
+                    f"{want_x}, {dropped} dropped")
+            inflight = [e for e in doc["traceEvents"]
+                        if e["name"] == "sink.chunk_inflight"]
+            rec["trace"] = {"events": n_events, "dropped": dropped,
+                            "exported_bytes": size,
+                            "complete_events": sum(got_x.values()),
+                            "piece_dispatch_spans": dispatch,
+                            "sink_inflight_pairs": len(inflight) // 2}
+            # the registry's exposition after the runs
+            text = metrics.prometheus_text()
+            fams = ("cylon_tpu_torch_exchange_rows_total",
+                    "cylon_tpu_torch_exchange_bytes_total",
+                    "cylon_tpu_torch_memory_ledger_bytes",
+                    "cylon_tpu_torch_memory_spill_events",
+                    "cylon_tpu_torch_ckpt_checkpoint_events")
+            missing = [f for f in fams if f not in text]
+            snap_path = os.path.join(tmp, "metrics.json")
+            metrics.write_snapshot(snap_path)
+            with open(snap_path, encoding="utf-8") as f:
+                snap = json.load(f)["metrics"]
+            if missing or "exchange_rows_total" not in snap \
+                    or "phases" not in snap:
+                raise AssertionError(f"obs_path metrics: families missing "
+                                     f"{missing}, snapshot keys "
+                                     f"{sorted(snap)[:20]}")
+            rec["prometheus_lines"] = len(text.splitlines())
+            rec["snapshot_bytes"] = os.path.getsize(snap_path)
+        finally:
+            trace.disarm()
+            comm.arm(False)
+            comm.reset()
+            timing.reset()
+    armed_best = min(r["s"] for r in runs[1:])
+    rec.update(analyze_runs=runs, analyze_best_s=armed_best,
+               unarmed_best_s=unarmed_best,
+               arming_cost_s=armed_best - unarmed_best)
+
+    # -- the key profile names a hot key ----------------------------------
+    k = lt.column("k")
+    gen = torch.Generator(device=k.data.device).manual_seed(9)
+    hot = int(orc["k"][len(orc["k"]) // 2])
+    kh = torch.where(torch.rand(k.data.shape, device=k.data.device,
+                                generator=gen) < 0.9,
+                     torch.full((), hot, dtype=k.data.dtype,
+                                device=k.data.device), k.data)
+    hot_t = lt.with_columns({"k": Column(kh, k.type, k.validity,
+                                         k.dictionary)})
+    vc = torch.as_tensor(np.asarray(lt.valid_counts),
+                         device=kh.device)
+    cap = lt.capacity
+    live = (torch.arange(cap, device=kh.device)[None, :]
+            < vc[:, None]).reshape(-1)
+    truth = int(((kh == hot) & live).sum()) / n
+    t0 = time.perf_counter()
+    prof = ct.obs.plan.key_profile(hot_t, "k")
+    top = prof["heavy"][0] if prof["heavy"] else {}
+    if top.get("key") != hot or not truth / 2 <= top["share"] <= truth * 2:
+        raise AssertionError(f"obs_path key profile: {prof}, hot key {hot} "
+                             f"at {truth}")
+    rec["key_profile"] = {"hot_key": hot, "true_share": truth,
+                          "profile_share": top["share"],
+                          "sampled": prof["sampled"],
+                          "s": time.perf_counter() - t0}
+    del kh, hot_t, live, k
+
+    # -- the env's collectives on the left table ---------------------------
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    coll = {}
+    g, coll["gather_s"] = timed(lambda: env.gather(lt, 0))
+    if [int(x) for x in g.valid_counts] != [n] + [0] * (w - 1):
+        raise AssertionError(f"obs_path gather: counts {g.valid_counts}")
+    for name in ("k", "a"):
+        host = torch.from_numpy(left[name]).to(g.column(name).data.device)
+        if not torch.equal(g.column(name).data[:n], host):
+            raise AssertionError(f"obs_path gather: column {name} is not "
+                                 "the host copy in global order")
+        del host
+    del g
+    b, coll["bcast_s"] = timed(lambda: env.bcast(lt, 0))
+    if [int(x) for x in b.valid_counts] != [int(lt.valid_counts[0])] * w:
+        raise AssertionError(f"obs_path bcast: counts {b.valid_counts}")
+    for name in ("k", "a"):
+        blocks = b.column(name).data.view(w, -1)
+        src = lt.column(name).data.view(w, -1)[0]
+        if not all(torch.equal(blocks[r], src) for r in range(w)):
+            raise AssertionError(f"obs_path bcast: a shard's {name} differs "
+                                 "from rank 0's")
+    del b, blocks, src
+    chunk = int(lt.valid_counts[0])
+    host = np.zeros((w, cap), np.int64)
+    vcs = np.asarray(lt.valid_counts, np.int64)
+    for r in range(w):
+        host[r, :vcs[r]] = left["k"][r * chunk:r * chunk + vcs[r]]
+    ident = {"sum": 0, "min": np.iinfo(np.int64).max,
+             "max": np.iinfo(np.int64).min}
+    for op in ("sum", "min", "max"):
+        red, coll[f"allreduce_{op}_s"] = timed(
+            lambda: env.allreduce(lt.column("k"), op, lt.valid_counts))
+        masked = np.where(np.arange(cap)[None, :] < vcs[:, None], host,
+                          ident[op])
+        want = getattr(masked, op)(axis=0)
+        if red.dtype != np.int64 or not np.array_equal(red, want):
+            raise AssertionError(f"obs_path allreduce {op}: differs from "
+                                 "numpy")
+    del host, masked
+    _, coll["barrier_s"] = timed(env.barrier)
+    rec["collectives"] = coll
+    launches()
+    rec["kernel_counts"] = {key: {"launches": v} for key, v in total.items()}
+    rec["oracle"] = "equal"
+    torch.cuda.empty_cache()
+    return rec
 
 
 def dist_phases(ct, left, right, orc, n: int, need_k1: bool, routes: dict,
@@ -968,6 +1365,12 @@ def dist_phases(ct, left, right, orc, n: int, need_k1: bool, routes: dict,
                                   *captured.pop("probe"), timed=True)
     emit(w4["k2_pipelined"])
     torch.cuda.empty_cache()
+
+    # obs_path: observability over the same step on the same tables
+    orec = obs_path(ct, lt, rt, left, orc, n, nc, need_k1)
+    routes["obs_path_w4"] = orec["kernel_counts"]
+    emit(orec)
+    del orec
 
     # exchange: hash_rows and shuffle_table of one side at W = 4
     from cylon_tpu_torch.ops import hashing
@@ -4336,6 +4739,31 @@ def ckpt_inprocess(ct, lt, rt, orc, root: str, nc: int):
     return legs, digest
 
 
+def drain_postmortem(root: str, trace_path: str) -> dict:
+    """The drained child's flight-recorder dump: ``TRACE_POSTMORTEM.json``
+    in the checkpoint root, naming the abort flush, with the last events
+    among them a ``ckpt.write`` span; and its trace exported at exit,
+    parseable."""
+    import os
+    path = os.path.join(root, "TRACE_POSTMORTEM.json")
+    if not os.path.exists(path):
+        raise AssertionError(f"ckpt_path preempt: no post-mortem in {root}")
+    with open(path, encoding="utf-8") as f:
+        doc = json.load(f)
+    names = [e["name"] for e in doc["events"]]
+    if not doc["reason"].startswith("abort flush") \
+            or "ckpt.write" not in names:
+        raise AssertionError(f"ckpt_path preempt: post-mortem {doc['reason']}"
+                             f" with events {names[-20:]}")
+    with open(trace_path, encoding="utf-8") as f:
+        exported = json.load(f)["traceEvents"]
+    return {"reason": doc["reason"], "events": len(names),
+            "ckpt_write_spans": names.count("ckpt.write"),
+            "last_events": names[-8:], "last_region": doc["last_region"],
+            "bytes": os.path.getsize(path),
+            "exported_trace_events": len(exported)}
+
+
 def ckpt_path(ct, left: dict, right: dict, orc: dict, root: str,
               device=None) -> dict:
     """The checkpointed BASELINE route at W = 4 (module docstring): the
@@ -4422,12 +4850,17 @@ def ckpt_path(ct, left: dict, right: dict, orc: dict, root: str,
     # the preemption drain: SIGTERM at the second write, drained at the
     # next piece boundary, then resumed
     b_root = os.path.join(root, "B")
+    # the drain runs with the flight recorder armed: its post-mortem must
+    # land beside the manifests
+    pm_trace = os.path.join(root, "preempt_trace.json")
     pre = run_child(spec("preempt"), DRAIN_RC, "preempt", CKPT_DIR=b_root,
-                    PREEMPT_GRACE_S=30, FAULTS="ckpt.write::2=term")
+                    PREEMPT_GRACE_S=30, FAULTS="ckpt.write::2=term",
+                    TRACE=pm_trace)
     if pre["token"] != os.path.abspath(b_root) or not any(
             e[1:] == ["preempt", "drain"] for e in pre["events"]):
         raise AssertionError(f"ckpt_path preempt: token {pre['token']}, "
                              f"events {pre['events']}")
+    postmortem = drain_postmortem(b_root, pm_trace)
     drained = pre["stats"]["checkpoint_events"]
     pres = run_child(spec("preempt_resume"), 0, "preempt resume",
                      CKPT_DIR=b_root, RESUME=1)
@@ -4471,6 +4904,7 @@ def ckpt_path(ct, left: dict, right: dict, orc: dict, root: str,
         "kill_to_resume_s": kill_to_resume_s,
         "preempt_rc": pre["rc"], "preempt_token": pre["token"],
         "preempt_pieces_committed": drained,
+        "preempt_postmortem": postmortem,
         "reshard_run_s": el["run_s"],
         "reshard_regions_s": el["regions_s"],
         "reshard_process_s": el["process_wall_s"],
@@ -4813,6 +5247,11 @@ def main() -> int:
     # -- small path: 1M rows per side --------------------------------------
     left, right, mv = baseline_inputs(1_000_000)
     orc = oracle(left, right, mv)
+    horc = host_oracle(left, right, mv)
+    if any(not np.array_equal(np.asarray(orc[f]), np.asarray(horc[f]))
+           for f in horc):
+        raise AssertionError("the card's oracle differs from numpy's")
+    del horc
     lt, rt = ct.Table.from_pydict(left, env), ct.Table.from_pydict(right, env)
     n_groups = check_groupby(step(ct, lt, rt), orc, "small path")
     # read the deferred join instead of fusing it: Σ L·R rows, same sums
@@ -5080,7 +5519,8 @@ def main() -> int:
         "launches": counts["launches"]
         + routes["scan_join_w4"]["windowed_gather"]["launches"]
         + routes["spill_path_w4"]["windowed_gather"]["launches"]
-        + routes["ckpt_path_w4"]["windowed_gather"]["launches"],
+        + routes["ckpt_path_w4"]["windowed_gather"]["launches"]
+        + routes["obs_path_w4"]["windowed_gather"]["launches"],
         "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
         "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
@@ -5107,7 +5547,8 @@ def main() -> int:
         "replaces": K2_REPLACES,
         "launches": pipe_counts["splitter_probe"]["launches"]
         + routes["spill_path_w4"]["splitter_probe"]["launches"]
-        + routes["ckpt_path_w4"]["splitter_probe"]["launches"],
+        + routes["ckpt_path_w4"]["splitter_probe"]["launches"]
+        + routes["obs_path_w4"]["splitter_probe"]["launches"],
         "max_abs_err": rec2["max_abs_err"], "ms": rec2["ms"],
         "kernel_ms": rec2["kernel_ms"], "scalar_ms": rec2["scalar_ms"],
         "general_ms": rec2["general_ms"],

@@ -39,9 +39,17 @@ The package imports torch and numpy only; pandas and pyarrow are touched
 only by the pandas and Arrow conversions and the file IO, inside the
 calls, which raise ``CylonIOError`` naming the package when it is
 missing.
+
+``obs`` observes a query: ``obs.explain_analyze(fn, ...)`` returns its
+plan tree with per-node rows, bytes and seconds; the metrics registry,
+the flight recorder (``CYLON_TPU_TORCH_TRACE``), the exchange's comm
+matrix and the per-rank report are armed by their switches.
 """
 
 from . import io  # noqa: F401  (readers and writers; pyarrow/pandas lazily)
+from . import obs  # noqa: F401  (metrics, trace, plan, comm, rank report)
+obs.trace.autoarm()     # CYLON_TPU_TORCH_TRACE=path arms the recorder
+obs.metrics.autoarm()   # CYLON_TPU_TORCH_METRICS_JSON=path: final snapshot
 from .core.column import Column
 from .core.dtypes import LogicalType
 from .core.row import Row, Scalar
@@ -58,20 +66,21 @@ from .relational.repart import (concat_tables, filter_table, head,
 from .relational.setops import equals, set_operation, unique_table
 from .relational.sort import local_sort_table, sort_table
 from .series import Series
-from .status import (CylonError, CylonIndexError, CylonIOError,
+from .status import (Code, CylonError, CylonIndexError, CylonIOError,
                      CylonKeyError, CylonTypeError, DeviceUnavailableError,
-                     InvalidError, KernelError, ResumableAbort)
+                     InvalidError, KernelError, ResumableAbort, Status)
 from .utils.logging import set_log_level
 
-__all__ = ["Column", "CylonEnv", "CylonError", "CylonIOError",
+__all__ = ["Code", "Column", "CylonEnv", "CylonError", "CylonIOError",
            "CylonIndexError", "CylonKeyError", "CylonTypeError",
            "DataFrame", "DeferredTable", "DeviceUnavailableError",
            "GroupByDataFrame", "GroupBySink", "InvalidError", "KernelError",
            "LocalConfig", "LogicalType", "ResumableAbort", "Row", "Scalar",
-           "Series", "Table", "VirtualMeshConfig", "chunk_table", "concat",
+           "Series", "Status", "Table", "VirtualMeshConfig", "chunk_table",
+           "concat",
            "concat_tables",
            "equals", "filter_table", "groupby_aggregate", "head", "io",
-           "join_tables", "join_tables_multi", "local_sort_table",
+           "join_tables", "join_tables_multi", "local_sort_table", "obs",
            "pipelined_join", "pipelined_scan_join", "pipelined_set_op",
            "read_pandas", "repad_table", "repartition", "set_log_level",
            "set_operation", "shuffle_table", "slice_table", "sort_table",

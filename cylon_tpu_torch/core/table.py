@@ -382,9 +382,14 @@ def _distribute(cols: dict[str, Column], env: CylonEnv) -> Table:
     n = len(next(iter(cols.values()))) if cols else 0
     w = env.world_size
     chunk = -(-n // w)
+    cap = config.pow2ceil(chunk)
+    # the capacity bucket, a pure function of (rows, world), on the open
+    # plan node (a no-op without a profile)
+    from ..obs.plan import annotate
+    annotate(shape_family=int(cap), ingest_rows=int(n))
     vc = np.asarray([max(0, min(chunk, n - r * chunk)) for r in range(w)],
                     np.int64)
-    return _place_shards(cols, env, vc, config.pow2ceil(chunk))
+    return _place_shards(cols, env, vc, cap)
 
 
 def _place_shards(cols: dict[str, Column], env: CylonEnv, vc: np.ndarray,

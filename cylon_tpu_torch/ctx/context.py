@@ -14,13 +14,25 @@ are W row blocks of one tensor and the all-to-all is an order-preserving
 device-local permutation (parallel/shuffle.py).  A config whose
 ``devices`` name more than one distinct device raises
 ``NotImplementedError``: the multi-card transport is a later slice.
+
+The env carries the reference's collective surface (``rank``,
+``get_next_sequence``, ``add_config``/``get_config``, ``allgather``,
+``gather``, ``bcast``, ``allreduce``, ``barrier``, ``finalize``) in its
+single-controller form: every collective is device-local
+(parallel/collectives.py) and ``barrier`` waits for the device.
 """
 
 from __future__ import annotations
 
+import itertools
+
 import torch
 
 from ..status import DeviceUnavailableError, InvalidError
+
+
+#: the env's monotone op ids (get_next_sequence)
+_seq = itertools.count()
 
 
 class CommConfig:
@@ -93,6 +105,8 @@ class CylonEnv:
         # and no handler otherwise)
         from ..exec.preempt import install as _install_preempt
         _install_preempt()
+        self._conf: dict[str, str] = {}
+        self._finalized = False
         self.serial = CylonEnv._next_serial
         CylonEnv._next_serial += 1
 
@@ -107,6 +121,54 @@ class CylonEnv:
     @property
     def on_cuda(self) -> bool:
         return self.device.type == "cuda"
+
+    @property
+    def rank(self) -> int:
+        """This process's rank: 0, one controller drives every rank."""
+        return 0
+
+    def get_next_sequence(self) -> int:
+        """A monotone op id (tracing tags)."""
+        return next(_seq)
+
+    def add_config(self, key: str, value: str) -> None:
+        self._conf[key] = value
+
+    def get_config(self, key: str, default: str = "") -> str:
+        return self._conf.get(key, default)
+
+    # -- collective surface ------------------------------------------------
+    def allgather(self, table):
+        """AllGather(Table): every shard receives every row."""
+        from ..parallel.collectives import allgather_table
+        return allgather_table(table)
+
+    def gather(self, table, root: int = 0):
+        """Gather(Table, root): every row onto shard ``root``."""
+        from ..parallel.collectives import gather_table
+        return gather_table(table, root)
+
+    def bcast(self, table, root: int = 0):
+        """Bcast(Table): shard ``root``'s rows onto every shard."""
+        from ..parallel.collectives import bcast_table
+        return bcast_table(table, root)
+
+    def allreduce(self, column_or_array, op: str = "sum", valid_counts=None):
+        """AllReduce(Column, op): elementwise across shards, as a host
+        array; pass the table's ``valid_counts`` to mask the padding."""
+        from ..parallel.collectives import allreduce
+        return allreduce(column_or_array, op, valid_counts,
+                         world=self._world)
+
+    def barrier(self) -> None:
+        """Wait until the env's device has run every queued op (one
+        controller, one device: nothing else to wait for); a no-op on
+        the CPU."""
+        if self.on_cuda:
+            torch.cuda.synchronize(self.device)
+
+    def finalize(self) -> None:
+        self._finalized = True
 
     def __repr__(self) -> str:  # pragma: no cover
         return f"CylonEnv(world={self._world}, device={self.device})"

@@ -63,10 +63,11 @@ sends it SIGTERM (the preemption notice).
 Single-controller: one process drives every rank of a
 ``VirtualMeshConfig`` world, so it is rank 0 of one process and writes
 every shard's blocks into ``rank0``.  A serving session's stage namespace
-and resume flag and its drain (slice 13), the fingerprint audit of
-restored tables (slice 16) and the metrics registry and flight recorder
-behind the counters and the abort (slice 12) are not ported; the
-counters are a plain dict with the reference's six keys.
+and resume flag and its drain (slice 13) and the fingerprint audit of
+restored tables (slice 16) are not ported.  The six counters live in the
+metrics registry (``ckpt_*``, obs/metrics.py), and the abort flush
+writes the flight recorder's post-mortem beside the manifests when the
+recorder is armed.
 """
 
 from __future__ import annotations
@@ -109,10 +110,14 @@ def resume_requested() -> bool:
 # stats
 # ---------------------------------------------------------------------------
 
-_STATS = dict.fromkeys((
+# the counters live in the metrics registry (obs/metrics, names
+# ``ckpt_*``): the group view keeps the `_STATS[k] += 1` sites as they are
+from ..obs import metrics as _metrics  # noqa: E402
+
+_STATS = _metrics.group("ckpt", (
     "checkpoint_events", "bytes_checkpointed",
     "resume_fast_forwarded_pieces", "corrupt_pages",
-    "resume_resharded_pieces", "resume_world_mismatch"), 0)
+    "resume_resharded_pieces", "resume_world_mismatch"))
 
 
 def stats() -> dict:
@@ -747,8 +752,10 @@ def drain_abort(label: str) -> None:
 def flush_for_abort(label: str) -> str:
     """The final rung's flush: committed state is already durable (each
     piece commits at its own boundary), so this writes a
-    ``RESUME_TOKEN.json`` naming the stages this process opened and
-    returns the token, the checkpoint root's absolute path."""
+    ``RESUME_TOKEN.json`` naming the stages this process opened (and,
+    with the flight recorder armed, its ``TRACE_POSTMORTEM.json``) and
+    returns the token, the checkpoint root's absolute path.  Both writes
+    are best effort: a failure is logged, never raised."""
     root = ckpt_dir()
     token = os.path.abspath(root)
     try:
@@ -760,4 +767,14 @@ def flush_for_abort(label: str) -> str:
                        "resume": "rerun with CYLON_TPU_TORCH_RESUME=1"}, f)
     except OSError:
         pass  # the committed manifests are the durable state
+    # the flight recorder's last events beside the manifests (armed runs);
+    # best effort, as the token write above: a post-mortem that cannot be
+    # written must not replace the resumable abort its caller raises
+    from ..obs import trace
+    from ..status import ExecutionError
+    try:
+        trace.postmortem(f"abort flush: {label}", dir_path=root)
+    except ExecutionError as e:
+        from ..utils.logging import log
+        log.warning("abort flush %s: %s", label, e)
     return token

@@ -914,14 +914,29 @@ def upload_window(reg: Registration, starts, window: int):
 # stats and logs
 # ---------------------------------------------------------------------------
 
-_STATS = dict.fromkeys(("spill_events", "bytes_spilled", "readmit_events",
-                        "bytes_readmitted"), 0)
-#: disk-tier counters: demote/promote events, pages and bytes, IO retries
-#: at the disk sites, owners retired on a failed page check, and
-#: demotions that stayed in memory
-_DSTATS = dict.fromkeys(("events", "pages_demoted", "pages_promoted",
-                         "bytes_demoted", "bytes_promoted", "retries",
-                         "corrupt_degrades", "write_degrades"), 0)
+# the counters live in the metrics registry (obs/metrics): the group
+# views keep the `_STATS[k] += 1` sites and stats() as they are
+from ..obs import metrics as _metrics  # noqa: E402
+
+_STATS = _metrics.group("memory", (
+    "spill_events", "bytes_spilled", "readmit_events", "bytes_readmitted"))
+#: disk-tier counters (registry names ``memory_disk_*``): demote/promote
+#: events, pages and bytes, IO retries at the disk sites, owners retired
+#: on a failed page check, and demotions that stayed in memory
+_DSTATS = _metrics.group("memory_disk", (
+    "events", "pages_demoted", "pages_promoted", "bytes_demoted",
+    "bytes_promoted", "retries", "corrupt_degrades", "write_degrades"))
+
+_metrics.gauge("memory_ledger_bytes",
+               help="current resident-ledger balance (bytes)",
+               fn=lambda: _LEDGER.balance())
+_metrics.gauge("memory_peak_ledger_bytes",
+               help="resident-ledger high-water mark (bytes)",
+               fn=lambda: _LEDGER.peak)
+_metrics.gauge("memory_host_ledger_bytes",
+               help="host-resident spill balance (bytes), the disk tier's "
+                    "CYLON_TPU_TORCH_HOST_BUDGET predicate",
+               fn=lambda: _LEDGER.host_balance())
 #: owners in eviction order since the last reset
 _EVICTION_LOG: list[str] = []
 #: owners in demotion order since the last reset

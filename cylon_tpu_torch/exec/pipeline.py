@@ -63,13 +63,17 @@ past the committed prefix (or re-shards a whole stage committed at
 another world), and with a preemption grace armed a SIGTERM drains at the
 next piece boundary.
 
-Left out: plan nodes and traces (slice 12), and the serving tier's
-interleave point at each chunk or batch boundary and its admission of a
-scan batch (slice 13).
+Each entry opens its plan node (obs/plan.py: ``pipelined_join`` with its
+route, ranges and piece caps, ``pipelined_set_op``,
+``pipelined_scan_join``); with the flight recorder armed each piece adds
+a dispatch span and each sink chunk an in-flight pair.  Left out: the
+serving tier's interleave point at each chunk or batch boundary and its
+admission of a scan batch (slice 13).
 """
 
 from __future__ import annotations
 
+import time
 from collections.abc import Sequence
 
 import numpy as np
@@ -79,6 +83,8 @@ from .. import config
 from ..core.column import Column
 from ..core.dtypes import LogicalType, np_dtype_of
 from ..core.table import Table
+from ..obs import plan as _plan
+from ..obs import trace as _trace
 from ..ops import pack
 from ..ops import splitter_probe
 from ..parallel.shards import map_shards, shard
@@ -166,29 +172,36 @@ def pipelined_set_op(a: Table, b: Table, op: str, n_chunks: int = 4):
     if op not in ("union", "intersect", "subtract"):
         raise InvalidError(f"unknown set op {op!r}")
     env = check_same_env(a, b)
-    a, b = _align_schemas(a, b)
-    names = a.column_names
-    if env.world_size > 1 and op != "union":
-        b = shuffle_table(b, names)     # the resident side, once
-    parts = []
-    for chunk in chunk_table(a, n_chunks):
-        # each chunk's copy is admitted on the ledger: under pressure the
-        # cold spillable owners evict to host memory
-        memory.ensure_headroom(env, memory.table_nbytes(chunk))
+    with _plan.node("pipelined_set_op", kind=op,
+                    n_chunks=int(n_chunks)) as pn:
+        if pn:
+            pn.set(rows_in=a.row_count + b.row_count)
+        a, b = _align_schemas(a, b)
+        names = a.column_names
+        if env.world_size > 1 and op != "union":
+            b = shuffle_table(b, names)     # the resident side, once
+        parts = []
+        for chunk in chunk_table(a, n_chunks):
+            # each chunk's copy is admitted on the ledger: under pressure
+            # the cold spillable owners evict to host memory
+            memory.ensure_headroom(env, memory.table_nbytes(chunk))
+            if op == "union":
+                # unique_table shuffles the chunk itself
+                parts.append(unique_table(chunk))
+            else:
+                if env.world_size > 1:
+                    chunk = shuffle_table(chunk, names)
+                parts.append(_set_operation_impl(chunk, b, op,
+                                                 assume_colocated=True))
+            del chunk
         if op == "union":
-            # unique_table shuffles the chunk itself
-            parts.append(unique_table(chunk))
-        else:
-            if env.world_size > 1:
-                chunk = shuffle_table(chunk, names)
-            parts.append(_set_operation_impl(chunk, b, op,
-                                             assume_colocated=True))
-        del chunk
-    if op == "union":
-        parts.append(unique_table(b))
-    combined = concat_tables(parts) if len(parts) > 1 else parts[0]
-    del parts
-    return unique_table(combined)
+            parts.append(unique_table(b))
+        combined = concat_tables(parts) if len(parts) > 1 else parts[0]
+        del parts
+        res = unique_table(combined)
+        if pn:
+            pn.set(rows_out=res.row_count)
+        return res
 
 
 class GroupBySink:
@@ -244,6 +257,11 @@ class GroupBySink:
         before the previous piece's meta is read (one deep)."""
         from ..relational.fused import try_begin_join_groupby
         from ..relational.groupby import _normalize_aggs, groupby_aggregate
+        # a trace span per piece from its arrival to its partial's
+        # adoption (one piece later for a deferred piece): the overlap of
+        # dispatch and consume on the timeline
+        _trace.async_begin("sink.chunk_inflight",
+                           self._adopted + len(self._pending))
         specs = _normalize_aggs(list(self._chunk_aggs))
         h = try_begin_join_groupby(chunk, self.by, specs, 1)
         if h is not None:
@@ -277,6 +295,7 @@ class GroupBySink:
         self._regs.append(memory.register_table("sink_part", part))
         if self._ckpt is not None:
             self._ckpt.save_piece(self._adopted, part)
+        _trace.async_end("sink.chunk_inflight", self._adopted)
         self._adopted += 1
 
     def flush_pending(self) -> None:
@@ -441,6 +460,26 @@ def pipelined_join(left: Table, right: Table, left_on, right_on,
     if how not in ("inner", "left", "right", "outer"):
         raise InvalidError(
             "pipelined_join supports how in ('inner','left','right','outer')")
+    with _plan.node("pipelined_join", how=how, n_chunks=int(n_chunks),
+                    sink=(type(sink).__name__ if sink is not None
+                          else None)) as pn:
+        if pn:
+            pn.set(rows_in=left.row_count + right.row_count)
+            # the probe side's heavy hitters (analyze runs): the right
+            # table of a right join, as on the skew route
+            probe, probe_on = ((right, right_on) if how == "right"
+                               else (left, left_on))
+            po = [probe_on] if isinstance(probe_on, str) else list(probe_on)
+            _plan.profile_keys(pn, probe, po)
+        res = _pipelined_join_impl(left, right, left_on, right_on, how,
+                                   n_chunks, suffixes, sink, pn)
+        if pn and type(res) is Table:
+            pn.set(rows_out=res.row_count)
+        return res
+
+
+def _pipelined_join_impl(left: Table, right: Table, left_on, right_on,
+                         how: str, n_chunks: int, suffixes, sink, pn):
     env = check_same_env(left, right)
     left_on = [left_on] if isinstance(left_on, str) else list(left_on)
     right_on = [right_on] if isinstance(right_on, str) else list(right_on)
@@ -474,6 +513,8 @@ def pipelined_join(left: Table, right: Table, left_on, right_on,
         # materializes the join: same groups, same order, integer sums
         # bit-equal (float sums may differ in association order).  Other
         # join types materialize, as in the reference.
+        if pn:
+            pn.annotate(route="monolithic")
         res = join_tables(lwork, rwork, left_on, right_on, how=how,
                           suffixes=suffixes, assume_colocated=True,
                           allow_defer=sink is not None)
@@ -548,6 +589,13 @@ def pipelined_join(left: Table, right: Table, left_on, right_on,
               for r in range(n_ranges)]
     caps_r = [config.pow2ceil(max(int(r_lens[:, r].max()), 1))
               for r in range(n_ranges)]
+    if pn:
+        # the piece geometry EXPLAIN prints: every piece is a packed
+        # window and the setup phases queue with no host wait between
+        # them; the port donates no buffer
+        pn.annotate(route="range_pipeline", n_ranges=n_ranges,
+                    max_cap_l=max(caps_l), max_cap_r=max(caps_r),
+                    packed=True, overlap=True, donate=False)
 
     # piece-cap sizing consults the ledger: admission of the packed
     # sources folds in the sort operands of the largest piece pair, on
@@ -559,6 +607,8 @@ def pipelined_join(left: Table, right: Table, left_on, right_on,
                             scratch_bytes=scratch)
         src_r = PieceSource(rsorted, max(caps_r), scratch_bytes=scratch)
     del lsorted, rsorted
+    if pn:
+        pn.annotate(spilled=bool(src_l.spilled or src_r.spilled))
 
     def qualifies(r) -> bool:
         # a range runs when the join can emit rows there
@@ -591,6 +641,8 @@ def pipelined_join(left: Table, right: Table, left_on, right_on,
             tuple(int(x) for x in r_lens.sum(axis=0)))
         stage = checkpoint.open_stage(env, "pipelined_join", token,
                                       base_token=base)
+        if pn:
+            pn.annotate(ckpt=True)
         if sink is not None:
             sink.attach_checkpoint(stage)
     start, outs, adopted_whole = 0, [], False
@@ -623,6 +675,10 @@ def pipelined_join(left: Table, right: Table, left_on, right_on,
         nxt = (piece_future(live_ranges[start])
                if start < len(live_ranges) else None)
         for i in range(start, len(live_ranges)):
+            # a dispatch span per piece on the trace timeline (armed
+            # runs), beside the sink's in-flight span
+            trace_armed = _trace.armed()
+            t_disp = time.perf_counter() if trace_armed else 0.0
             piece_l, piece_r = nxt.get()
             nxt = None
             if i + 1 < len(live_ranges) and prefetch_ok(live_ranges[i + 1]):
@@ -632,6 +688,9 @@ def pipelined_join(left: Table, right: Table, left_on, right_on,
                                     how=how, suffixes=suffixes,
                                     assume_colocated=True,
                                     allow_defer=sink is not None)
+            if trace_armed:
+                _trace.complete("pipe.piece_dispatch", t_disp,
+                                piece=int(live_ranges[i]))
             del piece_l, piece_r
             with timing.region("pipe.consume"):
                 outs.append(sink(res_r) if sink is not None else res_r)
@@ -766,52 +825,63 @@ def pipelined_scan_join(scan, build: Table, scan_on, build_on,
             "materialize the read and use pipelined_join instead")
     scan_on = [scan_on] if isinstance(scan_on, str) else list(scan_on)
     build_on = [build_on] if isinstance(build_on, str) else list(build_on)
-    env = build.env
-    w = env.world_size
-    bwork = None
-    outs: list = []
-    n_batches = 0
-    for batch in scan:
-        n_batches += 1
-        check_same_env(batch, build)
-        # promotion against the already promoted build columns is
-        # batch-independent for numeric keys: the build promotes once
-        bk = [batch.column(n) for n in scan_on]
-        rk = [(build if bwork is None else bwork).column(n)
-              for n in build_on]
-        pairs = [promote_key_pair(a, b) for a, b in zip(bk, rk)]
-        if any(p.dictionary is not None for pair in pairs for p in pair):
-            raise InvalidError(
-                "pipelined_scan_join: dictionary-encoded join keys "
-                "are per-batch-coded and cannot hash-colocate "
-                "against a once-shuffled build — materialize the "
-                "read and use pipelined_join")
-        batch = batch.with_columns(
-            {n: p for n, (p, _) in zip(scan_on, pairs)})
-        if bwork is None:
-            bwork = build.with_columns(
-                {n: p for n, (_, p) in zip(build_on, pairs)})
+    with _plan.node("pipelined_scan_join", how=how,
+                    sink=(type(sink).__name__ if sink is not None
+                          else None)) as pn:
+        env = build.env
+        w = env.world_size
+        bwork = None
+        outs: list = []
+        rows_in = 0
+        n_batches = 0
+        for batch in scan:
+            n_batches += 1
+            rows_in += batch.row_count
+            check_same_env(batch, build)
+            # promotion against the already promoted build columns is
+            # batch-independent for numeric keys: the build promotes once
+            bk = [batch.column(n) for n in scan_on]
+            rk = [(build if bwork is None else bwork).column(n)
+                  for n in build_on]
+            pairs = [promote_key_pair(a, b) for a, b in zip(bk, rk)]
+            if any(p.dictionary is not None for pair in pairs for p in pair):
+                raise InvalidError(
+                    "pipelined_scan_join: dictionary-encoded join keys "
+                    "are per-batch-coded and cannot hash-colocate "
+                    "against a once-shuffled build — materialize the "
+                    "read and use pipelined_join")
+            batch = batch.with_columns(
+                {n: p for n, (p, _) in zip(scan_on, pairs)})
+            if bwork is None:
+                bwork = build.with_columns(
+                    {n: p for n, (_, p) in zip(build_on, pairs)})
+                if w > 1:
+                    with timing.region("join.shuffle"):
+                        bwork = shuffle_table(bwork, build_on)   # ONCE
+                memory.register_table("scan_build", bwork)
+            memory.ensure_headroom(env, memory.table_nbytes(batch))
+            reg = memory.register_table("scan_batch", batch)
             if w > 1:
                 with timing.region("join.shuffle"):
-                    bwork = shuffle_table(bwork, build_on)   # ONCE
-            memory.register_table("scan_build", bwork)
-        memory.ensure_headroom(env, memory.table_nbytes(batch))
-        reg = memory.register_table("scan_batch", batch)
-        if w > 1:
-            with timing.region("join.shuffle"):
-                batch = shuffle_table(batch, scan_on)
-        with timing.region("pipe.scan_join"):
-            res = join_tables(batch, bwork, scan_on, build_on, how=how,
-                              suffixes=suffixes, assume_colocated=True,
-                              allow_defer=sink is not None)
-        del batch
-        with timing.region("pipe.consume"):
-            outs.append(sink(res) if sink is not None else res)
-        del res
-        memory.release(reg)
-    if n_batches == 0:
-        raise CylonIOError("pipelined_scan_join: the scan yielded "
-                           "no batches")
-    if sink is not None:
-        return outs
-    return concat_tables(outs) if len(outs) > 1 else outs[0]
+                    batch = shuffle_table(batch, scan_on)
+            with timing.region("pipe.scan_join"):
+                res = join_tables(batch, bwork, scan_on, build_on, how=how,
+                                  suffixes=suffixes, assume_colocated=True,
+                                  allow_defer=sink is not None)
+            del batch
+            with timing.region("pipe.consume"):
+                outs.append(sink(res) if sink is not None else res)
+            del res
+            memory.release(reg)
+        if n_batches == 0:
+            raise CylonIOError("pipelined_scan_join: the scan yielded "
+                               "no batches")
+        if pn:
+            pn.set(rows_in=rows_in + build.row_count)
+            pn.annotate(route="scan_pushdown", n_batches=n_batches)
+        if sink is not None:
+            return outs
+        out = concat_tables(outs) if len(outs) > 1 else outs[0]
+        if pn:
+            pn.set(rows_out=out.row_count)
+        return out

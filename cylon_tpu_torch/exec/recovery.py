@@ -289,6 +289,14 @@ def maybe_inject(site: str, intercept: tuple = ()) -> str | None:
         import signal
         if kind == "term":
             _record(site, kind, "sigterm")
+        else:
+            # SIGKILL leaves no unwind: the flight recorder's post-mortem
+            # (armed runs) is written here, beside the manifests
+            try:
+                from ..obs import trace
+                trace.postmortem(f"injected kill at {site}")
+            except Exception:  # noqa: BLE001 — the kill proceeds regardless
+                pass
         os.kill(os.getpid(), signal.SIGKILL if kind == "kill"
                 else signal.SIGTERM)
         return None
@@ -342,9 +350,16 @@ def reset_events() -> None:
 _WIRE = 1 << 20
 
 
+def _voted(what: str, wire: int) -> int:
+    """The agreed wire of one vote, on the trace timeline (armed runs)."""
+    from ..obs import trace
+    trace.instant("consensus." + what, wire=int(wire))
+    return wire
+
+
 def consensus_code(env, code) -> Code:
     """The agreed (max) status code over the world's ranks."""
-    return Code(int(code))
+    return Code(_voted("exchange.consensus", int(code)))
 
 
 def guard_consensus(env, local_fault: bool) -> bool:
@@ -363,7 +378,7 @@ def spill_consensus(env, local_need: bool) -> bool:
 def count_consensus(env, n: int) -> int:
     """Max-agree a small count (the spill tier's eviction and demotion
     counts): every rank then evicts as many owners."""
-    return min(max(int(n), 0), _WIRE - 1)
+    return _voted("exchange.count", min(max(int(n), 0), _WIRE - 1))
 
 
 def drain_consensus(env, local_flag: bool) -> bool:
@@ -387,7 +402,7 @@ def ckpt_commit_consensus(env, epoch: int) -> int:
     epoch = int(epoch)
     if not 0 <= epoch < _CKPT_EPOCH_BASE:
         raise ValueError(f"checkpoint epoch {epoch} out of wire range")
-    return epoch
+    return _voted("ckpt.commit", epoch)
 
 
 def ckpt_resume_consensus(env, n: int) -> int:
@@ -397,7 +412,7 @@ def ckpt_resume_consensus(env, n: int) -> int:
     n = int(n)
     if not 0 <= n < _CKPT_EPOCH_BASE:
         raise ValueError(f"resume fast-forward count {n} out of wire range")
-    return n
+    return _voted("ckpt.resume", n)
 
 
 def skew_plan_consensus(env, plan_hash: int) -> None:
@@ -456,7 +471,11 @@ def exchange_watchdog(site: str, thunk, timeout_s: float | None = None,
 # ---------------------------------------------------------------------------
 
 #: transient-OSError retries taken by retry_io, every site together
-IO_RETRIES = [0]
+from ..obs import metrics as _obs_metrics  # noqa: E402
+
+IO_RETRIES = _obs_metrics.counter(
+    "recovery_io_retries",
+    help="transient-OSError retries taken by the bounded IO backoff")
 
 #: errnos that no short backoff heals: the caller's degrade path owns them
 _NON_TRANSIENT_ERRNOS = frozenset(
@@ -477,7 +496,7 @@ def retry_io(fn, site: str, attempts: int = 3, base_delay_s: float = 0.05,
     last: OSError | None = None
     for i in range(max(int(attempts), 1)):
         if i:
-            IO_RETRIES[0] += 1
+            IO_RETRIES.inc()
             timing.bump(f"io_retry.{site}")
             if on_retry is not None:
                 on_retry()

@@ -26,9 +26,13 @@ A hash shuffle's exchange runs the receive-budget guard first
 known from the count sidecar, above ``EXCHANGE_RECV_BUDGET_BYTES`` raises
 ``PredictedResourceExhausted`` before anything is allocated, and the
 retry ladder streams instead.  The count pull runs under the exchange
-watchdog.  Not ported (ROADMAP.md): the two-hop topology route, the
-receive buffers' ledger registration, the integrity audit and the comm
-counters.
+watchdog.  Every exchange adds to the always-on registry counters
+``exchange_rows_total``, ``exchange_bytes_total`` and ``exchange_count``
+(host arithmetic on the pulled count matrix); with the comm matrix armed
+or a plan profile active it also records its matrix (obs/plan.
+record_exchange).  Not ported (ROADMAP.md): the two-hop topology route
+and its tier counters, the receive buffers' ledger registration and the
+integrity audit.
 """
 
 from __future__ import annotations
@@ -37,6 +41,9 @@ import numpy as np
 import torch
 
 from .. import config
+from ..obs import comm as _comm
+from ..obs import metrics as _metrics
+from ..obs import plan as _plan
 from ..ops import hashing
 from ..relational.common import live_mask
 from ..status import InvalidError
@@ -197,10 +204,17 @@ def exchange(env, tgt: torch.Tensor, counts: np.ndarray, cols: tuple,
                            f"world size must be at most {MAX_WORLD}, got {w}")
     per_dest = counts.sum(axis=0).astype(np.int64)
     out_cap = config.pow2ceil(int(per_dest.max()) if per_dest.size else 1)
+    row_bytes = sum(c.element_size() * int(np.prod(c.shape[1:],
+                                                   dtype=np.int64))
+                    for c in cols)
     if guard:
-        _recv_guard(env, out_cap, sum(
-            c.element_size() * int(np.prod(c.shape[1:], dtype=np.int64))
-            for c in cols))
+        _recv_guard(env, out_cap, row_bytes)
+    total = int(per_dest.sum())
+    _metrics.counter("exchange_rows_total").inc(total)
+    _metrics.counter("exchange_bytes_total").inc(total * row_bytes)
+    _metrics.counter("exchange_count").inc()
+    if _comm.armed() or _plan.active():
+        _plan.record_exchange(counts, row_bytes, site="shuffle.recv")
     # stable: equal targets keep their global (source-major) order
     order = torch.sort(tgt.to(torch.uint8), stable=True).indices
     starts = np.concatenate([[0], np.cumsum(per_dest)])

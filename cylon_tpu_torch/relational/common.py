@@ -274,6 +274,42 @@ def check_same_env(a: Table, b: Table) -> CylonEnv:
     return a.env
 
 
+def _key_value_repr(col: Column, vals: np.ndarray):
+    """Host naming of sampled key values: numerics as they are, sorted
+    dictionary string codes as their strings, hashed-string codes as
+    codes (stable but opaque)."""
+    if col.type == LogicalType.STRING:
+        d = col.dictionary
+        if isinstance(d, np.ndarray) and len(d):
+            return d[np.clip(vals.astype(np.int64), 0, len(d) - 1)]
+    return vals
+
+
+def sample_keys(table: Table, key_names: list, m: int | None = None,
+                with_hashes: bool = False):
+    """Sample ``table``'s key columns for the heavy-hitter profiler
+    (obs/plan.key_profile): ``(values, weights, total_rows)``, the
+    sampled key identities (the values of a single key column, the row
+    hashes of a composite key), each shard's live row count split over
+    its samples, and the global live row count; ``with_hashes`` appends
+    the routing hash of each sample.  The rows are
+    :func:`sample_key_rows`' (the reference's positions).  None for an
+    empty table."""
+    sampled = sample_key_rows(table, key_names, m=m)
+    if sampled is None:
+        return None
+    vals, _valids, hashes, weights, total = sampled
+    if len(key_names) == 1:
+        values = np.asarray(_key_value_repr(table.column(key_names[0]),
+                                            vals[0]))
+    else:
+        values = hashes
+    out = (values, np.asarray(weights, np.float64), total)
+    if with_hashes:
+        out += (hashes.astype(np.uint32),)
+    return out
+
+
 def sample_key_rows(table: Table, key_names: list, m: int | None = None):
     """Shard-weighted sample of FULL key tuples for the skew-split
     detector (relational/skew.py): ``(values, valids, hashes, weights,

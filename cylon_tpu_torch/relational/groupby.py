@@ -42,6 +42,7 @@ from ..core.column import Column, HashedStrings
 from ..core.dtypes import (LogicalType, from_numpy_dtype, np_dtype_of,
                            physical_np_dtype, torch_dtype)
 from ..core.table import Table
+from ..obs import plan as _plan
 from ..ops import groupby as gbk
 from ..ops import lanes, pack
 from ..ops.sort import take_data
@@ -517,24 +518,43 @@ def groupby_aggregate(table: Table, by, aggs, ddof: int = 1) -> Table:
     ``GroupBySink`` over ``chunk_table(table, n)``, n = 4 then 16) under
     the retry ladder (exec/recovery.run_with_recovery), when every op
     decomposes through public partials (sum/count/min/max/mean/var/std)."""
+    from ..core.table import DeferredTable
     from ..exec.pipeline import GroupBySink, chunk_table
     from .common import run_with_oom_fallback
-    # a stitch-deferred skew join hands over its split layout: an
-    # aggregation cannot observe row order or placement, so the stitch
-    # never runs for a join → groupby
     from .skew import consume_unstitched
-    table = consume_unstitched(table)
 
     def fallback(nc):
+        _plan.annotate(route="chunked_sink", n_chunks=nc)
         sink = GroupBySink(by, aggs, ddof=ddof)
         for ch in chunk_table(table, nc):
             sink(ch)
         return sink.finalize()
 
-    return run_with_oom_fallback(
-        lambda: _groupby_attempt(table, by, aggs, ddof),
-        can_fallback=all(a[1] in GroupBySink._DECOMP for a in aggs),
-        fallback=fallback, label="groupby", env=table.env)
+    by_l = [by] if isinstance(by, str) else list(by)
+    with _plan.node("groupby", by=tuple(by_l),
+                    aggs=tuple((a[0], a[1]) for a in aggs
+                               if isinstance(a, (list, tuple))
+                               and len(a) >= 2)) as pn:
+        # a stitch-deferred skew join hands over its split layout: an
+        # aggregation cannot observe row order or placement, so the
+        # stitch never runs for a join → groupby
+        table = consume_unstitched(table)
+        if pn:
+            # a deferred input stays untouched: its counts or a key
+            # sample would force the materialization the fused pushdown
+            # avoids
+            if not isinstance(table, DeferredTable):
+                pn.set(rows_in=table.row_count)
+                _plan.profile_keys(pn, table, by_l)
+            else:
+                pn.annotate(deferred_input=True)
+        res = run_with_oom_fallback(
+            lambda: _groupby_attempt(table, by, aggs, ddof),
+            can_fallback=all(a[1] in GroupBySink._DECOMP for a in aggs),
+            fallback=fallback, label="groupby", env=table.env)
+        if pn and type(res) is Table:
+            pn.set(rows_out=res.row_count)
+        return res
 
 
 def _groupby_attempt(table, by, aggs, ddof: int) -> Table:
@@ -549,6 +569,7 @@ def _groupby_attempt(table, by, aggs, ddof: int) -> Table:
     from .fused import try_join_groupby_pushdown
     pushed = try_join_groupby_pushdown(table, by, specs, ddof)
     if pushed is not None:
+        _plan.annotate(route="fused_pushdown")
         return pushed
     # a deferred skew join the pushdown declined: its split layout too
     table = consume_unstitched(table, include_deferred=True)
@@ -589,13 +610,18 @@ def _groupby_aggregate_impl(table: Table, by: list, specs, ddof: int) -> Table:
     val_map = tuple(uniq_names.index(c) for c, _, _, _ in specs)
 
     if distributed and all_assoc and not grouped:
+        _plan.annotate(route="combine_shuffle")
         return _combine_route(table, by, by_cols, specs, uniq_names,
                               val_map, narrow, ddof, res_names, res_types,
                               res_dicts)
 
     # non-associative ops (or local, or grouped input): co-locate raw rows
+    _plan.annotate(route="grouped_fastpath" if grouped else "raw")
     work = table.project(list(dict.fromkeys(by + uniq_names)))
     if distributed and not grouped:
+        # the one groupby route a heavy key can pile onto one rank: every
+        # row of a group must meet (quantile, median, nunique)
+        _plan.annotate(skew_vulnerable=True)
         work = shuffle_table(work, by)
     by_datas, by_valids = col_arrays([work.column(n) for n in by])
     uval_cols = [work.column(c) for c in uniq_names]

@@ -48,6 +48,7 @@ import torch
 from .. import config
 from ..core.column import Column
 from ..core.table import DeferredTable, Table
+from ..obs import plan as _plan
 from ..ops import join as joink
 from ..ops import lanes
 from ..ops import pack
@@ -327,11 +328,13 @@ def _shuffle_for_join(lwork: Table, rwork: Table, left_on, right_on,
             and rwork.row_count <= bc
             and lwork.row_count >= 4 * max(rwork.row_count, 1)):
         timing.bump("join.broadcast")
+        _plan.annotate(route="broadcast", broadcast_side="right")
         return lwork, allgather_table(rwork), True
     if (how in ("inner", "right")
             and lwork.row_count <= bc
             and rwork.row_count >= 4 * max(lwork.row_count, 1)):
         timing.bump("join.broadcast")
+        _plan.annotate(route="broadcast", broadcast_side="left")
         return allgather_table(lwork), rwork, True
 
     if how in ("inner", "left", "right", "outer") and config.SKEW_SPLIT:
@@ -347,12 +350,14 @@ def _shuffle_for_join(lwork: Table, rwork: Table, left_on, right_on,
                                                 build, build_on)
         if plan is not None:
             skewmod.adopt(plan, env)
+            _plan.annotate(route="skew_split", skew_plan=plan.summary())
             with timing.region("skew.split_exchange"):
                 probe_out, build_out = skewmod.split_exchange(
                     probe, probe_on, build, build_on, plan)
             if how == "right":
                 return build_out, probe_out, plan
             return probe_out, build_out, plan
+        _plan.annotate(skew_split_armed=True, skew_split_keys=0)
 
     if how in ("semi", "anti"):
         heavy = _heavy_keys(lwork, left_on, env)
@@ -362,8 +367,10 @@ def _shuffle_for_join(lwork: Table, rwork: Table, left_on, right_on,
             if (build_heavy.row_count * env.world_size
                     > config.SKEW_GUARD_RATIO * max(rwork.row_count, 1)
                     and build_heavy.row_count > config.SKEW_GUARD_ROWS):
+                _plan.annotate(route="hash", skew_guard_fallback=True)
                 return (shuffle_table(lwork, left_on),
                         shuffle_table(rwork, right_on), False)
+            _plan.annotate(route="skew_split", heavy_keys=int(len(heavy)))
             build_light = filter_table(rwork, ~flag)
             build_out = concat_tables([shuffle_table(build_light, right_on),
                                        allgather_table(build_heavy)])
@@ -460,21 +467,45 @@ def join_tables(left: Table, right: Table, left_on, right_on,
     if how not in HOW:
         raise InvalidError(f"how must be one of {HOW}, got {how!r}")
     if isinstance(left, PackedPiece) or isinstance(right, PackedPiece):
-        return _join_packed_entry(left, right, left_on, right_on, how,
-                                  suffixes, coalesce_keys, allow_defer)
+        # one node per piece: the window caps are the piece geometry
+        with _plan.node(
+                "join.piece", how=how,
+                cap_l=int(getattr(left, "piece_cap", 0)),
+                cap_r=int(getattr(right, "piece_cap", 0))) as pn:
+            if pn:
+                pn.set(rows_in=int(getattr(left, "lens", np.zeros(1)).sum()
+                                   + getattr(right, "lens",
+                                             np.zeros(1)).sum()))
+            res = _join_packed_entry(left, right, left_on, right_on, how,
+                                     suffixes, coalesce_keys, allow_defer)
+            if pn and type(res) is Table:
+                pn.set(rows_out=res.row_count)
+            return res
 
     def fallback(nc):
         from ..exec.pipeline import pipelined_join
         return pipelined_join(left, right, left_on, right_on, how=how,
                               n_chunks=nc, suffixes=suffixes)
 
-    return run_with_oom_fallback(
-        lambda: _join_tables_impl(left, right, left_on, right_on, how,
-                                  suffixes, coalesce_keys, assume_colocated,
-                                  allow_defer),
-        can_fallback=(not assume_colocated and coalesce_keys
-                      and how not in ("semi", "anti")),
-        fallback=fallback, label="join", env=left.env)
+    lo = [left_on] if isinstance(left_on, str) else list(left_on)
+    ro = [right_on] if isinstance(right_on, str) else list(right_on)
+    with _plan.node(
+            "join", how=how, left_on=tuple(lo), right_on=tuple(ro),
+            route=("colocated" if assume_colocated
+                   or left.env.world_size == 1 else "hash")) as pn:
+        if pn:
+            pn.set(rows_in=left.row_count + right.row_count)
+            _plan.profile_keys(pn, left, lo)
+        res = run_with_oom_fallback(
+            lambda: _join_tables_impl(left, right, left_on, right_on, how,
+                                      suffixes, coalesce_keys,
+                                      assume_colocated, allow_defer),
+            can_fallback=(not assume_colocated and coalesce_keys
+                          and how not in ("semi", "anti")),
+            fallback=fallback, label="join", env=left.env)
+        if pn and type(res) is Table:
+            pn.set(rows_out=res.row_count)
+        return res
 
 
 def _join_tables_impl(left: Table, right: Table, left_on, right_on,

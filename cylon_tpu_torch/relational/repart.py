@@ -25,6 +25,7 @@ from ..core.column import Column, PassthroughValues
 from ..core.dtypes import LogicalType
 from ..core.table import Table
 from ..ctx.context import CylonEnv
+from ..obs import plan as _plan
 from ..ops import lanes
 from ..ops import sort as sortk
 from ..parallel import shuffle
@@ -84,14 +85,20 @@ def shuffle_table(table: Table, key_names) -> Table:
     env = table.env
     if env.world_size == 1:
         return table
-    with timing.region("shuffle.hash"):
-        keys = [table.column(n) for n in key_names]
-        datas, valids = col_arrays(keys)
-        tgt = shuffle.hash_targets(env, datas, valids, table.valid_counts)
-        counts = shuffle.count_targets(env, tgt)
-    # hash shuffles run under the join/groupby/set-op OOM fallbacks: the
-    # receive-budget guard may refuse a receive before it is allocated
-    return exchange_by_targets(table, tgt, counts, guard=True)
+    with _plan.node("shuffle", keys=tuple(key_names),
+                    owner="shuffle.recv") as pn:
+        if pn:
+            pn.set(rows_in=table.row_count, rows_out=table.row_count)
+        with timing.region("shuffle.hash"):
+            keys = [table.column(n) for n in key_names]
+            datas, valids = col_arrays(keys)
+            tgt = shuffle.hash_targets(env, datas, valids,
+                                       table.valid_counts)
+            counts = shuffle.count_targets(env, tgt)
+        # hash shuffles run under the join/groupby/set-op OOM fallbacks:
+        # the receive-budget guard may refuse a receive before it is
+        # allocated
+        return exchange_by_targets(table, tgt, counts, guard=True)
 
 
 def exchange_by_targets(table: Table, tgt, counts: np.ndarray,
@@ -225,15 +232,18 @@ def repartition(table: Table, rows_per_partition=None) -> Table:
         return table
     if np.array_equal(dest, table.valid_counts):
         return table
-    with timing.region("repart.targets"):
-        tgt = _order_preserving_targets(table, dest)
-    vc = np.asarray(table.valid_counts, np.int64)
-    soff = np.concatenate([[0], np.cumsum(vc)[:-1]])
-    dof = np.concatenate([[0], np.cumsum(dest)[:-1]])
-    lo, hi = soff[:, None], (soff + vc)[:, None]
-    counts = np.maximum(0, np.minimum(hi, dof + dest)
-                        - np.maximum(lo, dof)).astype(np.int64)
-    return exchange_by_targets(table, tgt, counts)
+    with _plan.node("repartition", order_preserving=True) as pn:
+        if pn:
+            pn.set(rows_in=total, rows_out=total)
+        with timing.region("repart.targets"):
+            tgt = _order_preserving_targets(table, dest)
+        vc = np.asarray(table.valid_counts, np.int64)
+        soff = np.concatenate([[0], np.cumsum(vc)[:-1]])
+        dof = np.concatenate([[0], np.cumsum(dest)[:-1]])
+        lo, hi = soff[:, None], (soff + vc)[:, None]
+        counts = np.maximum(0, np.minimum(hi, dof + dest)
+                            - np.maximum(lo, dof)).astype(np.int64)
+        return exchange_by_targets(table, tgt, counts)
 
 
 def repad_table(table: Table, new_cap: int) -> Table:

@@ -54,7 +54,6 @@ def unique_table(table: Table, subset=None, keep: str = "first") -> Table:
     """Drop duplicate rows, compared on the ``subset`` columns (default
     all), keeping each value's first or last occurrence in global row
     order."""
-    env = table.env
     subset = list(subset) if subset is not None else table.column_names
     if keep not in ("first", "last"):
         raise InvalidError("keep must be 'first' or 'last'")
@@ -63,6 +62,18 @@ def unique_table(table: Table, subset=None, keep: str = "first") -> Table:
             raise InvalidError(
                 f"unique on list passthrough column {n!r} is not supported "
                 "(codes are row ids, not value-equal)")
+    from ..obs import plan as _plan
+    with _plan.node("unique", subset=tuple(subset), keep=keep) as pn:
+        if pn:
+            pn.set(rows_in=table.row_count)
+        res = _unique_impl(table, subset, keep)
+        if pn:
+            pn.set(rows_out=res.row_count)
+        return res
+
+
+def _unique_impl(table: Table, subset: list, keep: str) -> Table:
+    env = table.env
     if env.world_size > 1:
         table = shuffle_table(table, subset)
     w, cap = env.world_size, table.capacity
@@ -123,10 +134,18 @@ def set_operation(a: Table, b: Table, op: str,
         from ..exec.pipeline import pipelined_set_op
         return pipelined_set_op(a, b, op, n_chunks=nc)
 
-    return run_with_oom_fallback(
-        lambda: _set_operation_impl(a, b, op, assume_colocated),
-        can_fallback=not assume_colocated, fallback=fb, label="set_op",
-        env=a.env)
+    from ..obs import plan as _plan
+    with _plan.node("set_op", kind=op,
+                    colocated=bool(assume_colocated)) as pn:
+        if pn:
+            pn.set(rows_in=a.row_count + b.row_count)
+        res = run_with_oom_fallback(
+            lambda: _set_operation_impl(a, b, op, assume_colocated),
+            can_fallback=not assume_colocated, fallback=fb, label="set_op",
+            env=a.env)
+        if pn and type(res) is Table:
+            pn.set(rows_out=res.row_count)
+        return res
 
 
 def _set_operation_impl(a: Table, b: Table, op: str,

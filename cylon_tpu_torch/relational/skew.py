@@ -37,10 +37,11 @@ running indices) are reductions over the ``(W, cap)`` view.
 
 :func:`adopt` votes the plan hash (``exec/recovery.skew_plan_consensus``)
 before the split exchange starts; one process drives every rank here, so
-the vote is its single-controller form.  Waiting for their slices
-(ROADMAP.md): the ``obs/plan`` annotations and ``obs/metrics`` counters
-(slice 12; :func:`adopt` bumps ``timing.counts()["join.skew_split"]``)
-and the stitch's integrity audit (slice 16).
+the vote is its single-controller form, and counts the split in
+``timing.counts()["join.skew_split"]`` and the registry's
+``skew_split_joins``/``skew_split_keys``; the route's choices land on
+the open plan node (obs/plan.py).  Waiting for its slice (ROADMAP.md):
+the stitch's integrity audit (slice 16).
 """
 
 from __future__ import annotations
@@ -105,13 +106,16 @@ def consume_unstitched(table, include_deferred: bool = False):
     inner join through its ``pre_thunk``, the split-layout output without
     the stitch.  Any other table comes back unchanged."""
     st = getattr(table, "op_state", None)
+    from ..obs import plan as _plan
     if isinstance(st, StitchState):
+        _plan.annotate(skew_stitch_elided=True)
         timing.bump("skew.stitch_elided")
         return st.pre
     if include_deferred and not getattr(table, "materialized", True):
         pre_thunk = getattr(st, "pre_thunk", None)
         if getattr(st, "skew_plan", None) is not None \
                 and pre_thunk is not None:
+            _plan.annotate(skew_stitch_elided=True)
             timing.bump("skew.stitch_elided")
             return pre_thunk()
     return table
@@ -336,11 +340,15 @@ def adopt(plan: SkewPlan, env) -> None:
     """Vote the finalized plan's hash (``exec/recovery.
     skew_plan_consensus``) before the split's first exchange, then record
     the plan (:func:`last_plan`) and count the split join
-    (``timing.counts()["join.skew_split"]``)."""
+    (``timing.counts()["join.skew_split"]``, and the registry's
+    ``skew_split_joins`` and ``skew_split_keys``)."""
     from ..exec.recovery import skew_plan_consensus
+    from ..obs import metrics as _metrics
     skew_plan_consensus(env, plan.plan_hash())
     record_plan(plan)
     timing.bump("join.skew_split")
+    _metrics.counter("skew_split_joins").inc()
+    _metrics.counter("skew_split_keys").inc(len(plan))
 
 
 def split_exchange(probe: Table, probe_on, build: Table, build_on,
@@ -499,6 +507,8 @@ def combine_heavy_partials(out: Table, by, res_names, plan: SkewPlan):
         patched = Table(newcols, env, np.asarray(out.valid_counts, np.int64))
         res = filter_table(patched, keep)
     res.grouped_by = tuple(by)
+    from ..obs import plan as _plan
+    _plan.annotate(skew_partials_combined=len(plan))
     timing.bump("skew.partial_combine")
     return res
 

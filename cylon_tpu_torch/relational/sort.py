@@ -277,6 +277,16 @@ def sort_table(table: Table, by, ascending=True,
                 "(codes are row ids, not value-ordered)")
     if method not in ("initial", "regular"):
         raise InvalidError("sort method must be 'initial' or 'regular'")
+    from ..obs import plan as _plan
+    with _plan.node("sort", by=tuple(by), method=method) as pn:
+        if pn:
+            pn.set(rows_in=table.row_count, rows_out=table.row_count)
+        return _sort_table_impl(table, by, ascending, nulls_position,
+                                num_samples, method, pn)
+
+
+def _sort_table_impl(table: Table, by: list, ascending, nulls_position: str,
+                     num_samples: int, method: str, pn) -> Table:
     env = table.env
     with timing.region("sort.string_lanes"):
         expanded = _expand_hashed_string_keys(table, by, ascending)
@@ -307,6 +317,14 @@ def sort_table(table: Table, by, ascending=True,
         if num_samples <= 0:
             num_samples = config.sort_samples(w)
         m = min(max(cap, 1), num_samples)
+        if pn:
+            # a key profile from the splitter sample's positions, so a
+            # skewed sort key is named before the range exchange piles
+            # it onto one rank (analyze runs only)
+            from ..obs import plan as _plan
+            pn.annotate(route="sample_sort", num_samples=m,
+                        splitters=w - 1)
+            _plan.profile_keys(pn, table, by)
         with timing.region("sort.sample"):
             sample_ops, live = _sample_fn(vc, w, cap, m, by_datas,
                                           by_valids, descendings, npos,

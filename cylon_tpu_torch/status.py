@@ -29,7 +29,11 @@ class Code(enum.IntEnum):
     UnknownError = 9
     NotImplemented = 10
     SerializationError = 11
+    RError = 12
+    CodeGenError = 40
+    ExpressionValidationError = 41
     ExecutionError = 42
+    AlreadyExists = 45
     #: the spill tier's consensus vote (exec/recovery.spill_consensus);
     #: never raised
     SpillRequired = 46
@@ -39,6 +43,11 @@ class Code(enum.IntEnum):
     #: the preemption drain vote (exec/recovery.drain_consensus); never
     #: raised
     PreemptDrain = 48
+    #: the skew split's plan vote (exec/recovery.skew_plan_consensus);
+    #: never raised
+    SkewPlan = 49
+    #: the topology plan's vote (the topology slice); never raised
+    TopoPlan = 50
     #: a conservation law or content fingerprint failed
     #: (:class:`DataIntegrityError`)
     IntegrityFault = 51
@@ -237,3 +246,36 @@ class KernelError(CylonError):
     """A hand-written CUDA kernel failed to build, load or launch."""
 
     code = Code.ExecutionError
+
+
+class Status:
+    """Value-style status for APIs that return instead of raising (the
+    reference's ``Status``, ``cylon_tpu/status.py:354``): ``is_ok()``,
+    ``get_code()``, ``get_msg()``; :meth:`raise_if_failed` raises
+    ``CylonError(msg, code)``."""
+
+    __slots__ = ("code", "msg")
+
+    def __init__(self, code: Code = Code.OK, msg: str = ""):
+        self.code = Code(code)
+        self.msg = msg
+
+    @staticmethod
+    def OK() -> "Status":
+        return Status(Code.OK)
+
+    def is_ok(self) -> bool:
+        return self.code == Code.OK
+
+    def get_code(self) -> Code:
+        return self.code
+
+    def get_msg(self) -> str:
+        return self.msg
+
+    def raise_if_failed(self) -> None:
+        if not self.is_ok():
+            raise CylonError(self.msg, self.code)
+
+    def __repr__(self) -> str:  # pragma: no cover - debug aid
+        return f"Status({self.code.name}, {self.msg!r})"

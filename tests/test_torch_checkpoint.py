@@ -313,11 +313,11 @@ class TestPageRoundTrip:
                 return real(src, dst)
 
             monkeypatch.setattr(os, "replace", flaky)
-            before = prec.IO_RETRIES[0]
+            before = prec.IO_RETRIES.value
             stage.save_piece(0, t)
             monkeypatch.setattr(os, "replace", real)
             if p is PORT:
-                assert prec.IO_RETRIES[0] == before + 1
+                assert prec.IO_RETRIES.value == before + 1
             _same_columns(t, stage.load_piece(0))
         _stats_equal()
 

@@ -318,7 +318,7 @@ class TestRetryIO:
                 with pytest.raises(OSError):
                     rec.retry_io(flaky, "disk.write")
             assert calls[0] == want_calls
-        assert prec.IO_RETRIES[0] >= 1
+        assert prec.IO_RETRIES.value >= 1
 
     def test_non_oserror_propagates_untouched(self):
         with pytest.raises(ValueError):
