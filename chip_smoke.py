@@ -194,8 +194,9 @@ Then the adaptive skew split and TPC-H, BASELINE configurations 5 and 4:
   4 and 8, each held against the same query of the port on the CPU on
   the same generated tables (integers, dates and strings equal, floats
   to rtol 1e-9 plus 64·eps·Σ(|v| + v²) over the tables' floats);
-* ``tpch_path``: TPC-H at ``--tpch-scale`` (default SF 10) at W = 8, the
-  generator's and the upload's seconds, then Q1, Q3, Q5 and Q6, each
+* ``tpch_path``: TPC-H at ``--tpch-scale`` (default SF 5; SF 10 before
+  PR 13) at W = 8, the generator's and the upload's seconds, then Q1,
+  Q3, Q5 and Q6, each
   best of 3 after a warm-up with its peak memory, phase split, profile,
   idle share and K1/K2 launches, against numpy oracles (the keys are
   aranges, so each join is an index lookup).
@@ -244,8 +245,9 @@ directory), removed at the end:
 
 * ``ckpt_path`` (after ``spill_path``, on its tables; it fails unless the
   root's disk holds the tables and four checkpoints): ``GroupBySink`` +
-  ``pipelined_join(n_chunks=4)`` + ``finalize`` at W = 4, unarmed and
-  armed in this process, best of 3 after a warm-up each — seconds, peak
+  ``pipelined_join(n_chunks=4)`` + ``finalize`` at W = 4 in this
+  process, unarmed (best of 3 after a warm-up) and armed (a warm-up and
+  one timed run: it is host-bound) — seconds, peak
   memory, bytes checkpointed, the write side's D2H, encode, sha256, file
   write and commit regions; bit-equal to each other and to the oracle,
   and the unarmed run writes nothing.  Then child processes of this
@@ -271,6 +273,39 @@ directory), removed at the end:
   after two commits (the ladder's final rung, a ``ResumableAbort``, then
   the resume) — and the re-shards 4 -> 2, 4 -> 1 and 2 -> 4, each held
   to the uninterrupted run.
+
+Then the serving tier (exec/scheduler.py, exec/session.py,
+exec/fleet.py), after ``tpch_small``:
+
+* ``serve_path``: on ``tpch_path``'s tables (same process, before they
+  are freed), four tenants running bench_serving's mixes 0-3 in a closed
+  loop of 3 queries each (t0 qpipe, Q6, Q1; t1 qpipe, Q12, qpipe; t2 Q3,
+  Q14, Q15; t3 Q5, Q17, Q5; qpipe is lineitem ⋈ orders through
+  ``pipelined_join(n_chunks=4)`` into a ``GroupBySink`` on l_orderkey):
+  each tenant alone first (the solo pass; Q1, Q3, Q5, Q6 against
+  ``tpch_oracle``, qpipe against a numpy ``bincount``), then all four
+  under ``QueryScheduler(policy="fair")`` with bench_serving's "auto"
+  budgets (admission: 1.05 x the two smallest footprints; ledger: 1.6 x
+  one qpipe's peak ledger bytes).  Every answer's digest equals its solo
+  run's; at least one admission wait and one cross-tenant eviction; K2
+  launches in qpipe's phase 1.  Per-tenant p50/p99 latency, lineitem
+  rows served per second, the concurrent wall time against the sum of
+  the solo times, slices and park seconds, K1/K2 launches and the peak
+  ledger bytes;
+* ``serve_path_preempt``: the same tenants under ``priority`` with
+  checkpoints armed for the pass, t3 submitted at priority 5 from t0's
+  loop: at least one preemption, a requeue, the victim's committed
+  pieces fast-forwarded in process (outcome ``preempted_requeued``), and
+  every answer bit-equal to its solo run;
+* ``serve_small`` (1M rows a side): an ``AdmissionTimeoutError`` and a
+  ``RequeueOverflowError`` (W = 1); at W = 4 an eviction by tenant t1
+  of tenant t0's resident source while t0 holds a prepared piece (its
+  window uploaded, not yet consumed), t0 bit-equal to its solo run; a
+  fleet drain to ``resize_target`` 2 with its ``FLEET_RESIZE.json``,
+  then a child process relaunched at W = 2 with resume, every tenant
+  completed and bit-equal; a child killed by ``ckpt.write::2=kill@t0``
+  and its resume, t0's committed pieces fast-forwarded, every tenant
+  bit-equal.
 
 Each route's kernel counts are set to 0 just before it and read just
 after.  Prints one JSON line per phase, then the kernel summary line, then
@@ -3639,7 +3674,9 @@ def skew_path(ct, n: int = SKEW_ROWS, device=None,
 
 #: TPC-H's scale of tpch_small and tpch_path (BASELINE configuration 4)
 TPCH_SMALL_SCALE = 0.05
-TPCH_SCALE = 10.0
+#: SF 5 since PR 13 (SF 10 before): the cut that keeps chip_smoke.py
+#: inside its time with the serving phases on these tables
+TPCH_SCALE = 5.0
 TPCH_QUERIES = ("q1", "q3", "q4", "q5", "q6", "q7", "q8", "q9", "q10",
                 "q11", "q12", "q13", "q14", "q15", "q16", "q17", "q18",
                 "q19", "q20", "q21", "q22")
@@ -3825,14 +3862,17 @@ def tpch_oracle(cols: dict) -> dict:
 
 
 def tpch_path(ct, scale: float = TPCH_SCALE, device=None,
-              profile: bool = True) -> list:
+              profile: bool = True, serve_root: str | None = None,
+              world: int = 8):
     """BASELINE configuration 4: TPC-H at ``scale`` on a W = 8 world, Q3
     and Q5 with the scans Q1 and Q6, each best of 3 after a warm-up with
     its peak memory, phase split, profile (idle share) and K1/K2
-    launches, against a numpy oracle."""
+    launches, against a numpy oracle; yields one record per query.  With
+    ``serve_root``, :func:`serve_path` runs next on the same tables (its
+    checkpoints under that root) and yields its records."""
     from cylon_tpu_torch import tpch
     from cylon_tpu_torch.ctx.context import VirtualMeshConfig
-    w = 8
+    w = world
     t0 = time.perf_counter()
     cols = tpch.generate_columns(scale, 0)
     gen_s = time.perf_counter() - t0
@@ -3843,10 +3883,11 @@ def tpch_path(ct, scale: float = TPCH_SCALE, device=None,
     torch.cuda.synchronize()
     upload_s = time.perf_counter() - t0
     orc = tpch_oracle(cols)
+    if serve_root is not None:
+        orc["qpipe"] = qpipe_oracle(cols)
     rows = {name: int(c[next(iter(c))].data.shape[0])
             for name, c in cols.items()}
     del cols
-    recs = []
     for q in TPCH_PATH_QUERIES:
         def query(times, q=q):
             t0 = time.perf_counter()
@@ -3874,10 +3915,13 @@ def tpch_path(ct, scale: float = TPCH_SCALE, device=None,
                     "scale": scale, "table_rows": rows, "gen_s": gen_s,
                     "upload_s": upload_s, "setup_s": gen_s + upload_s,
                     "lineitem_rows_per_s": rows["lineitem"] / rec["best_s"]})
-        recs.append(rec)
+        yield rec
+    if serve_root is not None:
+        for rec in serve_path(ct, dfs, env, orc, rows, serve_root):
+            rec.update({"scale": scale, "table_rows": rows})
+            yield rec
     del dfs, env
     torch.cuda.empty_cache()
-    return recs
 
 
 # ---------------------------------------------------------------------------
@@ -4578,8 +4622,11 @@ def ckpt_child(spec: dict) -> int:
     and K2 launches, the checkpoint counters, the recovery events and the
     result's digest; with ``capture``, K1 and K2 also held bit-equal to
     their plain versions on the inputs of their first launch.  A
-    ``ResumableAbort`` prints its token and exits ``DRAIN_RC``."""
+    ``ResumableAbort`` prints its token and exits ``DRAIN_RC``.  A spec
+    with ``serve`` is a :func:`serve_child`."""
     import os
+    if spec.get("serve"):
+        return serve_child(spec)
     t_start = time.perf_counter()
     import cylon_tpu_torch as ct
     from cylon_tpu_torch.ctx.context import VirtualMeshConfig
@@ -4656,12 +4703,12 @@ def run_child(spec: dict, expect_rc: int, label: str, **switches) -> dict:
     wall = time.perf_counter() - t0
     if p.returncode != expect_rc:
         raise AssertionError(
-            f"ckpt_path {label}: the child exited {p.returncode}, expected "
+            f"{label}: the child exited {p.returncode}, expected "
             f"{expect_rc}\n{p.stdout[-2000:]}\n{p.stderr[-4000:]}")
     lines = [ln for ln in p.stdout.splitlines() if ln.startswith("{")]
     rec = json.loads(lines[-1]) if lines else {}
     if expect_rc in (0, DRAIN_RC) and not lines:
-        raise AssertionError(f"ckpt_path {label}: the child printed no "
+        raise AssertionError(f"{label}: the child printed no "
                              f"result\n{p.stderr[-4000:]}")
     rec.update(process_wall_s=wall, rc=p.returncode)
     return rec
@@ -4669,7 +4716,8 @@ def run_child(spec: dict, expect_rc: int, label: str, **switches) -> dict:
 
 def ckpt_inprocess(ct, lt, rt, orc, root: str, nc: int):
     """Unarmed and armed ``GroupBySink`` + ``pipelined_join`` on the W = 4
-    tables, each best of 3 after a warm-up in this process: seconds, peak
+    tables, best of 3 after a warm-up unarmed and a warm-up and one timed
+    run armed, in this process: seconds, peak
     memory, K1/K2 launches, the bytes checkpointed and the write side's
     regions per armed iteration; both results bit-equal to each other (the
     same layout and :func:`result_digest`; the unarmed result is released
@@ -4692,7 +4740,9 @@ def ckpt_inprocess(ct, lt, rt, orc, root: str, nc: int):
             wg.reset_counts()
             sp.reset_counts()
             its = []
-            for _ in range(4):
+            # the armed leg is host-bound (one thread writes the pages): a
+            # warm-up and one timed run
+            for _ in range(2 if leg == "armed" else 4):
                 checkpoint.reset_stages()
                 checkpoint.reset_stats()
                 with timing.attribution_scope() as sc:
@@ -4818,7 +4868,8 @@ def ckpt_path(ct, left: dict, right: dict, orc: dict, root: str,
     on_card = device is None
     a_root = os.path.join(root, "A")
     # kill: SIGKILL at the third checkpoint write, two pieces committed
-    kill = run_child(spec("kill"), -9, "kill", CKPT_DIR=a_root,
+    kill = run_child(spec("kill"), -9, "ckpt_path kill",
+                     CKPT_DIR=a_root,
                      FAULTS="ckpt.write::3=kill")
     man = manifest_of(a_root)
     if sorted(man["pieces"], key=int) != ["0", "1"] or man["complete"]:
@@ -4831,7 +4882,8 @@ def ckpt_path(ct, left: dict, right: dict, orc: dict, root: str,
                    and f not in named)
     # resume at W = 4: two pieces fast-forwarded, the rest recomputed
     t_kill_end = time.perf_counter()
-    res = run_child(spec("resume", capture=True), 0, "resume",
+    res = run_child(spec("resume", capture=True), 0,
+                    "ckpt_path resume",
                     CKPT_DIR=a_root, RESUME=1)
     kill_to_resume_s = time.perf_counter() - t_kill_end
     same(res, "resume")
@@ -4853,7 +4905,8 @@ def ckpt_path(ct, left: dict, right: dict, orc: dict, root: str,
     # the drain runs with the flight recorder armed: its post-mortem must
     # land beside the manifests
     pm_trace = os.path.join(root, "preempt_trace.json")
-    pre = run_child(spec("preempt"), DRAIN_RC, "preempt", CKPT_DIR=b_root,
+    pre = run_child(spec("preempt"), DRAIN_RC, "ckpt_path preempt",
+                    CKPT_DIR=b_root,
                     PREEMPT_GRACE_S=30, FAULTS="ckpt.write::2=term",
                     TRACE=pm_trace)
     if pre["token"] != os.path.abspath(b_root) or not any(
@@ -4862,7 +4915,8 @@ def ckpt_path(ct, left: dict, right: dict, orc: dict, root: str,
                              f"events {pre['events']}")
     postmortem = drain_postmortem(b_root, pm_trace)
     drained = pre["stats"]["checkpoint_events"]
-    pres = run_child(spec("preempt_resume"), 0, "preempt resume",
+    pres = run_child(spec("preempt_resume"), 0,
+                     "ckpt_path preempt resume",
                      CKPT_DIR=b_root, RESUME=1)
     same(pres, "preempt resume")
     if pres["stats"]["resume_fast_forwarded_pieces"] != drained:
@@ -4871,7 +4925,7 @@ def ckpt_path(ct, left: dict, right: dict, orc: dict, root: str,
     shutil.rmtree(b_root)
     # the elastic re-shard: the complete W = 4 stage resumed at W = 2,
     # then a second W = 2 resume is a plain fast-forward
-    el = run_child(spec("reshard_w2", world=2), 0, "reshard",
+    el = run_child(spec("reshard_w2", world=2), 0, "ckpt_path reshard",
                    CKPT_DIR=a_root, RESUME=1)
     same(el, "reshard")
     st = el["stats"]
@@ -4880,7 +4934,8 @@ def ckpt_path(ct, left: dict, right: dict, orc: dict, root: str,
             or st["resume_fast_forwarded_pieces"] != pieces
             or manifest_of(a_root)["world"] != 2):
         raise AssertionError(f"ckpt_path reshard: counters {st}")
-    el2 = run_child(spec("resume_w2", world=2), 0, "second W=2 resume",
+    el2 = run_child(spec("resume_w2", world=2), 0,
+                    "ckpt_path second W=2 resume",
                     CKPT_DIR=a_root, RESUME=1)
     same(el2, "second W=2 resume")
     st = el2["stats"]
@@ -5138,6 +5193,685 @@ def ckpt_phases(ct, left, right, orc, root, device=None,
     yield crec
     yield from (c for c in checks if c is not None)
     yield from ckpt_small(ct, root, n=small_rows, device=device)
+
+
+# ---------------------------------------------------------------------------
+# the serving tier: concurrent tenants under admission control
+# (exec/scheduler.py, exec/session.py, exec/fleet.py)
+# ---------------------------------------------------------------------------
+
+#: bench_serving's per-tenant query mixes 0-3 (scripts/bench_serving.py):
+#: tenant i cycles SERVE_MIXES[i] in a closed loop of SERVE_QUERIES
+#: queries.  ``qpipe`` is lineitem ⋈ orders through pipelined_join
+#: (n_chunks 4) into a GroupBySink: it yields per piece and its packed
+#: sources are the spillable state admission manages
+SERVE_MIXES = (("qpipe", "q6", "q1"), ("qpipe", "q12"),
+               ("q3", "q14", "q15"), ("q5", "q17"))
+SERVE_QUERIES = 3
+#: the tables each query reads: the footprint estimate's input
+SERVE_TABLES = {
+    "q1": ("lineitem",), "q3": ("customer", "orders", "lineitem"),
+    "q5": ("customer", "orders", "lineitem", "supplier", "nation",
+           "region"),
+    "q6": ("lineitem",), "q12": ("orders", "lineitem"),
+    "q14": ("lineitem", "part"), "q15": ("lineitem", "supplier"),
+    "q17": ("lineitem", "part"), "qpipe": ("orders", "lineitem")}
+#: serve_small's rows a side and its tenants' pipelined chunks
+SERVE_SMALL_ROWS = 1_000_000
+SERVE_CHUNKS = 4
+
+
+def qpipe(ct, dfs):
+    """The serving mix's pipelined query: lineitem ⋈ orders into a
+    GroupBySink keyed on l_orderkey, quantity and price summed."""
+    sink = ct.GroupBySink("l_orderkey", [("l_quantity", "sum"),
+                                         ("l_extendedprice", "sum")])
+    ct.pipelined_join(dfs["lineitem"].table, dfs["orders"].table,
+                      "l_orderkey", "o_orderkey", how="inner",
+                      n_chunks=4, sink=sink)
+    return sink.finalize()
+
+
+def qpipe_oracle(cols: dict) -> dict:
+    """qpipe in numpy: o_orderkey is an arange, so every lineitem row
+    joins, and each order's sums are a ``bincount``."""
+    li = cols["lineitem"]
+    lk = np.asarray(li["l_orderkey"].data)
+    keys = np.unique(lk)
+    qty = np.bincount(lk, np.asarray(li["l_quantity"].data)).astype(
+        np.int64)
+    price = np.bincount(lk, np.asarray(li["l_extendedprice"].data))
+    return {"l_orderkey": keys, "l_quantity_sum": qty[keys],
+            "l_extendedprice_sum": price[keys]}
+
+
+def by_key(out, key: str) -> dict:
+    """A result's columns sorted by ``key`` (unique per row)."""
+    cols = out.to_pydict()
+    order = np.argsort(cols[key], kind="stable")
+    return {name: np.asarray(v)[order] for name, v in cols.items()}
+
+
+def sort_bits(x: torch.Tensor) -> torch.Tensor:
+    """A same-width signed integer view of ``x`` whose sort is a fixed
+    order of its bit patterns (bool as int8)."""
+    if x.dtype == torch.bool:
+        return x.to(torch.int8)
+    signed = {1: torch.int8, 2: torch.int16, 4: torch.int32,
+              8: torch.int64}[x.element_size()]
+    return x if x.dtype == signed else x.view(signed)
+
+
+def serve_digest(out) -> str:
+    """sha256 of a query result's raw bytes, its live rows in a canonical
+    order (stable sorts on the device by every column's bit pattern, last
+    column first), so that layout and row order do not count; a float
+    result by its bits.  Two results with equal digests are equal bit for
+    bit."""
+    import hashlib
+    import struct
+    from cylon_tpu_torch.utils.host import host_arrays
+    h = hashlib.sha256()
+    if isinstance(out, float):
+        h.update(struct.pack("<d", out))
+        return h.hexdigest()
+    t = getattr(out, "table", out)
+    dev = t.column(t.column_names[0]).data.device
+    vc = torch.as_tensor(np.asarray(t.valid_counts), device=dev)
+    live = (torch.arange(t.capacity, device=dev)[None, :]
+            < vc[:, None]).reshape(-1)
+    cols = []
+    for name in t.column_names:
+        c = t.column(name)
+        cols.append((name, c.data[live],
+                     None if c.validity is None else c.validity[live]))
+    n = int(vc.sum())
+    perm = torch.arange(n, device=dev)
+    for _, data, valid in reversed(cols):
+        for x in (valid, data):
+            if x is not None and n:
+                perm = perm[torch.sort(sort_bits(x[perm]), stable=True)[1]]
+    flat = [x[perm] if x is not None else None
+            for _, d, v in cols for x in (d, v)]
+    pulled = host_arrays(flat)
+    for k, (name, _, _) in enumerate(cols):
+        h.update(name.encode())
+        for x in pulled[2 * k:2 * k + 2]:
+            if x is not None:
+                h.update(np.ascontiguousarray(x).tobytes())
+        dic = t.column(name).dictionary
+        if isinstance(dic, np.ndarray):
+            h.update("\x00".join(map(str, dic.tolist())).encode())
+    return h.hexdigest()
+
+
+def wait_result(out) -> None:
+    if not isinstance(out, float):
+        t = getattr(out, "table", out)
+        sync_pull(t.column(t.column_names[0]).data)
+
+
+def serve_tenant(mix, queries: int, run_query, record: list,
+                 on_start=None):
+    """A tenant's closed loop: ``queries`` queries cycling ``mix``, each
+    recorded in ``record`` as (query, latency, result) as it completes
+    (:func:`digest_records` digests the results after the pass, so no
+    tenant's latency holds another's digest).  The loop clears ``record``
+    on entry: a requeued tenant replays from the top, and its last full
+    replay is what counts."""
+    def fn():
+        if on_start is not None:
+            on_start()
+        record.clear()
+        for k in range(queries):
+            q = mix[k % len(mix)]
+            t0 = time.perf_counter()
+            out = run_query(q)
+            wait_result(out)
+            record.append({"q": q, "latency_s": time.perf_counter() - t0,
+                           "out": out})
+            del out
+        return len(record)
+    return fn
+
+
+def digest_records(records, check=None) -> None:
+    """Replace each record's result by its digest (after ``check(q,
+    out)`` where given)."""
+    for rec in records:
+        out = rec.pop("out")
+        if check is not None:
+            check(rec["q"], out)
+        rec["digest"] = serve_digest(out)
+        del out
+
+
+def serve_pass(env, plans, run_query, policy: str, budget: int,
+               ledger_budget: int, queries: int = SERVE_QUERIES,
+               late: int = 0, ckpt: str | None = None) -> dict:
+    """One concurrent pass of ``plans`` under a QueryScheduler: the
+    admission budget ``budget``, the ledger's ``ledger_budget``, and with
+    ``late`` the last ``late`` tenants held back and submitted at
+    priority 5 from the first tenant's loop; with ``ckpt`` the
+    checkpoint root armed for the pass.  Returns the records, sessions,
+    seconds, kernel launches and counters, and K2's arguments at its
+    first launch in the pass (``k2_probe``)."""
+    from cylon_tpu_torch.exec import checkpoint, memory, recovery
+    from cylon_tpu_torch.exec.scheduler import QueryScheduler
+    from cylon_tpu_torch.ops import splitter_probe as sp
+    from cylon_tpu_torch.ops import windowed_gather as wg
+    records = {p["name"]: [] for p in plans}
+    early, held = plans[:len(plans) - late], plans[len(plans) - late:]
+    memory.reset_stats()
+    recovery.reset_events()
+    sched = QueryScheduler(env, policy=policy, budget_bytes=budget or None)
+    fired = []
+
+    def submit(p, priority=0, on_start=None):
+        sched.submit(p["name"], serve_tenant(
+            p["mix"], queries, run_query, records[p["name"]],
+            on_start=on_start), footprint_bytes=p["footprint"],
+            priority=priority)
+
+    def submit_late():
+        # on the first tenant's thread, under the baton; a requeued
+        # replay of that tenant does not submit again
+        if fired or not held:
+            return
+        fired.append(True)
+        for p in held:
+            submit(p, priority=5)
+
+    switches = {"CKPT_DIR": ckpt} if ckpt else {}
+    captured: dict = {}
+    with knobs(HBM_BUDGET_BYTES=ledger_budget), ckpt_env(**switches):
+        for i, p in enumerate(early):
+            submit(p, on_start=submit_late if i == 0 else None)
+        wg.reset_counts()
+        sp.reset_counts()
+        t0 = time.perf_counter()
+        with capturing(sp, "count_ge_splitters", captured, "probe"):
+            sessions = sched.run()
+        if env.on_cuda:
+            torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        counts = {"windowed_gather": dict(wg.COUNTS),
+                  "splitter_probe": dict(sp.COUNTS)}
+        ck = checkpoint.stats()
+        events = [(e["site"], e["kind"], e["action"], e.get("session"))
+                  for e in recovery.drain_events()]
+    mem = memory.stats()
+    for rec in records.values():
+        digest_records(rec)
+    return {"sched": sched, "sessions": sessions, "records": records,
+            "elapsed_s": elapsed, "kernel_counts": counts,
+            "memory": mem, "ckpt": ck, "events": events,
+            "k2_probe": captured.get("probe")}
+
+
+def serve_report(run: dict, solo: dict, rows: dict, label: str) -> dict:
+    """A pass's record: every tenant's answers bit-equal to its solo run
+    (the same queries, digests equal, in order), no failed session; per
+    tenant p50/p99 latency, service, park and admission-wait seconds."""
+    failures = [f"{s.name}: {type(s.error).__name__}: {s.error}"
+                for s in run["sessions"] if s.error is not None]
+    if failures:
+        raise AssertionError(f"{label}: failed tenants {failures}")
+    tenants = {}
+    served = 0
+    for s in run["sessions"]:
+        got, want = run["records"][s.name], solo[s.name]
+        if [(g["q"], g["digest"]) for g in got] \
+                != [(w_["q"], w_["digest"]) for w_ in want]:
+            raise AssertionError(
+                f"{label}: tenant {s.name} differs from its solo run: "
+                f"{[(g['q'], g['digest'][:12]) for g in got]} against "
+                f"{[(w_['q'], w_['digest'][:12]) for w_ in want]}")
+        lats = [g["latency_s"] for g in got]
+        served += sum(rows["lineitem"] for g in got
+                      if "lineitem" in SERVE_TABLES[g["q"]])
+        summ = s.summary()
+        tenants[s.name] = {
+            "mix": [g["q"] for g in got], "latencies_s": lats,
+            "p50_latency_s": float(np.percentile(lats, 50)),
+            "p99_latency_s": float(np.percentile(lats, 99)),
+            "latency_s": summ["latency_s"], "service_s": s.service_s,
+            "admission_wait_s": s.admission_wait_s,
+            "park_s": s.latency_s - s.service_s - s.admission_wait_s,
+            "slices": s.slices, "outcome": s.outcome(),
+            "preemptions": s.preemptions, "requeues": s.requeues,
+            "pieces_committed": s.pieces_committed,
+            "bytes_admitted": s.bytes_admitted,
+            "admission_waits": s.admission_waits,
+            "recovery_events": [e for e in run["events"]
+                                if e[3] == s.name],
+            "bit_equal_to_solo": True}
+    st = run["sched"].stats()
+    return {"elapsed_s": run["elapsed_s"], "tenants": tenants,
+            "lineitem_rows_served": served,
+            "lineitem_rows_per_s": served / run["elapsed_s"],
+            "scheduler": st, "kernel_counts": run["kernel_counts"],
+            "peak_ledger_bytes": run["memory"]["peak_ledger_bytes"],
+            "cross_session_evictions":
+                run["memory"]["cross_session_evictions"],
+            "spill_events": run["memory"]["spill_events"],
+            "bytes_spilled": run["memory"]["bytes_spilled"],
+            "checkpoint": run["ckpt"], "recovery_events": run["events"],
+            "slices": st["slices"],
+            "park_s": sum(t["park_s"] for t in tenants.values()),
+            "bit_equal": True}
+
+
+def serve_k2(env, label: str, args, timed: bool = False) -> dict:
+    """K2 at a serve route's first launch (``args``, as captured): on the
+    card held bit-equal to its plain version (:func:`k2_check`); on the
+    host, where the wrapper is the plain version, its shapes only."""
+    from cylon_tpu_torch.ops import splitter_probe as sp
+    if args is None:
+        raise AssertionError(f"K2 {label}: the route never launched K2")
+    ops, sops = args
+    if env.on_cuda:
+        return k2_check(sp, label, ops, sops, timed=timed)
+    return {"phase": "k2", "case": label, "K": len(ops),
+            "S": int(sops[0].shape[0]), "cap": int(ops[0].shape[0]),
+            "widths": [str(o.dtype) for o in ops], "bit_equal": None}
+
+
+def serve_path(ct, dfs, env, orc: dict, rows: dict, root: str) -> list:
+    """Four tenants of bench_serving's mixes 0-3 on one world over the
+    TPC-H tables ``dfs`` (module docstring): the solo pass, the oracles,
+    the "auto" budgets, the concurrent ``fair`` pass, then the preempt leg
+    (``priority``, checkpoints armed under ``root``, t3 submitted late at
+    priority 5).  Yields one record per leg; each holds, under ``"k2"``,
+    K2 at its first launch in the solo pass and in that leg's pass, held
+    bit-equal to its plain version (:func:`serve_k2`)."""
+    from cylon_tpu_torch import tpch
+    from cylon_tpu_torch.exec import memory
+    from cylon_tpu_torch.exec.scheduler import estimate_footprint
+    from cylon_tpu_torch.ops import splitter_probe as sp
+
+    def run_query(q):
+        return qpipe(ct, dfs) if q == "qpipe" \
+            else getattr(tpch, q)(dfs, env=env)
+
+    def check(q, out):
+        if q == "qpipe":
+            same_tpch(by_key(out, "l_orderkey"), orc["qpipe"],
+                      "serve_path qpipe")
+        elif q in orc:
+            same_tpch(out, orc[q], f"serve_path {q}")
+
+    plans = [{"name": f"t{i}", "mix": mix, "footprint": estimate_footprint(
+        *[dfs[t] for t in sorted({t for q in mix for t in SERVE_TABLES[q]})])}
+        for i, mix in enumerate(SERVE_MIXES)]
+    solo, solo_s = {}, {}
+    checked = set()
+
+    def check_once(q, out):
+        if q not in checked:
+            check(q, out)
+            checked.add(q)
+
+    captured: dict = {}
+    with capturing(sp, "count_ge_splitters", captured, "probe"):
+        for p in plans:
+            rec: list = []
+            t0 = time.perf_counter()
+            serve_tenant(p["mix"], SERVE_QUERIES, run_query, rec)()
+            solo_s[p["name"]] = time.perf_counter() - t0
+            digest_records(rec, check=check_once)
+            solo[p["name"]] = rec
+    if checked < {"q1", "q3", "q5", "q6", "qpipe"}:
+        raise AssertionError(f"serve_path: oracles checked {checked}")
+    w = env.world_size
+    k2_solo = serve_k2(env, f"serve_solo_w{w}_shard0",
+                       captured.pop("probe", None), timed=True)
+    # bench_serving's "auto" budgets: admission fits the two smallest
+    # tenants together; the ledger holds 1.6 of one qpipe's peak, so two
+    # packing tenants evict each other's cold sources
+    foots = sorted(p["footprint"] for p in plans)
+    budget = int(1.05 * (foots[0] + foots[1]))
+    memory.reset_stats()
+    wait_result(run_query("qpipe"))
+    qpipe_peak = memory.stats()["peak_ledger_bytes"]
+    ledger_budget = int(1.6 * qpipe_peak)
+    solo_sum = sum(solo_s.values())
+    base = {"world": env.world_size, "tenants": len(plans),
+            "queries_per_tenant": SERVE_QUERIES,
+            "mixes": {p["name"]: list(p["mix"]) for p in plans},
+            "footprints": {p["name"]: p["footprint"] for p in plans},
+            "admission_budget_bytes": budget,
+            "ledger_budget_bytes": ledger_budget,
+            "qpipe_peak_ledger_bytes": qpipe_peak,
+            "solo_s": solo_s, "solo_sum_s": solo_sum,
+            "solo_latencies_s": {k: [r["latency_s"] for r in v]
+                                 for k, v in solo.items()},
+            "oracle": "equal",
+            "oracles": "q1, q3, q5, q6 tpch_oracle; qpipe bincount"}
+    run = serve_pass(env, plans, run_query, "fair", budget, ledger_budget)
+    k2_fair = serve_k2(env, f"serve_fair_w{w}_shard0", run.pop("k2_probe"))
+    conc = serve_report(run, solo, rows, "serve_path fair")
+    del run
+    st = conc["scheduler"]
+    if st["admission_waits"] < 1 or conc["cross_session_evictions"] < 1:
+        raise AssertionError(f"serve_path: admission waits "
+                             f"{st['admission_waits']}, cross-session "
+                             f"evictions {conc['cross_session_evictions']};"
+                             " both must be at least 1")
+    if env.on_cuda and \
+            conc["kernel_counts"]["splitter_probe"]["launches"] < 1:
+        raise AssertionError(f"serve_path: K2 launches "
+                             f"{conc['kernel_counts']}")
+    if conc["recovery_events"]:
+        raise AssertionError(f"serve_path: recovery events "
+                             f"{conc['recovery_events']}")
+    yield {"phase": "serve_path", "policy": "fair", **base, **conc,
+           "concurrent_over_solo_sum": conc["elapsed_s"] / solo_sum,
+           "k2": {"solo": k2_solo, "fair": k2_fair}}
+    # the preempt leg: t3 arrives at priority 5 while t0 and t1 hold the
+    # admission budget; the lower-ranked qpipe tenant drains at a piece
+    # boundary, requeues and resumes in process past its committed pieces
+    import os
+    run = serve_pass(env, plans, run_query, "priority", budget,
+                     ledger_budget, late=1,
+                     ckpt=os.path.join(root, "serve_preempt"))
+    k2_pre = serve_k2(env, f"serve_preempt_w{w}_shard0", run.pop("k2_probe"))
+    pre = serve_report(run, solo, rows, "serve_path preempt")
+    del run
+    st = pre["scheduler"]
+    victims = [n for n, t in pre["tenants"].items()
+               if t["outcome"] == "preempted_requeued"]
+    if st["preemptions"] < 1 or st["requeues"] < 1 or not victims \
+            or pre["checkpoint"]["resume_fast_forwarded_pieces"] < 1:
+        raise AssertionError(f"serve_path preempt: {st}, "
+                             f"checkpoint {pre['checkpoint']}")
+    if any(e[3] not in victims for e in pre["recovery_events"]) or not any(
+            e[1:3] == ("preempt", "drain") for e in pre["recovery_events"]):
+        raise AssertionError(f"serve_path preempt: events outside the "
+                             f"victim {pre['recovery_events']}")
+    yield {"phase": "serve_path_preempt", "policy": "priority",
+           "world": env.world_size, "late_tenant": plans[-1]["name"],
+           "victims": victims, **pre,
+           "concurrent_over_solo_sum": pre["elapsed_s"] / solo_sum,
+           "k2": {"preempt": k2_pre}}
+
+
+def serve_small_cols(n: int, seed: int = 29) -> dict:
+    rng = np.random.default_rng(seed)
+    return {"lk": rng.integers(0, n // 2, n).astype(np.int64),
+            "a": rng.integers(0, 1000, n).astype(np.int64),
+            "rk": rng.integers(0, n // 2, n).astype(np.int64),
+            "b": rng.integers(0, 1000, n).astype(np.int64)}
+
+
+def serve_small_tenant(ct, cols: dict, env, i: int, nc: int = SERVE_CHUNKS):
+    """serve_small's tenant ``t<i>``: GroupBySink + pipelined_join +
+    finalize over the tables with the left payload scaled by ``i + 1`` (so
+    tenants' answers differ); returns the result's digest."""
+    def fn():
+        lt = ct.Table.from_pydict({"k": cols["lk"],
+                                   "a": cols["a"] * (i + 1)}, env)
+        rt = ct.Table.from_pydict({"k": cols["rk"], "b": cols["b"]}, env)
+        return result_digest(pipelined_step(ct, lt, rt, nc))
+    return fn
+
+
+def serve_child(spec: dict) -> int:
+    """A process of ``serve_small``: ``spec["tenants"]`` tenants of
+    :func:`serve_small_tenant` under a QueryScheduler at
+    ``spec["world"]``, from the parent's ``.npy`` files, under the
+    switches the parent set.  Prints one JSON line: the digests, outcomes,
+    scheduler and checkpoint counters and recovery events."""
+    import os
+    t_start = time.perf_counter()
+    import cylon_tpu_torch as ct
+    from cylon_tpu_torch.ctx.context import VirtualMeshConfig
+    from cylon_tpu_torch.exec import checkpoint, recovery
+    from cylon_tpu_torch.exec.scheduler import QueryScheduler
+    cols = {name: np.load(os.path.join(spec["data"], f"{name}.npy"))
+            for name in ("lk", "a", "rk", "b")}
+    env = ct.CylonEnv(VirtualMeshConfig(spec["world"]),
+                      device=spec.get("device"))
+    sched = QueryScheduler(env, policy="fifo", max_concurrency=1)
+    for i in range(spec["tenants"]):
+        sched.submit(f"t{i}", serve_small_tenant(ct, cols, env, i))
+    t0 = time.perf_counter()
+    sched.run()
+    rec = {"phase": "serve_child", "mode": spec["mode"],
+           "world": spec["world"], "run_s": time.perf_counter() - t0,
+           "digests": {s.name: s.result for s in sched.sessions},
+           "outcomes": {s.name: s.outcome() for s in sched.sessions},
+           "errors": {s.name: repr(s.error)[:300] for s in sched.sessions
+                      if s.error is not None},
+           "scheduler": sched.stats(), "stats": checkpoint.stats(),
+           "events": [(e["site"], e["kind"], e["action"], e.get("session"))
+                      for e in recovery.recovery_events()],
+           "wall_s": time.perf_counter() - t_start}
+    print(json.dumps(rec), flush=True)
+    return 0
+
+
+def serve_small(ct, root: str, n: int = SERVE_SMALL_ROWS,
+                device=None) -> dict:
+    """The serving tier's correctness at ``n`` rows a side (module
+    docstring): typed admission-deadline and requeue-overflow failures at
+    W = 1; at W = 4 an eviction between a prepared piece and its consume,
+    a fleet drain with its breadcrumb and a relaunch at W = 2 with
+    resume, and a child killed inside tenant t0's checkpoint write,
+    resumed; every answer held to its solo run."""
+    import gc
+    import os
+    import shutil
+    from cylon_tpu_torch import status
+    from cylon_tpu_torch.ctx.context import VirtualMeshConfig
+    from cylon_tpu_torch.exec import fleet, memory, pipeline, scheduler
+    from cylon_tpu_torch.exec.scheduler import QueryScheduler
+    rec = {"phase": "serve_small", "rows_per_side": n}
+    cols = serve_small_cols(n)
+    # -- typed failures at W = 1 -------------------------------------------
+    env1 = ct.CylonEnv(VirtualMeshConfig(1), device=device)
+    solo1 = serve_small_tenant(ct, cols, env1, 0, nc=6)()
+
+    def holder():
+        for _ in range(6):
+            time.sleep(0.02)
+            scheduler.maybe_yield()
+        return "held"
+
+    sched = QueryScheduler(env1, policy="fifo", budget_bytes=1000,
+                           admission_timeout_s=0.05)
+    a = sched.submit("tA", holder, footprint_bytes=600)
+    b = sched.submit("tB", lambda: 1, footprint_bytes=600)
+    sched.run()
+    if a.result != "held" or not isinstance(
+            b.error, status.AdmissionTimeoutError) \
+            or b.outcome() != "failed_typed" or b.error.session != "tB":
+        raise AssertionError(f"serve_small: admission deadline {b.error!r}")
+    rec["admission_timeout"] = {"waited_s": b.error.waited_s,
+                                "outcome": b.outcome(),
+                                "stats": sched.stats()}
+    with ckpt_env(CKPT_DIR=os.path.join(root, "overflow")):
+        sched = QueryScheduler(env1, policy="priority", max_concurrency=1,
+                               requeue_capacity=0)
+        runs = []
+        fn_a = serve_small_tenant(ct, cols, env1, 0, nc=6)
+
+        def tenant_a():
+            runs.append(1)
+            if len(runs) == 1:
+                sched.submit("tB", serve_small_tenant(ct, cols, env1, 1,
+                                                      nc=2), priority=5)
+            return fn_a()
+
+        a = sched.submit("tA", tenant_a)
+        sched.run()
+        tb = next(s for s in sched.sessions if s.name == "tB")
+        if not isinstance(a.error, status.RequeueOverflowError) \
+                or not isinstance(a.error.__cause__, status.ResumableAbort) \
+                or tb.state != "done" or a.outcome() != "failed_typed":
+            raise AssertionError(f"serve_small: requeue overflow "
+                                 f"{a.error!r}, tB {tb.state}")
+        rec["requeue_overflow"] = {"outcome": a.outcome(),
+                                   "cause": type(a.error.__cause__).__name__,
+                                   "stats": sched.stats()}
+    # the failed sessions' tracebacks hold their tables
+    del env1, sched, a, b, tb, fn_a, tenant_a
+    # -- W = 4: an eviction between a prepared piece and its consume -------
+    w = 4
+    env = ct.CylonEnv(VirtualMeshConfig(w), device=device)
+    solo = {f"t{i}": serve_small_tenant(ct, cols, env, i)()
+            for i in range(3)}
+    if solo["t0"] != solo1:
+        raise AssertionError("serve_small: W = 4 and W = 1 differ")
+    calls, admit = [], memory.ensure_headroom
+
+    def spy(env_, need, scratch=0, site="spill.evict"):
+        calls.append((memory.balance(), int(need), int(scratch)))
+        return admit(env_, need, scratch, site)
+
+    gc.collect()     # no leftover owner may count in the balance
+    memory.ensure_headroom = spy
+    try:
+        serve_small_tenant(ct, cols, env, 0)()
+    finally:
+        memory.ensure_headroom = admit
+    (b0, need_l, _), (b1, need_r, scr_r) = calls[:2]
+    # the right source's admission evicts the left one: every left window
+    # then uploads from host memory as its piece is prepared
+    budget = b1 - b0 - need_l + need_r + scr_r
+    seen, orig = {}, pipeline._interleave
+
+    def evict_now():
+        seen["readmits_before"] = memory.stats()["readmit_events"]
+        seen["evictions_before"] = memory.stats()["cross_session_evictions"]
+        # a need the budget cannot hold beside t0's resident source
+        scheduler.admit_allocation(env, budget)
+        seen["cross_session_evictions"] = \
+            memory.stats()["cross_session_evictions"] \
+            - seen["evictions_before"]
+        return "evicted"
+
+    sched = QueryScheduler(env, policy="priority")
+
+    def boundary():
+        # t0 at a piece boundary with the next piece's window prepared
+        # (uploaded, not yet consumed): t1 (priority 9) is admitted and
+        # runs before t0 consumes it
+        if not seen and memory.stats()["readmit_events"] >= 2:
+            seen["submitted"] = True
+            sched.submit("t1", evict_now, priority=9)
+        orig()
+
+    gc.collect()
+    with knobs(HBM_BUDGET_BYTES=budget):
+        memory.reset_stats()
+        pipeline._interleave = boundary
+        try:
+            t0s = sched.submit("t0", serve_small_tenant(ct, cols, env, 0))
+            sched.run()
+        finally:
+            pipeline._interleave = orig
+        st = memory.stats()
+    t1s = next((s for s in sched.sessions if s.name == "t1"), None)
+    if t0s.result != solo["t0"] or t1s is None or t1s.result != "evicted" \
+            or seen.get("cross_session_evictions", 0) < 1 \
+            or st["readmit_events"] <= seen["readmits_before"]:
+        raise AssertionError(f"serve_small: eviction between prefetch and "
+                             f"consume {seen}, {st}, t0 {t0s.error!r}, "
+                             f"admissions {calls}, evicted "
+                             f"{memory.eviction_log()}")
+    rec["evict_between_prefetch_and_consume"] = {
+        "budget_bytes": budget, **seen,
+        "windows_uploaded": st["readmit_events"],
+        "bytes_spilled": st["bytes_spilled"], "bit_equal_to_solo": True}
+    # -- a fleet drain at W = 4, relaunched at W = 2 with resume -----------
+    data = os.path.join(root, "serve_data")
+    os.makedirs(data, exist_ok=True)
+    for name, arr in cols.items():
+        np.save(os.path.join(data, f"{name}.npy"), arr)
+    f_root = os.path.join(root, "fleet")
+    with ckpt_env(CKPT_DIR=f_root):
+        ctrl = fleet.ResizeController(env, target_world=2,
+                                      queue_depth_high=2)
+        sched = QueryScheduler(env, policy="fifo", max_concurrency=1,
+                               fleet=ctrl)
+        for i in range(3):
+            sched.submit(f"t{i}", serve_small_tenant(ct, cols, env, i))
+        sched.run()
+        outcomes = {s.name: s.outcome() for s in sched.sessions}
+        crumb_path = os.path.join(f_root, "FLEET_RESIZE.json")
+        if sched.resize_target != 2 or not os.path.exists(crumb_path) \
+                or not set(outcomes.values()) <= {"completed",
+                                                  "drained_resumable"}:
+            raise AssertionError(f"serve_small: fleet drain {outcomes}, "
+                                 f"target {sched.resize_target}")
+        with open(crumb_path, encoding="utf-8") as f:
+            crumb = json.load(f)
+        if crumb["target_world"] != 2 or crumb["from_world"] != w:
+            raise AssertionError(f"serve_small: breadcrumb {crumb}")
+        fstats = sched.stats()
+    spec = {"serve": True, "data": data, "tenants": 3,
+            "device": device}
+    k_root = os.path.join(root, "kill")
+    # the relaunch at W = 2 and the child killed inside tenant t0's
+    # second checkpoint write (its own root) run side by side
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(2) as pool:
+        relaunch = pool.submit(
+            run_child, {**spec, "mode": "fleet_relaunch", "world": 2}, 0,
+            "serve_small relaunch", CKPT_DIR=f_root, RESUME=1)
+        killed = pool.submit(
+            run_child, {**spec, "mode": "kill", "world": w}, -9,
+            "serve_small kill", CKPT_DIR=k_root,
+            FAULTS="ckpt.write::2=kill@t0")
+        rel = relaunch.result()
+        killed.result()
+    if rel["digests"] != solo or set(rel["outcomes"].values()) \
+            != {"completed"}:
+        raise AssertionError(f"serve_small relaunch: {rel}")
+    rec["fleet"] = {"outcomes": outcomes, "breadcrumb": crumb,
+                    "stats": fstats,
+                    "relaunch": {k: rel[k] for k in (
+                        "world", "outcomes", "stats", "scheduler", "run_s",
+                        "process_wall_s")}}
+    # -- the killed child's resume ------------------------------------------
+    res = run_child({**spec, "mode": "kill_resume", "world": w}, 0,
+                    "serve_small kill resume", CKPT_DIR=k_root, RESUME=1)
+    if res["digests"] != solo or set(res["outcomes"].values()) \
+            != {"completed"} \
+            or res["stats"]["resume_fast_forwarded_pieces"] < 1:
+        raise AssertionError(f"serve_small kill resume: {res}")
+    rec["kill_resume"] = {k: res[k] for k in (
+        "outcomes", "stats", "scheduler", "events", "run_s",
+        "process_wall_s")}
+    shutil.rmtree(data, ignore_errors=True)
+    rec["oracle"] = "equal to the solo runs"
+    return rec
+
+
+def serve_phases(ct, args, routes: dict, k2_serve: dict) -> None:
+    """``tpch_path`` at ``--tpch-scale``, W = 8, with ``serve_path`` and
+    its preempt leg on the same tables, then ``serve_small``; emits their
+    records, adds their kernel counts to ``routes`` and the serve routes'
+    K2 checks to ``k2_serve``."""
+    with ckpt_root(args.ckpt_dir) as root:
+        t0 = time.perf_counter()
+        for trec in tpch_path(ct, args.tpch_scale, serve_root=root):
+            if trec["phase"] == "tpch_path":
+                routes[f"tpch_path_{trec['query']}_w8"] = \
+                    trec["kernel_counts"]
+            else:
+                routes[f"{trec['phase']}_w8"] = trec["kernel_counts"]
+                k2_serve.update(trec.pop("k2", {}))
+            emit(trec)
+        del trec
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        srec = serve_small(ct, root)
+        srec["seconds"] = time.perf_counter() - t1
+        srec["tpch_and_serve_path_s"] = t1 - t0
+        emit(srec)
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -5502,11 +6236,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     for trec in tpch_small(ct, scale=min(TPCH_SMALL_SCALE, args.tpch_scale)):
         emit(trec)
-    for trec in tpch_path(ct, args.tpch_scale):
-        routes[f"tpch_path_{trec['query']}_w8"] = trec["kernel_counts"]
-        emit(trec)
     del trec
-    torch.cuda.empty_cache()
+    # TPC-H at W = 8 with the serving tier on its tables, then serve_small
+    k2_serve: dict = {}
+    serve_phases(ct, args, routes, k2_serve)
+    for k2rec in k2_serve.values():
+        emit(k2rec)
     # -- a real device OOM, recovered by the retry ladder ----------------
     orec = oom_path(ct, args.oom_rows)
     routes["oom_path_w1"] = orec["kernel_counts"]
@@ -5517,10 +6252,9 @@ def main() -> int:
         "name": "windowed_gather", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES,
         "launches": counts["launches"]
-        + routes["scan_join_w4"]["windowed_gather"]["launches"]
-        + routes["spill_path_w4"]["windowed_gather"]["launches"]
-        + routes["ckpt_path_w4"]["windowed_gather"]["launches"]
-        + routes["obs_path_w4"]["windowed_gather"]["launches"],
+        + sum(routes[r]["windowed_gather"]["launches"] for r in (
+            "scan_join_w4", "spill_path_w4", "ckpt_path_w4", "obs_path_w4",
+            "serve_path_w8", "serve_path_preempt_w8")),
         "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
         "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
@@ -5546,9 +6280,9 @@ def main() -> int:
         "name": "splitter_probe", "route": "cuda", "source": K2_SOURCE,
         "replaces": K2_REPLACES,
         "launches": pipe_counts["splitter_probe"]["launches"]
-        + routes["spill_path_w4"]["splitter_probe"]["launches"]
-        + routes["ckpt_path_w4"]["splitter_probe"]["launches"]
-        + routes["obs_path_w4"]["splitter_probe"]["launches"],
+        + sum(routes[r]["splitter_probe"]["launches"] for r in (
+            "spill_path_w4", "ckpt_path_w4", "obs_path_w4",
+            "serve_path_w8", "serve_path_preempt_w8")),
         "max_abs_err": rec2["max_abs_err"], "ms": rec2["ms"],
         "kernel_ms": rec2["kernel_ms"], "scalar_ms": rec2["scalar_ms"],
         "general_ms": rec2["general_ms"],
@@ -5564,7 +6298,10 @@ def main() -> int:
                "spilled_shard0": {key: w4["k2_spilled"][key]
                                   for key in K2_KEYS},
                "ckpt_resume_shard0": {key: w4["k2_ckpt_resume"][key]
-                                      for key in K2_KEYS}}}]})
+                                      for key in K2_KEYS}},
+        "w8": {f"serve_{leg}_shard0": {key: k2rec[key] for key in K2_KEYS
+                                       if key in k2rec}
+               for leg, k2rec in k2_serve.items()}}]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

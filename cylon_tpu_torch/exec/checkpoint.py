@@ -60,11 +60,19 @@ Injector sites ``ckpt.write``, ``ckpt.load`` and ``ckpt.reshard``: kind
 (load, reshard); ``kill`` SIGKILLs the process at the site and ``term``
 sends it SIGTERM (the preemption notice).
 
+Serving sessions (exec/scheduler.py): each session has its own stage
+sequence and its stage directories carry its name
+(``stage000-t0.pipelined_join``), so tenants' checkpoints never collide
+and a relaunch matches each tenant's stages however the interleave
+ordered them; a requeued session resumes in process
+(``_resume_pending``), and a session the scheduler flagged for a
+preemption or a fleet resize drains at its next boundary
+(:func:`drain_requested`; injector site ``sched.preempt``).
+
 Single-controller: one process drives every rank of a
 ``VirtualMeshConfig`` world, so it is rank 0 of one process and writes
-every shard's blocks into ``rank0``.  A serving session's stage namespace
-and resume flag and its drain (slice 13) and the fingerprint audit of
-restored tables (slice 16) are not ported.  The six counters live in the
+every shard's blocks into ``rank0``.  The fingerprint audit of restored
+tables (slice 16) is not ported.  The six counters live in the
 metrics registry (``ckpt_*``, obs/metrics.py), and the abort flush
 writes the flight recorder's post-mortem beside the manifests when the
 recorder is armed.
@@ -78,6 +86,7 @@ import json
 import os
 import pickle
 import re
+import time
 
 import numpy as np
 import torch
@@ -102,8 +111,16 @@ def enabled() -> bool:
 
 def resume_requested() -> bool:
     """``CYLON_TPU_TORCH_RESUME=1``: committed pieces of matching stages
-    are restored instead of recomputed."""
-    return os.environ.get("CYLON_TPU_TORCH_RESUME") == "1"
+    are restored instead of recomputed.  A serving session the scheduler
+    preempted and requeued resumes the same way in process: its
+    ``_resume_pending`` flag arms the resume for its own runs only, the
+    process-wide switch untouched for its co-tenants."""
+    if os.environ.get("CYLON_TPU_TORCH_RESUME") == "1":
+        return True
+    from .scheduler import current_session
+    sess = current_session()
+    return bool(sess is not None
+                and getattr(sess, "_resume_pending", False))
 
 
 # ---------------------------------------------------------------------------
@@ -168,8 +185,11 @@ def note_reshard(k: int) -> None:
 # stage identity
 # ---------------------------------------------------------------------------
 
-#: the next stage id: stages replay in the same order in a fresh process,
-#: and the plan token guards against the workload having changed
+#: the next stage id per serving session (key None outside a scheduler):
+#: each session's stages replay in the same order in a fresh process, so
+#: (session, counter) identifies a stage however concurrent sessions
+#: interleaved; the plan token guards against the workload having
+#: changed
 _STAGE_SEQ: dict = {}
 
 #: stage directories opened by this process (for the resume-token file)
@@ -181,6 +201,13 @@ def reset_stages() -> None:
     process to take the resume path)."""
     _STAGE_SEQ.clear()
     _OPEN_DIRS.clear()
+
+
+def reset_session_stages(sid: str) -> None:
+    """Restart one serving session's stage sequence: a requeued session
+    replays its workload from the top, so its stages must start again at
+    0 to meet their committed directories."""
+    _STAGE_SEQ.pop(sid, None)
 
 
 def plan_token(*parts) -> str:
@@ -493,6 +520,12 @@ class Stage:
         _STATS["bytes_checkpointed"] += nbytes
         timing.add_bytes("ckpt.write", nbytes)
         timing.bump("ckpt.piece_committed")
+        # a serving session's durable progress: the scheduler's
+        # no-progress guard and the fleet's commit gate read it
+        from .scheduler import current_session
+        sess = current_session()
+        if sess is not None:
+            sess.pieces_committed += 1
 
     def _write_pages(self, i: int, table, corrupt: bool):
         w = int(self.env.world_size)
@@ -695,12 +728,17 @@ class Stage:
 
 def open_stage(env, label: str, token: str,
                base_token: str | None = None) -> Stage:
-    """The next pipelined stage's checkpoint handle (advances the stage
-    sequence).  ``base_token`` (the world-invariant :func:`plan_token`)
-    makes the stage eligible for the re-shard path.  Call only when
+    """The next pipelined stage's checkpoint handle (advances this serving
+    session's stage sequence; a session's stage label carries its name).
+    ``base_token`` (the world-invariant :func:`plan_token`) makes the
+    stage eligible for the re-shard path.  Call only when
     :func:`enabled`."""
-    seq = _STAGE_SEQ.get(None, 0)
-    _STAGE_SEQ[None] = seq + 1
+    from . import recovery
+    sid = recovery.current_session()
+    seq = _STAGE_SEQ.get(sid, 0)
+    _STAGE_SEQ[sid] = seq + 1
+    if sid is not None:
+        label = f"{sid}.{label}"
     stage = Stage(env, label, token, seq, base_token=base_token)
     _OPEN_DIRS.append(stage.dir)
     return stage
@@ -721,7 +759,21 @@ def drain_requested(env) -> bool:
     """The preemption drain poll at a checkpoint boundary: True only when
     a grace budget is declared, checkpoints are armed and the drain vote
     (``recovery.drain_consensus``) agrees a notice arrived.  Unarmed, the
-    SIGTERM flag changes nothing."""
+    SIGTERM flag changes nothing.
+
+    A serving session the scheduler flagged for a preemption or a fleet
+    resize drains here too (one thread-local read for the others), with
+    checkpoints armed; the injector site ``sched.preempt`` fires on that
+    session's thread (``stall`` widens the drain window, ``kill`` and
+    ``term`` signal the process mid-drain)."""
+    from .scheduler import current_session
+    sess = current_session()
+    if sess is not None and sess._drain_mode is not None and enabled():
+        from . import recovery
+        kind = recovery.maybe_inject("sched.preempt", intercept=("stall",))
+        if kind == "stall":
+            time.sleep(0.25)
+        return recovery.drain_consensus(env, True)
     from . import preempt
     if not (preempt.armed() and enabled()):
         return False
@@ -738,9 +790,14 @@ def drain_abort(label: str) -> None:
     recovery._record(label, "preempt", "drain")
     timing.bump("ckpt.preempt_drain")
     g = preempt.grace_seconds()
-    left = preempt.remaining_s()
-    why = (f"preemption notice received (grace {g:g}s"
-           f"{'' if left is None else f', {left:.1f}s left'})")
+    if g is not None:
+        left = preempt.remaining_s()
+        why = (f"preemption notice received (grace {g:g}s"
+               f"{'' if left is None else f', {left:.1f}s left'})")
+    else:
+        # the scheduler's drain (a preemption or a fleet resize): no
+        # grace budget is declared
+        why = "scheduler drain requested"
     raise ResumableAbort(
         f"{label}: {why} "
         "— current stage flushed and committed; rerun with "

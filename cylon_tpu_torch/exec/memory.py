@@ -38,10 +38,15 @@
 
 Eviction and demotion counts go through ``recovery.count_consensus``
 as in the reference; one process drives every rank, so the count is the
-local one.  Not ported: the reference's ``reuse`` admission credit for
-buffers donated into the allocating program (the port donates nothing),
-the serving tier's per-session eviction counts (slice 13) and the
-window-lifetime registrations of the streaming tier (slice 14).
+local one.  Each registration carries the serving session whose turn
+made it (exec/scheduler.py); an eviction under another session's
+pressure, or the scheduler's own admission pass, counts as a
+``cross_session_evictions``.  Operators reach the admission and the
+eviction through the scheduler's facades (``admit_allocation``,
+``free_pressure``, ``spill_retry``).  Not ported: the reference's
+``reuse`` admission credit for buffers donated into the allocating
+program (the port donates nothing) and the window-lifetime registrations
+of the streaming tier (slice 14).
 :func:`put_blocks` is the durable checkpoint restore's upload
 (exec/checkpoint.py), through the same window copy.
 
@@ -78,6 +83,13 @@ def _nbytes(arrays) -> int:
                if a is not None)
 
 
+def _session_tag() -> str | None:
+    """The serving session tagged on this thread (exec/recovery holds the
+    tag the scheduler sets), or None outside one."""
+    from . import recovery
+    return recovery.current_session()
+
+
 class Registration:
     """One resident allocation's ledger entry, and a spillable owner's
     handle to its arrays: ``arrays`` while on the device, ``host`` (per
@@ -85,17 +97,19 @@ class Registration:
     (per array, per shard a ``{"path", "sha", "nbytes"}`` page) while on
     disk.  ``disk_ok`` records the one verification per demotion and
     ``disk_views`` the memory-mapped pages after it; ``pinned`` holds the
-    host tensors an eviction copies into, kept for the next one."""
+    host tensors an eviction copies into, kept for the next one.
+    ``session`` is the serving session whose turn registered it."""
 
     __slots__ = ("owner", "nbytes", "spillable", "seq", "arrays", "host",
                  "disk", "disk_ok", "disk_views", "pinned", "world",
-                 "device", "live", "__weakref__")
+                 "device", "live", "session", "__weakref__")
 
     def __init__(self, owner: str, arrays, spillable: bool, world: int,
                  seq: int):
         self.owner = owner
         self.nbytes = _nbytes(arrays)
         self.spillable = bool(spillable)
+        self.session = _session_tag()
         # only a spillable entry holds its arrays: a bookkeeping entry
         # holding them would keep its own anchor alive
         self.arrays = tuple(arrays) if spillable else ()
@@ -919,7 +933,8 @@ def upload_window(reg: Registration, starts, window: int):
 from ..obs import metrics as _metrics  # noqa: E402
 
 _STATS = _metrics.group("memory", (
-    "spill_events", "bytes_spilled", "readmit_events", "bytes_readmitted"))
+    "spill_events", "bytes_spilled", "readmit_events", "bytes_readmitted",
+    "cross_session_evictions"))
 #: disk-tier counters (registry names ``memory_disk_*``): demote/promote
 #: events, pages and bytes, IO retries at the disk sites, owners retired
 #: on a failed page check, and demotions that stayed in memory
@@ -946,6 +961,10 @@ _DEMOTION_LOG: list[str] = []
 def _note_spill(site: str, reg: Registration) -> None:
     _STATS["spill_events"] += 1
     _STATS["bytes_spilled"] += reg.nbytes
+    if reg.session is not None and reg.session != _session_tag():
+        # a tenant's state evicted under another tenant's pressure (or
+        # the scheduler's admission pass, which runs untagged)
+        _STATS["cross_session_evictions"] += 1
     _EVICTION_LOG.append(reg.owner)
     timing.add_bytes(site, reg.nbytes)
     timing.bump(f"memory.{site}")
@@ -954,7 +973,8 @@ def _note_spill(site: str, reg: Registration) -> None:
 def stats() -> dict:
     """The spill counters: ``spill_events``/``bytes_spilled`` (device to
     host), ``readmit_events``/``bytes_readmitted`` (host to device, whole
-    or by window), the ledger's ``peak_ledger_bytes``, ``ledger_bytes`` and ``host_ledger_bytes``, and
+    or by window), ``cross_session_evictions`` (a serving session's
+    registrations evicted under another's pressure), the ledger's ``peak_ledger_bytes``, ``ledger_bytes`` and ``host_ledger_bytes``, and
     the disk tier's ``disk_events``, ``bytes_to_disk``/``bytes_from_disk``,
     ``disk_pages_demoted``/``disk_pages_promoted``, ``disk_retries``,
     ``disk_corrupt_degrades`` and ``disk_write_degrades``."""

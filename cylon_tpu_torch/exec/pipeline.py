@@ -66,9 +66,14 @@ next piece boundary.
 Each entry opens its plan node (obs/plan.py: ``pipelined_join`` with its
 route, ranges and piece caps, ``pipelined_set_op``,
 ``pipelined_scan_join``); with the flight recorder armed each piece adds
-a dispatch span and each sink chunk an in-flight pair.  Left out: the
-serving tier's interleave point at each chunk or batch boundary and its
-admission of a scan batch (slice 13).
+a dispatch span and each sink chunk an in-flight pair.
+
+Each piece boundary of the range loop, each chunk of the set op and each
+batch of the scan join is an interleave point of the serving tier
+(:func:`_interleave`, exec/scheduler.py): there a scheduled session hands
+the card to the next tenant while its queued work keeps running.  A
+chunk's and a batch's copies are admitted through the scheduler's
+facade (``scheduler.admit_allocation``).
 """
 
 from __future__ import annotations
@@ -98,7 +103,18 @@ from ..status import (CheckpointCorruptError, CylonError, CylonIOError,
                       InvalidError)
 from ..utils import timing
 from ..utils.host import host_arrays
-from . import checkpoint, memory
+from . import checkpoint, memory, scheduler
+
+
+def _interleave() -> None:
+    """The serving tier's interleave point: a session scheduled by
+    exec/scheduler.py hands the baton to the next tenant here, its queued
+    device work still running.  It is also the periodic metrics-snapshot
+    poll of entries that run no scheduler (one list load when unarmed).
+    Outside a scheduler, one module-global load."""
+    from ..obs import metrics
+    metrics.maybe_write_snapshot()
+    scheduler.maybe_yield()
 
 
 class _LazyChunks(Sequence):
@@ -182,9 +198,10 @@ def pipelined_set_op(a: Table, b: Table, op: str, n_chunks: int = 4):
             b = shuffle_table(b, names)     # the resident side, once
         parts = []
         for chunk in chunk_table(a, n_chunks):
+            _interleave()   # a chunk boundary: the serving interleave point
             # each chunk's copy is admitted on the ledger: under pressure
             # the cold spillable owners evict to host memory
-            memory.ensure_headroom(env, memory.table_nbytes(chunk))
+            scheduler.admit_allocation(env, memory.table_nbytes(chunk))
             if op == "union":
                 # unique_table shuffles the chunk itself
                 parts.append(unique_table(chunk))
@@ -710,6 +727,10 @@ def _pipelined_join_impl(left: Table, right: Table, left_on, right_on,
                 checkpoint.drain_abort("pipelined_join")
             if nxt is None and i + 1 < len(live_ranges):
                 nxt = piece_future(live_ranges[i + 1])
+            # a piece boundary: the serving tier's interleave point, with
+            # piece r's consume (and r+1's windows) in flight on the card
+            # while another tenant enqueues its own piece
+            _interleave()
         if not outs:
             # no range qualified (an inner join with no overlapping
             # keys): one empty piece pair keeps the output schema path
@@ -835,6 +856,7 @@ def pipelined_scan_join(scan, build: Table, scan_on, build_on,
         rows_in = 0
         n_batches = 0
         for batch in scan:
+            _interleave()   # a batch boundary: the serving interleave point
             n_batches += 1
             rows_in += batch.row_count
             check_same_env(batch, build)
@@ -859,7 +881,7 @@ def pipelined_scan_join(scan, build: Table, scan_on, build_on,
                     with timing.region("join.shuffle"):
                         bwork = shuffle_table(bwork, build_on)   # ONCE
                 memory.register_table("scan_build", bwork)
-            memory.ensure_headroom(env, memory.table_nbytes(batch))
+            scheduler.admit_allocation(env, memory.table_nbytes(batch))
             reg = memory.register_table("scan_batch", batch)
             if w > 1:
                 with timing.region("join.shuffle"):

@@ -29,9 +29,11 @@ ladder (port of ``cylon_tpu/exec/recovery.py``).
    kind[@session]"``): each fault is raised at its named site, so every
    rung runs on the CPU.  The grammar takes every site and kind the
    reference takes, so a spec written for it parses here; the sites of
-   modules not ported yet (the scheduler, streams, the compile and
-   integrity tiers) never probe, and nothing tags a serving session yet,
-   so an ``@session`` spec never fires.
+   modules not ported yet (streams, the compile and integrity tiers)
+   never probe.  An ``@session`` spec fires only on the thread of that
+   serving session (exec/scheduler.py tags each session's thread with
+   :func:`set_session`), its ``nth`` counted against that session's own
+   probes at the site, so a co-tenant's probes never shift it.
 
 4. **The final rung** (:func:`_resumable`): with durable checkpoints
    armed (exec/checkpoint.py), a ``DeviceOOMError`` no rung cured
@@ -43,14 +45,19 @@ ladder (port of ``cylon_tpu/exec/recovery.py``).
    ``CYLON_TPU_TORCH_WATCHDOG_S`` set, a blocking transfer runs under a
    deadline and a hang surfaces as ``RankDesyncError``.
 
+Serving sessions: recorded events carry the tagged session's name
+(:func:`events_for_session` is one tenant's audit trail), and the votes
+ride a session namespace above their payload (:func:`_ns_consensus`),
+which is an identity in one process.
+
 Consensus: one process drives every rank of a ``VirtualMeshConfig``
 world, so each vote's local value is the agreed one — the reference's
 single-controller branch.  Only the votes that ported code takes are
 here (the guard, the spill rung, the eviction count, the skew plan, the
-checkpoint commit and resume, the preemption drain); the others come
-with their callers (the scheduler's preempt decision, slice 13; streams;
-the topology route; the integrity audit), and the multi-process wire
-with the multi-card transport.  Not ported here: the final rung's
+checkpoint commit and resume, the preemption drain, the scheduler's
+preempt decision); the others come with their callers (streams; the
+topology route; the integrity audit), and the multi-process wire with
+the multi-card transport.  Not ported here: the final rung's
 compiler-crash branch, and ``compiler_crash_signatures``/
 ``prime_compiler_probe``, which classify XLA compiler deaths and wait
 for the compile tier (slice 16).
@@ -157,7 +164,7 @@ class _FaultSpec:
 
 
 _FAULTS: list[_FaultSpec] | None = None   # None: parse the env at first use
-_HITS: dict = {}    # occurrence counters: site -> n
+_HITS: dict = {}    # occurrence counters: site -> n, (site, session) -> n
 
 
 def _parse_faults(spec: str) -> list[_FaultSpec]:
@@ -220,23 +227,44 @@ def probe(site: str) -> tuple[str | None, bool]:
     at this occurrence (consuming one-shot specs) or None, and whether any
     spec could still fire at this site.  One process is rank 0 of its
     world's every vote, so a rank-selective spec fires for rank 0 only.
-    No ported code tags a thread with a serving session (the scheduler
-    does, slice 13), so an ``@session`` spec never fires and, its
-    session's count still 0, stays armed — as in the reference on an
-    untagged thread."""
+    An ``@session`` spec matches only on the thread tagged with that
+    session (:func:`set_session`), and its ``nth`` counts that session's
+    own probes at the site."""
     faults = _installed()
     if not faults:
         return None, False
     _HITS[site] = hit = _HITS.get(site, 0) + 1
-    armed = any(f.site == site and (f.nth is None or f.session is not None
-                                    or f.nth >= hit) for f in faults)
+    sess = current_session()
+    sess_hit = hit
+    if sess is not None:
+        skey = (site, sess)
+        _HITS[skey] = sess_hit = _HITS.get(skey, 0) + 1
+
+    def could_fire(f) -> bool:
+        if f.site != site:
+            return False
+        if f.nth is None:
+            return True
+        if f.session is None:
+            return f.nth >= hit
+        if f.session == sess:
+            return f.nth >= sess_hit
+        # another session's spec: its next probe is occurrence + 1
+        return f.nth >= _HITS.get((site, f.session), 0) + 1
+
+    # armed before the one-shots are consumed: the firing probe reads
+    # as armed
+    armed = any(could_fire(f) for f in faults)
     kind = None
     for f in faults:
-        if f.site != site or f.fired or f.session is not None:
+        if f.site != site or f.fired:
             continue
         if f.rank is not None and f.rank != 0:
             continue
-        if f.nth is not None and f.nth != hit:
+        if f.session is not None and f.session != sess:
+            continue
+        if f.nth is not None and f.nth != (sess_hit if f.session is not None
+                                           else hit):
             continue
         f.fired = f.nth is not None
         kind = f.kind
@@ -311,7 +339,35 @@ def maybe_inject(site: str, intercept: tuple = ()) -> str | None:
 # ---------------------------------------------------------------------------
 
 _EVENTS: list[dict] = []
-_tls = threading.local()        # the ladder's nesting depth, per thread
+#: per thread: the ladder's nesting depth and the serving session's tag
+_tls = threading.local()
+
+
+def set_session(name: str | None, ordinal: int | None = None) -> None:
+    """Tag this thread with a serving session (the scheduler calls it on
+    each session's thread): recorded events carry the name, ``@session``
+    specs match it, and the votes ride its namespace.  ``None`` clears
+    the tag, the behavior outside a scheduler."""
+    _tls.session = name
+    _tls.session_ord = ordinal
+
+
+def current_session() -> str | None:
+    """The serving session tagged on this thread, or None."""
+    return getattr(_tls, "session", None)
+
+
+def _session_ns() -> int:
+    """The vote namespace: 0 with no session tagged, else 1 + (ordinal
+    mod 30), which fits the reference's int32 wire."""
+    o = getattr(_tls, "session_ord", None)
+    return 0 if o is None else 1 + (int(o) % 30)
+
+
+def events_for_session(name: str) -> list[dict]:
+    """The recorded events tagged with serving session ``name``: one
+    tenant's audit trail."""
+    return [e for e in _EVENTS if e.get("session") == name]
 
 
 def _last_phase() -> str:
@@ -322,14 +378,21 @@ def _last_phase() -> str:
 def _record(site: str, kind: str, action: str) -> None:
     from ..utils import timing
     from ..utils.logging import log
-    _EVENTS.append({"site": site, "kind": kind, "action": action})
+    ev = {"site": site, "kind": kind, "action": action}
+    sess = current_session()
+    if sess is not None:
+        # a serving session's events name it; outside a scheduler the
+        # key is absent, as in the reference
+        ev["session"] = sess
+    _EVENTS.append(ev)
     timing.bump(f"recovery.{site}.{kind}.{action}")
     log.warning("recovery: %s fault at %s -> %s", kind, site, action)
 
 
 def recovery_events() -> list[dict]:
     """Events since the last :func:`reset_events`/:func:`drain_events`,
-    each ``{"site", "kind", "action"}``, oldest first."""
+    each ``{"site", "kind", "action"}`` (and ``"session"`` on a serving
+    session's thread), oldest first."""
     return list(_EVENTS)
 
 
@@ -357,9 +420,26 @@ def _voted(what: str, wire: int) -> int:
     return wire
 
 
+def _ns_consensus(env, payload: int, base: int, what: str) -> int:
+    """Max-agree ``payload`` (< ``base``) with the serving session's
+    namespace above it, ``wire = ns · base + payload``.  An agreed wire
+    from another namespace would mean ranks voting from different
+    sessions and raises ``RankDesyncError``; one process votes once for
+    every rank, so the namespace always matches and the payload comes
+    back unchanged."""
+    ns = _session_ns()
+    agreed = _voted(what, ns * base + int(payload))
+    if agreed // base != ns:
+        raise RankDesyncError(
+            f"cross-session consensus collision at {what}: this rank "
+            f"voted in session namespace {ns}, the agreed wire is from "
+            f"namespace {agreed // base}", site=what, phase=_last_phase())
+    return agreed % base
+
+
 def consensus_code(env, code) -> Code:
     """The agreed (max) status code over the world's ranks."""
-    return Code(_voted("exchange.consensus", int(code)))
+    return Code(_ns_consensus(env, int(code), 64, "exchange.consensus"))
 
 
 def guard_consensus(env, local_fault: bool) -> bool:
@@ -378,7 +458,16 @@ def spill_consensus(env, local_need: bool) -> bool:
 def count_consensus(env, n: int) -> int:
     """Max-agree a small count (the spill tier's eviction and demotion
     counts): every rank then evicts as many owners."""
-    return _voted("exchange.count", min(max(int(n), 0), _WIRE - 1))
+    return _ns_consensus(env, min(max(int(n), 0), _WIRE - 1), _WIRE,
+                         "exchange.count")
+
+
+def preempt_consensus(env, victim_plus1: int) -> int:
+    """The scheduler's preempt decision (exec/scheduler.py): every rank
+    votes its chosen victim as ``ordinal + 1`` (0: none) and the max
+    wins, so every rank drains the same tenant or none does."""
+    return _ns_consensus(env, min(max(int(victim_plus1), 0), _WIRE - 1),
+                         _WIRE, "sched.preempt")
 
 
 def drain_consensus(env, local_flag: bool) -> bool:
@@ -606,7 +695,9 @@ def run_with_recovery(primary, can_fallback: bool, fallback, label: str,
         from . import memory
         local_can = config.SPILL_ENABLED and memory.spillable_bytes() > 0
         if spill_consensus(env, local_can):
-            memory.spill_for_retry()
+            # through the serving tier's facade, like every eviction
+            from . import scheduler
+            scheduler.spill_retry()
             from ..utils.logging import log
             _record(label, kind, "spill_retry")
             log.warning("%s %s fault; spill rung: resident state evicted "

@@ -28,8 +28,9 @@ no device work.
 
 Nodes open only through :func:`node` (attributes found later through
 :func:`annotate`); call sites guard their bookkeeping on ``if pn:``.
-``explain_analyze(family=...)`` waits for the serving tier
-(exec/scheduler).
+``explain_analyze(family=...)`` records the run's peak ledger bytes as
+the admission history of a serving shape family
+(exec/scheduler.note_family_peak).
 """
 
 from __future__ import annotations
@@ -445,7 +446,8 @@ def explain(fn, *args, **kwargs) -> QueryPlan:
 
 
 def explain_analyze(fn, *args, reset_timings: bool = True,
-                    profile_keys: bool = True, **kwargs) -> QueryPlan:
+                    profile_keys: bool = True, family: str | None = None,
+                    **kwargs) -> QueryPlan:
     """:func:`explain` plus measurements.  Timing is armed for the call
     (``async`` unless the caller's mode is on already; the caller's mode
     comes back after), the phase table is reset first
@@ -454,7 +456,11 @@ def explain_analyze(fn, *args, reset_timings: bool = True,
     :meth:`QueryPlan.reconcile`.  With the comm matrix armed its report is
     attached as ``comm_matrix``.  ``profile_keys=False`` skips the
     per-node key sampling, the one part that adds device work and host
-    pulls of its own."""
+    pulls of its own.  ``family`` names the query's admission shape
+    family: the run's peak ledger bytes are recorded against it
+    (exec/scheduler.note_family_peak), and a serving session submitted
+    with that ``shape_family`` is admitted at min(declared, observed
+    peak x safety factor)."""
     from ..utils import timing
     from . import comm
 
@@ -474,6 +480,10 @@ def explain_analyze(fn, *args, reset_timings: bool = True,
         timing.enable(prev)
     if comm.armed():
         prof.comm = comm.report()
+    if family is not None:
+        from ..exec import memory, scheduler
+        scheduler.note_family_peak(
+            family, int(memory.stats()["peak_ledger_bytes"]))
     return prof
 
 

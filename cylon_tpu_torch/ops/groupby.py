@@ -22,12 +22,23 @@
 Integer accumulators are int64 and float accumulators float64, as in the
 reference with x64 on (its ``_ftype`` is float64 there, for float32 input
 too; results are cast to the declared dtype afterwards).
+
+Float sums on the card add in one fixed order (:func:`cumsum_f64`, and
+``index_put_`` with ``accumulate`` in the segment sum, which sorts its
+indices), so a query gives the same float bits on every run — what the
+serving tier's promise of an answer equal to the solo run needs.  torch's
+1-D CUDA ``cumsum`` and ``index_add_`` combine float partials in an order
+that varies from run to run.  On the CPU both keep torch's sequential
+order, the reference's.  :func:`grouped_reduce` scans all its float
+prefixes in one batched call, so the fixed order costs the host no more
+launches than a ``cumsum`` per column did.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .. import config
 from . import lanes as lanes_mod
@@ -85,6 +96,40 @@ def _from_image(img: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
     return img.to(dt)
 
 
+#: rows per block of :func:`cumsum_f64`'s scan on the card
+SCAN_BLOCK = 1024
+
+
+def cumsum_f64(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sums along the last dimension of a float tensor
+    (each row of a 2-D one its own scan), in one fixed order on the card
+    (:func:`_blocked_cumsum` at :data:`SCAN_BLOCK`).  On the CPU,
+    ``torch.cumsum``, sequential along each row."""
+    if not x.is_cuda:
+        return torch.cumsum(x, -1)
+    return _blocked_cumsum(x, SCAN_BLOCK)
+
+
+def _blocked_cumsum(x: torch.Tensor, block: int) -> torch.Tensor:
+    """Inclusive prefix sums along the last dimension of ``x``: each
+    block of ``block`` elements is scanned along the inner dimension of a
+    ``(..., blocks, block)`` view (a scan per row, whose order does not
+    vary on the card), then gets the prefix of the block totals before
+    it, computed the same way."""
+    n = int(x.shape[-1])
+    m = -(-n // block)               # the blocks that hold elements
+    # at least two rows: a one-row view would take the 1-D device scan
+    nb = max(2, m)
+    lead = tuple(x.shape[:-1])
+    inner = torch.cumsum(F.pad(x, (0, nb * block - n)).view(
+        *lead, nb, block), -1)
+    if m > 1:
+        # the exclusive prefix of the block totals, zero past the last
+        offs = _blocked_cumsum(inner[..., :m - 1, -1], block)
+        inner += F.pad(offs, (1, nb - m)).unsqueeze(-1)
+    return inner.view(*lead, nb * block)[..., :n]
+
+
 def _seg_apply(kind: str, values, g, ns: int, out_len: int):
     """Segment reduce over ROUTED gids ``g`` (trash segment included in
     ``ns``), returning the first ``out_len`` segments; empty segments hold
@@ -94,6 +139,9 @@ def _seg_apply(kind: str, values, g, ns: int, out_len: int):
     dt = values.dtype
     if kind == "sum":
         acc = torch.zeros(ns + 1, dtype=dt, device=values.device)
+        if values.is_cuda and dt.is_floating_point:
+            # the sorted accumulation: one order on every run
+            return acc.index_put_((g,), values, accumulate=True)[:out_len]
         return acc.index_add_(0, g, values)[:out_len]
     ident = torch.full((), _ident(kind, dt), dtype=dt)
     if dt == torch.bool:
@@ -185,12 +233,13 @@ def grouped_reduce(ops, values_list, vmasks, starts, n_live, key_datas,
     u32_cols: list = []    # (n+1,) int32 lane tensors
     f64_cols: list = []    # (n+1,) f64 tensors (side channel)
     recipes: list = []     # (kind, slot, name, space, lane_ids, meta)
+    f64_srcs: list = []    # (f64_cols slot, source) of the float prefixes
 
     def prefix_lanes(src, islot, name):
         if src.dtype.is_floating_point:
-            ps = torch.cat([torch.zeros(1, dtype=_F64, device=dev),
-                            torch.cumsum(src.to(_F64), 0)])
-            f64_cols.append(ps)
+            # its slot now, its prefix from the one batched scan below
+            f64_srcs.append((len(f64_cols), src.to(_F64)))
+            f64_cols.append(None)
             recipes.append(("prefix", islot, name, "f64",
                             (len(f64_cols) - 1,), None))
             return
@@ -244,6 +293,16 @@ def grouped_reduce(ops, values_list, vmasks, starts, n_live, key_datas,
                                                          device=dev))
             prefix_lanes(src, i, name)
             del src
+    if f64_srcs:
+        # every float prefix in one scan, the zero row in front
+        slots = [slot for slot, _ in f64_srcs]
+        stacked = torch.stack([x for _, x in f64_srcs])
+        f64_srcs.clear()
+        ps = F.pad(cumsum_f64(stacked), (1, 0))
+        del stacked
+        for j, slot in enumerate(slots):
+            f64_cols[slot] = ps[j]
+        del ps
     for ki, (d, v) in enumerate(zip(key_datas, key_valids)):
         pass_lanes(d, "key", ki)
         if v is not None:

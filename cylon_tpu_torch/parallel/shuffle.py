@@ -166,12 +166,13 @@ def _recv_guard(env, out_cap: int, row_bytes: int) -> None:
     ``EXCHANGE_RECV_BUDGET_BYTES`` (where :func:`_guard_applies`) raises
     ``PredictedResourceExhausted``.
     The ledger's colder spillable owners evict first to make room for
-    the receive (``memory.try_free``).  An injected kind at
+    the receive (``scheduler.free_pressure``, the serving tier's facade
+    over the ledger).  An injected kind at
     ``shuffle.recv_guard`` raises that kind."""
-    from ..exec import memory, recovery
+    from ..exec import recovery, scheduler
     from ..status import PredictedResourceExhausted
     need = int(out_cap) * int(row_bytes)
-    memory.try_free(env, need)
+    scheduler.free_pressure(env, need)
     over = bool(_guard_applies(env)
                 and need > config.EXCHANGE_RECV_BUDGET_BYTES)
     kind, armed = recovery.probe("shuffle.recv_guard")

@@ -125,16 +125,16 @@ class PieceSource:
     descriptor.  The caller drops its reference to the table: the packed
     arrays carry everything.
 
-    Admission goes straight to the ledger (exec/memory.ensure_headroom),
-    which evicts colder spillable owners when the budget is short; the
-    reference routes it through the serving tier's scheduler (slice 13).
-    ``scratch_bytes`` folds the piece join's transient sort operands into
+    Admission goes through the serving tier's facade
+    (exec/scheduler.admit_allocation, which charges the bytes to the
+    current session) to the ledger, which evicts colder spillable owners
+    when the budget is short.  ``scratch_bytes`` folds the piece join's transient sort operands into
     that decision.  The packed arrays register as spillable: while they
     are host-resident each piece uploads its window alone."""
 
     def __init__(self, table: Table, pad: int, drop: tuple = (),
                  scratch_bytes: int = 0):
-        from ..exec import memory
+        from ..exec import memory, scheduler
         from .common import table_lane_spec
         self.env = table.env
         items = [(n, c) for n, c in table.columns.items() if n not in drop]
@@ -147,9 +147,9 @@ class PieceSource:
             for n, c in items)
         w, cap = self.env.world_size, table.capacity
         rows = cap + int(pad)          # per shard
-        memory.ensure_headroom(self.env,
-                               w * rows * memory.spec_row_bytes(self.spec),
-                               scratch=int(scratch_bytes))
+        scheduler.admit_allocation(
+            self.env, w * rows * memory.spec_row_bytes(self.spec),
+            scratch=int(scratch_bytes))
         dev = self.env.device
         arrs = []
         if self.spec.n_lanes:

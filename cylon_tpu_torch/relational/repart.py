@@ -81,7 +81,12 @@ def shuffle_table(table: Table, key_names) -> Table:
     """Redistribute rows so equal keys land on the same shard (hash
     partitioning): rank ``partition_targets(hash_rows(keys), W)`` receives
     every row whose keys hash to it, in (source rank, source position)
-    order.  At world size 1 the table itself."""
+    order.  At world size 1 the table itself.  Every distributed operator
+    shuffles, so this is the serving tier's interleave point of the
+    monolithic plans (exec/scheduler.maybe_yield; nothing outside a
+    scheduler)."""
+    from ..exec import scheduler
+    scheduler.maybe_yield()
     env = table.env
     if env.world_size == 1:
         return table

@@ -235,6 +235,37 @@ class ResumableAbort(CylonError):
         self.token = token
 
 
+class AdmissionTimeoutError(CylonError):
+    """A pending serving session waited at the head of the admission
+    queue past the deadline (``CYLON_TPU_TORCH_ADMISSION_TIMEOUT_S`` or
+    the scheduler's ``admission_timeout_s``): the tenant fails typed
+    instead of waiting without bound behind a long-running co-tenant
+    (exec/scheduler.py)."""
+
+    code = Code.ExecutionError
+    kind = "admission_timeout"
+
+    def __init__(self, msg: str = "", session: str | None = None,
+                 waited_s: float | None = None):
+        super().__init__(msg)
+        self.session = session
+        self.waited_s = waited_s
+
+
+class RequeueOverflowError(CylonError):
+    """A preempted tenant drained resumably but the scheduler's requeue
+    capacity was spent: the tenant stays failed, typed, with the drain's
+    :class:`ResumableAbort` (its resume token) on ``__cause__``, so a
+    relaunch with ``CYLON_TPU_TORCH_RESUME=1`` can still resume it."""
+
+    code = Code.CapacityError
+    kind = "requeue_overflow"
+
+    def __init__(self, msg: str = "", session: str | None = None):
+        super().__init__(msg)
+        self.session = session
+
+
 class DeviceUnavailableError(CylonError):
     """A CUDA device was requested (the default) but none is visible.  The
     port never drops to the CPU on its own: pass ``device="cpu"``."""

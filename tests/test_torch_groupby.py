@@ -198,3 +198,33 @@ def test_guard_saturation(monkeypatch):
     assert ei.value.column == "a_sum"
     pg.guard_saturation("sum", big - 2)        # at the rail: fine
     pg.guard_saturation("mean", big)           # not an int accumulator op
+
+
+@pytest.mark.parametrize("block", [4, 8, 1024])
+@pytest.mark.parametrize("n", [0, 1, 3, 4, 5, 8, 9, 17, 63, 64, 65, 1000,
+                               4099])
+def test_blocked_cumsum_matches_cumsum(rng, block, n):
+    """The card's fixed-order float scan (``cumsum_f64``'s blocked
+    helper), run on the CPU at small blocks so that the padding, the one-
+    block floor and the recursion over block totals all occur: equal to
+    ``torch.cumsum`` within rounding, and exact on integer-valued
+    floats."""
+    x = torch.from_numpy(rng.normal(size=n) * 1e3)
+    got = pg._blocked_cumsum(x, block)
+    want = torch.cumsum(x, 0)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    tol = 64 * EPS * torch.cumsum(x.abs(), 0)
+    assert bool(((got - want).abs() <= tol).all())
+    xi = torch.from_numpy(rng.integers(-1000, 1000, n).astype(np.float64))
+    assert torch.equal(pg._blocked_cumsum(xi, block), torch.cumsum(xi, 0))
+    # on a CPU tensor the public entry keeps torch's sequential order
+    assert torch.equal(pg.cumsum_f64(x), want)
+    # a batch of rows (grouped_reduce's float prefixes): each row its own
+    # scan, equal to that row scanned alone
+    xs = torch.from_numpy(rng.normal(size=(3, n)) * 1e3)
+    got = pg._blocked_cumsum(xs, block)
+    assert got.shape == xs.shape
+    for row, alone in zip(got, xs):
+        assert torch.equal(row, pg._blocked_cumsum(alone, block))
+    assert bool(((got - torch.cumsum(xs, -1)).abs()
+                 <= 64 * EPS * torch.cumsum(xs.abs(), -1)).all())
