@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py [--rows N] [--config3-rows N] [--fact-rows N]
                           [--string-rows N] [--scan-rows N] [--skew-rows N]
-                          [--tpch-scale SF] [--oom-rows N] [--ckpt-dir DIR]
+                          [--tpch-scale SF] [--oom-rows N]
+                          [--stream-batches N] [--ckpt-dir DIR]
 
 Builds the package's CUDA kernels from the sources in this checkout (one
 nvcc per source, all at once), holds each against its plain PyTorch
@@ -10,8 +11,9 @@ version on the card, then drives the BASELINE workload (bench.py's inner
 join of two int64 {k, payload} tables, seed 42, keys uniform in
 [0, 0.9 n), then a groupby-sum on the join key) through the package's
 public entry points and checks every result against a numpy oracle
-(the BASELINE oracle takes its per-key sums on the card with torch, held
-equal to numpy's at 1M rows first):
+(the BASELINE oracle, and the join-type oracle from 16M rows a side,
+take their per-key sums on the card with torch, each held equal to
+numpy's at 1M rows first):
 
 * the monolithic route, ``join_tables`` -> ``groupby_aggregate``, at 1M
   rows per side and at ``--rows`` per side (default 125M);
@@ -77,8 +79,9 @@ device-local permutation), both routes each time:
 Then the sort-based groupby, the sample sort and the DataFrame entry,
 each against a numpy oracle:
 
-* ``groupby_small``: 1M rows at W = 1, 3, 4 and 8 — every groupby op on
-  int64 and float64 values (NaN, -0.0) under a nullable key, through the
+* ``groupby_small``: 1M rows at W = 1 and 3 (``SMALL_WORLDS``) — every
+  groupby op on int64 and float64 values (NaN, -0.0) under a nullable
+  key, through the
   raw route, the combine route and the grouped fast path; ``sort_table``
   with both methods, both directions and both null positions, row by row;
   a pipelined join into a ``GroupBySink`` keyed on a payload column;
@@ -102,8 +105,8 @@ Then the join types, the broadcast route and the N-way join:
   how="outer", n_chunks=2)`` into a ``GroupBySink`` on ``k``, timed the
   same way; K2 launches once per shard per iteration and is held
   bit-equal to its plain version on shard 0's inputs;
-* ``joins_small``: 1M rows per side at W = 1, 3, 4 and 8 — every ``how``
-  through ``join_tables``; left, right and outer through
+* ``joins_small``: 1M rows per side at W = 1 and 3 (``SMALL_WORLDS``)
+  — every ``how`` through ``join_tables``; left, right and outer through
   ``pipelined_join`` (n_chunks 3) with and without a ``GroupBySink``; a
   nullable key and a two-column key; the broadcast route with a small
   right side (inner, left, semi, anti) and a small left side (inner,
@@ -133,7 +136,7 @@ Then the set operations, the redistributions and hashed string keys:
 * ``repart_path``: ``repartition()`` of the subtraction's uneven output
   onto the even split (timed), then ``head(1000)``, ``tail(1000)`` and
   the middle third, in global order against the host copy;
-* ``setops_small``: 1M rows at W = 1, 3, 4 and 8 — every set operation
+* ``setops_small``: 1M rows at W = 1 and 3 — every set operation
   on two nullable columns (and pipelined at n_chunks 3), unique keep
   first/last on a subset and on all columns, ordered and unordered
   ``equals``, even and specified repartitions, slices across shard
@@ -163,7 +166,7 @@ the API, on bench.py's tables at ``--scan-rows`` per side (default
   K1 held bit-equal to its plain version (and timed) on the first batch's
   shard 0 inputs, captured in a run with the fused pushdown's density
   gate opened;
-* ``breadth_small``: 1M rows at W = 1, 3, 4 and 8 — decimal keys and
+* ``breadth_small``: 1M rows at W = 1 and 3 — decimal keys and
   payloads of mixed scales through a join, a groupby sum, a sort, a
   concat and a set op; a list payload through a join and a filter, and
   its typed refusal as a key; Series ops with nulls, ``loc``, ``iloc``
@@ -172,8 +175,9 @@ the API, on bench.py's tables at ``--scan-rows`` per side (default
 Then the adaptive skew split and TPC-H, BASELINE configurations 5 and 4:
 
 * ``skew_small``: 1M rows a side, 90% of the probe rows on one key, at
-  W = 1 (the route off), 3, 4 and 8 — every join type, a two-column key,
-  a float64 key, a heavy NULL key and a dictionary-string key, each held
+  W = 1 (the route off) and 3 (``SMALL_WORLDS``) — every join type, a
+  two-column key, a float64 key, a heavy NULL key and a dictionary-string
+  key, each held
   to its rows per key (``np.bincount``), on the even layout, and row for
   row equal to the same join unsplit; the fused join → groupby-sum (the
   heavy partials combined), a min/max groupby that takes the split
@@ -218,8 +222,8 @@ Then recovery: the spill tiers, the retry ladder and a real device OOM:
   holds two window pairs, so the next piece's windows upload before the
   current piece joins (prefetch depth 2): best of 3, peak, the uploads'
   overlap, bit-equal to the unspilled result, the same bytes uploaded;
-* ``recovery_small`` (after ``breadth_small``): 1M rows a side at W = 1,
-  3, 4 and 8 — pipelined inner, left and outer joins (n_chunks 3) with
+* ``recovery_small`` (after ``breadth_small``): 1M rows a side at W = 1
+  and 3 — pipelined inner, left and outer joins (n_chunks 3) with
   and without a ``GroupBySink`` and ``pipelined_set_op``, under a 4 KiB
   device budget (every source evicts) and then with a 4 KiB host budget
   and a temporary spill directory (pages written, verified, read back,
@@ -261,11 +265,15 @@ directory), removed at the end:
   write, which must drain into a ``ResumableAbort`` naming the root —
   with the flight recorder armed (``CYLON_TPU_TORCH_TRACE``), leaving a
   ``TRACE_POSTMORTEM.json`` in the root whose last events hold
-  ``ckpt.write`` spans — and its resume; the complete W = 4 stage resumed at W = 2 (every piece
-  re-sharded, the mismatch counted once) and a second W = 2 resume (a
-  plain fast-forward).  Each child's result is held bit-equal to the
-  uninterrupted run (a digest of its rows sorted by key); a child that
-  exits otherwise than expected fails the phase;
+  ``ckpt.write`` spans — and its resume; the complete W = 4 stage
+  resumed at W = 2 (every piece re-sharded, the mismatch counted once)
+  and a second W = 2 resume (a plain fast-forward).  The preemption
+  chain (drain, resume) runs on a thread beside the kill chain (kill,
+  resume, the two W = 2 resumes), so two children share the card at a
+  time and each child's seconds are timed beside another's.  Each
+  child's result is held
+  bit-equal to the uninterrupted run (a digest of its rows sorted by
+  key); a child that exits otherwise than expected fails the phase;
 * ``ckpt_small``: tests/test_checkpoint.py's scenarios at 1M rows a side
   and W = 1, 3, 4 and 8 — sinkless and sink resume, a partial prefix, a
   corrupt page (recomputed), a plan-token mismatch (started over), a
@@ -307,6 +315,44 @@ exec/fleet.py), after ``tpch_small``:
   and its resume, t0's committed pieces fast-forwarded, every tenant
   bit-equal.
 
+Then streaming (stream/: StreamTable, IncrementalView,
+TumblingWindowJoin) on scripts/bench_streaming.py's stream: uniform keys,
+``qty`` int64 in 1-50, ``amount`` integer cents as float64, event time
+``b·60 + U[0, 60)`` with 5% of the rows 3 windows late, windows of 100,
+lateness 30, late rows dropped; the view over the bench's aggregations
+(sum, count, min, max, mean, var, std of ``amount``, sum of ``qty``), the
+window join against ``dims = {k, dim = 7k + 3}``, one row per key:
+
+* ``stream_serve`` (after ``serve_path``, on its tables and world, W =
+  8): 16 batches of 4,194,304 rows as a ``kind="stream"`` session beside
+  a TPC-H tenant running Q6 then Q1 twice, under ``QueryScheduler(
+  policy="fair")``: the view against the from-scratch groupby and numpy
+  as in ``stream_path``, every tenant answer's digest equal to its solo
+  run's; the sessions' slices, the stream's rows/s and
+  ``stream_sessions``;
+* ``stream_path`` (after the serving phases): ``--stream-batches``
+  batches (default 40) of 4,194,304 rows over 65,536 keys at W = 4, the
+  bench's loop (append, window append, watermark, ``view.read()`` pulled
+  to the host): sustained rows/s, p50/p99 append-to-visible staleness,
+  watermark lag, windows closed, late rows dropped, window evictions,
+  peak device bytes, the ``stream.*`` and ``shuffle.*`` regions' host
+  seconds; the final view bit-equal to a from-scratch
+  ``groupby_aggregate(st.snapshot())`` in every column but var and std,
+  its per-key count, Σ qty and Σ amount equal to numpy's, var and std
+  of both within 1e-7 of their values over numpy's exact sums (past
+  2^53, the running Σ amount² of a shard, the groupby's float prefix
+  sums round; below it they must be bit-equal), every closed window's
+  rows equal to a recompute that replays the drop policy in arrival
+  order, and after the teardown the ledger and the card's allocated
+  bytes back where they started; K1 and K2 not launched;
+* ``stream_small``: 8 batches of 125,000 rows at W = 1, 4 and 8, the view
+  bit-equal to the from-scratch groupby after every batch, var and std
+  included (every sum below 2^53), and to numpy's sums; at W = 4 an
+  open window evicted under a 4 KiB ledger budget that comes back
+  bit-exact at its close, and checkpoints armed: the in-process resume
+  fast-forwarding every committed batch, and a W = 4 commit adopted at
+  W = 2, each bit-equal to the uninterrupted run.
+
 Each route's kernel counts are set to 0 just before it and read just
 after.  Prints one JSON line per phase, then the kernel summary line, then
 the card's name and power limit as nvidia-smi reports them, and last
@@ -341,6 +387,12 @@ K2_SOURCE = "cylon_tpu_torch/kernels/splitter_probe.cu"
 K2_REPLACES = "cylon_tpu/ops/pallas_probe.py:136"
 #: bench.py's rows per range piece of the pipelined route
 PIECE_ROWS = 21_000_000
+#: the worlds of groupby_small, joins_small, setops_small, breadth_small,
+#: skew_small and recovery_small: one shard and an odd world (W = 4 and
+#: 8 left out for the script's time limit; the CPU tests hold each phase
+#: at W = 1, 3, 4 and 8 against the reference, and the full-size phases
+#: run W = 4 and 8 on the card)
+SMALL_WORLDS = (1, 3)
 
 
 def emit(obj) -> None:
@@ -1921,7 +1973,12 @@ def how_oracle(lk, a, rk, b, n_keys: int, how: str) -> dict:
     (``a``) where the join type keeps it.  The payloads are non-negative
     and each key's sums (sa·R, sb·L) stay below 2^53 (both checked, key
     by key), so these float64 bincounts and :func:`check_join`'s are
-    exact."""
+    exact.  From ``HOW_ORACLE_CARD_ROWS`` rows a side the four per-key
+    reductions run on the card (:func:`how_oracle_card`)."""
+    if torch.cuda.is_available() \
+            and min(len(lk), len(rk)) >= HOW_ORACLE_CARD_ROWS:
+        return how_oracle_card(lk, a, rk, b, n_keys, how,
+                               torch.device("cuda"))
     L = np.bincount(lk, minlength=n_keys)
     R = np.bincount(rk, minlength=n_keys)
     sa = np.bincount(lk, a, minlength=n_keys)
@@ -1940,6 +1997,61 @@ def how_oracle(lk, a, rk, b, n_keys: int, how: str) -> dict:
             "ca": LR + np.where(lonly, L, 0),
             "sb": np.where(both, SB * L, 0) + np.where(ronly, SB, 0),
             "cb": LR + np.where(ronly, R, 0)}
+
+
+#: the rows a side from which :func:`how_oracle` counts on the card (its
+#: numpy bincounts take ≈ 10 s a call at 125M rows)
+HOW_ORACLE_CARD_ROWS = 16_000_000
+
+
+def how_oracle_card(lk, a, rk, b, n_keys: int, how: str, dev) -> dict:
+    """:func:`how_oracle` with the per-key counts and sums as int64
+    ``bincount``/``index_add_`` on ``dev`` (exact integers, as the float64
+    bincounts are below 2^53), the per-key formulas there too, pulled to
+    numpy.  Held equal to the numpy version at 1M rows each run
+    (:func:`check_how_oracle_card`)."""
+    def per_key(k, v):
+        kt = torch.from_numpy(np.ascontiguousarray(k)).to(dev)
+        cnt = torch.bincount(kt, minlength=n_keys)
+        tot = torch.zeros(n_keys, dtype=torch.int64, device=dev).index_add_(
+            0, kt, torch.from_numpy(np.ascontiguousarray(v)).to(dev))
+        return cnt, tot
+
+    if min(np.min(a, initial=0), np.min(b, initial=0)) < 0:
+        raise AssertionError("oracle payloads must be non-negative")
+    L, SA = per_key(lk, a)
+    R, SB = per_key(rk, b)
+    if max(float((SA.double() * R.clamp_min(1).double()).max()),
+           float((SB.double() * L.clamp_min(1).double()).max())) >= 2.0**53:
+        raise AssertionError("oracle sums leave the exact range")
+    both = (L > 0) & (R > 0)
+    lonly = (L > 0) & (R == 0) & (how in ("left", "outer"))
+    ronly = (L == 0) & (R > 0) & (how in ("right", "outer"))
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    LR = torch.where(both, L * R, zero)
+    out = {"rows": LR + torch.where(lonly, L, zero)
+           + torch.where(ronly, R, zero),
+           "sa": torch.where(both, SA * R, zero)
+           + torch.where(lonly, SA, zero),
+           "ca": LR + torch.where(lonly, L, zero),
+           "sb": torch.where(both, SB * L, zero)
+           + torch.where(ronly, SB, zero),
+           "cb": LR + torch.where(ronly, R, zero)}
+    return {name: t.cpu().numpy() for name, t in out.items()}
+
+
+def check_how_oracle_card(dev, n: int = 1_000_000) -> None:
+    """:func:`how_oracle_card` equal to the numpy oracle for every join
+    type on bench.py's tables at ``n`` rows a side."""
+    left, right, mv = baseline_inputs(n, seed=3)
+    for how in JOIN_HOWS:
+        host = how_oracle(left["k"], left["a"], right["k"], right["b"], mv,
+                          how)
+        card = how_oracle_card(left["k"], left["a"], right["k"],
+                               right["b"], mv, how, dev)
+        if any(not np.array_equal(host[f], card[f]) for f in host):
+            raise AssertionError(f"how_oracle_card({how}) differs from "
+                                 "numpy's")
 
 
 def key_ids(host, n_keys: int, second=None) -> np.ndarray:
@@ -3920,6 +4032,9 @@ def tpch_path(ct, scale: float = TPCH_SCALE, device=None,
         for rec in serve_path(ct, dfs, env, orc, rows, serve_root):
             rec.update({"scale": scale, "table_rows": rows})
             yield rec
+        rec = stream_serve(ct, dfs, env)
+        rec.update({"scale": scale, "table_rows": rows})
+        yield rec
     del dfs, env
     torch.cuda.empty_cache()
 
@@ -3996,8 +4111,8 @@ def spill_pages(root: str) -> list:
 
 def recovery_small(ct, worlds=(1, 3, 4, 8), n: int = 1_000_000,
                    device=None) -> list:
-    """The spill tiers and the retry ladder at ``n`` rows a side, W = 1,
-    3, 4 and 8 (module docstring), each result against numpy and every
+    """The spill tiers and the retry ladder at ``n`` rows a side, at each
+    of ``worlds`` (module docstring), each result against numpy and every
     spilled run equal to the same run unspilled."""
     import gc
     import tempfile
@@ -4822,6 +4937,7 @@ def ckpt_path(ct, left: dict, right: dict, orc: dict, root: str,
     result."""
     import os
     import shutil
+    import threading
     from cylon_tpu_torch.ctx.context import VirtualMeshConfig
     w, nc = 4, CKPT_CHUNKS
     n = len(left["k"])
@@ -4867,82 +4983,115 @@ def ckpt_path(ct, left: dict, right: dict, orc: dict, root: str,
 
     on_card = device is None
     a_root = os.path.join(root, "A")
-    # kill: SIGKILL at the third checkpoint write, two pieces committed
-    kill = run_child(spec("kill"), -9, "ckpt_path kill",
-                     CKPT_DIR=a_root,
-                     FAULTS="ckpt.write::3=kill")
-    man = manifest_of(a_root)
-    if sorted(man["pieces"], key=int) != ["0", "1"] or man["complete"]:
-        raise AssertionError(f"ckpt_path kill: manifest pieces "
-                             f"{sorted(man['pieces'])}, expected 0 and 1")
-    committed_bytes = verify_pages(man)
-    named = {e["meta"] for e in man["pieces"].values()}
-    stray = sorted(f for f in os.listdir(man["dir"])
-                   if f.startswith("piece_") and f.endswith(".meta")
-                   and f not in named)
-    # resume at W = 4: two pieces fast-forwarded, the rest recomputed
-    t_kill_end = time.perf_counter()
-    res = run_child(spec("resume", capture=True), 0,
-                    "ckpt_path resume",
-                    CKPT_DIR=a_root, RESUME=1)
-    kill_to_resume_s = time.perf_counter() - t_kill_end
-    same(res, "resume")
-    st = res["stats"]
-    if st["resume_fast_forwarded_pieces"] != 2 \
-            or st["checkpoint_events"] != pieces - 2:
-        raise AssertionError(f"ckpt_path resume: counters {st}")
-    rk = res["kernel_counts"]
-    if on_card and (rk["splitter_probe"]["launches"] != un_k2
-                    or rk["windowed_gather"]["launches"]
-                    != un_k1 * (pieces - 2) // pieces):
-        raise AssertionError(f"ckpt_path resume: kernel counts {rk}, "
-                             f"uninterrupted K1 {un_k1}, K2 {un_k2}")
-    if not manifest_of(a_root)["complete"]:
-        raise AssertionError("ckpt_path resume: the stage is not complete")
-    # the preemption drain: SIGTERM at the second write, drained at the
-    # next piece boundary, then resumed
-    b_root = os.path.join(root, "B")
-    # the drain runs with the flight recorder armed: its post-mortem must
-    # land beside the manifests
-    pm_trace = os.path.join(root, "preempt_trace.json")
-    pre = run_child(spec("preempt"), DRAIN_RC, "ckpt_path preempt",
-                    CKPT_DIR=b_root,
-                    PREEMPT_GRACE_S=30, FAULTS="ckpt.write::2=term",
-                    TRACE=pm_trace)
-    if pre["token"] != os.path.abspath(b_root) or not any(
-            e[1:] == ["preempt", "drain"] for e in pre["events"]):
-        raise AssertionError(f"ckpt_path preempt: token {pre['token']}, "
-                             f"events {pre['events']}")
-    postmortem = drain_postmortem(b_root, pm_trace)
-    drained = pre["stats"]["checkpoint_events"]
-    pres = run_child(spec("preempt_resume"), 0,
-                     "ckpt_path preempt resume",
-                     CKPT_DIR=b_root, RESUME=1)
-    same(pres, "preempt resume")
-    if pres["stats"]["resume_fast_forwarded_pieces"] != drained:
-        raise AssertionError(f"ckpt_path preempt resume: {pres['stats']}, "
-                             f"{drained} pieces were committed")
-    shutil.rmtree(b_root)
-    # the elastic re-shard: the complete W = 4 stage resumed at W = 2,
-    # then a second W = 2 resume is a plain fast-forward
-    el = run_child(spec("reshard_w2", world=2), 0, "ckpt_path reshard",
-                   CKPT_DIR=a_root, RESUME=1)
-    same(el, "reshard")
-    st = el["stats"]
-    if (st["resume_resharded_pieces"] != pieces
-            or st["resume_world_mismatch"] != 1
-            or st["resume_fast_forwarded_pieces"] != pieces
-            or manifest_of(a_root)["world"] != 2):
-        raise AssertionError(f"ckpt_path reshard: counters {st}")
-    el2 = run_child(spec("resume_w2", world=2), 0,
-                    "ckpt_path second W=2 resume",
-                    CKPT_DIR=a_root, RESUME=1)
-    same(el2, "second W=2 resume")
-    st = el2["stats"]
-    if (st["resume_resharded_pieces"] or st["resume_world_mismatch"]
-            or st["checkpoint_events"]
-            or st["resume_fast_forwarded_pieces"] != pieces):
-        raise AssertionError(f"ckpt_path second W=2 resume: {st}")
+
+    def kill_chain():
+        """The first chain: a SIGKILL at the third write (two pieces
+        committed), its resume at W = 4, the complete stage re-sharded at
+        W = 2, then a second W = 2 resume (a plain fast-forward)."""
+        kill = run_child(spec("kill"), -9, "ckpt_path kill",
+                         CKPT_DIR=a_root,
+                         FAULTS="ckpt.write::3=kill")
+        man = manifest_of(a_root)
+        if sorted(man["pieces"], key=int) != ["0", "1"] or man["complete"]:
+            raise AssertionError(f"ckpt_path kill: manifest pieces "
+                                 f"{sorted(man['pieces'])}, expected 0 "
+                                 "and 1")
+        committed_bytes = verify_pages(man)
+        named = {e["meta"] for e in man["pieces"].values()}
+        stray = sorted(f for f in os.listdir(man["dir"])
+                       if f.startswith("piece_") and f.endswith(".meta")
+                       and f not in named)
+        # resume at W = 4: two pieces fast-forwarded, the rest recomputed
+        t_kill_end = time.perf_counter()
+        res = run_child(spec("resume", capture=True), 0,
+                        "ckpt_path resume",
+                        CKPT_DIR=a_root, RESUME=1)
+        kill_to_resume_s = time.perf_counter() - t_kill_end
+        same(res, "resume")
+        st = res["stats"]
+        if st["resume_fast_forwarded_pieces"] != 2 \
+                or st["checkpoint_events"] != pieces - 2:
+            raise AssertionError(f"ckpt_path resume: counters {st}")
+        rk = res["kernel_counts"]
+        if on_card and (rk["splitter_probe"]["launches"] != un_k2
+                        or rk["windowed_gather"]["launches"]
+                        != un_k1 * (pieces - 2) // pieces):
+            raise AssertionError(f"ckpt_path resume: kernel counts {rk}, "
+                                 f"uninterrupted K1 {un_k1}, K2 {un_k2}")
+        if not manifest_of(a_root)["complete"]:
+            raise AssertionError("ckpt_path resume: the stage is not "
+                                 "complete")
+        # the elastic re-shard: the complete W = 4 stage resumed at W = 2,
+        # then a second W = 2 resume is a plain fast-forward
+        el = run_child(spec("reshard_w2", world=2), 0,
+                       "ckpt_path reshard", CKPT_DIR=a_root, RESUME=1)
+        same(el, "reshard")
+        st = el["stats"]
+        if (st["resume_resharded_pieces"] != pieces
+                or st["resume_world_mismatch"] != 1
+                or st["resume_fast_forwarded_pieces"] != pieces
+                or manifest_of(a_root)["world"] != 2):
+            raise AssertionError(f"ckpt_path reshard: counters {st}")
+        el2 = run_child(spec("resume_w2", world=2), 0,
+                        "ckpt_path second W=2 resume",
+                        CKPT_DIR=a_root, RESUME=1)
+        same(el2, "second W=2 resume")
+        st = el2["stats"]
+        if (st["resume_resharded_pieces"] or st["resume_world_mismatch"]
+                or st["checkpoint_events"]
+                or st["resume_fast_forwarded_pieces"] != pieces):
+            raise AssertionError(f"ckpt_path second W=2 resume: {st}")
+        return (kill, res, el, el2, man, committed_bytes, stray,
+                kill_to_resume_s)
+
+    def preempt_chain():
+        """The second chain, run beside the kill chain: a SIGTERM at the
+        second write, drained at the next piece boundary (with the flight
+        recorder armed: its post-mortem must land beside the manifests),
+        then resumed."""
+        try:
+            b_root = os.path.join(root, "B")
+            pm_trace = os.path.join(root, "preempt_trace.json")
+            pre = run_child(spec("preempt"), DRAIN_RC, "ckpt_path preempt",
+                            CKPT_DIR=b_root, PREEMPT_GRACE_S=30,
+                            FAULTS="ckpt.write::2=term", TRACE=pm_trace)
+            if pre["token"] != os.path.abspath(b_root) or not any(
+                    e[1:] == ["preempt", "drain"] for e in pre["events"]):
+                raise AssertionError(f"ckpt_path preempt: token "
+                                     f"{pre['token']}, events "
+                                     f"{pre['events']}")
+            postmortem = drain_postmortem(b_root, pm_trace)
+            drained = pre["stats"]["checkpoint_events"]
+            pres = run_child(spec("preempt_resume"), 0,
+                             "ckpt_path preempt resume",
+                             CKPT_DIR=b_root, RESUME=1)
+            same(pres, "preempt resume")
+            if pres["stats"]["resume_fast_forwarded_pieces"] != drained:
+                raise AssertionError(f"ckpt_path preempt resume: "
+                                     f"{pres['stats']}, {drained} pieces "
+                                     "were committed")
+            shutil.rmtree(b_root)
+            chain_b.update(pre=pre, pres=pres, postmortem=postmortem,
+                           drained=drained)
+        except BaseException as e:  # noqa: BLE001 — raised after the join
+            chain_b["error"] = e
+
+    # the two chains run side by side, one child process each at a time,
+    # for the script's time limit: every child shares the card (and the
+    # host) with a child of the other chain, so its seconds are not those
+    # of a child alone
+    chain_b: dict = {}
+    chain = threading.Thread(target=preempt_chain)
+    chain.start()
+    try:
+        kill, res, el, el2, man, committed_bytes, stray, \
+            kill_to_resume_s = kill_chain()
+    finally:
+        chain.join()
+    if "error" in chain_b:
+        raise chain_b["error"]
+    pre, pres = chain_b["pre"], chain_b["pres"]
+    postmortem, drained = chain_b["postmortem"], chain_b["drained"]
     children = {"kill": kill, "resume": res, "preempt": pre,
                 "preempt_resume": pres, "reshard_w2": el,
                 "resume_w2": el2}
@@ -5849,6 +5998,554 @@ def serve_small(ct, root: str, n: int = SERVE_SMALL_ROWS,
     return rec
 
 
+# ---------------------------------------------------------------------------
+# streaming (stream/): StreamTable, IncrementalView, TumblingWindowJoin
+# ---------------------------------------------------------------------------
+
+#: scripts/bench_streaming.py's view aggregations, window, stride,
+#: lateness and seed; its shapes stay, its scale is raised
+STREAM_AGGS = [("amount", "sum"), ("amount", "count"), ("amount", "min"),
+               ("amount", "max"), ("amount", "mean"), ("amount", "var"),
+               ("amount", "std"), ("qty", "sum")]
+STREAM_WINDOW = 100
+STREAM_STRIDE = 60
+STREAM_LATENESS = 30
+STREAM_SEED = 0
+#: stream_path: 40 batches of 4,194,304 rows over 65,536 keys (the
+#: broadcast route's row limit, so every close broadcasts the dims)
+STREAM_BATCHES = 40
+STREAM_ROWS = 4_194_304
+STREAM_KEYS = 65_536
+#: stream_serve's batches of the same stream, beside a TPC-H tenant
+STREAM_SERVE_BATCHES = 16
+#: stream_small: 8 batches of 125,000 rows (1M in all)
+STREAM_SMALL_BATCHES = 8
+STREAM_SMALL_ROWS = 125_000
+#: the slack allowed in the card's allocated bytes after a stream phase
+#: is torn down (a leaked chunk or window buffer is ≥ 128 MB here)
+STREAM_ALLOC_SLACK = 64 << 20
+
+
+def stream_batches(n_batches: int, rows: int, keys: int = STREAM_KEYS,
+                   seed: int = STREAM_SEED) -> list:
+    """bench_streaming's ``make_batches``: uniform keys, ``qty`` int64 in
+    1-50, ``amount`` integer cents as float64 in [100, 100000), event
+    time ``b·stride + U[0, stride)`` with 5% of the rows pushed 3 windows
+    back."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for b in range(n_batches):
+        t = (b * STREAM_STRIDE
+             + rng.integers(0, STREAM_STRIDE, rows)).astype(np.int64)
+        late = rng.random(rows) < 0.05
+        t = np.where(late & (t >= 3 * STREAM_WINDOW),
+                     t - 3 * STREAM_WINDOW, t)
+        out.append({"k": rng.integers(0, keys, rows).astype(np.int64),
+                    "qty": rng.integers(1, 51, rows).astype(np.int64),
+                    "amount": rng.integers(100, 100_000, rows).astype(
+                        np.float64),
+                    "t": t})
+    return out
+
+
+def stream_objects(ct, env, name: str, keys: int = STREAM_KEYS):
+    """The bench's stream, view and window join: the view over
+    ``STREAM_AGGS``, the join against ``dims = {k, dim = 7k + 3}``, one
+    row per key, ``late_policy="drop"``."""
+    from cylon_tpu_torch.stream import (IncrementalView, StreamTable,
+                                        TumblingWindowJoin)
+    k = np.arange(keys, dtype=np.int64)
+    dims = ct.Table.from_pydict({"k": k, "dim": k * 7 + 3}, env)
+    st = StreamTable(env, key="k", name=name)
+    view = IncrementalView(st, "k", STREAM_AGGS, name=f"{name}_view",
+                           env=env)
+    wj = TumblingWindowJoin(env, key="k", time_col="t",
+                            window=STREAM_WINDOW, build=dims, build_on="k",
+                            lateness=STREAM_LATENESS, late_policy="drop",
+                            name=f"{name}_wjoin")
+    return st, view, wj
+
+
+def stream_ingest(st, view, wj, batches, each=None) -> dict:
+    """The bench's ``ingest()``: per batch ``st.append``, ``wj.append``,
+    ``wj.watermark``, then ``view.read()`` pulled to host arrays (the
+    append-to-visible staleness stops there); ``each(i)`` after each
+    batch, off the clock; then the final watermark.  Returns the rate,
+    the staleness and watermark lag and ``closed_at`` (the windows closed
+    when each batch arrived: the drop replay's input)."""
+    staleness, lag, closed_at, checks_s = [], [], [], 0.0
+    max_event = -1
+    t_loop = time.perf_counter()
+    for i, b in enumerate(batches):
+        t0 = time.perf_counter()
+        st.append(b)
+        closed_at.append(wj._closed_through)
+        wj.append(b)
+        wj.watermark()
+        view.read().host_columns()
+        staleness.append(time.perf_counter() - t0)
+        max_event = max(max_event, int(b["t"].max()))
+        lag.append(max_event - wj._closed_through * STREAM_WINDOW)
+        if each is not None:
+            t1 = time.perf_counter()
+            each(i)
+            checks_s += time.perf_counter() - t1
+    wj.watermark()
+    wall = time.perf_counter() - t_loop - checks_s
+    rows = sum(len(b["k"]) for b in batches)
+    return {"batches": len(batches), "rows": rows, "ingest_wall_s": wall,
+            "rows_per_s": rows / wall,
+            "staleness_p50_s": float(np.percentile(staleness, 50)),
+            "staleness_p99_s": float(np.percentile(staleness, 99)),
+            "staleness_s": staleness,
+            "watermark_lag_p50": float(np.percentile(lag, 50)),
+            "watermark_lag_max": int(max(lag)), "closed_at": closed_at,
+            "windows_closed": wj.windows_closed,
+            "late_dropped": wj.late_dropped}
+
+
+#: float64 adds integers exactly up to 2^53
+EXACT_F64 = float(1 << 53)
+#: var and std need Σ amount² besides the sums the other columns need
+STREAM_VAR_COLS = ("amount_var", "amount_std")
+#: the largest error allowed in var, and in std², against the exact
+#: variance, as a fraction of the terms that cancel in it (Σ amount² over
+#: c − 1, never less than var): where a shard's Σ amount² passes 2^53 and
+#: the groupby's float64 prefix sums round, the card's largest reading
+#: was 1.84e-11 of var (stream_path); where they are exact, ≈ 3e-16
+STREAM_VAR_TOL = 1e-9
+
+
+def stream_exact_var(cnt, s, sq) -> np.ndarray:
+    """The exact sample variance (ddof 1) from integer per-key sums:
+    ``(c·Σa² − (Σa)²) / (c·(c − 1))`` with the numerator in int64, then
+    one division (NaN where c ≤ 1)."""
+    c = cnt.astype(np.int64)
+    num = c * sq - s * s
+    den = c * (c - 1)
+    out = np.full(c.shape, np.nan)
+    ok = c > 1
+    out[ok] = num[ok].astype(np.float64) / den[ok].astype(np.float64)
+    return out
+
+
+def stream_verdict(ct, st, view, batches, label: str) -> dict:
+    """``view.read()`` held against a from-scratch ``groupby_aggregate(
+    st.snapshot())`` and against numpy's exact integer per-key sums:
+
+    * every column but var and std bit-equal to the from-scratch groupby,
+      and its count, Σ qty and Σ amount equal to numpy's;
+    * var and std bit-equal to the from-scratch groupby's as well while
+      every shard's total Σ amount² stays below 2^53 (past it the
+      sort-based groupby's float64 prefix sums round, the view's combine
+      over the partials and the groupby over the rows each its own way);
+    * var and std of both within ``STREAM_VAR_TOL`` of the exact variance
+      from numpy's integer count, Σ amount and Σ amount² (errors
+      recorded), NaN where the count is at most 1.
+
+    Returns the verdict's record."""
+    got = view.read()
+    dev = got.column("k").data.device
+    snap = st.snapshot()
+    want = ct.groupby_aggregate(snap, "k", STREAM_AGGS)
+    g, w = by_key(got, "k"), by_key(want, "k")
+    keys = STREAM_KEYS
+    cnt = np.zeros(keys, np.int64)
+    qty = np.zeros(keys, np.int64)
+    amt = np.zeros(keys, np.int64)
+    sq = np.zeros(keys, np.int64)
+    for b in batches:
+        a = b["amount"].astype(np.int64)
+        cnt += np.bincount(b["k"], minlength=keys)
+        qty += np.bincount(b["k"], b["qty"], minlength=keys).astype(
+            np.int64)
+        # float64 per-key sums of integers are exact below 2^53
+        amt += np.bincount(b["k"], a, minlength=keys).astype(np.int64)
+        sq += np.bincount(b["k"], a * a, minlength=keys).astype(np.int64)
+    if sq.max() >= EXACT_F64 or int(cnt.max()) * int(sq.max()) >= 1 << 62:
+        raise AssertionError(f"{label}: a key's Σ amount² passes 2^53 "
+                             "or c·Σ amount² 2^62; the oracle's integer "
+                             "sums would round or overflow")
+    k = g["k"]
+    if list(g) != list(w) or not np.array_equal(k, np.flatnonzero(cnt)):
+        raise AssertionError(f"{label}: the view's columns or groups "
+                             "differ")
+    for c in g:
+        if c not in STREAM_VAR_COLS and g[c].tobytes() != w[c].tobytes():
+            raise AssertionError(f"{label}: {c} differs from the "
+                                 "from-scratch groupby")
+    if not (np.array_equal(g["amount_count"], cnt[k])
+            and np.array_equal(g["qty_sum"], qty[k])
+            and g["amount_sum"].tobytes()
+            == amt[k].astype(np.float64).tobytes()):
+        raise AssertionError(f"{label}: the view's counts or sums differ "
+                             "from numpy's")
+    vc = torch.as_tensor(np.asarray(snap.valid_counts), device=dev)
+    a = snap.column("amount").data.view(len(snap.valid_counts), -1)
+    live = torch.arange(a.shape[1], device=dev)[None, :] < vc[:, None]
+    shard_sq = float(torch.where(live, a * a, 0.0).sum(dim=1).max())
+    var_bit_equal = all(g[c].tobytes() == w[c].tobytes()
+                        for c in STREAM_VAR_COLS)
+    if shard_sq < EXACT_F64 and not var_bit_equal:
+        raise AssertionError(f"{label}: var/std differ from the "
+                             "from-scratch groupby with exact sums")
+    exact = stream_exact_var(cnt[k], amt[k], sq[k])
+    ok = cnt[k] > 1
+    scale = sq[k][ok] / (cnt[k][ok] - 1)
+    rec = {"groups": int(k.shape[0]), "bit_equal_but_var_std": True,
+           "var_std_bit_equal": var_bit_equal,
+           "largest_shard_sum_amount_sq": shard_sq}
+    for side, vals in (("view", g), ("from_scratch", w)):
+        for c in STREAM_VAR_COLS:
+            if not (np.isnan(vals[c][~ok]).all()
+                    and np.isfinite(vals[c][ok]).all()):
+                raise AssertionError(f"{label}: {side} {c}: NaN where the "
+                                     "count passes 1, or a value where "
+                                     "it does not")
+            v = vals[c][ok] ** 2 if c == "amount_std" else vals[c][ok]
+            err = float(np.max(np.abs(v - exact[ok]) / scale, initial=0.0))
+            rec[f"{side}_{c}_err"] = err
+            if err > STREAM_VAR_TOL:
+                raise AssertionError(
+                    f"{label}: {side} {c} is {err:.3g} of Σ amount²/(c−1) "
+                    f"from the exact variance (largest shard Σ amount² "
+                    f"{shard_sq:.4g})")
+    return rec
+
+
+def stream_pack(k, t, qty, amount):
+    """One int64 per row, (k, t, qty, amount) in 16, 12, 6 and 17 bits:
+    equal multisets of packed rows are equal multisets of rows."""
+    return ((k * 4096 + t) * 64 + qty) * 131072 + amount
+
+
+def stream_windows_equal(wj, batches, closed_at, dev, label: str) -> dict:
+    """Every closed window's join equal, by sorted rows, to a recompute
+    from the host rows that replays the drop policy in arrival order (a
+    row survives only if its window was still open when its batch
+    arrived: bench_streaming's ``closed_at`` replay), and every joined
+    row's ``dim`` is ``7k + 3``.  Rows are packed to one int64 each and
+    sorted on ``dev``."""
+    want: dict = {}
+    for b, ca in zip(batches, closed_at):
+        if int(b["t"].max()) >= 4096 or int(b["k"].max()) >= 65_536:
+            raise AssertionError(f"{label}: rows outside the packing")
+        wid = b["t"] // STREAM_WINDOW
+        keep = wid >= ca
+        packed = stream_pack(b["k"], b["t"], b["qty"],
+                             b["amount"].astype(np.int64))
+        for w in np.unique(wid[keep]):
+            want.setdefault(int(w), []).append(packed[keep & (wid == w)])
+    closed = [wid for wid, _ in wj.closed]
+    ripe = sorted(w for w in want if w < wj._closed_through)
+    if sorted(closed) != ripe:
+        raise AssertionError(f"{label}: closed windows {closed}, the "
+                             f"replay's {ripe}")
+    rows = 0
+    for wid, out in wj.closed:
+        vc = torch.as_tensor(np.asarray(out.valid_counts), device=dev)
+        live = (torch.arange(out.capacity, device=dev)[None, :]
+                < vc[:, None]).reshape(-1)
+        c = {n: out.column(n).data[live]
+             for n in ("k", "t", "qty", "amount", "dim")}
+        amount = c["amount"].to(torch.int64)
+        if not (torch.equal(c["dim"], c["k"] * 7 + 3)
+                and torch.equal(amount.to(torch.float64), c["amount"])):
+            raise AssertionError(f"{label}: window {wid}: dim or amount")
+        got = torch.sort(stream_pack(c["k"], c["t"], c["qty"], amount))[0]
+        exp = torch.sort(torch.from_numpy(np.concatenate(want[wid])).to(
+            dev))[0]
+        if not torch.equal(got, exp):
+            raise AssertionError(f"{label}: window {wid}: {got.numel()} "
+                                 f"rows against the replay's {exp.numel()}")
+        rows += int(got.numel())
+    return {"windows_equal": len(closed), "window_rows": rows,
+            "open_windows": wj.stats()["open_windows"]}
+
+
+def stream_teardown(view, wj, st) -> None:
+    """Drain the view's sink, retire the window join (its closed results
+    and the windows the final watermark left open) and release the
+    chunks."""
+    view.finalize()
+    wj.release()
+    st.release()
+
+
+def kernel_counts(reset: bool = False) -> dict:
+    """K1's and K2's counts (after setting them to 0 with ``reset``)."""
+    from cylon_tpu_torch.ops import splitter_probe as sp
+    from cylon_tpu_torch.ops import windowed_gather as wg
+    if reset:
+        wg.reset_counts()
+        sp.reset_counts()
+    return {"windowed_gather": dict(wg.COUNTS),
+            "splitter_probe": dict(sp.COUNTS)}
+
+
+def stream_path(ct, n_batches: int = STREAM_BATCHES,
+                rows: int = STREAM_ROWS, world: int = 4,
+                device=None) -> dict:
+    """The streaming bench at ``n_batches`` of ``rows`` (module
+    docstring): sustained rows/s, p50/p99 append-to-visible staleness,
+    watermark lag, windows closed, late rows dropped, window evictions,
+    the ledger and the card's allocated bytes before the loop and after
+    the teardown (equal), peak device bytes and the ``stream.*`` and
+    ``shuffle.*`` regions' host seconds; the view bit-equal to the
+    from-scratch groupby, its counts and sums equal to numpy's, every
+    closed window equal to the replay; K1 and K2 not launched."""
+    import gc
+    from cylon_tpu_torch.ctx.context import VirtualMeshConfig
+    from cylon_tpu_torch.exec import memory
+    from cylon_tpu_torch.utils import timing
+    t0 = time.perf_counter()
+    batches = stream_batches(n_batches, rows)
+    gen_s = time.perf_counter() - t0
+    env = ct.CylonEnv(VirtualMeshConfig(world), device=device)
+    st, view, wj = stream_objects(ct, env, "stream_path")
+    gc.collect()
+    if env.on_cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    alloc0 = torch.cuda.memory_allocated() if env.on_cuda else 0
+    memory.reset_stats()
+    ledger0 = memory.balance()
+    kernel_counts(reset=True)
+    timing.reset()
+    timing.enable("async")
+    try:
+        rec = stream_ingest(st, view, wj, batches)
+    finally:
+        timing.enable(None)
+    counts = kernel_counts()
+    regions = {k: v for k, v in timing.snapshot().items()
+               if k.startswith(("stream.", "shuffle."))}
+    peak = torch.cuda.max_memory_allocated() if env.on_cuda else None
+    mem = memory.stats()
+    ledger_loop = memory.balance()
+    t1 = time.perf_counter()
+    verdict = stream_verdict(ct, st, view, batches, "stream_path")
+    wins = stream_windows_equal(wj, batches, rec.pop("closed_at"),
+                                env.device, "stream_path")
+    check_s = time.perf_counter() - t1
+    stats = {"view": view.stats(), "stream": st.stats(),
+             "window": wj.stats()}
+    stream_teardown(view, wj, st)
+    del view, wj, st
+    gc.collect()
+    ledger1 = memory.balance()
+    alloc1 = torch.cuda.memory_allocated() if env.on_cuda else 0
+    if ledger1 != ledger0 or alloc1 - alloc0 > STREAM_ALLOC_SLACK:
+        raise AssertionError(f"stream_path: the ledger {ledger0} -> "
+                             f"{ledger1} B, allocated {alloc0} -> {alloc1} "
+                             "B after the teardown")
+    if not 1 <= rec["windows_closed"] <= mem["window_evictions"]:
+        raise AssertionError(f"stream_path: {rec['windows_closed']} "
+                             f"windows closed, {mem['window_evictions']} "
+                             "buffers retired")
+    out = {"phase": "stream_path", "world": world, "rows_per_batch": rows,
+           "keys": STREAM_KEYS, "window": STREAM_WINDOW,
+           "stride": STREAM_STRIDE, "lateness": STREAM_LATENESS,
+           "gen_s": gen_s, **rec, **verdict, **wins,
+           "window_evictions": mem["window_evictions"],
+           "spill_events": mem["spill_events"],
+           "bytes_spilled": mem["bytes_spilled"],
+           "ledger_before_bytes": ledger0,
+           "ledger_loop_end_bytes": ledger_loop,
+           "ledger_after_bytes": ledger1,
+           "allocated_before_bytes": alloc0, "allocated_after_bytes": alloc1,
+           "peak_mem_bytes": peak,
+           "peak_ledger_bytes": mem["peak_ledger_bytes"],
+           "regions_s": regions, "check_s": check_s, "stats": stats,
+           "kernel_counts": counts, "oracle": "equal", "windows": "equal",
+           "ledger_drained": True}
+    no_kernels(out, "stream_path")
+    return out
+
+
+def stream_small(ct, root: str, worlds=(1, 4, 8),
+                 n_batches: int = STREAM_SMALL_BATCHES,
+                 rows: int = STREAM_SMALL_ROWS, device=None) -> list:
+    """The stream at ``n_batches`` of ``rows`` (1M rows) at each W: the
+    view bit-equal to the from-scratch groupby after every batch, the
+    oracle, the windows and the drained ledger; at W = 4 also the spill
+    leg (:func:`stream_spill_leg`) and the checkpoint legs under ``root``
+    (:func:`stream_ckpt_legs`)."""
+    import gc
+    from cylon_tpu_torch.ctx.context import VirtualMeshConfig
+    from cylon_tpu_torch.exec import memory
+    batches = stream_batches(n_batches, rows, seed=STREAM_SEED + 1)
+    recs = []
+    for w in worlds:
+        tag = f"stream_small W={w}"
+        env = ct.CylonEnv(VirtualMeshConfig(w), device=device)
+        memory.reset_stats()
+        ledger0 = memory.balance()
+        st, view, wj = stream_objects(ct, env, f"small{w}")
+        kernel_counts(reset=True)
+        seen = []
+        rec = stream_ingest(st, view, wj, batches, each=lambda i: seen.append(
+            stream_verdict(ct, st, view, batches[:i + 1],
+                           f"{tag} batch {i}")))
+        counts = kernel_counts()
+        if not all(v["var_std_bit_equal"] for v in seen):
+            raise AssertionError(f"{tag}: var/std differ at {seen}")
+        wins = stream_windows_equal(wj, batches, rec.pop("closed_at"),
+                                    env.device, tag)
+        stream_teardown(view, wj, st)
+        del view, wj, st
+        gc.collect()
+        if memory.balance() != ledger0:
+            raise AssertionError(f"{tag}: the ledger did not drain")
+        r = {"phase": "stream_small", "world": w, **wins, **seen[-1],
+             "windows_closed": rec["windows_closed"],
+             "late_dropped": rec["late_dropped"],
+             "rows_per_s": rec["rows_per_s"],
+             "window_evictions": memory.stats()["window_evictions"],
+             "kernel_counts": counts, "view_bit_equal_every_batch": True,
+             "oracle": "equal", "ledger_drained": True}
+        no_kernels(r, tag)
+        if w == 4:
+            r["spill"] = stream_spill_leg(ct, env, batches, tag)
+            r["ckpt"] = stream_ckpt_legs(ct, batches, root, device, tag)
+        recs.append(r)
+    return recs
+
+
+def stream_spill_leg(ct, env, batches, tag: str) -> dict:
+    """The stream under a 4 KiB ledger budget: every admission evicts the
+    open windows to host memory, and each comes back bit-exact at its
+    close (the windows against the replay, the view against the
+    from-scratch groupby)."""
+    from cylon_tpu_torch.exec import memory
+    memory.reset_stats()
+    with knobs(HBM_BUDGET_BYTES=4096):
+        st, view, wj = stream_objects(ct, env, "small_spill")
+        rec = stream_ingest(st, view, wj, batches)
+        verdict = stream_verdict(ct, st, view, batches, f"{tag} spilled")
+        wins = stream_windows_equal(wj, batches, rec.pop("closed_at"),
+                                    env.device, f"{tag} spilled")
+        mem = memory.stats()
+        stream_teardown(view, wj, st)
+    if mem["readmit_events"] < 1 \
+            or mem["spill_events"] <= mem["window_evictions"]:
+        raise AssertionError(f"{tag} spilled: {mem}: no open window was "
+                             "evicted and readmitted")
+    return {**wins, "spill_events": mem["spill_events"],
+            "readmit_events": mem["readmit_events"],
+            "bytes_readmitted": mem["bytes_readmitted"],
+            "window_evictions": mem["window_evictions"],
+            "windows": "equal", **verdict}
+
+
+def stream_ckpt_legs(ct, batches, root: str, device, tag: str) -> dict:
+    """Checkpoints armed: the view at W = 4 commits one piece per batch,
+    and the same ingest resumed at W = 4 fast-forwards every batch
+    (``resume``); a second W = 4 commit resumed at W = 2 adopts the
+    prefix re-sharded (``reshard``).  Each resumed read's digest equals
+    the uninterrupted run's."""
+    import os
+    from cylon_tpu_torch.ctx.context import VirtualMeshConfig
+    from cylon_tpu_torch.stream import IncrementalView, StreamTable
+
+    def run(w):
+        env = ct.CylonEnv(VirtualMeshConfig(w), device=device)
+        st = StreamTable(env, key="k", name="small_ckpt")
+        view = IncrementalView(st, "k", STREAM_AGGS,
+                               name="small_ckpt_view", env=env)
+        for b in batches:
+            st.append(b)
+        digest = serve_digest(view.read())
+        ffwd = view.fast_forwarded
+        view.finalize()
+        st.release()
+        return digest, ffwd
+
+    out = {}
+    n = len(batches)
+    for leg, w_to in (("resume", 4), ("reshard", 2)):
+        path = os.path.join(root, f"stream_{leg}")
+        with ckpt_env(CKPT_DIR=path) as ck:
+            base, _ = run(4)
+            committed = ck.stats()["checkpoint_events"]
+        with ckpt_env(CKPT_DIR=path, RESUME=1) as ck:
+            again, ffwd = run(w_to)
+            s = ck.stats()
+        resharded = n if w_to != 4 else 0
+        if committed != n or ffwd != n or again != base \
+                or s["resume_resharded_pieces"] != resharded:
+            raise AssertionError(f"{tag} {leg}: committed {committed}, "
+                                 f"fast-forwarded {ffwd}, equal "
+                                 f"{again == base}, {s}")
+        out[leg] = {"worlds": [4, w_to], "committed": committed,
+                    "fast_forwarded": ffwd, "stats": s, "bit_equal": True}
+    return out
+
+
+def stream_serve(ct, dfs, env, n_batches: int = STREAM_SERVE_BATCHES,
+                 rows: int = STREAM_ROWS) -> dict:
+    """The stream as a ``kind="stream"`` session beside a TPC-H tenant
+    (Q6 then Q1, twice: bench_streaming's ``query_tenant``) under
+    ``QueryScheduler(policy="fair")`` on ``env`` and its tables ``dfs``:
+    the view bit-equal to the from-scratch groupby, every tenant answer's
+    digest equal to its solo run's; each session's slices, the stream's
+    rows/s and the scheduler's ``stream_sessions``."""
+    import gc
+    from cylon_tpu_torch import tpch
+    from cylon_tpu_torch.exec.scheduler import QueryScheduler
+    batches = stream_batches(n_batches, rows)
+    queries = ("q6", "q1")
+    solo = {q: serve_digest(getattr(tpch, q)(dfs, env=env))
+            for q in queries}
+    st, view, wj = stream_objects(ct, env, "stream_serve")
+    ingest_rec: dict = {}
+    outs: list = []
+
+    def ingest():
+        ingest_rec.update(stream_ingest(st, view, wj, batches))
+        return ingest_rec["batches"]
+
+    def query_tenant():
+        for _ in range(2):
+            for q in queries:
+                out = getattr(tpch, q)(dfs, env=env)
+                wait_result(out)
+                outs.append((q, out))
+        return len(outs)
+
+    kernel_counts(reset=True)
+    sched = QueryScheduler(env, policy="fair")
+    sched.submit("ingest", ingest, kind="stream")
+    sched.submit("tpch", query_tenant)
+    t0 = time.perf_counter()
+    sessions = sched.run(raise_errors=True)
+    elapsed = time.perf_counter() - t0
+    counts = kernel_counts()
+    verdict = stream_verdict(ct, st, view, batches, "stream_serve")
+    for q, out in outs:
+        if serve_digest(out) != solo[q]:
+            raise AssertionError(f"stream_serve: {q} differs from its "
+                                 "solo run")
+    stats = sched.stats()
+    for key in ("closed_at", "staleness_s"):
+        ingest_rec.pop(key)
+    stream_teardown(view, wj, st)
+    del view, wj, st, outs
+    gc.collect()
+    return {"phase": "stream_serve", "world": env.world_size,
+            "rows_per_batch": rows, "policy": "fair",
+            "tenant_queries": [q for _ in range(2) for q in queries],
+            "elapsed_s": elapsed, **ingest_rec,
+            "sessions": {s.name: {"kind": s.kind, "slices": s.slices,
+                                  "latency_s": s.latency_s,
+                                  "service_s": s.service_s,
+                                  "outcome": s.outcome()}
+                         for s in sessions},
+            "stream_sessions": stats["stream_sessions"],
+            "scheduler": stats, "kernel_counts": counts, **verdict,
+            "tenant_bit_equal_to_solo": True}
+
+
 def serve_phases(ct, args, routes: dict, k2_serve: dict) -> None:
     """``tpch_path`` at ``--tpch-scale``, W = 8, with ``serve_path`` and
     its preempt leg on the same tables, then ``serve_small``; emits their
@@ -5986,6 +6683,7 @@ def main() -> int:
            for f in horc):
         raise AssertionError("the card's oracle differs from numpy's")
     del horc
+    check_how_oracle_card(dev)
     lt, rt = ct.Table.from_pydict(left, env), ct.Table.from_pydict(right, env)
     n_groups = check_groupby(step(ct, lt, rt), orc, "small path")
     # read the deferred join instead of fusing it: Σ L·R rows, same sums
@@ -6159,7 +6857,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- the sort-based groupby, the sample sort, the DataFrame entry -----
-    for w, small in groupby_small(ct).items():
+    for w, small in groupby_small(ct, SMALL_WORLDS).items():
         emit({"phase": "groupby_small", "world": w, "rows": 1_000_000,
               "oracle": "equal", **small})
     k, a, mv = config3_inputs(args.config3_rows)
@@ -6167,7 +6865,7 @@ def main() -> int:
     for w in (4, 1):
         emit(config3_path(ct, k, a, c3orc, w))
     del k, a, c3orc
-    for jrec in joins_small(ct):
+    for jrec in joins_small(ct, SMALL_WORLDS):
         emit({"phase": "joins_small", "rows_per_side": 1_000_000,
               "oracle": "equal", **jrec})
     jrec = broadcast_path(ct, args.fact_rows)
@@ -6175,7 +6873,7 @@ def main() -> int:
     emit(jrec)
     del jrec
     torch.cuda.empty_cache()
-    for srec in setops_small(ct):
+    for srec in setops_small(ct, SMALL_WORLDS):
         emit({"phase": "setops_small", "oracle": "equal", **srec})
     srec = strings_path(ct, args.string_rows)
     routes["strings_path"] = srec["kernel_counts"]
@@ -6219,15 +6917,15 @@ def main() -> int:
             emit(crec)
     del left, right, scan_orc
     torch.cuda.empty_cache()
-    for brec in breadth_small(ct):
+    for brec in breadth_small(ct, SMALL_WORLDS):
         no_kernels(brec, f"breadth_small W={brec['world']}")
         emit({"phase": "breadth_small", "oracle": "equal", **brec})
-    for rrec in recovery_small(ct):
+    for rrec in recovery_small(ct, SMALL_WORLDS):
         emit(rrec)
 
     # -- the adaptive skew split and TPC-H: BASELINE configurations 5
     # (W = 4) and 4 (W = 8) --------------------------------------------------
-    for srec in skew_small(ct):
+    for srec in skew_small(ct, SMALL_WORLDS):
         emit({"phase": "skew_small", "oracle": "equal", **srec})
     srec = skew_path(ct, args.skew_rows)
     routes["skew_path_w4"] = srec["kernel_counts"]
@@ -6242,6 +6940,16 @@ def main() -> int:
     serve_phases(ct, args, routes, k2_serve)
     for k2rec in k2_serve.values():
         emit(k2rec)
+    # -- streaming: the bench's stream at W = 4, then at 1M rows --------
+    with ckpt_root(args.ckpt_dir) as root:
+        srec = stream_path(ct)
+        routes["stream_path_w4"] = srec["kernel_counts"]
+        emit(srec)
+        for srec in stream_small(ct, root):
+            routes[f"stream_small_w{srec['world']}"] = srec["kernel_counts"]
+            emit(srec)
+    del srec
+    torch.cuda.empty_cache()
     # -- a real device OOM, recovered by the retry ladder ----------------
     orec = oom_path(ct, args.oom_rows)
     routes["oom_path_w1"] = orec["kernel_counts"]
@@ -6254,7 +6962,8 @@ def main() -> int:
         "launches": counts["launches"]
         + sum(routes[r]["windowed_gather"]["launches"] for r in (
             "scan_join_w4", "spill_path_w4", "ckpt_path_w4", "obs_path_w4",
-            "serve_path_w8", "serve_path_preempt_w8")),
+            "serve_path_w8", "serve_path_preempt_w8", "stream_serve_w8",
+            "stream_path_w4")),
         "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
         "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
@@ -6282,7 +6991,8 @@ def main() -> int:
         "launches": pipe_counts["splitter_probe"]["launches"]
         + sum(routes[r]["splitter_probe"]["launches"] for r in (
             "spill_path_w4", "ckpt_path_w4", "obs_path_w4",
-            "serve_path_w8", "serve_path_preempt_w8")),
+            "serve_path_w8", "serve_path_preempt_w8", "stream_serve_w8",
+            "stream_path_w4")),
         "max_abs_err": rec2["max_abs_err"], "ms": rec2["ms"],
         "kernel_ms": rec2["kernel_ms"], "scalar_ms": rec2["scalar_ms"],
         "general_ms": rec2["general_ms"],

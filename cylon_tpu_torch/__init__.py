@@ -40,6 +40,11 @@ only by the pandas and Arrow conversions and the file IO, inside the
 calls, which raise ``CylonIOError`` naming the package when it is
 missing.
 
+``stream`` serves micro-batch streams: ``StreamTable`` (append-only,
+shuffled on arrival), ``IncrementalView`` (a groupby kept up to date,
+read as consistent snapshots) and ``TumblingWindowJoin`` (event-time
+windows closed under an agreed watermark).
+
 ``obs`` observes a query: ``obs.explain_analyze(fn, ...)`` returns its
 plan tree with per-node rows, bytes and seconds; the metrics registry,
 the flight recorder (``CYLON_TPU_TORCH_TRACE``), the exchange's comm
@@ -66,6 +71,7 @@ from .relational.repart import (concat_tables, filter_table, head,
 from .relational.setops import equals, set_operation, unique_table
 from .relational.sort import local_sort_table, sort_table
 from .series import Series
+from . import stream  # noqa: F401  (StreamTable, IncrementalView, windows)
 from .status import (Code, CylonError, CylonIndexError, CylonIOError,
                      CylonKeyError, CylonTypeError, DeviceUnavailableError,
                      InvalidError, KernelError, ResumableAbort, Status)
@@ -84,4 +90,4 @@ __all__ = ["Code", "Column", "CylonEnv", "CylonError", "CylonIOError",
            "pipelined_join", "pipelined_scan_join", "pipelined_set_op",
            "read_pandas", "repad_table", "repartition", "set_log_level",
            "set_operation", "shuffle_table", "slice_table", "sort_table",
-           "tail", "unique_table"]
+           "stream", "tail", "unique_table"]

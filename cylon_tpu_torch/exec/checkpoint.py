@@ -615,7 +615,8 @@ class Stage:
         return out
 
     # -- elastic re-shard --------------------------------------------------
-    def load_foreign_pieces(self) -> list:
+    def load_foreign_pieces(self, limit: int | None = None,
+                            prefix_ok: bool = False) -> list:
         """Adopt another world's committed pieces onto the live world:
         for each piece, every old rank dir's pages are read and verified,
         the per-shard blocks merged across dirs, the shards' live rows
@@ -627,9 +628,12 @@ class Stage:
         ``ckpt.reshard``) raises :class:`CheckpointCorruptError`: the
         caller recomputes.  Returns the Tables in piece order, not yet
         counted (:func:`note_reshard`, after the resume vote) nor
-        re-committed (:meth:`begin_rewrite` and :meth:`save_piece`).  The
-        reference's ``limit`` and ``prefix_ok`` serve the stream views
-        (slice 14)."""
+        re-committed (:meth:`begin_rewrite` and :meth:`save_piece`).
+        ``limit`` caps the adopted prefix.  ``prefix_ok`` is the mode of a
+        mergeable consumer (a stream view, whose piece identity is the
+        world-invariant batch ordinal): a piece k > 0 that fails its
+        check ends the adoption at the verified pieces 0..k-1, recorded
+        as a ``prefix_trim`` recovery event, instead of raising."""
         from . import recovery
         if recovery.maybe_inject("ckpt.reshard",
                                  intercept=("corrupt",)) == "corrupt":
@@ -637,9 +641,25 @@ class Stage:
             raise CheckpointCorruptError(
                 "injected checkpoint corruption during re-shard",
                 site="ckpt.reshard")
+        n = self.foreign["pieces"] if limit is None \
+            else min(int(limit), self.foreign["pieces"])
+        out: list = []
         with timing.region("ckpt.reshard"):
-            return [self._load_one_foreign(i)
-                    for i in range(self.foreign["pieces"])]
+            for i in range(n):
+                try:
+                    out.append(self._load_one_foreign(i))
+                except CheckpointCorruptError as e:
+                    if not (prefix_ok and out):
+                        raise
+                    recovery._record("ckpt.reshard", "corrupt",
+                                     "prefix_trim")
+                    from ..utils.logging import log
+                    log.warning(
+                        "re-shard of stage %s: piece %d failed its check "
+                        "(%s); adopting the verified %d-piece prefix",
+                        self._dirname, i, e, len(out))
+                    break
+        return out
 
     def _load_one_foreign(self, i: int):
         from .. import config

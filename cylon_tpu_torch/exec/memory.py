@@ -45,8 +45,13 @@ pressure, or the scheduler's own admission pass, counts as a
 eviction through the scheduler's facades (``admit_allocation``,
 ``free_pressure``, ``spill_retry``).  Not ported: the reference's
 ``reuse`` admission credit for buffers donated into the allocating
-program (the port donates nothing) and the window-lifetime registrations
-of the streaming tier (slice 14).
+program (the port donates nothing).
+
+5. **Window lifetime** (the streaming tier, ``cylon_tpu_torch/stream``):
+   an open event-time window's buffers are spillable registrations
+   (:func:`register_window`), evicted like any cold owner under
+   pressure; the watermark close retires them through
+   :func:`evict_release` (device → host → released).
 :func:`put_blocks` is the durable checkpoint restore's upload
 (exec/checkpoint.py), through the same window copy.
 
@@ -636,6 +641,40 @@ def spill_for_retry() -> int:
     return freed
 
 
+# ---------------------------------------------------------------------------
+# window-lifetime residency (the streaming tier): an event-time window's
+# buffers live from their first append to the watermark close
+# ---------------------------------------------------------------------------
+
+def register_window(base: str, arrays, world: int = 1,
+                    anchor=None) -> Registration:
+    """Register one window buffer's arrays (``world`` row-block shards
+    each) as a SPILLABLE resident allocation: a window not yet closable
+    is an LRU eviction candidate like a cold packed source, and the
+    close retires it through :func:`evict_release`."""
+    return _LEDGER.register(base, arrays, spillable=True, world=world,
+                            anchor=anchor)
+
+
+def evict_release(reg: Registration | None) -> int:
+    """The window close: device → host → released.  The buffers are first
+    evicted through the spill tier (the same watchdogged pull as any
+    eviction, one ``spill_events`` record), then the registration is
+    released with its host copy, so the balance drains by the window's
+    full byte count.  A window that pressure already spilled goes
+    straight to release.  Counts ``window_evictions`` and the
+    ``stream.window_evicted`` event; returns the bytes retired."""
+    if reg is None or not reg.live:
+        return 0
+    nbytes = reg.nbytes
+    if not reg.spilled:
+        _LEDGER.evict(reg)
+    _LEDGER.release(reg)
+    _STATS["window_evictions"] += 1
+    timing.bump("stream.window_evicted")
+    return nbytes
+
+
 def prefetch_depth(env, window_pair_bytes: int) -> int:
     """2 (upload piece r+1's windows while piece r computes) when the
     budget has room for a second window pair, else 1."""
@@ -934,7 +973,7 @@ from ..obs import metrics as _metrics  # noqa: E402
 
 _STATS = _metrics.group("memory", (
     "spill_events", "bytes_spilled", "readmit_events", "bytes_readmitted",
-    "cross_session_evictions"))
+    "cross_session_evictions", "window_evictions"))
 #: disk-tier counters (registry names ``memory_disk_*``): demote/promote
 #: events, pages and bytes, IO retries at the disk sites, owners retired
 #: on a failed page check, and demotions that stayed in memory
@@ -974,7 +1013,10 @@ def stats() -> dict:
     """The spill counters: ``spill_events``/``bytes_spilled`` (device to
     host), ``readmit_events``/``bytes_readmitted`` (host to device, whole
     or by window), ``cross_session_evictions`` (a serving session's
-    registrations evicted under another's pressure), the ledger's ``peak_ledger_bytes``, ``ledger_bytes`` and ``host_ledger_bytes``, and
+    registrations evicted under another's pressure), ``window_evictions``
+    (closed event-time windows retired through :func:`evict_release`),
+    the ledger's ``peak_ledger_bytes``, ``ledger_bytes`` and
+    ``host_ledger_bytes``, and
     the disk tier's ``disk_events``, ``bytes_to_disk``/``bytes_from_disk``,
     ``disk_pages_demoted``/``disk_pages_promoted``, ``disk_retries``,
     ``disk_corrupt_degrades`` and ``disk_write_degrades``."""

@@ -315,10 +315,41 @@ class GroupBySink:
         _trace.async_end("sink.chunk_inflight", self._adopted)
         self._adopted += 1
 
+    def absorb(self, chunk: Table) -> None:
+        """The consume path under the streaming view's name: one
+        micro-batch per call (``stream/view.py``)."""
+        self(chunk)
+
     def flush_pending(self) -> None:
         """Resolve every dispatched piece now."""
         while self._pending:
             self._adopt(self._pending.pop(0).resolve())
+
+    def compact(self) -> None:
+        """Fold the adopted partials into one, for unbounded streams: the
+        combine groupby's intermediates, renamed back to the partial
+        schema, are a partial themselves (re-summing summed
+        intermediates is the same fold), so with exact partial sums a
+        compacted sink's snapshot is bit-equal to the uncompacted one.
+        A no-op for 0 or 1 partials and for key-disjoint sinks, whose
+        partials are already the final groups.  The folded partial's
+        ledger registration replaces the partials'."""
+        from ..relational.groupby import groupby_aggregate
+        self.flush_pending()
+        if len(self._parts) <= 1 or self._disjoint:
+            return
+        names = [f"{c}_{i}" for c, i in self._chunk_aggs]
+        comb = groupby_aggregate(
+            concat_tables(self._parts), self.by,
+            [(n, self._COMBINE[i]) for n, (_, i) in zip(names,
+                                                         self._chunk_aggs)])
+        folded = comb.rename({f"{n}_{self._COMBINE[i]}": n for n, (_, i)
+                              in zip(names, self._chunk_aggs)}).project(
+            self.by + names)
+        for reg in self._regs:
+            memory.release(reg)
+        self._parts = [folded]
+        self._regs = [memory.register_table("sink_part", folded)]
 
     def snapshot(self) -> Table:
         """The finalized aggregate over every piece consumed so far,

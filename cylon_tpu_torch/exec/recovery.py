@@ -504,6 +504,18 @@ def ckpt_resume_consensus(env, n: int) -> int:
     return _voted("ckpt.resume", n)
 
 
+def watermark_consensus(env, n: int) -> int:
+    """Min-agree the streaming watermark (the event-time window close,
+    ``stream/window.py``): ``n`` is this rank's count of newly closable
+    windows, and every rank closes the fewest any rank can, so no rank
+    emits or evicts a window another still holds open.  One process
+    votes for every rank, so the agreed count is the local one."""
+    n = int(n)
+    if not 0 <= n < _CKPT_EPOCH_BASE:
+        raise ValueError(f"watermark window count {n} out of wire range")
+    return _voted("stream.watermark", n)
+
+
 def skew_plan_consensus(env, plan_hash: int) -> None:
     """Adopt-one-plan agreement of the adaptive skew split (relational/
     skew.py): every rank votes its plan's hash before the split exchange

@@ -419,6 +419,15 @@ def reduce_intermediates(inter: dict, gids, num_segments, mask=None):
             for k, v in inter.items()}
 
 
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded square root.  The card's float64 ``sqrt`` is
+    IEEE-exact; torch's vectorized CPU one (SLEEF, within 0.5001 ulp) is
+    not, so on the host numpy's takes its place."""
+    if x.device.type == "cpu":
+        return torch.from_numpy(np.sqrt(x.numpy()))
+    return torch.sqrt(x)
+
+
 def finalize(op: str, inter: dict, ddof: int = 1):
     """Stage 5: intermediates -> (result_values, result_validity|None)."""
     cnt = inter.get("count")
@@ -432,11 +441,14 @@ def finalize(op: str, inter: dict, ddof: int = 1):
     if op in ("var", "std"):
         c = cnt.clamp_min(1).to(inter["sum"].dtype)
         mean = inter["sum"] / c
-        var = (inter["sumsq"] / c - mean * mean).clamp_min(0.0)
+        # sumsq/c − mean² as one fused multiply-add, as XLA contracts it:
+        # with exact sums the variance then equals the reference's bit
+        # for bit (a streaming view's contract)
+        var = torch.addcmul(inter["sumsq"] / c, -mean, mean).clamp_min(0.0)
         denom = (cnt - ddof).clamp_min(1).to(var.dtype)
         var = var * (c / denom)
         ok = cnt > ddof
-        return (torch.sqrt(var) if op == "std" else var), ok
+        return (_sqrt(var) if op == "std" else var), ok
     raise ValueError(f"unknown associative op {op}")
 
 

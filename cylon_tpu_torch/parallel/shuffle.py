@@ -190,7 +190,7 @@ def _recv_guard(env, out_cap: int, row_bytes: int) -> None:
 
 
 def exchange(env, tgt: torch.Tensor, counts: np.ndarray, cols: tuple,
-             guard: bool = False):
+             guard: bool = False, owner: str = "shuffle.recv"):
     """Move every array of ``cols`` (each ``(W·cap, ...)``, source-major)
     to its rows' target ranks.  Destination shard d receives its rows
     ordered by (source rank, source position) in the first
@@ -198,7 +198,9 @@ def exchange(env, tgt: torch.Tensor, counts: np.ndarray, cols: tuple,
     with ``out_cap = pow2ceil(max rows any destination receives)``.
     Returns ``(new_cols, new_valid_counts)``, the counts being
     ``counts.sum(axis=0)``.  ``guard``: run the receive-budget guard
-    first (hash shuffles, whose callers sit under the OOM fallbacks)."""
+    first (hash shuffles, whose callers sit under the OOM fallbacks).
+    ``owner`` labels the receive in the plan's and the comm matrix's
+    exchange records (a stream append passes ``stream.recv``)."""
     w = counts.shape[0]
     if w > MAX_WORLD:
         raise InvalidError(f"the exchange sorts its targets as uint8 keys: "
@@ -215,7 +217,7 @@ def exchange(env, tgt: torch.Tensor, counts: np.ndarray, cols: tuple,
     _metrics.counter("exchange_bytes_total").inc(total * row_bytes)
     _metrics.counter("exchange_count").inc()
     if _comm.armed() or _plan.active():
-        _plan.record_exchange(counts, row_bytes, site="shuffle.recv")
+        _plan.record_exchange(counts, row_bytes, site=owner)
     # stable: equal targets keep their global (source-major) order
     order = torch.sort(tgt.to(torch.uint8), stable=True).indices
     starts = np.concatenate([[0], np.cumsum(per_dest)])

@@ -77,11 +77,14 @@ def _rebuild(recipe, new_flat, valid_counts, env: CylonEnv) -> Table:
     return Table(cols, env, np.asarray(valid_counts, np.int64))
 
 
-def shuffle_table(table: Table, key_names) -> Table:
+def shuffle_table(table: Table, key_names,
+                  owner: str = "shuffle.recv") -> Table:
     """Redistribute rows so equal keys land on the same shard (hash
     partitioning): rank ``partition_targets(hash_rows(keys), W)`` receives
     every row whose keys hash to it, in (source rank, source position)
-    order.  At world size 1 the table itself.  Every distributed operator
+    order.  At world size 1 the table itself.  ``owner`` labels the
+    receive on the plan node and in the exchange records (stream appends
+    pass ``stream.recv``).  Every distributed operator
     shuffles, so this is the serving tier's interleave point of the
     monolithic plans (exec/scheduler.maybe_yield; nothing outside a
     scheduler)."""
@@ -90,8 +93,7 @@ def shuffle_table(table: Table, key_names) -> Table:
     env = table.env
     if env.world_size == 1:
         return table
-    with _plan.node("shuffle", keys=tuple(key_names),
-                    owner="shuffle.recv") as pn:
+    with _plan.node("shuffle", keys=tuple(key_names), owner=owner) as pn:
         if pn:
             pn.set(rows_in=table.row_count, rows_out=table.row_count)
         with timing.region("shuffle.hash"):
@@ -103,17 +105,19 @@ def shuffle_table(table: Table, key_names) -> Table:
         # hash shuffles run under the join/groupby/set-op OOM fallbacks:
         # the receive-budget guard may refuse a receive before it is
         # allocated
-        return exchange_by_targets(table, tgt, counts, guard=True)
+        return exchange_by_targets(table, tgt, counts, guard=True,
+                                   owner=owner)
 
 
 def exchange_by_targets(table: Table, tgt, counts: np.ndarray,
-                        guard: bool = False) -> Table:
+                        guard: bool = False,
+                        owner: str = "shuffle.recv") -> Table:
     """Exchange with caller-computed per-row targets; ``guard``: run the
-    exchange's receive-budget guard."""
+    exchange's receive-budget guard; ``owner``: the receive's label."""
     with timing.region("shuffle.exchange"):
         flat, recipe = _flatten_for_exchange(table)
         new_flat, new_valid = shuffle.exchange(table.env, tgt, counts, flat,
-                                               guard=guard)
+                                               guard=guard, owner=owner)
         del flat
         return _rebuild(recipe, new_flat, new_valid, table.env)
 

@@ -542,6 +542,74 @@ class TestResumeFastForward:
 # elastic resume
 # ---------------------------------------------------------------------------
 
+class TestForeignPrefix:
+    """``Stage.load_foreign_pieces(limit, prefix_ok)`` on a stage of four
+    pieces committed at W = 4 and adopted at W = 2 (the stream views'
+    mode): a corrupt piece k > 0 trims the adoption to pieces 0..k-1
+    with a ``prefix_trim`` event; without ``prefix_ok``, or at k = 0,
+    the adoption raises; ``limit`` caps the prefix."""
+
+    @staticmethod
+    def _commit(p, rng_seed=3):
+        base = p.ckpt.plan_token("unit_prefix", "k", "a")
+        stage = p.ckpt.open_stage(p.env(4), "unit", p.ckpt.plan_token(
+            base, 4), base_token=base)
+        rng = np.random.default_rng(rng_seed)
+        frames = []
+        for i in range(4):
+            df = pd.DataFrame({"k": rng.integers(0, 50, 300).astype(
+                np.int64), "a": rng.integers(0, 9, 300).astype(np.int64)})
+            stage.save_piece(i, p.ct.Table.from_pandas(df, p.env(4)))
+            frames.append(df.sort_values(["k", "a"]).reset_index(drop=True))
+        return base, frames
+
+    @staticmethod
+    def _reopen(p, base):
+        p.reset()
+        return p.ckpt.open_stage(p.env(2), "unit", p.ckpt.plan_token(
+            base, 2), base_token=base)
+
+    @pytest.mark.parametrize("bad", [0, 1, 3])
+    def test_corrupt_piece_trims_the_prefix(self, monkeypatch, bad):
+        got = {}
+        for p in BOTH:
+            base, frames = self._commit(p)
+            _flip(os.path.join(p.stage_dir(), f"piece_{bad}.p0"))
+            monkeypatch.setenv(p.var("RESUME"), "1")
+            stage = self._reopen(p, base)
+            assert stage.foreign is not None and not stage.resuming
+            with pytest.raises(p.st.CheckpointCorruptError):
+                stage.load_foreign_pieces()
+            if bad == 0:
+                with pytest.raises(p.st.CheckpointCorruptError):
+                    stage.load_foreign_pieces(prefix_ok=True)
+                pieces = []
+            else:
+                pieces = stage.load_foreign_pieces(prefix_ok=True)
+            assert len(pieces) == bad
+            for piece, want in zip(pieces, frames):
+                _bitequal(want, _sorted(piece))
+                assert list(piece.valid_counts) == [150, 150]
+            got[p.name] = (p.events(), p.ckpt.stats()["corrupt_pages"],
+                           [_sorted(t) for t in pieces])
+        assert got["port"][:2] == got["ref"][:2]
+        assert (("ckpt.reshard", "corrupt", "prefix_trim")
+                in got["port"][0]) == (bad > 0)
+
+    def test_limit_caps_the_prefix(self, monkeypatch):
+        for p in BOTH:
+            base, frames = self._commit(p)
+            _flip(os.path.join(p.stage_dir(), "piece_3.p0"))
+            monkeypatch.setenv(p.var("RESUME"), "1")
+            stage = self._reopen(p, base)
+            pieces = stage.load_foreign_pieces(limit=2)
+            assert len(pieces) == 2
+            _bitequal(frames[1], _sorted(pieces[1]))
+            assert len(stage.load_foreign_pieces(limit=9,
+                                                 prefix_ok=True)) == 3
+        assert PORT.events() == REF.events()
+
+
 class TestElasticReshard:
     @staticmethod
     def _frames(rng, n=1800, card=200):

@@ -317,6 +317,34 @@ def test_comm_matrix_cells_match_reference(w, env4):
     assert m.sum(axis=1).tolist() == [int(x) for x in pl.valid_counts]
 
 
+def test_owner_label_reaches_plan_and_comm_matrix(env4):
+    """The shuffle's ``owner`` label: a stream append's receive is
+    ``stream.recv`` on its plan node and in the comm matrix's exchange
+    log, a plain shuffle's ``shuffle.recv``, as in the reference."""
+    from cylon_tpu.relational.repart import shuffle_table as r_shuffle
+    from cylon_tpu.stream import StreamTable as RStream
+    (rl, _), (pl, _) = both_tables(env4, 4, n=2000)
+    batch = bench_inputs(2000)[0]
+    rst = RStream(env4, key="k", name="s")
+    pst = pct.stream.StreamTable(penv(4), key="k", name="s")
+    rq = robs.explain(rst.append, dict(batch))
+    pq = pobs.explain(pst.append, dict(batch))
+    same_static(rq, pq)
+    node = pq.static_dict()["roots"][0]
+    assert node["op"] == "stream.append"
+    assert node["children"][0]["attrs"]["owner"] == "stream.recv"
+    sites = {}
+    for comm, shuffle, t, st in ((rcomm, r_shuffle, rl, rst),
+                                 (pcomm, pct.shuffle_table, pl, pst)):
+        comm.arm()
+        shuffle(t, ["k"])
+        shuffle(t, ["k"], owner="unit.recv")
+        st.append(dict(batch))
+        sites[comm] = [e["site"] for e in comm.report()["recent"]]
+    assert sites[pcomm] == sites[rcomm] \
+        == ["shuffle.recv", "unit.recv", "stream.recv"]
+
+
 def test_comm_sums_equal_exchange_counters():
     left, right = bench_inputs(4000)
     pe = penv(4)

@@ -218,6 +218,35 @@ class TestLedger:
             gc.collect()
             assert led.balance() == base
 
+    @pytest.mark.parametrize("spilled_first", [False, True])
+    def test_window_evict_release_matches_reference(self, spilled_first):
+        """A window registration is spillable; ``evict_release`` retires
+        it device → host → released (a window already spilled goes
+        straight to release), returns its bytes, counts
+        ``window_evictions`` and drains the balance: the same counters
+        in both packages."""
+        import jax.numpy as jnp
+        x = np.arange(256, dtype=np.int64)
+        got = {}
+        for mem, arrs in ((rmem, [jnp.asarray(x), jnp.asarray(x > 9)]),
+                          (pmem, [torch.from_numpy(x),
+                                  torch.from_numpy(x > 9)])):
+            mem.reset_stats()
+            base = mem.balance()
+            reg = mem.register_window("w.w0", arrs)
+            assert reg.spillable and mem.balance() == base + 256 * 9
+            if spilled_first:
+                assert mem.evict(reg) == 256 * 9
+            assert mem.evict_release(reg) == 256 * 9
+            assert mem.evict_release(reg) == 0     # no longer live
+            assert mem.balance() == base and not reg.live
+            st = mem.stats()
+            got[mem] = (st["window_evictions"], st["spill_events"],
+                        st["bytes_spilled"],
+                        [o.split("#")[0] for o in mem.eviction_log()])
+        assert got[pmem] == got[rmem]
+        assert got[pmem][:2] == (1, 1)
+
     def test_budget_env_override(self, penv4, monkeypatch):
         monkeypatch.setattr(pconfig, "HBM_BUDGET_BYTES", 12345)
         assert pmem.budget_bytes(penv4) == 12345

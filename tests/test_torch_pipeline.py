@@ -401,6 +401,50 @@ def test_sink_overlapping_chunks(env1, penv, worlds4, monkeypatch, w):
 
 
 @pytest.mark.parametrize("w", [1, 4])
+def test_sink_absorb_compact_matches_reference(env1, penv, worlds4,
+                                               monkeypatch, w):
+    """``absorb`` is the consume path and ``compact`` folds the partials
+    into one: with integer-valued float payloads (exact partial sums) the
+    compacted partial and every snapshot equal the reference's bit for
+    bit, var/std included, and a compact of 0 or 1 partials or of a
+    key-disjoint sink changes nothing."""
+    renv, penv_w = _world(w, env1, penv, worlds4, monkeypatch)
+    rng = np.random.default_rng(6)
+    df = pd.DataFrame({"k": rng.integers(0, 30, 1500).astype(np.int64),
+                       "v": rng.integers(-99, 99, 1500).astype(np.float64),
+                       "i": rng.integers(-50, 50, 1500)})
+    aggs = [("v", "var"), ("v", "std"), ("v", "mean"), ("i", "min"),
+            ("i", "max"), ("i", "count"), ("i", "sum")]
+    sinks = (RSink("k", aggs), pct.GroupBySink("k", aggs))
+    for s in sinks:
+        s.compact()                                  # no partials: no-op
+        assert s._parts == []
+    for lo, hi in ((0, 500), (500, 1100), (1100, 1500)):
+        for s, mod, env in zip(sinks, (rct, pct), (renv, penv_w)):
+            s.absorb(mod.Table.from_pandas(df.iloc[lo:hi], env))
+        _assert_same(*[s.snapshot() for s in sinks])
+    for s in sinks:
+        s.compact()
+        assert len(s._parts) == len(s._regs) == 1
+    _assert_same(*[s._parts[0] for s in sinks])
+    _assert_same(*[s.snapshot() for s in sinks])
+    for s in sinks:
+        part = s._parts[0]
+        s.compact()                                  # one partial: no-op
+        assert s._parts[0] is part
+    for s, mod, env in zip(sinks, (rct, pct), (renv, penv_w)):
+        s.absorb(mod.Table.from_pandas(df.iloc[:300], env))
+    _assert_same(*[s.finalize() for s in sinks])
+    disjoint = [pct.GroupBySink("k", aggs)]
+    disjoint[0].mark_key_disjoint()
+    for lo, hi in ((0, 700), (700, 1500)):
+        disjoint[0].absorb(pct.Table.from_pandas(
+            df[(df.k >= lo // 50) & (df.k < hi // 50)], penv_w))
+    disjoint[0].compact()
+    assert len(disjoint[0]._parts) == 2
+
+
+@pytest.mark.parametrize("w", [1, 4])
 def test_sink_non_key_by_combines_across_pieces(env1, penv, worlds4,
                                                 monkeypatch, w):
     """A GroupBySink keyed on a payload column: its groups span pieces,

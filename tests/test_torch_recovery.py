@@ -652,6 +652,18 @@ class TestConsensusAndWatchdog:
             assert prec.count_consensus(penv4, n) == \
                 rrec.count_consensus(None, n)
 
+    def test_watermark_consensus_value_and_range(self, penv4, env4):
+        """The watermark vote returns the local count on one controller,
+        as the reference's does on one process, and both refuse a count
+        outside the wire's 20-bit field."""
+        for n in (0, 1, 7, (1 << 20) - 1):
+            assert prec.watermark_consensus(penv4, n) == n \
+                == rrec.watermark_consensus(env4.mesh, n)
+        for n in (-1, 1 << 20, 1 << 40):
+            for rec, arg in ((prec, penv4), (rrec, env4.mesh)):
+                with pytest.raises(ValueError):
+                    rec.watermark_consensus(arg, n)
+
     def test_watchdog_passthrough_and_errors(self, pkg):
         rec, _ = pkg
         assert rec.exchange_watchdog("exchange.counts", lambda: 7,
