@@ -51,6 +51,40 @@ elif phase == "broadcast_path":
     recs = [cs.broadcast_path(ct, cs.FACT_ROWS)]
 elif phase == "strings_path":
     recs = [cs.strings_path(ct, cs.STRING_ROWS, profile=spec["profile"])]
+elif phase == "dist_path":
+    # the W = 4 monolithic join -> groupby on bench.py's tables (the
+    # default --rows a side), a warm-up and best of 3, split armed and off
+    import time
+    import torch
+    from cylon_tpu_torch import config as pconfig
+    from cylon_tpu_torch.ctx.context import VirtualMeshConfig
+    left, right, _mv = cs.baseline_inputs(125_000_000)
+    env = ct.CylonEnv(VirtualMeshConfig(4))
+    lt = ct.Table.from_pydict(left, env)
+    rt = ct.Table.from_pydict(right, env)
+    del left, right
+    recs = []
+    for armed in (True, False):
+        pconfig.SKEW_SPLIT = armed
+        times = []
+        for _ in range(4):
+            g = cs.step(ct, lt, rt, times)
+        del g
+        torch.cuda.empty_cache()
+        best = min(t["total_s"] for t in times[1:])
+        recs.append({"phase": "dist_path", "query": "armed" if armed
+                     else "unarmed", "world": 4, "best_s": best,
+                     "iterations": [t["total_s"] for t in times]})
+elif phase == "repart_path":
+    # setops_path's input: the subtraction of bench.py's tables' keys at
+    # W = 4, the default --rows a side
+    from cylon_tpu_torch.ctx.context import VirtualMeshConfig
+    left, right, _mv = cs.baseline_inputs(125_000_000)
+    env = ct.CylonEnv(VirtualMeshConfig(4))
+    sub = ct.DataFrame(left, env=env)[["k"]].subtract(
+        ct.DataFrame(right, env=env)[["k"]])
+    del left, right
+    recs = [cs.repart_path(ct, sub.table)]
 else:
     recs = [cs.oom_path(ct, cs.OOM_ROWS)]
 for rec in recs:
@@ -67,7 +101,7 @@ def main() -> int:
                     help="directory of the parent checkout")
     ap.add_argument("--phase", required=True,
                     choices=("tpch_path", "broadcast_path", "strings_path",
-                             "oom_path"))
+                             "repart_path", "dist_path", "oom_path"))
     ap.add_argument("--tpch-scale", type=float, default=5.0)
     ap.add_argument("--serve-last", action="store_true",
                     help="the change's second run also runs serve_path")

@@ -48,6 +48,21 @@ device-local permutation), both routes each time:
   skew detect, join, fused groupby) and K1 launched once per shard per
   iteration; ``dist_path_unarmed``: the same join with the port's skew
   split off, timed and profiled, so what arming costs a uniform join;
+* ``procs_gloo`` and ``procs_nccl``: the multi-process transport
+  (ctx/context.DistributedConfig) on the same tables, the parent's
+  tables freed first: 2 child processes × 2 ranks over gloo (NCCL
+  refuses two ranks on one GPU, so the exchange stages through pinned
+  host memory; no card-to-card transport is measured), then 1 process ×
+  4 ranks over NCCL.  Each child maps bench.py's tables from ``.npy``
+  files the parent writes once, uploads its own ranks' blocks, and runs
+  the monolithic join → groupby (a warm-up and best of 3) and
+  ``pipelined_join(n_chunks=2)`` into a ``GroupBySink``; both results'
+  digests (every shard's rows sorted by key, in rank order) must equal
+  ``dist_path``'s, K1 and K2 must launch on the child's shards and equal
+  their plain versions on their first launch's inputs there.  Per child:
+  s/iteration, the bytes that crossed processes, the staging (pinned
+  D2H and H2D), wire, count-allgather, vote and set-up seconds, the
+  peak memory and the launches;
 * ``dist_pipelined_path``: the same tables through the pipelined route,
   ``n_chunks = max(2, ceil(rows per rank / 21M))``, K2 launched on every
   shard;
@@ -236,7 +251,8 @@ Then recovery: the spill tiers, the retry ladder and a real device OOM:
   typed abort) and, at W > 1, ``shuffle.recv_guard=predicted`` with a
   spillable source resident (the spill rung);
 * ``oom_path`` (last): the monolithic join → groupby at W = 1 and
-  ``--oom-rows`` a side (default 402,653,184), which the card cannot
+  ``--oom-rows`` a side (default 402,653,184; BASELINE-shaped tables
+  drawn on the card, not bench.py's draw), which the card cannot
   hold: the first attempt must raise ``torch.cuda.OutOfMemoryError``,
   classified ``DeviceOOMError``, and the ladder's chunked retry must give
   the oracle's answer; the failed attempt's and the recovery's times and
@@ -387,6 +403,8 @@ K2_SOURCE = "cylon_tpu_torch/kernels/splitter_probe.cu"
 K2_REPLACES = "cylon_tpu/ops/pallas_probe.py:136"
 #: bench.py's rows per range piece of the pipelined route
 PIECE_ROWS = 21_000_000
+#: the time limit of each procs_path leg's processes, together
+PROCS_TIMEOUT_S = 300
 #: the worlds of groupby_small, joins_small, setops_small, breadth_small,
 #: skew_small and recovery_small: one shard and an odd world (W = 4 and
 #: 8 left out for the script's time limit; the CPU tests hold each phase
@@ -808,6 +826,34 @@ def oracle(left, right, mv):
     return host_oracle(left, right, mv)
 
 
+def card_inputs(n: int, seed: int, device, unique: float = 0.9):
+    """BASELINE-shaped tables drawn on the card: int64 keys and payloads
+    uniform in [0, 0.9 n), from a seeded device generator (the data is
+    not bench.py's draw; the oracle takes these tensors).  No host
+    generation and no upload: the setup of a size whose numpy draw takes
+    tens of seconds."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    mv = max(int(n * unique), 1)
+
+    def draw():
+        return torch.randint(0, mv, (n,), dtype=torch.int64, device=device,
+                             generator=gen)
+
+    lk, a = draw(), draw()
+    rk, b = draw(), draw()
+    return {"k": lk, "a": a}, {"k": rk, "b": b}, mv
+
+
+def device_table(ct, cols: dict, env):
+    """A world-1 Table over device int64 tensors of a family-capacity
+    length, with the bounds ingest would give them."""
+    from cylon_tpu_torch.core.column import Column
+    from cylon_tpu_torch.core.dtypes import LogicalType
+    return ct.Table({name: Column(t, LogicalType.INT64, None,
+                                  bounds=(int(t.min()), int(t.max())))
+                     for name, t in cols.items()}, env)
+
+
 def card_oracle(left, right, mv):
     """:func:`oracle` with the per-key counts and sums as int64
     ``bincount``/``index_add_`` on the card (exact: every partial sum
@@ -815,10 +861,10 @@ def card_oracle(left, right, mv):
     dev = torch.device("cuda")
 
     def per_key(k, v):
-        kt = torch.from_numpy(k).to(dev)
+        kt = torch.as_tensor(k).to(dev)
         cnt = torch.bincount(kt, minlength=mv)
         tot = torch.zeros(mv, dtype=torch.int64, device=dev).index_add_(
-            0, kt, torch.from_numpy(v).to(dev))
+            0, kt, torch.as_tensor(v).to(dev))
         return cnt, tot
 
     L, sa = per_key(left["k"], left["a"])
@@ -1331,6 +1377,9 @@ def dist_phases(ct, left, right, orc, n: int, need_k1: bool, routes: dict,
     d_counts = dict(wg.COUNTS)
     d_peak = torch.cuda.max_memory_allocated()
     n_groups = check_dist(g, orc, w, "dist_path")
+    # the W = 4 result's digest, layout included: procs_path's children
+    # must reach it
+    digest = shard_digest(g)
     del g
     if d_counts["redispatches"] != 0 or d_counts["launches"] not in (
             (4 * w,) if need_k1 else (0, 4 * w)):
@@ -1361,7 +1410,8 @@ def dist_phases(ct, left, right, orc, n: int, need_k1: bool, routes: dict,
               "fused_groupby": split[0]["groupby_s"],
               "total": split[0]["total_s"]}})
     routes["monolithic_w4"] = d_counts
-    w4["dist_path"] = {"best_s": dbest, "peak_mem_bytes": d_peak}
+    w4["dist_path"] = {"best_s": dbest, "peak_mem_bytes": d_peak,
+                       "digest": digest}
     if "mono" in captured:
         w4["k1_monolithic"] = k1_check(wg, "w4_monolithic_shard0",
                                        *captured.pop("mono"), True,
@@ -1391,6 +1441,7 @@ def dist_phases(ct, left, right, orc, n: int, need_k1: bool, routes: dict,
     finally:
         pconfig.SKEW_SPLIT = True
     ubest = min(t["total_s"] for t in utimes[1:])
+    w4["dist_path_unarmed_best_s"] = ubest
     emit({"phase": "dist_path_unarmed", "world": w, "rows_per_side": n,
           "iterations": utimes, "best_s": ubest, "armed_best_s": dbest,
           "arming_cost_s": dbest - ubest,
@@ -1791,8 +1842,16 @@ def config3_inputs(n: int, seed: int = 42):
 
 
 def config3_oracle(k, a, mv):
-    """numpy groupby-sum: per key in [0, mv), its row count and a sum
-    (float64 bincount; every sum stays below 2^53, so exact)."""
+    """groupby-sum oracle: per key in [0, mv), whether it occurs and its
+    sum — int64 on the card, numpy's float64 bincount on the host (every
+    sum stays below 2^53, so exact)."""
+    if torch.cuda.is_available():
+        # int64 sums on the card (numpy's two bincounts took seconds)
+        kt = torch.from_numpy(k).cuda()
+        cnt = torch.bincount(kt, minlength=mv)
+        tot = torch.zeros(mv, dtype=torch.int64, device=kt.device)
+        tot.index_add_(0, kt, torch.from_numpy(a).cuda())
+        return (cnt > 0).cpu().numpy(), tot.cpu().numpy()
     cnt = np.bincount(k, minlength=mv)
     s = np.bincount(k, a, minlength=mv)
     if s.max() >= 2.0 ** 53:
@@ -1807,7 +1866,7 @@ def check_config3(out, orc, label: str) -> int:
     present, sums = orc
     host = out.table.host_columns()
     k, a = host["k"][0], host["a"][0]
-    seen = np.bincount(k, minlength=len(present))
+    seen = key_counts(k, len(present))
     if len(seen) != len(present) or not np.array_equal(seen, present):
         raise AssertionError(f"{label}: keys differ from the oracle or "
                              "repeat")
@@ -2787,13 +2846,23 @@ UNIQUE_PHASES = {"hash": "shuffle.hash", "exchange": "shuffle.exchange",
                  "flags": "unique.flags", "materialize": "unique.materialize"}
 
 
+def key_counts(keys: np.ndarray, mv: int) -> np.ndarray:
+    """Rows per key id in ``[0, mv)``, an int64 host array: one
+    ``bincount`` on the card when there is one (numpy's over 125M keys
+    took seconds of ``setops_path``), numpy's on the host."""
+    if torch.cuda.is_available():
+        return torch.bincount(torch.from_numpy(np.ascontiguousarray(keys))
+                              .cuda(), minlength=mv).cpu().numpy()
+    return np.bincount(keys, minlength=mv)
+
+
 def key_presence_check(expected: np.ndarray, mv: int, first=None, a=None):
     """``expected``: a bool per key id; the result must hold each of those
     keys exactly once (and, given ``first``, its first row's ``a``)."""
     def check(out, label):
         host = out.table.host_columns()
         keys = host["k"][0]
-        if not np.array_equal(np.bincount(keys, minlength=mv),
+        if not np.array_equal(key_counts(keys, mv),
                               expected.astype(np.int64)):
             raise AssertionError(f"{label}: key set differs from numpy")
         if first is not None and not np.array_equal(host["a"][0],
@@ -2838,8 +2907,8 @@ def setops_paths(ct, left, right, mv: int, device=None,
     L, R = df1[["k"]], df2[["k"]]
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    pres_l = np.bincount(left["k"], minlength=mv) > 0
-    pres_r = np.bincount(right["k"], minlength=mv) > 0
+    pres_l = key_counts(left["k"], mv) > 0
+    pres_r = key_counts(right["k"], mv) > 0
     first = np.empty(mv, np.int64)
     # reversed fancy assignment: the last write, each key's first row, wins
     first[left["k"][::-1]] = np.arange(n - 1, -1, -1)
@@ -3857,20 +3926,23 @@ def q9_profit_scale(cols: dict) -> float:
 def tpch_small(ct, worlds=(1, 4, 8), scale: float = TPCH_SMALL_SCALE,
                device=None) -> list:
     """All 21 TPC-H queries at ``scale`` on the card at each world size,
-    each held against the same query of the port on the CPU on the same
-    generated tables; K1/K2 launches per query."""
+    each held against the same query of the port on the CPU at W = 1 on
+    the same generated tables (computed once: every query's answer is
+    the same at every world, which tests/test_torch_tpch.py holds against
+    the reference); K1/K2 launches per query."""
     from cylon_tpu_torch import tpch
     from cylon_tpu_torch.ctx.context import VirtualMeshConfig
     from cylon_tpu_torch.ops import splitter_probe as sp
     from cylon_tpu_torch.ops import windowed_gather as wg
     scales = {"q9": {"sum_profit": q9_profit_scale(
         tpch.generate_columns(scale, 0))}}
+    cenv = ct.CylonEnv(device="cpu")
+    cdfs = tpch.generate_tables(scale, cenv, 0)
+    wants: dict = {}
     recs = []
     for w in worlds:
         env = ct.CylonEnv(VirtualMeshConfig(w), device=device)
-        cenv = ct.CylonEnv(VirtualMeshConfig(w), device="cpu")
         dfs = tpch.generate_tables(scale, env, 0)
-        cdfs = tpch.generate_tables(scale, cenv, 0)
         launches, rows, card_s = {}, {}, {}
         for q in TPCH_QUERIES:
             wg.reset_counts()
@@ -3882,14 +3954,16 @@ def tpch_small(ct, worlds=(1, 4, 8), scale: float = TPCH_SMALL_SCALE,
             card_s[q] = time.perf_counter() - t0
             launches[q] = {"windowed_gather": wg.COUNTS["launches"],
                            "splitter_probe": sp.COUNTS["launches"]}
-            want = getattr(tpch, q)(cdfs, env=cenv)
-            same_tpch(got, want, f"tpch_small W={w} {q}", scales.get(q))
+            if q not in wants:
+                wants[q] = getattr(tpch, q)(cdfs, env=cenv)
+            same_tpch(got, wants[q], f"tpch_small W={w} {q}", scales.get(q))
             rows[q] = None if isinstance(got, float) else got.table.row_count
         recs.append({"phase": "tpch_small", "world": w, "scale": scale,
                      "queries": len(TPCH_QUERIES), "oracle": "equal",
-                     "against": "the port on the CPU", "result_rows": rows,
+                     "against": "the port on the CPU at W = 1",
+                     "result_rows": rows,
                      "card_first_s": card_s, "kernel_launches": launches})
-        del dfs, cdfs, env, cenv
+        del dfs, env
     return recs
 
 
@@ -4528,7 +4602,8 @@ def spill_path(ct, left: dict, right: dict, orc: dict, device=None,
 def oom_path(ct, n: int = OOM_ROWS, device=None) -> dict:
     """The BASELINE join → groupby-sum through the monolithic entry
     (``join_tables`` → ``groupby_aggregate``) at W = 1 and ``n`` rows a
-    side, a size the monolithic route cannot hold on the card: its first
+    side (on the card, BASELINE-shaped tables drawn there,
+    :func:`card_inputs`), a size the monolithic route cannot hold: its first
     attempt must raise a real ``torch.cuda.OutOfMemoryError``, classified
     as ``DeviceOOMError``, and the retry ladder's chunked route must give
     the oracle's answer.  One run; the failed attempt's time and peak,
@@ -4539,11 +4614,17 @@ def oom_path(ct, n: int = OOM_ROWS, device=None) -> dict:
     from cylon_tpu_torch.ops import splitter_probe as sp
     from cylon_tpu_torch.ops import windowed_gather as wg
     t0 = time.perf_counter()
-    left, right, mv = baseline_inputs(n)
-    orc = oracle(left, right, mv)
     env = ct.CylonEnv(device=device)
-    lt, rt = ct.Table.from_pydict(left, env), ct.Table.from_pydict(right,
-                                                                   env)
+    if env.on_cuda:
+        # drawn on the card: a numpy draw of 402M rows a side took ≈ 30 s
+        left, right, mv = card_inputs(n, 42, env.device)
+        orc = oracle(left, right, mv)
+        lt, rt = device_table(ct, left, env), device_table(ct, right, env)
+    else:
+        left, right, mv = baseline_inputs(n)
+        orc = oracle(left, right, mv)
+        lt, rt = ct.Table.from_pydict(left, env), ct.Table.from_pydict(
+            right, env)
     del left, right
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
@@ -4727,6 +4808,274 @@ def verify_pages(man: dict) -> int:
                                      "fails its hash")
             total += len(praw)
     return total
+
+
+def shard_digest(g) -> dict:
+    """A digest of a BASELINE result's every group, layout included:
+    sha256 over the ranks in order of each shard's live rows sorted by
+    key (k, a_sum, b_sum).  In a multi-process world each process hashes
+    its own shards and one allgather puts the shard digests in rank
+    order, so every process gets the digest one process gets of the same
+    layout."""
+    import hashlib
+    from cylon_tpu_torch.parallel import transport
+    from cylon_tpu_torch.parallel.shards import shard, span
+    w = g.env.world_size
+    vc = np.asarray(g.valid_counts, np.int64)
+    mine = []
+    for r in span(w):
+        n = int(vc[r])
+        k = shard(g.column("k").data, w, r)[:n]
+        order = torch.argsort(k)
+        h = hashlib.sha256()
+        for name in ("k", "a_sum", "b_sum"):
+            col = shard(g.column(name).data, w, r)[:n][order]
+            h.update(np.ascontiguousarray(col.cpu().numpy()).tobytes())
+        mine.append(np.frombuffer(h.digest(), np.uint8))
+    blocks = np.stack(mine)
+    if transport.current(w) is not None:
+        blocks = transport.allgather_array(blocks, "digest").reshape(w, -1)
+    return {"groups": int(vc.sum()),
+            "sha256": hashlib.sha256(blocks.tobytes()).hexdigest()}
+
+
+def procs_child(spec: dict) -> int:
+    """One process of ``procs_path``: a DistributedConfig world of
+    ``spec["nproc"]`` processes × ``spec["local_world"]`` ranks on this
+    card.  Maps bench.py's tables (seed 42, ``spec["rows"]`` a side) from
+    the parent's ``.npy`` files, uploads its own ranks' blocks, runs the
+    monolithic
+    join → groupby(sum) as a warm-up plus best of 3, then
+    ``pipelined_join(n_chunks=2)`` into a ``GroupBySink``; K1 and K2 are
+    held bit-equal to their plain versions on the inputs of their first
+    launch in this process.  Prints one JSON line: seconds per
+    iteration, the transport's bytes and seconds (staging, wire, count
+    allgathers, votes, set-up), peak memory, the kernel launches and
+    both results' digests."""
+    import os
+    import cylon_tpu_torch as ct
+    from cylon_tpu_torch.ops import splitter_probe as sp
+    from cylon_tpu_torch.ops import windowed_gather as wg
+    from cylon_tpu_torch.parallel import transport
+    if spec.get("go"):
+        deadline = time.monotonic() + PROCS_TIMEOUT_S
+        while not os.path.exists(spec["go"]):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"no go file {spec['go']}")
+            time.sleep(0.05)
+    t_start = time.perf_counter()
+    env = ct.CylonEnv(ct.DistributedConfig(
+        spec["addr"], spec["pid"], spec["nproc"],
+        local_world=spec["local_world"], backend=spec.get("backend"),
+        device=spec.get("device")))
+    rec = {"phase": "procs_child", "leg": spec["leg"], "pid": spec["pid"],
+           "nproc": spec["nproc"], "local_world": spec["local_world"],
+           "backend": env.backend, "world": env.world_size,
+           "local_ranks": list(env.local_ranks),
+           "setup_s": dict(transport.STATS)["setup_s"]}
+    t0 = time.perf_counter()
+    # bench.py's tables as the parent drew them, mapped from its files:
+    # each process reads (and uploads) its own ranks' blocks
+    cols = {name: np.load(os.path.join(spec["data"], f"{name}.npy"),
+                          mmap_mode="r") for name in ("lk", "a", "rk", "b")}
+    lt = ct.Table.from_pydict({"k": cols["lk"], "a": cols["a"]}, env)
+    rt = ct.Table.from_pydict({"k": cols["rk"], "b": cols["b"]}, env)
+    del cols
+    torch.cuda.synchronize()
+    rec["upload_s"] = time.perf_counter() - t0
+    env.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    # the main path, counted: every count 0 just before, read just after
+    wg.reset_counts()
+    sp.reset_counts()
+    transport.reset_stats()
+    captured: dict = {}
+    times = []
+    with capturing(wg, "windowed_take_t", captured, "mono", keep_k1):
+        g = step(ct, lt, rt, times)             # warm-up (first sight)
+    warm_stats = dict(transport.STATS)
+    transport.reset_stats()
+    for _ in range(3):
+        g = step(ct, lt, rt, times)
+    mono_stats = {k: v / 3 for k, v in transport.STATS.items()}
+    rec["monolithic"] = {
+        "iterations": times, "best_s": min(t["total_s"] for t in times[1:]),
+        "per_iteration": mono_stats, "warm_up": warm_stats,
+        "digest": shard_digest(g)}
+    del g
+    torch.cuda.empty_cache()
+    transport.reset_stats()
+    ptimes = []
+    with capturing(sp, "count_ge_splitters", captured, "probe"), \
+            capturing(wg, "windowed_take_t", captured, "piece", keep_k1):
+        g = pipelined_step(ct, lt, rt, 2, ptimes)
+    rec["pipelined"] = {"n_chunks": 2, "iterations": ptimes,
+                        "s": ptimes[0]["total_s"],
+                        "transport": dict(transport.STATS),
+                        "digest": shard_digest(g)}
+    del g
+    rec["kernel_counts"] = {"windowed_gather": dict(wg.COUNTS),
+                            "splitter_probe": dict(sp.COUNTS)}
+    rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    del lt, rt
+    torch.cuda.empty_cache()
+    checks = {}
+    if "mono" in captured:
+        checks["k1_monolithic"] = k1_check(
+            wg, f"{spec['leg']}_p{spec['pid']}_monolithic",
+            *captured.pop("mono"), True)
+    if "piece" in captured:
+        checks["k1_piece"] = k1_check(
+            wg, f"{spec['leg']}_p{spec['pid']}_piece", *captured.pop("piece"))
+    if "probe" in captured:
+        checks["k2"] = k2_check(sp, f"{spec['leg']}_p{spec['pid']}",
+                                *captured.pop("probe"))
+    rec["checks"] = {name: {key: c.get(key) for key in (
+        "L", "M", "S", "K", "window", "bit_equal", "max_abs_err")}
+        for name, c in checks.items()}
+    env.barrier()
+    env.finalize()
+    rec["wall_s"] = time.perf_counter() - t_start
+    print(json.dumps(rec), flush=True)
+    return 0
+
+
+def procs_path(left: dict, right: dict, w4: dict) -> list:
+    """The multi-process transport on this card (module docstring):
+    ``procs_gloo``, 2 processes × 2 ranks over gloo (the exchange stages
+    through pinned host memory: NCCL refuses two ranks on one GPU), and
+    ``procs_nccl``, 1 process × 4 ranks over NCCL.  Each child's result
+    digest must equal the one-process W = 4 digest (``dist_path``), K1
+    and K2 must launch on every child's shards and equal their plain
+    versions there.  ``left``/``right``: bench.py's host tables, which
+    the children map from ``.npy`` files written here once.  Returns the
+    two phase records."""
+    import os
+    import shutil
+    import socket
+    import tempfile
+    want = w4["dist_path"]["digest"]
+    n = len(left["k"])
+    data = tempfile.mkdtemp(prefix="procs_path_")
+    try:
+        t0 = time.perf_counter()
+        for name, arr in (("lk", left["k"]), ("a", left["a"]),
+                          ("rk", right["k"]), ("b", right["b"])):
+            np.save(os.path.join(data, f"{name}.npy"), arr)
+        save_s = time.perf_counter() - t0
+        return [dict(rec, tables_save_s=save_s)
+                for rec in _procs_legs(data, n, want, w4)]
+    finally:
+        shutil.rmtree(data, ignore_errors=True)
+
+
+def _procs_launch(leg: str, nproc: int, v: int, backend, data: str,
+                  go: str | None = None) -> list:
+    """Start one leg's child processes; with ``go``, they wait for that
+    file before they touch the card."""
+    import os
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        addr = f"127.0.0.1:{sk.getsockname()[1]}"
+    return [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--procs-child",
+         json.dumps({"leg": leg, "pid": i, "nproc": nproc,
+                     "local_world": v, "backend": backend, "addr": addr,
+                     "data": data, "go": go})],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for i in range(nproc)]
+
+
+def _procs_collect(leg: str, procs: list, deadline: float) -> list:
+    """Each child's JSON line; a child that fails, prints nothing or is
+    still running at ``deadline`` (it and its peers are killed) fails
+    the leg."""
+    results = []
+    try:
+        for i, p in enumerate(procs):
+            try:
+                so, se = p.communicate(
+                    timeout=max(deadline - time.perf_counter(), 1))
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    q.kill()
+                so, se = p.communicate()
+            if p.returncode != 0:
+                raise AssertionError(
+                    f"{leg}: process {i} exited {p.returncode}\n"
+                    f"{so[-2000:]}\n{se[-4000:]}")
+            lines = [ln for ln in so.splitlines() if ln.startswith("{")]
+            if not lines:
+                raise AssertionError(f"{leg}: process {i} printed no "
+                                     f"result\n{se[-4000:]}")
+            results.append(json.loads(lines[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return results
+
+
+def _procs_legs(data: str, n: int, want: dict, w4: dict):
+    """The two legs of :func:`procs_path`, measured one after the other:
+    the NCCL child starts beside the gloo children (its imports overlap
+    their run) and waits for a go file until they have exited."""
+    import os
+    go = os.path.join(data, "go")
+    t0 = time.perf_counter()
+    deadline = t0 + PROCS_TIMEOUT_S
+    legs = [("procs_gloo", 2, 2, "gloo"), ("procs_nccl", 1, 4, None)]
+    nccl = _procs_launch(*legs[1], data, go)
+    try:
+        gloo = _procs_collect(
+            "procs_gloo", _procs_launch(*legs[0], data), deadline)
+        walls = [time.perf_counter() - t0]
+        open(go, "w").close()
+        t1 = time.perf_counter()
+        nres = _procs_collect("procs_nccl", nccl, deadline)
+        walls.append(time.perf_counter() - t1)
+    finally:
+        for p in nccl:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    out = []
+    for (leg, nproc, v, _b), results, wall in zip(legs, (gloo, nres),
+                                                   walls):
+        for r in results:
+            for route in ("monolithic", "pipelined"):
+                if r[route]["digest"] != want:
+                    raise AssertionError(
+                        f"{leg} process {r['pid']} {route}: digest "
+                        f"{r[route]['digest']} differs from the one-process "
+                        f"W = 4 digest {want}")
+            kc = r["kernel_counts"]
+            if kc["windowed_gather"]["launches"] < 1 \
+                    or kc["splitter_probe"]["launches"] < 1:
+                raise AssertionError(f"{leg} process {r['pid']}: kernel "
+                                     f"counts {kc}, expected K1 and K2")
+            if not all(c["bit_equal"] for c in r["checks"].values()) \
+                    or set(r["checks"]) != {"k1_monolithic", "k1_piece",
+                                            "k2"}:
+                raise AssertionError(f"{leg} process {r['pid']}: kernel "
+                                     f"checks {r['checks']}")
+        best = max(r["monolithic"]["best_s"] for r in results)
+        out.append({
+            "phase": leg, "processes": nproc, "local_world": v,
+            "world": nproc * v, "backend": results[0]["backend"],
+            "rows_per_side": n, "wall_s": wall,
+            "best_s_slowest_process": best,
+            "dist_path_best_s": w4["dist_path"]["best_s"],
+            "dist_path_unarmed_best_s": w4["dist_path_unarmed_best_s"],
+            "ratio_to_dist_path": best / w4["dist_path"]["best_s"],
+            "ratio_to_dist_path_unarmed":
+                best / w4["dist_path_unarmed_best_s"],
+            "digest": want, "oracle": "digest equal to dist_path",
+            "children": results})
+    torch.cuda.empty_cache()
+    return out
 
 
 def ckpt_child(spec: dict) -> int:
@@ -6129,6 +6478,36 @@ def stream_exact_var(cnt, s, sq) -> np.ndarray:
     return out
 
 
+def stream_key_sums(batches, keys: int, dev) -> tuple:
+    """Exact per-key count, Σ qty, Σ amount and Σ amount² of the host
+    batches as int64 numpy arrays: int64 ``bincount``/``index_add_`` on
+    the card (the numpy sums took seconds of the phase), numpy's float64
+    ``bincount`` on the host (exact below 2^53)."""
+    if dev.type == "cuda":
+        out = [torch.zeros(keys, dtype=torch.int64, device=dev)
+               for _ in range(4)]
+        for b in batches:
+            k = torch.from_numpy(b["k"]).to(dev)
+            a = torch.from_numpy(b["amount"]).to(dev).to(torch.int64)
+            out[0] += torch.bincount(k, minlength=keys)
+            out[1].index_add_(0, k, torch.from_numpy(b["qty"]).to(dev))
+            out[2].index_add_(0, k, a)
+            out[3].index_add_(0, k, a * a)
+        return tuple(x.cpu().numpy() for x in out)
+    cnt = np.zeros(keys, np.int64)
+    qty = np.zeros(keys, np.int64)
+    amt = np.zeros(keys, np.int64)
+    sq = np.zeros(keys, np.int64)
+    for b in batches:
+        a = b["amount"].astype(np.int64)
+        cnt += np.bincount(b["k"], minlength=keys)
+        qty += np.bincount(b["k"], b["qty"], minlength=keys).astype(
+            np.int64)
+        amt += np.bincount(b["k"], a, minlength=keys).astype(np.int64)
+        sq += np.bincount(b["k"], a * a, minlength=keys).astype(np.int64)
+    return cnt, qty, amt, sq
+
+
 def stream_verdict(ct, st, view, batches, label: str) -> dict:
     """``view.read()`` held against a from-scratch ``groupby_aggregate(
     st.snapshot())`` and against numpy's exact integer per-key sums:
@@ -6150,18 +6529,7 @@ def stream_verdict(ct, st, view, batches, label: str) -> dict:
     want = ct.groupby_aggregate(snap, "k", STREAM_AGGS)
     g, w = by_key(got, "k"), by_key(want, "k")
     keys = STREAM_KEYS
-    cnt = np.zeros(keys, np.int64)
-    qty = np.zeros(keys, np.int64)
-    amt = np.zeros(keys, np.int64)
-    sq = np.zeros(keys, np.int64)
-    for b in batches:
-        a = b["amount"].astype(np.int64)
-        cnt += np.bincount(b["k"], minlength=keys)
-        qty += np.bincount(b["k"], b["qty"], minlength=keys).astype(
-            np.int64)
-        # float64 per-key sums of integers are exact below 2^53
-        amt += np.bincount(b["k"], a, minlength=keys).astype(np.int64)
-        sq += np.bincount(b["k"], a * a, minlength=keys).astype(np.int64)
+    cnt, qty, amt, sq = stream_key_sums(batches, keys, dev)
     if sq.max() >= EXACT_F64 or int(cnt.max()) * int(sq.max()) >= 1 << 62:
         raise AssertionError(f"{label}: a key's Σ amount² passes 2^53 "
                              "or c·Σ amount² 2^62; the oracle's integer "
@@ -6594,9 +6962,12 @@ def main() -> int:
                     "checkpoint root (default: the system's temporary "
                     "directory)")
     ap.add_argument("--ckpt-child", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--procs-child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.ckpt_child is not None:
         return ckpt_child(json.loads(args.ckpt_child))
+    if args.procs_child is not None:
+        return procs_child(json.loads(args.procs_child))
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this smoke run needs "
               "the card", file=sys.stderr)
@@ -6835,6 +7206,15 @@ def main() -> int:
     del orc
     torch.cuda.empty_cache()
 
+    # -- the multi-process transport: 2 processes x 2 ranks over gloo,
+    # 1 process x 4 ranks over NCCL, each result against dist_path's ------
+    for prec in procs_path(left, right, w4):
+        for child in prec["children"]:
+            routes[f"{prec['phase']}_p{child['pid']}"] = \
+                child["kernel_counts"]
+        emit(prec)
+    del prec
+
     # -- the join types at full size, W = 4: a left join through the
     # DataFrame entry, an outer join through the pipeline (K2) ----------
     jrec = left_join_path(ct, left, right, mv)
@@ -6963,7 +7343,8 @@ def main() -> int:
         + sum(routes[r]["windowed_gather"]["launches"] for r in (
             "scan_join_w4", "spill_path_w4", "ckpt_path_w4", "obs_path_w4",
             "serve_path_w8", "serve_path_preempt_w8", "stream_serve_w8",
-            "stream_path_w4")),
+            "stream_path_w4", "procs_gloo_p0", "procs_gloo_p1",
+            "procs_nccl_p0")),
         "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
         "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
@@ -6992,7 +7373,8 @@ def main() -> int:
         + sum(routes[r]["splitter_probe"]["launches"] for r in (
             "spill_path_w4", "ckpt_path_w4", "obs_path_w4",
             "serve_path_w8", "serve_path_preempt_w8", "stream_serve_w8",
-            "stream_path_w4")),
+            "stream_path_w4", "procs_gloo_p0", "procs_gloo_p1",
+            "procs_nccl_p0")),
         "max_abs_err": rec2["max_abs_err"], "ms": rec2["ms"],
         "kernel_ms": rec2["kernel_ms"], "scalar_ms": rec2["scalar_ms"],
         "general_ms": rec2["general_ms"],

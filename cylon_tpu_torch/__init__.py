@@ -59,7 +59,8 @@ from .core.column import Column
 from .core.dtypes import LogicalType
 from .core.row import Row, Scalar
 from .core.table import DeferredTable, Table
-from .ctx.context import CylonEnv, LocalConfig, VirtualMeshConfig
+from .ctx.context import (CylonEnv, DistributedConfig, LocalConfig,
+                          VirtualMeshConfig)
 from .exec import (GroupBySink, chunk_table, pipelined_join,
                    pipelined_scan_join, pipelined_set_op)
 from .frame import DataFrame, GroupByDataFrame, concat, read_pandas
@@ -80,6 +81,7 @@ from .utils.logging import set_log_level
 __all__ = ["Code", "Column", "CylonEnv", "CylonError", "CylonIOError",
            "CylonIndexError", "CylonKeyError", "CylonTypeError",
            "DataFrame", "DeferredTable", "DeviceUnavailableError",
+           "DistributedConfig",
            "GroupByDataFrame", "GroupBySink", "InvalidError", "KernelError",
            "LocalConfig", "LogicalType", "ResumableAbort", "Row", "Scalar",
            "Series", "Status", "Table", "VirtualMeshConfig", "chunk_table",

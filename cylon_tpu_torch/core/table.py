@@ -9,6 +9,13 @@ its ``pow2ceil`` bucket with a masked tail (``config.family_cap``); a
 W-rank ingest splits the rows into W contiguous blocks of ``ceil(n / W)``
 and pads each to one ``pow2ceil`` capacity, so a port table holds exactly
 the layout of the reference table built from the same rows.
+
+In a multi-process world (ctx/context.DistributedConfig) a process holds
+only its V local ranks' blocks, so each column is ``(V·cap, ...)``; the
+valid counts stay global.  Ingest is SPMD: every process holds the same
+host rows and uploads only its own ranks' blocks; the host pulls
+(:meth:`Table.host_columns` and everything built on it) gather the other
+processes' blocks, so every process sees the whole table.
 """
 
 from __future__ import annotations
@@ -51,9 +58,10 @@ class Table:
         n = n or 0
         w = self._env.world_size
         if valid_counts is None:
-            if n % w:
-                raise InvalidError(f"rows {n} not divisible by world {w}")
-            valid_counts = np.full(w, n // w, dtype=np.int64)
+            v = _local(w)
+            if n % v:
+                raise InvalidError(f"rows {n} not divisible by world {v}")
+            valid_counts = np.full(w, n // v, dtype=np.int64)
         self._valid = np.asarray(valid_counts, dtype=np.int64)
         if self._valid.shape != (w,):
             raise InvalidError("valid_counts must have one entry per rank")
@@ -169,8 +177,8 @@ class Table:
     def capacity(self) -> int:
         """Per-shard padded capacity."""
         cols = self.columns
-        return len(next(iter(cols.values()))) // self._env.world_size \
-            if cols else 0
+        return len(next(iter(cols.values()))) // _local(
+            self._env.world_size) if cols else 0
 
     @property
     def column_count(self) -> int:
@@ -225,7 +233,7 @@ class Table:
         for c in self.columns.values():
             flat.append(live(c.data))
             flat.append(None if c.validity is None else live(c.validity))
-        pulled = host_arrays(flat)
+        pulled = host_arrays(flat, world=w)
         if w > 1:
             pulled = [None if x is None
                       else np.concatenate([x[a:b] for a, b in blocks])
@@ -353,6 +361,12 @@ class DeferredTable(Table):
         return self._cap
 
 
+def _local(w: int) -> int:
+    """The row blocks this process holds of a W-rank world."""
+    from ..parallel.shards import local_world
+    return local_world(w)
+
+
 def _place(host: np.ndarray, env: CylonEnv) -> torch.Tensor:
     host = np.ascontiguousarray(host)
     if not host.flags.writeable:   # an Arrow buffer's view
@@ -396,23 +410,27 @@ def _place_shards(cols: dict[str, Column], env: CylonEnv, vc: np.ndarray,
                   cap: int) -> Table:
     """Place live rows given in global order so that rank r's ``vc[r]``
     rows fill the prefix of its ``cap``-row shard, zeros after; bounds
-    widen to include the padding's 0."""
-    w = env.world_size
+    widen to include the padding's 0.  A process of a multi-process
+    world places only its own ranks' blocks (the reference's ``_put``,
+    ``cylon_tpu/core/table.py:369``)."""
+    from ..parallel.shards import span
+    ranks = span(env.world_size)
     if int(vc.max(initial=0)) > cap:
         raise InvalidError(f"a shard of {int(vc.max())} rows exceeds the "
                            f"capacity {cap}")
     offs = np.concatenate([[0], np.cumsum(vc)])
+    v = len(ranks)
     out = {}
     for k, c in cols.items():
         host = np.asarray(c.data)
-        padded = np.zeros((w * cap,) + host.shape[1:], host.dtype)
+        padded = np.zeros((v * cap,) + host.shape[1:], host.dtype)
         vhost = None if c.validity is None else np.asarray(c.validity)
-        vpad = None if vhost is None else np.zeros(w * cap, bool)
-        for r in range(w):
+        vpad = None if vhost is None else np.zeros(v * cap, bool)
+        for i, r in enumerate(ranks):
             m = int(vc[r])
-            padded[r * cap:r * cap + m] = host[offs[r]:offs[r] + m]
+            padded[i * cap:i * cap + m] = host[offs[r]:offs[r] + m]
             if vpad is not None:
-                vpad[r * cap:r * cap + m] = vhost[offs[r]:offs[r] + m]
+                vpad[i * cap:i * cap + m] = vhost[offs[r]:offs[r] + m]
         b = c.bounds
         if b is not None:
             b = (min(b[0], 0), max(b[1], 0))

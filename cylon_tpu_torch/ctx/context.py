@@ -7,24 +7,41 @@ passes ``device="cpu"`` (the tests do); a CUDA request without a visible
 CUDA device raises :class:`~cylon_tpu_torch.status.DeviceUnavailableError`
 rather than dropping to the CPU.
 
-World sizes above 1 come from :class:`VirtualMeshConfig`, the analog of
-the reference's ``CPUMeshConfig``: W ranks driven by one controller
-process with every shard on the env's one device, so a table's W shards
-are W row blocks of one tensor and the all-to-all is an order-preserving
-device-local permutation (parallel/shuffle.py).  A config whose
-``devices`` name more than one distinct device raises
-``NotImplementedError``: the multi-card transport is a later slice.
+World sizes above 1 come from two configs:
+
+* :class:`VirtualMeshConfig`, the analog of the reference's
+  ``CPUMeshConfig``: W ranks driven by one controller process with every
+  shard on the env's one device, so a table's W shards are W row blocks
+  of one tensor and the all-to-all is an order-preserving device-local
+  permutation (parallel/shuffle.py);
+* :class:`DistributedConfig`, the analog of the reference's
+  ``TPUConfig(distributed=True)``: P processes joined by one
+  ``torch.distributed`` process group, each driving V local ranks on its
+  own device, W = P·V ranks numbered process-major.  A process holds
+  only its V ranks' row blocks; the exchange moves the rows bound for
+  another process with ``all_to_all_single`` and every vote is one
+  all-reduce (parallel/transport.py).  NCCL on the card, gloo on the
+  CPU; gloo on the card only when asked for by name (its exchange stages
+  through pinned host memory).  NCCL never falls back to gloo, nor the
+  card to the CPU: a backend that is missing or fails to start raises.
+
+A config whose ``devices`` name more than one distinct device in one
+process raises ``NotImplementedError``: several cards are driven by
+several processes.
 
 The env carries the reference's collective surface (``rank``,
 ``get_next_sequence``, ``add_config``/``get_config``, ``allgather``,
-``gather``, ``bcast``, ``allreduce``, ``barrier``, ``finalize``) in its
-single-controller form: every collective is device-local
-(parallel/collectives.py) and ``barrier`` waits for the device.
+``gather``, ``bcast``, ``allreduce``, ``barrier``, ``finalize``):
+``barrier`` waits for the device and, in a multi-process world, for
+every process; ``finalize`` destroys the process group.
 """
 
 from __future__ import annotations
 
+import datetime
 import itertools
+import os
+import time
 
 import torch
 
@@ -64,6 +81,130 @@ class VirtualMeshConfig(CommConfig):
         self.devices = (device,) * self.world_size
 
 
+class DistributedConfig(CommConfig):
+    """P processes × V local ranks joined by ``torch.distributed`` (the
+    reference's ``TPUConfig(distributed=True, coordinator_address,
+    process_id, num_processes)``, ``cylon_tpu/ctx/context.py:62``).
+
+    ``coordinator_address``: ``host:port`` of process 0's rendezvous
+    (``tcp://`` optional); ``process_id`` and ``num_processes``: this
+    process's index and the process count.  Each defaults to the
+    torchrun-style environment (``MASTER_ADDR``/``MASTER_PORT``,
+    ``RANK``, ``WORLD_SIZE``).  ``local_world``: V ranks per process
+    (default 1).  ``backend``: ``None`` picks ``"nccl"`` on a CUDA
+    device and ``"gloo"`` on the CPU; ``"gloo"`` on the card must be
+    named.  ``device``: this process's device (default ``cuda:0``).
+    ``timeout_s``: the process group's collective timeout (default the
+    exchange watchdog's ``CYLON_TPU_TORCH_WATCHDOG_S`` when set, else
+    600 s)."""
+
+    comm_type = "distributed"
+
+    def __init__(self, coordinator_address: str | None = None,
+                 process_id: int | None = None,
+                 num_processes: int | None = None, local_world: int = 1,
+                 backend: str | None = None, device=None,
+                 timeout_s: float | None = None):
+        envv = os.environ
+        if coordinator_address is None and "MASTER_ADDR" in envv:
+            coordinator_address = (f"{envv['MASTER_ADDR']}:"
+                                   f"{envv.get('MASTER_PORT', '29500')}")
+        if process_id is None:
+            process_id = int(envv.get("RANK", "0"))
+        if num_processes is None:
+            num_processes = int(envv.get("WORLD_SIZE", "1"))
+        if coordinator_address is None:
+            raise InvalidError("DistributedConfig needs a coordinator "
+                               "address (or MASTER_ADDR/MASTER_PORT)")
+        if backend not in (None, "nccl", "gloo"):
+            raise InvalidError(f"backend must be 'nccl', 'gloo' or None, "
+                               f"got {backend!r}")
+        self.coordinator_address = str(coordinator_address)
+        self.process_id = int(process_id)
+        self.num_processes = int(num_processes)
+        self.local_world = int(local_world)
+        if self.num_processes < 1 or self.local_world < 1 or not (
+                0 <= self.process_id < self.num_processes):
+            raise InvalidError(
+                f"process {self.process_id} of {self.num_processes} with "
+                f"{self.local_world} local ranks is no world")
+        self.backend = backend
+        self.timeout_s = timeout_s
+        self.world_size = self.local_world * self.num_processes
+        self.devices = (device,)
+
+
+def _start_group(cfg: DistributedConfig, device: torch.device):
+    """Join (or reuse) the process group; returns the transport's
+    :class:`~cylon_tpu_torch.parallel.transport.Proc`."""
+    from .. import config
+    from ..parallel import transport
+    import torch.distributed as dist
+    backend = cfg.backend or ("nccl" if device.type == "cuda" else "gloo")
+    if backend == "nccl" and device.type != "cuda":
+        raise InvalidError("the NCCL backend moves device tensors: it needs "
+                           "a CUDA device; pass backend='gloo' on the CPU")
+    if not dist.is_available() or not (
+            dist.is_nccl_available() if backend == "nccl"
+            else dist.is_gloo_available()):
+        raise DeviceUnavailableError(
+            f"torch.distributed backend {backend!r} is not available in "
+            "this torch build")
+    timeout = cfg.timeout_s
+    if timeout is None:
+        timeout = (config.EXCHANGE_WATCHDOG_S
+                   if config.EXCHANGE_WATCHDOG_S > 0 else 600.0)
+    proc = transport.current()
+    if proc is not None:
+        if (proc.world, proc.pid, proc.nproc, proc.backend) != (
+                cfg.world_size, cfg.process_id, cfg.num_processes, backend):
+            raise InvalidError(
+                "this process already belongs to another distributed "
+                "world; finalize() its env first")
+        return proc
+    addr = cfg.coordinator_address
+    if "://" not in addr:
+        addr = "tcp://" + addr
+    t0 = time.perf_counter()
+    try:
+        kw = {}
+        if backend == "nccl":
+            kw["device_id"] = device
+        dist.init_process_group(
+            backend, init_method=addr, rank=cfg.process_id,
+            world_size=cfg.num_processes,
+            timeout=datetime.timedelta(seconds=float(timeout)), **kw)
+    except Exception as e:  # noqa: BLE001 — typed below, never a fallback
+        raise DeviceUnavailableError(
+            f"torch.distributed {backend} process group failed to start "
+            f"at {cfg.coordinator_address} (process {cfg.process_id} of "
+            f"{cfg.num_processes}): {e}") from e
+    proc = transport.Proc(cfg.world_size, cfg.process_id,
+                          cfg.num_processes, backend, device, timeout)
+    transport.install(proc)
+    try:
+        # the first collective makes the connections (NCCL's communicator)
+        transport.all_reduce_max(0, "env.setup")
+    except Exception:
+        transport.install(None)
+        dist.destroy_process_group()
+        raise
+    transport.STATS["setup_s"] = time.perf_counter() - t0
+    return proc
+
+
+def refuse_multi_process(env, what: str) -> None:
+    """Raise ``NotImplementedError`` when ``env`` spans several processes
+    and ``what`` has no multi-process form yet (ROADMAP.md names the
+    slice that brings it), so no entry answers from one process's rows
+    alone."""
+    if env is not None and env.multi_process:
+        raise NotImplementedError(
+            f"{what} in a world of {env.process_count} processes is not "
+            "ported yet (ROADMAP.md, Queue 1: the multi-card transport's "
+            "remnants); run it in one process")
+
+
 def _resolve(dev: torch.device) -> torch.device:
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -92,14 +233,15 @@ class CylonEnv:
                 for d in self.config.devices}
         if len(devs) != 1:
             raise NotImplementedError(
-                f"a world over {len(devs)} distinct devices needs the "
-                "multi-card transport (torch.distributed / NCCL, or peer "
-                "copies under one controller), a later slice of ROADMAP.md "
-                "Queue 1 slice 3; VirtualMeshConfig runs every rank on one "
-                "device")
+                f"one process drives one device, not {len(devs)}: the "
+                "multi-card transport runs one process per card "
+                "(DistributedConfig)")
         self.device = _resolve(devs.pop() if device is None
                                else torch.device(device))
         self._world = int(self.config.world_size)
+        self._proc = None
+        if isinstance(self.config, DistributedConfig):
+            self._proc = _start_group(self.config, self.device)
         # spot semantics: arm the SIGTERM grace drain when
         # CYLON_TPU_TORCH_PREEMPT_GRACE_S declares a budget (one env read
         # and no handler otherwise)
@@ -123,9 +265,37 @@ class CylonEnv:
         return self.device.type == "cuda"
 
     @property
+    def process_count(self) -> int:
+        """Processes in the world (1 unless a DistributedConfig)."""
+        return 1 if self._proc is None else self._proc.nproc
+
+    @property
+    def multi_process(self) -> bool:
+        """Whether the world spans more than one process."""
+        return self.process_count > 1
+
+    @property
+    def local_world(self) -> int:
+        """V, the ranks this process drives: W in one process."""
+        return self._world if self._proc is None else self._proc.local
+
+    @property
+    def local_ranks(self) -> range:
+        """The global ranks this process drives, ``[p·V, (p+1)·V)``."""
+        return range(self._world) if self._proc is None \
+            else self._proc.ranks
+
+    @property
+    def backend(self) -> str | None:
+        """The process group's backend (None without one)."""
+        return None if self._proc is None else self._proc.backend
+
+    @property
     def rank(self) -> int:
-        """This process's rank: 0, one controller drives every rank."""
-        return 0
+        """This process's index, as the reference's
+        ``jax.process_index()``: 0 when one controller drives every
+        rank."""
+        return 0 if self._proc is None else self._proc.pid
 
     def get_next_sequence(self) -> int:
         """A monotone op id (tracing tags)."""
@@ -161,13 +331,23 @@ class CylonEnv:
                          world=self._world)
 
     def barrier(self) -> None:
-        """Wait until the env's device has run every queued op (one
-        controller, one device: nothing else to wait for); a no-op on
-        the CPU."""
+        """Wait until the env's device has run every queued op and, in a
+        distributed world, until every process has reached the barrier
+        (under the exchange watchdog)."""
         if self.on_cuda:
             torch.cuda.synchronize(self.device)
+        if self._proc is not None:
+            from ..parallel import transport
+            transport.barrier()
 
     def finalize(self) -> None:
+        """Close the env; a distributed env destroys its process group."""
+        if self._proc is not None and not self._finalized:
+            from ..parallel import transport
+            import torch.distributed as dist
+            transport.install(None)
+            if dist.is_initialized():
+                dist.destroy_process_group()
         self._finalized = True
 
     def __repr__(self) -> str:  # pragma: no cover

@@ -52,6 +52,8 @@ class ResizeController:
             raise InvalidError(
                 f"resize target world {target_world!r} must be >= 1")
         self.env = env
+        from ..ctx.context import refuse_multi_process
+        refuse_multi_process(env, "the fleet's resize drain")
         self.target_world = int(target_world)
         self.queue_depth_high = queue_depth_high
         self.ledger_frac_high = ledger_frac_high

@@ -300,6 +300,9 @@ class Ledger:
             for j, blocks in enumerate(reg.host):
                 per = []
                 for k, blk in enumerate(blocks):
+                    if blk is None:     # another process's shard
+                        per.append(None)
+                        continue
                     path = os.path.join(root, f"{safe}.a{j}.s{k}.spill.npy")
                     if kind == "enospc" and first[0]:
                         raise OSError(errno.ENOSPC,
@@ -370,6 +373,8 @@ class Ledger:
                     site="disk.read")
             for per in reg.disk:
                 for ent in per:
+                    if ent is None:
+                        continue
                     if _sha_arr(_read_page(ent["path"])) != ent["sha"]:
                         raise CheckpointCorruptError(
                             f"spill page {ent['path']} failed its "
@@ -403,6 +408,9 @@ class Ledger:
             for per in reg.disk:
                 blocks = []
                 for ent in per:
+                    if ent is None:
+                        blocks.append(None)
+                        continue
                     arr = _read_page(ent["path"])
                     blocks.append(torch.from_numpy(arr))
                     moved += int(arr.nbytes)
@@ -788,7 +796,7 @@ def _remove_paths(paths) -> None:
 
 
 def _remove_disk_pages(disk) -> None:
-    _remove_paths(e["path"] for per in disk for e in per)
+    _remove_paths(e["path"] for per in disk for e in per if e is not None)
 
 
 def _note_retry() -> None:
@@ -833,7 +841,12 @@ def _put_window(blocks, starts, window: int, device, stream):
     """Per-shard windows ``[starts[i], starts[i] + window)`` of host blocks
     into one ``(W·window, ...)`` device tensor, zeros past a block's end
     (the resident slice's padding).  On the card the copies and the
-    zeroing run on ``stream``."""
+    zeroing run on ``stream``.  ``None`` blocks (another process's
+    shards, utils/host.host_shard_blocks) are skipped: the tensor holds
+    this process's windows."""
+    keep = [i for i, b in enumerate(blocks) if b is not None]
+    blocks = [blocks[i] for i in keep]
+    starts = [starts[i] for i in keep]
     rest = tuple(blocks[0].shape[1:])
     w = len(blocks)
     dtype = blocks[0].dtype
@@ -864,7 +877,9 @@ def _upload(hosts, device, stall: bool = False) -> tuple:
         raise recovery.make_fault(kind, "spill.upload")
     stall = stall or kind in ("stall", "spill_stall")
     devs = tuple(_put_window(blocks, [0] * len(blocks),
-                             int(blocks[0].shape[0]), device, None)
+                             int(next(b for b in blocks
+                                      if b is not None).shape[0]),
+                             device, None)
                  for blocks in hosts)
     if stall:
         recovery.exchange_watchdog("spill.upload", lambda: None,
@@ -927,7 +942,8 @@ def upload_window(reg: Registration, starts, window: int):
         sources = reg.disk_views
         if sources is None:
             with timing.region("disk.read"):
-                sources = tuple([_mmap_page(ent["path"]) for ent in per]
+                sources = tuple([None if ent is None
+                                 else _mmap_page(ent["path"]) for ent in per]
                                 for per in reg.disk)
             reg.disk_views = sources
     else:

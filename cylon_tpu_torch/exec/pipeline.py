@@ -183,6 +183,8 @@ def pipelined_set_op(a: Table, b: Table, op: str, n_chunks: int = 4):
 
     Extra memory at the peak is the partials (each at most one chunk)
     plus the final pass's input."""
+    from ..ctx.context import refuse_multi_process
+    refuse_multi_process(a.env, "pipelined_set_op")
     from ..relational.setops import (_align_schemas, _set_operation_impl,
                                      unique_table)
     if op not in ("union", "intersect", "subtract"):
@@ -454,7 +456,7 @@ def _range_counts(sorted_ids: torch.Tensor, n_ranges: int) -> torch.Tensor:
     return torch.diff(torch.searchsorted(sorted_ids, edges))
 
 
-def _pull_phase_outputs(devs: list):
+def _pull_phase_outputs(devs: list, world: int):
     """THE pre-loop host wait: one batched pull of the queued setup
     phases' outputs (range boundaries, per-range probe counts).  A fault
     raised by any of those phases surfaces here, classified onto the
@@ -462,7 +464,7 @@ def _pull_phase_outputs(devs: list):
     from .recovery import classify, maybe_inject
     maybe_inject("pipe.phase_sync")
     try:
-        return host_arrays(devs)
+        return host_arrays(devs, world=world)
     except Exception as e:  # noqa: BLE001 — re-raised typed when a fault
         fault = classify(e)
         if fault is None:
@@ -621,7 +623,7 @@ def _pipelined_join_impl(left: Table, right: Table, left_on, right_on,
     with timing.region("pipe.phase_sync"):
         # THE pre-loop host wait: every setup phase above was queued with
         # no pull in between; one batched pull brings both back
-        b_host, pc_host = _pull_phase_outputs([b_dev, pc_dev])
+        b_host, pc_host = _pull_phase_outputs([b_dev, pc_dev], w)
     b = np.asarray(b_host, np.int64).reshape(w, n_ranges - 1)
     pcounts = np.asarray(pc_host, np.int64).reshape(w, n_ranges)
     bb = np.concatenate([np.zeros((w, 1), np.int64), b, n_r[:, None]],
@@ -670,6 +672,9 @@ def _pipelined_join_impl(left: Table, right: Table, left_on, right_on,
     # the durable checkpoint stage (exec/checkpoint.py): armed only when
     # CYLON_TPU_TORCH_CKPT_DIR is set; otherwise no file, region or vote
     stage = None
+    if checkpoint.enabled():
+        from ..ctx.context import refuse_multi_process
+        refuse_multi_process(env, "durable checkpoints")
     if (checkpoint.enabled() and live_ranges
             and (sink is None or isinstance(sink, GroupBySink))):
         # the consumption mode is part of the plan: a sink stage keeps
@@ -870,6 +875,8 @@ def pipelined_scan_join(scan, build: Table, scan_on, build_on,
     dictionary-coded keys (strings, decimals: their codes are per batch
     and cannot hash-colocate with the once-shuffled build).  Returns the
     list of sink results, or the batches' joins concatenated."""
+    from ..ctx.context import refuse_multi_process
+    refuse_multi_process(build.env, "pipelined_scan_join")
     if how not in ("inner", "left"):
         raise InvalidError(
             "pipelined_scan_join supports how in ('inner','left'): "

@@ -50,14 +50,16 @@ Serving sessions: recorded events carry the tagged session's name
 ride a session namespace above their payload (:func:`_ns_consensus`),
 which is an identity in one process.
 
-Consensus: one process drives every rank of a ``VirtualMeshConfig``
-world, so each vote's local value is the agreed one — the reference's
-single-controller branch.  Only the votes that ported code takes are
-here (the guard, the spill rung, the eviction count, the skew plan, the
-checkpoint commit and resume, the preemption drain, the scheduler's
-preempt decision); the others come with their callers (streams; the
-topology route; the integrity audit), and the multi-process wire with
-the multi-card transport.  Not ported here: the final rung's
+Consensus: in a multi-process world (ctx/context.DistributedConfig)
+every vote is one all-reduce(MAX) of an int64 over the process group
+(:func:`_consensus_wire`, parallel/transport.py); one process driving
+every rank of a ``VirtualMeshConfig`` world takes its local value as the
+agreed one — the reference's single-controller branch.  Only the votes
+that ported code takes are here (the guard, the spill rung, the eviction
+count, the skew plan, the checkpoint commit and resume, the watermark,
+the preemption drain, the scheduler's preempt decision); the others come
+with their callers (the topology route; the integrity audit).  Not
+ported here: the final rung's
 compiler-crash branch, and ``compiler_crash_signatures``/
 ``prime_compiler_probe``, which classify XLA compiler deaths and wait
 for the compile tier (slice 16).
@@ -74,7 +76,8 @@ import torch
 
 from .. import config
 from ..status import (CapacityOverflowError, CheckpointCorruptError, Code,
-                      CylonError, DeviceOOMError, FAULT_TYPES,
+                      CylonError, DataIntegrityError, DeviceOOMError,
+                      FAULT_TYPES,
                       PredictedResourceExhausted, RankDesyncError,
                       ResumableAbort)
 
@@ -225,8 +228,9 @@ def _installed() -> list[_FaultSpec]:
 def probe(site: str) -> tuple[str | None, bool]:
     """Probe the injector at ``site`` → ``(kind, armed)``: the kind firing
     at this occurrence (consuming one-shot specs) or None, and whether any
-    spec could still fire at this site.  One process is rank 0 of its
-    world's every vote, so a rank-selective spec fires for rank 0 only.
+    spec could still fire at this site.  A rank-selective spec fires on
+    the process of that index (``env.rank``; 0 when one process drives
+    every rank).
     An ``@session`` spec matches only on the thread tagged with that
     session (:func:`set_session`), and its ``nth`` counts that session's
     own probes at the site."""
@@ -255,11 +259,14 @@ def probe(site: str) -> tuple[str | None, bool]:
     # armed before the one-shots are consumed: the firing probe reads
     # as armed
     armed = any(could_fire(f) for f in faults)
+    from ..parallel import transport
+    proc = transport.current()
+    me = 0 if proc is None else proc.pid
     kind = None
     for f in faults:
         if f.site != site or f.fired:
             continue
-        if f.rank is not None and f.rank != 0:
+        if f.rank is not None and f.rank != me:
             continue
         if f.session is not None and f.session != sess:
             continue
@@ -407,10 +414,24 @@ def reset_events() -> None:
 
 
 # ---------------------------------------------------------------------------
-# consensus, single-controller: the local value is the agreed one
+# consensus: one all-reduce(MAX) across the processes of a distributed
+# world; the local value in one process
 # ---------------------------------------------------------------------------
 
 _WIRE = 1 << 20
+
+
+def _consensus_wire(env, wire: int) -> int:
+    """Max-reduce one int64 across the processes of the distributed world
+    (``torch.distributed`` all-reduce under the exchange watchdog,
+    parallel/transport.py) — the transport of every vote
+    (``cylon_tpu/exec/recovery.py:637``).  One process drives every rank
+    of a one-process world, so there the local value is the agreed one.
+    Every process must call it at the same point: it is a collective."""
+    from ..parallel import transport
+    if transport.current() is None:
+        return int(wire)
+    return transport.all_reduce_max(int(wire))
 
 
 def _voted(what: str, wire: int) -> int:
@@ -423,18 +444,24 @@ def _voted(what: str, wire: int) -> int:
 def _ns_consensus(env, payload: int, base: int, what: str) -> int:
     """Max-agree ``payload`` (< ``base``) with the serving session's
     namespace above it, ``wire = ns · base + payload``.  An agreed wire
-    from another namespace would mean ranks voting from different
-    sessions and raises ``RankDesyncError``; one process votes once for
-    every rank, so the namespace always matches and the payload comes
-    back unchanged."""
+    from another namespace means a peer voted from a different session
+    and raises ``RankDesyncError`` (one-sided, as the reference's: the
+    rank holding the highest namespace proceeds)."""
     ns = _session_ns()
-    agreed = _voted(what, ns * base + int(payload))
+    agreed = _voted(what, _consensus_wire(env, ns * base + int(payload)))
     if agreed // base != ns:
         raise RankDesyncError(
             f"cross-session consensus collision at {what}: this rank "
             f"voted in session namespace {ns}, the agreed wire is from "
             f"namespace {agreed // base}", site=what, phase=_last_phase())
     return agreed % base
+
+
+def _min_consensus(env, n: int, what: str) -> int:
+    """Min-agree a count below the epoch base: the complement rides the
+    max wire (the max of the complement is the complement of the min)."""
+    top = _CKPT_EPOCH_BASE - 1
+    return top - _ns_consensus(env, top - int(n), _CKPT_EPOCH_BASE, what)
 
 
 def consensus_code(env, code) -> Code:
@@ -485,9 +512,9 @@ _CKPT_EPOCH_BASE = 1 << 20
 def ckpt_commit_consensus(env, epoch: int) -> int:
     """Phase 2 of the checkpoint's two-phase manifest commit: every rank
     has staged its manifest and votes ``Code.CkptCommit`` with its staged
-    epoch; only then does any rank publish it.  A diverging epoch raises
-    ``RankDesyncError``; one process stages every rank's epoch, so the
-    vote passes."""
+    epoch; only then does any rank publish it.  One process stages every
+    rank's epoch, so the vote passes (checkpoints are refused in a
+    multi-process world, exec/checkpoint.py)."""
     epoch = int(epoch)
     if not 0 <= epoch < _CKPT_EPOCH_BASE:
         raise ValueError(f"checkpoint epoch {epoch} out of wire range")
@@ -501,27 +528,40 @@ def ckpt_resume_consensus(env, n: int) -> int:
     n = int(n)
     if not 0 <= n < _CKPT_EPOCH_BASE:
         raise ValueError(f"resume fast-forward count {n} out of wire range")
-    return _voted("ckpt.resume", n)
+    return _min_consensus(env, n, "ckpt.resume")
 
 
 def watermark_consensus(env, n: int) -> int:
     """Min-agree the streaming watermark (the event-time window close,
     ``stream/window.py``): ``n`` is this rank's count of newly closable
     windows, and every rank closes the fewest any rank can, so no rank
-    emits or evicts a window another still holds open.  One process
-    votes for every rank, so the agreed count is the local one."""
+    emits or evicts a window another still holds open."""
     n = int(n)
     if not 0 <= n < _CKPT_EPOCH_BASE:
         raise ValueError(f"watermark window count {n} out of wire range")
-    return _voted("stream.watermark", n)
+    return _min_consensus(env, n, "stream.watermark")
 
 
 def skew_plan_consensus(env, plan_hash: int) -> None:
     """Adopt-one-plan agreement of the adaptive skew split (relational/
-    skew.py): every rank votes its plan's hash before the split exchange
-    starts; a rank whose hash differed would raise ``RankDesyncError``.
-    One process computes the plan once for every rank, so the vote
-    passes."""
+    skew.py): every rank votes two 20-bit slices of its plan's hash, each
+    as a max and as a min, before the split exchange starts; a rank
+    whose slice is not both raises ``RankDesyncError``.  One process
+    computes the plan once for every rank, so there the vote passes."""
+    from ..parallel import transport
+    if transport.current() is None:
+        return
+    h = int(plan_hash) & ((1 << 64) - 1)
+    for k in range(2):
+        mine = (h >> (20 * k)) & (_WIRE - 1)
+        hi = _ns_consensus(env, mine, _WIRE, "skew.plan")
+        lo = _min_consensus(env, mine, "skew.plan")
+        if hi != mine or lo != mine:
+            raise RankDesyncError(
+                f"skew-plan consensus: this rank's plan hash slice {k} is "
+                f"{mine:#x}, the ranks voted [{lo:#x}, {hi:#x}] — ranks "
+                "derived different split plans", site="skew.plan",
+                phase=_last_phase())
 
 
 # ---------------------------------------------------------------------------
@@ -666,6 +706,34 @@ def _empty_cache() -> None:
         torch.cuda.empty_cache()
 
 
+def _wire_code(fault) -> int:
+    """The ladder's vote: ``Code·4 + sub``, a predicted OOM (sub 0)
+    below a real device OOM (sub 1) of the same code, so the agreed wire
+    names the fault type every process raises
+    (``cylon_tpu/exec/recovery.py:699``); 0 without a fault."""
+    if fault is None:
+        return 0
+    sub = 0 if isinstance(fault, PredictedResourceExhausted) else 1
+    return int(fault.code) * 4 + sub
+
+
+def _fault_from_wire(wire: int, msg: str) -> Exception:
+    """The typed fault of an agreed wire, the same class on every
+    process."""
+    code = Code(int(wire) // 4)
+    if code == Code.OutOfMemory:
+        return (PredictedResourceExhausted(msg) if wire % 4 == 0
+                else DeviceOOMError(msg))
+    if code == Code.CapacityError:
+        return CapacityOverflowError(msg)
+    if code == Code.SerializationError:
+        return CheckpointCorruptError(msg, site="disk.read")
+    if code == Code.IntegrityFault:
+        return DataIntegrityError(msg, site="audit.verify",
+                                  phase=_last_phase())
+    return RankDesyncError(msg, phase=_last_phase())
+
+
 def _attempt(fn, label: str = ""):
     """``(result, fault)``; a non-fault exception propagates."""
     try:
@@ -689,10 +757,25 @@ def run_with_recovery(primary, can_fallback: bool, fallback, label: str,
     fallback that re-enters a guarded operator gets no rungs of its own.
     ``env`` names the world the consensus votes over (local here)."""
     nested = getattr(_tls, "depth", 0) > 0
+    from ..parallel import transport
+    multi = transport.current() is not None
 
     def agree(fault):
-        code = Code.OK if fault is None else consensus_code(env, fault.code)
-        return code, fault
+        if not multi:
+            code = Code.OK if fault is None \
+                else consensus_code(env, fault.code)
+            return code, fault
+        # every process votes, fault or not, over the wire encoding, so
+        # all agree on the fault's type; a process whose own attempt
+        # passed adopts a peer's fault of the agreed class
+        wire = _ns_consensus(env, _wire_code(fault), 1024, label)
+        if wire == 0:
+            return Code.OK, None
+        if fault is None or _wire_code(fault) != wire:
+            fault = _fault_from_wire(
+                wire, f"peer rank fault during {label} (consensus "
+                      f"{Code(wire // 4).name})")
+        return Code(wire // 4), fault
 
     result, fault = _attempt(primary, label)
     agreed, fault = agree(fault)

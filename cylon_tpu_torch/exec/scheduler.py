@@ -237,6 +237,8 @@ class QueryScheduler:
                 f"unknown scheduling policy {policy!r}; one of "
                 f"{sorted(POLICIES)}")
         self.env = env
+        from ..ctx.context import refuse_multi_process
+        refuse_multi_process(env, "the serving tier's QueryScheduler")
         self.policy = policy
         self._key = POLICIES[policy]
         self.budget_bytes = budget_bytes

@@ -84,6 +84,8 @@ class LocIndexer:
     ``df.loc[labels, cols]``."""
 
     def __init__(self, df: "DataFrame"):
+        from ..ctx.context import refuse_multi_process
+        refuse_multi_process(df._table.env, "label and position indexing")
         self._df = df
 
     def __getitem__(self, key):
@@ -246,6 +248,8 @@ class ILocIndexer:
     """``df.iloc[pos]``: global positional selection."""
 
     def __init__(self, df: "DataFrame"):
+        from ..ctx.context import refuse_multi_process
+        refuse_multi_process(df._table.env, "label and position indexing")
         self._df = df
 
     def __getitem__(self, key):

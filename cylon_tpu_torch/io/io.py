@@ -163,6 +163,8 @@ def _dist_path(path, rank: int) -> str:
 
 
 def _write_dist(table: Table, path, write) -> list[str]:
+    from ..ctx.context import refuse_multi_process
+    refuse_multi_process(table.env, "partitioned writes")
     out = []
     for rank, df in _shard_frames(table):
         p = _dist_path(path, rank)
@@ -195,6 +197,8 @@ def write_json_dist(table: Table, path, **kwargs) -> list[str]:
 def read_csv_dist(paths, env: CylonEnv, **kwargs) -> Table:
     """File i goes to rank ``i % W``: each rank's files form its
     partition."""
+    from ..ctx.context import refuse_multi_process
+    refuse_multi_process(env, "partitioned reads (read_csv_dist)")
     from ..relational.repart import repartition
     files = _expand(paths)
     w = env.world_size
@@ -294,6 +298,8 @@ def scan_parquet_dist(paths, env: CylonEnv, batch_rows: int = 1 << 20,
                       columns=None) -> ParquetScanSource:
     """The streaming mode of :func:`read_parquet_dist`: batches, not one
     table (feed it to ``exec.pipelined_scan_join``)."""
+    from ..ctx.context import refuse_multi_process
+    refuse_multi_process(env, "partitioned reads (scan_parquet_dist)")
     return ParquetScanSource(paths, env, batch_rows=batch_rows,
                              columns=columns)
 
@@ -303,6 +309,8 @@ def read_parquet_dist(paths, env: CylonEnv, batch_rows: int | None = None,
     """Row groups assigned to ranks greedily by size (the largest first,
     onto the least-loaded rank).  With ``batch_rows`` the streaming scan
     instead (:func:`scan_parquet_dist`)."""
+    from ..ctx.context import refuse_multi_process
+    refuse_multi_process(env, "partitioned reads (read_parquet_dist)")
     from ..relational.repart import repartition
     if batch_rows is not None:
         if kwargs:

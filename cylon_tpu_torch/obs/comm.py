@@ -15,10 +15,12 @@ Unarmed and with no plan profile active, :func:`record` is never called:
 the exchange checks :func:`armed` (one list load).  Recording is host
 numpy over the pulled sidecar: no device work.
 
-Single-controller form: one process drives every rank, so
-:func:`report` has nothing to verify across processes; the cross-process
-check waits for the multi-card transport, and the ICI/DCN tier split
-(``tiers``) for the topology slice — ``tiers`` stays None.
+In a multi-process world (ctx/context.DistributedConfig)
+:func:`report` allgathers every process's matrices, which must be
+byte-identical (each process accumulated the same replicated count
+sidecars), and raises ``RankDesyncError`` when they are not
+(``cylon_tpu/obs/comm.py:164``).  The ICI/DCN tier split (``tiers``)
+waits for the topology slice — ``tiers`` stays None.
 """
 
 from __future__ import annotations
@@ -99,12 +101,25 @@ def matrix() -> tuple | None:
 
 def report(verify_across_ranks: bool = True) -> dict | None:
     """The cumulative matrix with its row and column sums, or None when
-    nothing was recorded.  ``verify_across_ranks``: one controller drives
-    every rank here, so there is no other process to compare with."""
+    nothing was recorded.  ``verify_across_ranks``: in a multi-process
+    world, allgather every process's matrices and raise
+    ``RankDesyncError`` unless they are identical (one process driving
+    every rank has nothing to compare)."""
     st = _STATE[0]
     if st is None:
         return None
     w, rows, bts, n = st
+    from ..parallel import transport
+    proc = transport.current()
+    if verify_across_ranks and proc is not None and proc.nproc > 1:
+        from ..status import RankDesyncError
+        wire = np.concatenate([[np.int64(n)], rows.ravel(), bts.ravel()])
+        gathered = transport.allgather_array(wire, "obs.comm")
+        if not all(np.array_equal(gathered[0], g) for g in gathered[1:]):
+            raise RankDesyncError(
+                "comm matrix: ranks accumulated different exchange "
+                "sidecars — the ranks ran different shuffles",
+                site="obs.comm")
     return {
         "world": w,
         "exchanges": n,

@@ -6,10 +6,13 @@ at the end of a run, per phase of the utils/timing table::
 
     {"min_s": ..., "median_s": ..., "max_s": ..., "skew": max/median}
 
-Single-controller form: one process drives every rank and keeps one
-phase table, so the report reduces over one rank (min = median = max).
-The allgather of every process's table waits for the multi-card
-transport.  Unarmed, nothing runs: the caller checks :func:`armed`.
+One process driving every rank keeps one phase table, so its report
+reduces over one rank (min = median = max).  In a multi-process world
+(ctx/context.DistributedConfig) every process's table is allgathered,
+one row per process, after a check that every process timed the same
+phase names (``RankDesyncError`` otherwise,
+``cylon_tpu/obs/rank_report.py:50``).  Unarmed, nothing runs: the
+caller checks :func:`armed`.
 """
 
 from __future__ import annotations
@@ -41,6 +44,19 @@ def report() -> dict:
     local = _local_phases()
     names = sorted(local)
     table = np.asarray([local[n] for n in names], np.float64).reshape(1, -1)
+    from ..parallel import transport
+    proc = transport.current()
+    if proc is not None and proc.nproc > 1:
+        import zlib
+        from ..status import RankDesyncError
+        crc = np.float64(zlib.crc32("|".join(names).encode()))
+        sig = transport.allgather_array(np.asarray([crc]), "obs.rank_report")
+        if len({float(r[0]) for r in sig}) != 1:
+            raise RankDesyncError(
+                "per-rank phase report: phase-name sets differ across "
+                "ranks — the ranks timed different programs",
+                site="obs.rank_report")
+        table = transport.allgather_array(table[0], "obs.rank_report")
     phases = {}
     for i, n in enumerate(names):
         col = table[:, i]

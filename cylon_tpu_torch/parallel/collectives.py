@@ -15,8 +15,12 @@ device-local copy or reduction:
 * :func:`allreduce`: each shard's padding masked with the op's identity,
   then one reduction over the ``(W, cap)`` view, returned to the host.
 
-The cross-card forms come with the multi-card transport (ROADMAP.md,
-slice 3's remainder).
+In a multi-process world (ctx/context.DistributedConfig) each process
+holds its V ranks' blocks and the collectives cross processes through
+parallel/transport.py: the allgather gathers every process's live rows,
+the bcast broadcasts the root's block from its process, and the
+allreduce reduces each process's ``(V, cap)`` view and then across
+processes (``cylon_tpu/parallel/collectives.py:197``).
 """
 
 from __future__ import annotations
@@ -28,7 +32,8 @@ from .. import config
 from ..core.column import Column
 from ..core.table import Table
 from ..status import InvalidError
-from .shards import shard
+from . import transport
+from .shards import local_world, shard, span
 
 _REDUCERS = {"sum": "sum", "min": "amin", "max": "amax"}
 
@@ -46,14 +51,31 @@ def allgather_table(table: Table) -> Table:
     total = int(vc.sum())
     out_cap = config.pow2ceil(max(total, 1))
     flat, recipe = _flatten_for_exchange(table)
+    ranks = span(w)
+    proc = transport.current(w)
     new = []
     for col in flat:
         block = col.new_zeros((out_cap,) + tuple(col.shape[1:]))
-        torch.cat([shard(col, w, r)[:int(vc[r])] for r in range(w)],
-                  out=block[:total])
-        new.append(block.repeat((w,) + (1,) * (col.dim() - 1)))
+        mine = torch.cat([shard(col, w, r)[:int(vc[r])] for r in ranks])
+        if proc is not None and proc.nproc > 1:
+            mine = _gather_live(proc, mine, vc)
+        block[:total] = mine
+        del mine
+        new.append(block.repeat((len(ranks),) + (1,) * (col.dim() - 1)))
     del flat
     return _rebuild(recipe, new, np.full(w, total, np.int64), env)
+
+
+def _gather_live(proc, mine: torch.Tensor, vc: np.ndarray) -> torch.Tensor:
+    """Every process's live rows (``mine``: its ranks' live prefixes in
+    rank order), in process order: one allgather of blocks padded to the
+    largest process's row count."""
+    per = np.asarray(vc, np.int64).reshape(proc.nproc, proc.local).sum(1)
+    m = max(int(per.max()), 1)
+    pad = mine.new_zeros((m,) + tuple(mine.shape[1:]))
+    pad[:mine.shape[0]] = mine
+    g = transport.allgather_tensor(pad, "collectives.allgather")
+    return torch.cat([g[p, :int(per[p])] for p in range(proc.nproc)])
 
 
 def _check_root(root: int, w: int) -> None:
@@ -82,8 +104,18 @@ def bcast_table(table: Table, root: int = 0) -> Table:
         return table
     _check_root(root, w)
     flat, recipe = _flatten_for_exchange(table)
-    new = [shard(col, w, root).repeat((w,) + (1,) * (col.dim() - 1))
-           for col in flat]
+    ranks = span(w)
+    proc = transport.current(w)
+    new = []
+    for col in flat:
+        if proc is not None and proc.nproc > 1:
+            cap = col.shape[0] // len(ranks)
+            blk = shard(col, w, root) if root in ranks \
+                else col.new_zeros((cap,) + tuple(col.shape[1:]))
+            blk = transport.broadcast(blk.contiguous(), root // proc.local)
+        else:
+            blk = shard(col, w, root)
+        new.append(blk.repeat((len(ranks),) + (1,) * (col.dim() - 1)))
     del flat
     n_root = int(table.valid_counts[root])
     return _rebuild(recipe, new, np.full(w, n_root, np.int64), env)
@@ -114,13 +146,22 @@ def allreduce(column_or_array, op: str = "sum", valid_counts=None,
            else column_or_array)
     w = (len(valid_counts) if valid_counts is not None
          else int(world or 1))
-    cap = arr.shape[0] // w
-    x = arr.view(w, cap)
+    v = local_world(w)
+    cap = arr.shape[0] // v
+    x = arr.view(v, cap)
     if valid_counts is not None:
-        vc = torch.as_tensor(np.asarray(valid_counts, np.int64)).to(x.device)
+        sp = span(w)
+        vc = torch.as_tensor(np.asarray(valid_counts, np.int64)[
+            sp.start:sp.stop]).to(x.device)
         live = (torch.arange(cap, device=x.device)[None, :] < vc[:, None])
         x = torch.where(live, x, torch.full((), _identity(op, x.dtype),
                                             dtype=x.dtype, device=x.device))
+    proc = transport.current(w)
+    if proc is not None and proc.nproc > 1:
+        # every process's V rows, then one reduction over the W rows in
+        # rank order, as one process reduces them
+        x = transport.allgather_rows(x.contiguous(),
+                                     "collectives.allreduce")
     if op == "sum":
         res = x.sum(dim=0, dtype=x.dtype)
     else:

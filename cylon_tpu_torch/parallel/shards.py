@@ -7,20 +7,53 @@ here :func:`map_shards` runs a world-1 function once per rank on that
 rank's views (:func:`shard`) and places each result, shard-major, into
 one common-capacity output.  Every W > 1 operator goes through these
 two functions; at world size 1 they hand the tensors through untouched.
+
+In a multi-process world (ctx/context.DistributedConfig) a process
+holds only its V local ranks' blocks, ``(V·cap, ...)``: :func:`span`
+names those ranks, :func:`shard` takes a GLOBAL rank and finds its block
+among the local ones, and :func:`map_shards` loops the local ranks only.
+Per-rank host arrays (valid counts, count matrices) stay global, so a
+``fn(r)`` indexes them by the global rank as before.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from . import transport
+
+
+def span(w: int) -> range:
+    """The global ranks of a W-rank world whose row blocks this process
+    holds: all of them, unless a multi-process world of size W is
+    active."""
+    proc = transport.current(w)
+    return range(w) if proc is None else proc.ranks
+
+
+def local_world(w: int) -> int:
+    """V, the row blocks this process holds of a W-rank world."""
+    return len(span(w))
+
+
+def local_counts(vc) -> np.ndarray:
+    """This process's entries of a global per-rank host vector."""
+    vc = np.asarray(vc).reshape(-1)
+    sp = span(len(vc))
+    return vc[sp.start:sp.stop]
 
 
 def shard(x, w: int, r: int):
-    """Rank ``r``'s row block of a ``(W·cap, ...)`` tensor: a view.
-    ``None`` passes through; at ``w == 1`` the tensor itself."""
+    """Global rank ``r``'s row block of a tensor holding this process's
+    blocks (``(W·cap, ...)`` in one process): a view.  ``None`` passes
+    through; at ``w == 1`` the tensor itself."""
     if x is None or w == 1:
         return x
-    cap = x.shape[0] // w
-    return x[r * cap:(r + 1) * cap]
+    sp = span(w)
+    cap = x.shape[0] // len(sp)
+    i = r - sp.start
+    return x[i * cap:(i + 1) * cap]
 
 
 def _leaves(tree, out: list) -> list:
@@ -44,8 +77,8 @@ def _rebuild(tree, it):
 
 
 def map_shards(fn, w: int, cap: int | None = None):
-    """Run ``fn(r)`` for every rank ``r`` of a W-rank world and stack the
-    results shard-major.
+    """Run ``fn(r)`` for every rank ``r`` of a W-rank world that this
+    process holds (:func:`span`) and stack the results shard-major.
 
     ``fn`` returns a (nested) tuple/list of tensors and ``None``s, the
     same structure on every rank.  Each tensor leaf of rank r's result
@@ -57,7 +90,9 @@ def map_shards(fn, w: int, cap: int | None = None):
     stay ``None``.  At ``w == 1`` a leaf of ``cap`` rows comes back as
     the very tensor ``fn(0)`` returned."""
     skeleton = outs = None
-    for r in range(w):
+    ranks = span(w)
+    v = len(ranks)
+    for r in ranks:
         res = fn(r)
         leaves = [x.reshape(1) if x is not None and x.dim() == 0 else x
                   for x in _leaves(res, [])]
@@ -65,18 +100,19 @@ def map_shards(fn, w: int, cap: int | None = None):
             skeleton = _rebuild(res, iter([None] * len(leaves)))
             outs = [x if x is None or (w == 1 and cap in (None, x.shape[0]))
                     else torch.empty(
-                        (w * (x.shape[0] if cap is None else cap),)
+                        (v * (x.shape[0] if cap is None else cap),)
                         + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
                     for x in leaves]
         del res
         for out, x in zip(outs, leaves):
             if out is None or out is x:
                 continue
-            c = out.shape[0] // w
+            c = out.shape[0] // v
             if x.shape[0] > c:
                 raise ValueError(f"rank {r} returned {x.shape[0]} rows for "
                                  f"a {c}-row shard")
-            out[r * c:r * c + x.shape[0]] = x
-            out[r * c + x.shape[0]:(r + 1) * c] = 0
+            i = r - ranks.start
+            out[i * c:i * c + x.shape[0]] = x
+            out[i * c + x.shape[0]:(i + 1) * c] = 0
         del leaves
     return _rebuild(skeleton, iter(outs))

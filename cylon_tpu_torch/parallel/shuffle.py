@@ -14,9 +14,16 @@ rows.  The targets hold values 0..W (W = padding, dropped), so they sort
 as uint8 keys — one radix pass instead of four; :func:`exchange` refuses
 a world of more than :data:`MAX_WORLD` ranks.
 
-:func:`exchange` takes the env, not a mesh, so the multi-card transport
-(NCCL ``all_to_all_single`` with split sizes from the count sidecar, or
-peer copies under one controller) slots in behind the same interface.
+:func:`exchange` takes the env, not a mesh.  In a multi-process world
+(ctx/context.DistributedConfig) each process holds its V ranks' blocks:
+:func:`count_targets` counts this process's ``(V, W)`` rows and one
+allgather makes the ``(W, W)`` matrix the same everywhere; the exchange
+keeps the rows bound for its own ranks on the device and moves the rest
+with ``all_to_all_single`` (parallel/transport.py), split sizes from the
+count matrix, in the reference's bounded rounds
+(:func:`exchange_block_cap`, ``cylon_tpu/parallel/shuffle.py:330``).
+Destination d still receives its rows in (global source rank, source
+position) order, so the result is bit-equal to the one-process world's.
 :func:`skew_targets` routes a semi/anti join's probe side with its heavy
 keys spread round-robin (relational/join.py); :func:`skew_split_targets`
 routes the adaptive skew split's probe side (relational/skew.py).
@@ -48,6 +55,8 @@ from ..ops import hashing
 from ..relational.common import live_mask
 from ..status import InvalidError
 from ..utils.host import host_array
+from . import transport
+from .shards import local_world, span
 
 #: the most ranks the exchange serves: its targets 0..W must fit uint8
 MAX_WORLD = 255
@@ -58,7 +67,7 @@ def hash_targets(env, key_datas, key_valids, valid_counts) -> torch.Tensor:
     target W (the trash destination the exchange drops).  The hash is
     elementwise, so one pass serves every shard."""
     w = len(valid_counts)
-    cap = key_datas[0].shape[0] // w
+    cap = key_datas[0].shape[0] // local_world(w)
     with_valids = any(v is not None for v in key_valids)
     h = hashing.hash_rows(list(key_datas),
                           list(key_valids) if with_valids else None)
@@ -77,10 +86,12 @@ def skew_targets(env, h: torch.Tensor, valid_counts,
     them); padding rows get target W."""
     w = len(valid_counts)
     n = h.shape[0]
-    spread = (torch.arange(n, dtype=torch.int64, device=h.device) % w).to(
-        torch.int32)
+    cap = n // local_world(w)
+    first = span(w).start * cap
+    spread = ((torch.arange(n, dtype=torch.int64, device=h.device) + first)
+              % w).to(torch.int32)
     tgt = torch.where(heavy, spread, hashing.partition_targets(h, w))
-    live = live_mask(valid_counts, n // w, h.device)
+    live = live_mask(valid_counts, cap, h.device)
     return torch.where(live, tgt, torch.full((), w, dtype=torch.int32,
                                              device=h.device))
 
@@ -102,7 +113,9 @@ def skew_split_targets(env, key_datas, key_valids, valid_counts, need_nf,
     target W."""
     from ..ops import pack
     w = len(valid_counts)
-    cap = key_datas[0].shape[0] // w
+    ranks = span(w)
+    v = len(ranks)
+    cap = key_datas[0].shape[0] // v
     dev = key_datas[0].device
     live = live_mask(valid_counts, cap, dev)
     with_valids = any(v is not None for v in key_valids)
@@ -123,11 +136,12 @@ def skew_split_targets(env, key_datas, key_valids, valid_counts, need_nf,
     # count of that key's flags
     loc = torch.zeros(eq.shape[0], dtype=torch.int64, device=dev)
     for k in range(eq.shape[1]):
-        ek = eq[:, k].view(w, cap).to(torch.int32)
+        ek = eq[:, k].view(v, cap).to(torch.int32)
         ck = (torch.cumsum(ek, 1, dtype=torch.int32) - ek).reshape(-1)
         loc = torch.where(eq[:, k], ck.to(torch.int64), loc)
         del ek, ck
-    shard_of = torch.arange(w, device=dev).repeat_interleave(cap)
+    shard_of = torch.arange(ranks.start, ranks.stop,
+                            device=dev).repeat_interleave(cap)
     soff = torch.from_numpy(np.asarray(src_off, np.int64)).to(dev)
     fan = torch.from_numpy(np.asarray(fanout, np.int64)).to(dev)
     st = torch.from_numpy(np.asarray(start, np.int64)).to(dev)
@@ -145,10 +159,13 @@ def count_targets(env, tgt: torch.Tensor) -> np.ndarray:
     pull (an atomic histogram, ``torch.bincount``, measured slower on the
     card and waits on the host to size its output).  The work grows as
     W²·cap (W passes over the W·cap targets); the temporary is one byte
-    per row."""
+    per row.  In a distributed world each process counts its own ``(V,
+    W)`` rows and one allgather makes the matrix whole."""
     w = env.world_size
-    by_src = tgt.view(w, -1)
+    by_src = tgt.view(local_world(w), -1)
     counts = torch.stack([(by_src == d).sum(dim=1) for d in range(w)], dim=1)
+    if transport.current(w) is not None:
+        return transport.allgather_counts(counts)
     from ..exec.recovery import exchange_watchdog
     return exchange_watchdog("exchange.counts",
                              lambda: host_array(counts)).astype(np.int64)
@@ -220,6 +237,9 @@ def exchange(env, tgt: torch.Tensor, counts: np.ndarray, cols: tuple,
         _plan.record_exchange(counts, row_bytes, site=owner)
     # stable: equal targets keep their global (source-major) order
     order = torch.sort(tgt.to(torch.uint8), stable=True).indices
+    proc = transport.current(w)
+    if proc is not None and proc.nproc > 1:
+        return _exchange_procs(proc, order, counts, cols, out_cap), per_dest
     starts = np.concatenate([[0], np.cumsum(per_dest)])
     outs = []
     for col in cols:
@@ -232,3 +252,91 @@ def exchange(env, tgt: torch.Tensor, counts: np.ndarray, cols: tuple,
             blk[b - a:] = 0
         outs.append(out)
     return tuple(outs), per_dest
+
+
+def exchange_block_cap(total: int, w: int) -> int:
+    """Per-(source, destination) block bound of one all-to-all round:
+    about twice the uniform stream, floored so small tables take one
+    round (the reference's ``cylon_tpu/parallel/shuffle.py:330``)."""
+    uniform = -(-int(total) // max(w * w, 1))
+    return config.pow2ceil(max(2 * uniform, 8192))
+
+
+def _exchange_procs(proc, order: torch.Tensor, counts: np.ndarray,
+                    cols: tuple, out_cap: int) -> tuple:
+    """The exchange of a multi-process world.  ``order`` sorts this
+    process's rows by destination (stable, so local source order stays
+    within one).  Rows bound for this process's own ranks are gathered
+    on the device; the others go to their process with
+    ``all_to_all_single``, the stream from process p to process q cut
+    into rounds of at most one block.  Each local destination d then
+    takes, process by process, the rows of p's sources: (global source
+    rank, source position) order."""
+    v, p_n, me = proc.local, proc.nproc, proc.pid
+    w = counts.shape[0]
+    mine = slice(me * v, (me + 1) * v)
+    # this process's rows per destination, and their offsets in `order`
+    csend = counts[mine].sum(axis=0)
+    sstart = np.concatenate([[0], np.cumsum(csend)]).astype(np.int64)
+    # rows from process p's sources to process q's ranks
+    pair = counts.reshape(p_n, v, p_n, v).sum(axis=(1, 3))
+    cross = pair.copy()
+    np.fill_diagonal(cross, 0)
+    max_c = int(cross.max(initial=0))
+    block = config.pow2ceil(min(max(max_c, 1),
+                                exchange_block_cap(int(cross.sum()), p_n)))
+    rounds = -(-max_c // block) if max_c else 0
+    # where destination d's rows sit in the stream from process p: the
+    # sender orders by destination, then by its own source rank
+    from_p = counts.reshape(p_n, v, w).sum(axis=1)[:, mine]   # (P, V)
+    soff = np.concatenate([np.zeros((p_n, 1), np.int64),
+                           np.cumsum(from_p, axis=1)], axis=1)
+    transport.STATS["exchanges"] += 1
+    outs = []
+    for col in cols:
+        rest = tuple(col.shape[1:])
+        streams = [None] * p_n
+        for q in range(p_n):
+            if q != me:
+                streams[q] = torch.empty((int(pair[q, me]),) + rest,
+                                         dtype=col.dtype, device=col.device)
+        for r in range(rounds):
+            lo = r * block
+            send_n = [0 if q == me else int(min(max(cross[me, q] - lo, 0),
+                                                block))
+                      for q in range(p_n)]
+            recv_n = [0 if q == me else int(min(max(cross[q, me] - lo, 0),
+                                                block))
+                      for q in range(p_n)]
+            idx = torch.cat([order[int(sstart[q * v]) + lo:
+                                   int(sstart[q * v]) + lo + send_n[q]]
+                             for q in range(p_n)])
+            got = transport.all_to_all_rows(col.index_select(0, idx),
+                                            send_n, recv_n)
+            del idx
+            at = 0
+            for q in range(p_n):
+                if recv_n[q]:
+                    streams[q][lo:lo + recv_n[q]] = got[at:at + recv_n[q]]
+                    at += recv_n[q]
+            del got
+        out = torch.empty((v * out_cap,) + rest, dtype=col.dtype,
+                          device=col.device)
+        for i in range(v):
+            d = me * v + i
+            blk = out[i * out_cap:(i + 1) * out_cap]
+            at = 0
+            for q in range(p_n):
+                if q == me:
+                    a, b = int(sstart[d]), int(sstart[d + 1])
+                    torch.index_select(col, 0, order[a:b],
+                                       out=blk[at:at + b - a])
+                    at += b - a
+                else:
+                    a, b = int(soff[q, i]), int(soff[q, i + 1])
+                    blk[at:at + b - a] = streams[q][a:b]
+                    at += b - a
+            blk[at:] = 0
+        del streams
+        outs.append(out)
+    return tuple(outs)

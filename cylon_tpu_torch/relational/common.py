@@ -54,10 +54,14 @@ def run_with_oom_fallback(primary, can_fallback: bool, fallback, label: str,
 def live_mask(vc, cap: int, device) -> torch.Tensor:
     """Row liveness of a W-shard layout, ``W = len(vc)``: in each
     ``cap``-row shard r the first ``vc[r]`` rows are real, the rest
-    padding.  A ``(W·cap,)`` bool tensor; one rank's counts give its
+    padding.  A ``(W·cap,)`` bool tensor (``(V·cap,)``, this process's
+    blocks, in a multi-process world); one rank's counts give its
     shard's ``(cap,)`` mask."""
+    from ..parallel.shards import local_counts
     pos = torch.arange(cap, device=device)
     vc = np.asarray(vc).reshape(-1)
+    if len(vc) > 1:
+        vc = local_counts(vc)
     if len(vc) == 1:
         return pos < int(vc[0])
     return torch.cat([pos < int(v) for v in vc])
@@ -323,6 +327,7 @@ def sample_key_rows(table: Table, key_names: list, m: int | None = None):
     empty table.  One gather of W·m rows and one host pull."""
     from .. import config
     from ..ops import hashing
+    from ..parallel.shards import span
     from ..utils.host import host_arrays
 
     total = int(table.valid_counts.sum())
@@ -337,15 +342,18 @@ def sample_key_rows(table: Table, key_names: list, m: int | None = None):
     vc = np.asarray(table.valid_counts, np.int64)
     datas, valids = col_arrays(cols)
     dev = datas[0].device
-    pos = np.concatenate([r * cap + sample_positions(int(vc[r]), m, cap)
-                          for r in range(w)]).astype(np.int64)
+    ranks = span(w)
+    pos = np.concatenate([(r - ranks.start) * cap
+                          + sample_positions(int(vc[r]), m, cap)
+                          for r in ranks]).astype(np.int64)
     idx = torch.from_numpy(pos).to(dev)
     sd = [d[idx] for d in datas]
     sv = [torch.ones(len(pos), dtype=torch.bool, device=dev)
           if v is None else v[idx] for v in valids]
     # the hash is elementwise: hashing the sampled rows alone gives the
-    # sampled rows' hashes
-    outs = host_arrays(sd + sv + [hashing.hash_rows(sd, sv)])
+    # sampled rows' hashes; a multi-process pull gathers every process's
+    # samples, so every process sees the same sample
+    outs = host_arrays(sd + sv + [hashing.hash_rows(sd, sv)], world=w)
     nk = len(cols)
     vals, vls, hashes = outs[:nk], outs[nk:2 * nk], outs[-1]
     keep = np.repeat(vc > 0, m)

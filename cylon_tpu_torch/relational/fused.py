@@ -390,7 +390,8 @@ def try_begin_join_groupby(table: Table, by: list, specs: list, ddof: int):
         live = np.asarray(state.vcl, np.int64) + np.asarray(state.vcr,
                                                             np.int64)
         for _ in range(3):
-            meta = host_array(res[4]).astype(np.int64).reshape(-1, 2)
+            meta = host_array(res[4], world=w).astype(np.int64).reshape(
+                -1, 2)
             n_groups = meta[:, 0]
             ng_cap = config.pow2ceil(int(n_groups.max())
                                      if n_groups.size else 1)

@@ -46,7 +46,7 @@ from ..obs import plan as _plan
 from ..ops import groupby as gbk
 from ..ops import lanes, pack
 from ..ops.sort import take_data
-from ..parallel.shards import map_shards, shard
+from ..parallel.shards import local_world, map_shards, shard
 from ..status import InvalidError
 from ..utils import timing
 from ..utils.host import host_array
@@ -373,9 +373,10 @@ def _per_shard(fn, valid_counts, *cols):
     return map_shards(lambda r: fn(int(vc[r]), *views(cols, r)), w)
 
 
-def _dispatch(call, pred_key, cap_full: int):
+def _dispatch(call, pred_key, cap_full: int, world: int):
     """Dispatch ``call(seg_cap)`` at the predicted segment space, pull the
-    per-shard group counts once, and redispatch at the true bucket when
+    per-shard group counts once (every process's, in a multi-process
+    world of ``world`` ranks), and redispatch at the true bucket when
     they exceed it.  Returns ``(result, n_groups)``."""
     pred = _SEG_CACHE.get(pred_key)
     if pred is not None and pred < cap_full:
@@ -386,14 +387,16 @@ def _dispatch(call, pred_key, cap_full: int):
         seg_cap = cap_full
     res = call(seg_cap)
     COUNTS["dispatches"] += 1
-    n_groups = host_array(res[-1]).astype(np.int64).reshape(-1)
+    n_groups = host_array(res[-1], world=world).astype(
+        np.int64).reshape(-1)
     ng_cap = min(config.pow2ceil(int(n_groups.max()) if n_groups.size
                                  else 1), cap_full)
     if ng_cap > seg_cap:
         res = call(ng_cap)
         COUNTS["dispatches"] += 1
         COUNTS["redispatches"] += 1
-        n_groups = host_array(res[-1]).astype(np.int64).reshape(-1)
+        n_groups = host_array(res[-1], world=world).astype(
+            np.int64).reshape(-1)
     _SEG_CACHE.put(pred_key, ng_cap)
     return res, n_groups
 
@@ -410,7 +413,7 @@ def _shrink(table: Table, n_rows: np.ndarray) -> Table:
     new_cap = config.pow2ceil(int(n_rows.max()) if n_rows.size else 1)
     if new_cap >= cap:
         return table
-    w = table.env.world_size
+    w = local_world(table.env.world_size)
 
     def cut(x):
         if x is None:
@@ -654,7 +657,7 @@ def _groupby_aggregate_impl(table: Table, by: list, specs, ddof: int) -> Table:
 
     with timing.region("groupby.raw"):
         (key_out, kval_out, res_d, res_v, _), n_groups = _dispatch(
-            raw_call, seg_key, cap_full)
+            raw_call, seg_key, cap_full, env.world_size)
     out = _result_table(env, by, by_cols, key_out, kval_out, res_names, res_d,
                         res_v, res_types, res_dicts, n_groups)
     out = _shrink(out, n_groups)
@@ -686,7 +689,7 @@ def _combine_route(table, by, by_cols, specs, uniq_names, val_map, narrow,
                cap_full, int(table.valid_counts.sum()))
     with timing.region("groupby.combine"):
         (key_out, kval_out, inter_out, _), n_groups = _dispatch(
-            combine_call, seg_key, cap_full)
+            combine_call, seg_key, cap_full, env.world_size)
         # the intermediate table: keys + flat intermediate columns
         cols = {}
         for n, c, d, v in zip(by, by_cols, key_out, kval_out):
@@ -715,7 +718,8 @@ def _combine_route(table, by, by_cols, specs, uniq_names, val_map, narrow,
                                          n_live, *a),
             shuffled.valid_counts, s_by_datas, s_by_valids, inter_by_op)
         del shuffled, inter_by_op
-        ng2 = host_array(ng2).astype(np.int64).reshape(-1)
+        ng2 = host_array(ng2, world=env.world_size).astype(
+            np.int64).reshape(-1)
         out = _result_table(env, by, by_cols, key2, kval2, res_names, res_d,
                             res_v, res_types, res_dicts, ng2)
         out = _shrink(out, ng2)

@@ -53,7 +53,7 @@ from ..ops import join as joink
 from ..ops import lanes
 from ..ops import pack
 from ..parallel.collectives import allgather_table
-from ..parallel.shards import map_shards, shard
+from ..parallel.shards import local_world, map_shards, shard, span
 from ..status import InvalidError
 from ..utils import timing
 from ..utils.host import host_array
@@ -265,9 +265,12 @@ def _heavy_keys(table: Table, key_names, env):
     m, cap = config.SKEW_SAMPLE, table.capacity
     vc = np.asarray(table.valid_counts, np.int64)
     h = _key_hashes(table, key_names)
-    pos = np.concatenate([r * cap + sample_positions(int(vc[r]), m, cap)
-                          for r in range(w)]).astype(np.int64)
-    vals = host_array(h[torch.from_numpy(pos).to(h.device)]).reshape(w, m)
+    ranks = span(w)
+    pos = np.concatenate([(r - ranks.start) * cap
+                          + sample_positions(int(vc[r]), m, cap)
+                          for r in ranks]).astype(np.int64)
+    vals = host_array(h[torch.from_numpy(pos).to(h.device)],
+                      world=w).reshape(w, m)
     del h
     shares: dict = {}
     for s in range(w):
@@ -657,7 +660,7 @@ def _join_tables_impl(left: Table, right: Table, left_on, right_on,
     if defer:
         with timing.region("join.sort_count"):
             n_dev, idx_s_s, bnd_s, pl_s = count(slim=True)
-            counts = host_array(n_dev).astype(np.int64).reshape(w)
+            counts = host_array(n_dev, world=w).astype(np.int64).reshape(w)
         out_cap = config.pow2ceil(int(counts.max()))
 
         def materialize_cols():
@@ -733,7 +736,7 @@ def _join_tables_impl(left: Table, right: Table, left_on, right_on,
 
     with timing.region("join.sort_count"):
         n_dev, carry, pl_s = count(slim=False)
-        counts = host_array(n_dev).astype(np.int64).reshape(w)
+        counts = host_array(n_dev, world=w).astype(np.int64).reshape(w)
     out_cap = config.pow2ceil(int(counts.max()))
     with timing.region("join.materialize"):
         out_d, out_v = materialize(
@@ -765,8 +768,8 @@ def _stitch_deferred(pre: Table, carry, skew_plan, how: str, coalesce: bool,
     if how == "outer":
         # each shard's appended unmatched-right rows (the carry's `un`
         # flags): the stitch's zone B
-        un_counts = host_array(carry[5].view(w, -1).sum(
-            dim=1, dtype=torch.int64)).astype(np.int64)
+        un_counts = host_array(carry[5].view(local_world(w), -1).sum(
+            dim=1, dtype=torch.int64), world=w).astype(np.int64)
     if coalesce:
         key_out = list(left_on)
     elif how == "right":
@@ -927,15 +930,17 @@ class _LazyCounts:
     DeferredTable's ``counts_thunk`` and its materialize thunk, so the
     host waits at most once, and only when someone needs the counts."""
 
-    __slots__ = ("_dev", "value")
+    __slots__ = ("_dev", "_world", "value")
 
-    def __init__(self, dev):
+    def __init__(self, dev, world: int):
         self._dev = dev
+        self._world = world
         self.value = None
 
     def __call__(self) -> np.ndarray:
         if self.value is None:
-            self.value = host_array(self._dev).astype(np.int64).reshape(-1)
+            self.value = host_array(self._dev, world=self._world).astype(
+                np.int64).reshape(-1)
             self._dev = None
         return self.value
 
@@ -1048,7 +1053,7 @@ def _join_packed_impl(pl: PackedPiece, pr: PackedPiece, left_on, right_on,
         # the counts stay ON DEVICE: the next piece's work can be queued
         # before this piece's host wait, and a fused consumer that drains
         # the state never pulls them at all
-        holder = _LazyCounts(n_dev)
+        holder = _LazyCounts(n_dev, w)
 
         def materialize_cols():
             out_cap = config.pow2ceil(int(holder().max()))
@@ -1080,7 +1085,7 @@ def _join_packed_impl(pl: PackedPiece, pr: PackedPiece, left_on, right_on,
 
     with timing.region("join.sort_count"):
         n_dev, carry, pl_s = count(slim=False)
-        counts = host_array(n_dev).astype(np.int64).reshape(w)
+        counts = host_array(n_dev, world=w).astype(np.int64).reshape(w)
     out_cap = config.pow2ceil(int(counts.max()))
     with timing.region("join.materialize"):
         out_d, out_v = materialize(

@@ -31,7 +31,7 @@ from .. import config
 from ..core.column import Column
 from ..core.table import Table
 from ..ops import lanes
-from ..parallel.shards import map_shards
+from ..parallel.shards import local_world, map_shards, span
 from ..status import CapacityOverflowError
 
 
@@ -85,8 +85,10 @@ class PackedPiece:
             torch.cuda.current_stream(self.arrs[0].device).wait_event(
                 self.ready)
             self.ready = None
-        block = self.arrs[0].shape[0] // self.env.world_size
-        s, cap = r * block + int(self.starts[r]), self.piece_cap
+        ranks = span(self.env.world_size)
+        block = self.arrs[0].shape[0] // len(ranks)
+        s = (r - ranks.start) * block + int(self.starts[r])
+        cap = self.piece_cap
         has_mat = self.spec.n_lanes > 0
         mat = lanes.slice_lanes(self.spec, self.arrs[0], s, cap) \
             if has_mat else None
@@ -145,8 +147,8 @@ class PieceSource:
              (min(c.bounds[0], 0), max(c.bounds[1], 0))
              if c.bounds is not None else None)
             for n, c in items)
-        w, cap = self.env.world_size, table.capacity
-        rows = cap + int(pad)          # per shard
+        w, cap = local_world(self.env.world_size), table.capacity
+        rows = cap + int(pad)          # per shard (this process's)
         scheduler.admit_allocation(
             self.env, w * rows * memory.spec_row_bytes(self.spec),
             scratch=int(scratch_bytes))
@@ -165,7 +167,8 @@ class PieceSource:
                 side.view(w, rows)[:, :cap] = c.data.view(w, cap)
                 arrs.append(side)
         self._reg = memory.register("piece_src", tuple(arrs),
-                                    spillable=True, world=w, anchor=self)
+                                    spillable=True,
+                                    world=self.env.world_size, anchor=self)
 
     @property
     def arrs(self) -> tuple | None:

@@ -13,6 +13,10 @@ overlap with a global row range where it is.
 
 :func:`place_by_global_pos` places rows on the even layout by global
 positions its caller computed (the skew stitch, relational/skew.py).
+
+In a multi-process world the global positions and every count matrix
+come from the replicated valid counts; each process computes the targets
+of its own rows only.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ from ..obs import plan as _plan
 from ..ops import lanes
 from ..ops import sort as sortk
 from ..parallel import shuffle
-from ..parallel.shards import map_shards, shard
+from ..parallel.shards import local_world, map_shards, shard, span
 from ..status import InvalidError
 from ..utils import timing
 from ..utils.host import host_array
@@ -142,15 +146,23 @@ def _order_preserving_targets(table: Table,
     env = table.env
     w, cap, dev = env.world_size, table.capacity, env.device
     vc = np.asarray(table.valid_counts, np.int64)
-    offs = np.concatenate([[0], np.cumsum(vc)[:-1]]).astype(np.int64)
     bounds = torch.from_numpy(np.cumsum(dest_counts).astype(np.int64)
                               - 1).to(dev)
-    # int64 global positions: past 2^31 rows in total they outgrow int32
-    gpos = (torch.from_numpy(offs).to(dev)[:, None]
-            + torch.arange(cap, dtype=torch.int64, device=dev)).reshape(-1)
+    gpos = _global_positions(vc, cap, dev)
     t = torch.searchsorted(bounds, gpos).clamp_(0, w - 1).to(torch.int32)
     return torch.where(live_mask(vc, cap, dev), t,
                        torch.full((), w, dtype=torch.int32, device=dev))
+
+
+def _global_positions(vc: np.ndarray, cap: int, device) -> torch.Tensor:
+    """The int64 global row position of every slot this process holds
+    (past 2^31 rows in total they outgrow int32): shard r's slot i is
+    ``sum(vc[:r]) + i``."""
+    offs = np.concatenate([[0], np.cumsum(vc)[:-1]]).astype(np.int64)
+    sp = span(len(vc))
+    return (torch.from_numpy(offs[sp.start:sp.stop]).to(device)[:, None]
+            + torch.arange(cap, dtype=torch.int64,
+                           device=device)).reshape(-1)
 
 
 def place_by_global_pos(table: Table, pos: torch.Tensor,
@@ -192,7 +204,9 @@ def place_by_global_pos(table: Table, pos: torch.Tensor,
             f"not match the even layout {list(dest)} — positions are not "
             "a permutation of the claimed total")
     with timing.region("place.sort"):
-        out_cap = new_flat[0].shape[0] // w
+        ranks = span(w)
+        v = len(ranks)
+        out_cap = new_flat[0].shape[0] // v
         dof = torch.from_numpy(np.concatenate([[0], np.cumsum(dest)[:-1]])
                                .astype(np.int64)).to(dev)
         # received row q of destination d belongs at slot d·out_cap +
@@ -203,10 +217,11 @@ def place_by_global_pos(table: Table, pos: torch.Tensor,
         # for positions that break the contract).  A repeated slot leaves
         # another unwritten, whose identity entry then fails slot[inv] ==
         # q: one compare and one pull find it
-        q = torch.arange(w * out_cap, dtype=torch.int64, device=dev)
+        q = torch.arange(v * out_cap, dtype=torch.int64, device=dev)
         d = q // out_cap
         slot = torch.where(live_mask(new_valid, out_cap, dev),
-                           d * out_cap + (new_flat[-1] - dof[d]).clamp(
+                           d * out_cap + (new_flat[-1]
+                                          - dof[d + ranks.start]).clamp(
                                0, out_cap - 1), q)
         del d
         inv = q.clone()
@@ -264,7 +279,7 @@ def repad_table(table: Table, new_cap: int) -> Table:
         return table
     if int(table.valid_counts.max(initial=0)) > new_cap:
         raise InvalidError(f"valid rows exceed new capacity {new_cap}")
-    w = table.env.world_size
+    w = local_world(table.env.world_size)
 
     def repad(d):
         blocks = d.view((w, cap) + tuple(d.shape[1:]))
@@ -296,8 +311,7 @@ def slice_table(table: Table, offset: int, length: int) -> Table:
     offs = np.concatenate([[0], np.cumsum(vc)[:-1]]).astype(np.int64)
     lo, hi = int(offset), int(offset) + int(length)
     kept = np.clip(np.minimum(offs + vc, hi) - np.maximum(offs, lo), 0, None)
-    gpos = (torch.from_numpy(offs).to(dev)[:, None]
-            + torch.arange(cap, dtype=torch.int64, device=dev)).reshape(-1)
+    gpos = _global_positions(vc, cap, dev)
     keep = live_mask(vc, cap, dev) & (gpos >= lo) & (gpos < hi)
     return compact_rows(table, keep, kept)
 
@@ -319,7 +333,8 @@ def filter_table(table: Table, flag: torch.Tensor) -> Table:
     one wait."""
     w = table.env.world_size
     keep = flag & live_mask(table.valid_counts, table.capacity, flag.device)
-    counts = host_array(keep.view(w, -1).sum(dim=1)).astype(np.int64)
+    counts = host_array(keep.view(local_world(w), -1).sum(dim=1),
+                        world=w).astype(np.int64)
     return compact_rows(table, keep, counts)
 
 

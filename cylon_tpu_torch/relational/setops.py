@@ -54,6 +54,8 @@ def unique_table(table: Table, subset=None, keep: str = "first") -> Table:
     """Drop duplicate rows, compared on the ``subset`` columns (default
     all), keeping each value's first or last occurrence in global row
     order."""
+    from ..ctx.context import refuse_multi_process
+    refuse_multi_process(table.env, "unique_table")
     subset = list(subset) if subset is not None else table.column_names
     if keep not in ("first", "last"):
         raise InvalidError("keep must be 'first' or 'last'")
@@ -122,6 +124,8 @@ def set_operation(a: Table, b: Table, op: str,
     ``assume_colocated=True`` skips the shuffle and the schema alignment
     (the pipelined set op aligns and shuffles the resident side once).
     A device OOM streams ``a`` through ``pipelined_set_op``."""
+    from ..ctx.context import refuse_multi_process
+    refuse_multi_process(a.env, "set operations")
     from .common import run_with_oom_fallback
     for t in (a, b):
         for n in t.column_names:
@@ -234,6 +238,8 @@ def equals(a: Table, b: Table, ordered: bool = True) -> bool:
     column first).  ``b`` is repartitioned to ``a``'s row counts and
     both repadded to one capacity before the row compare.  Null equals
     null, NaN equals NaN, -0.0 equals 0.0."""
+    from ..ctx.context import refuse_multi_process
+    refuse_multi_process(a.env, "equals")
     check_same_env(a, b)
     if a.column_names != b.column_names:
         return False

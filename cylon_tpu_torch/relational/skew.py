@@ -56,6 +56,7 @@ from .. import config
 from ..core.column import Column
 from ..core.table import Table
 from ..ops import pack
+from ..parallel.shards import local_world, span
 from ..status import ExecutionError
 from ..utils import timing
 from ..utils.host import host_arrays
@@ -418,17 +419,17 @@ def heavy_counts(table: Table, key_names, plan: SkewPlan,
     gt, eq, live = _compare(table, key_names, plan)
     del gt
     eq &= live[:, None]
-    counts = eq.view(w, -1, k).sum(dim=1)
+    counts = eq.view(local_world(w), -1, k).sum(dim=1)
     del eq
-    pulls = [counts]
+    lt = None
     if with_lt:
         cols = [table.column(n) for n in key_names]
         need_nf, narrow = plan.operand_statics(cols)
         ko_t = plan.tuple_ops(need_nf, narrow, live.device)
         gtt, _ = pack.rows_cmp_splitters(ko_t, ko_t.ops)
-        pulls.append(gtt.T)
-    got = host_arrays(pulls)
-    return got[0].astype(np.int64), (got[1] if with_lt else None)
+        lt = host_arrays([gtt.T])[0]
+    # the per-source counts are row-sharded: every process's, gathered
+    return host_arrays([counts], world=w)[0].astype(np.int64), lt
 
 
 def heavy_flag(table: Table, key_names, plan: SkewPlan, member=None):
@@ -439,9 +440,10 @@ def heavy_flag(table: Table, key_names, plan: SkewPlan, member=None):
     _gt, eq, live = _compare(table, key_names, plan)
     del _gt
     if member is not None:
-        mine = torch.from_numpy(np.ascontiguousarray(member.T)).to(
-            eq.device)                                       # (W, K)
-        eq = eq.view(w, -1, k) & mine[:, None, :]
+        sp = span(w)
+        mine = torch.from_numpy(np.ascontiguousarray(
+            member.T[sp.start:sp.stop])).to(eq.device)      # (V, K)
+        eq = eq.view(len(sp), -1, k) & mine[:, None, :]
     return eq.reshape(-1, k).any(dim=1) & live
 
 
@@ -481,19 +483,20 @@ def combine_heavy_partials(out: Table, by, res_names, plan: SkewPlan):
         _gt, eq, live = _compare(out, by, plan)
         del _gt
         eq &= live[:, None]
-        eq3 = eq.view(w, -1, k)
-        parts = [torch.where(eq3, c.data.view(w, -1, 1),
+        sp = span(w)
+        eq3 = eq.view(len(sp), -1, k)
+        parts = [torch.where(eq3, c.data.view(len(sp), -1, 1),
                              torch.zeros((), dtype=c.data.dtype,
                                          device=c.data.device)).sum(
                                              dim=1, dtype=c.data.dtype)
                  for c in vals]
         # rank-order host fold: deterministic
         combined = [np.ascontiguousarray(p.sum(axis=0))
-                    for p in host_arrays(parts)]
+                    for p in host_arrays(parts, world=w)]
         heavy = eq.any(dim=1)
         kidx = eq.to(torch.uint8).argmax(dim=1)
-        my = torch.arange(w, device=eq.device).repeat_interleave(
-            eq3.shape[1])
+        my = torch.arange(sp.start, sp.stop,
+                          device=eq.device).repeat_interleave(eq3.shape[1])
         home = torch.from_numpy(plan.home.astype(np.int64)).to(eq.device)
         is_home = heavy & (home[kidx] == my)
         keep = live & (~heavy | is_home)
@@ -580,14 +583,17 @@ def stitch_join_output(out: Table, key_out_names, plan: SkewPlan,
     with timing.region("skew.stitch_count"):
         gt, eq, live = _compare(out, key_out_names, plan)
         dev = live.device
-        p = torch.arange(cap, dtype=torch.int64, device=dev).repeat(w)
+        sp = span(w)
+        p = torch.arange(cap, dtype=torch.int64, device=dev).repeat(len(sp))
         main_t = torch.from_numpy(main).to(dev)
-        my = torch.arange(w, device=dev).repeat_interleave(cap)
+        my = torch.arange(sp.start, sp.stop,
+                          device=dev).repeat_interleave(cap)
         zone_a = p < main_t[my]
         za = zone_a[:, None]
-        jlt_d = (gt & za).view(w, cap, k).sum(dim=1)
-        jeq_d = (eq & za).view(w, cap, k).sum(dim=1)
-        jlt, jeq = (a.astype(np.int64) for a in host_arrays([jlt_d, jeq_d]))
+        jlt_d = (gt & za).view(len(sp), cap, k).sum(dim=1)
+        jeq_d = (eq & za).view(len(sp), cap, k).sum(dim=1)
+        jlt, jeq = (a.astype(np.int64)
+                    for a in host_arrays([jlt_d, jeq_d], world=w))
         del za, jlt_d, jeq_d
     # light rows at the HOME shard sorting after key j's tuple (remove the
     # other heavy keys' slices the joint count included: key j' at shard

@@ -31,7 +31,7 @@ from ..core.table import Table
 from ..ops import pack
 from ..ops.sort import sort_permutation, take_data
 from ..parallel import shuffle
-from ..parallel.shards import map_shards, shard
+from ..parallel.shards import map_shards, shard, span
 from ..status import InvalidError
 from ..utils import timing
 from ..utils.host import host_array, host_arrays
@@ -91,16 +91,20 @@ def _sample_fn(vc, w: int, cap: int, m: int, by_datas, by_valids,
     """Every shard's key operands (no liveness operand) at ``m`` evenly
     spaced positions of its live prefix, pulled in one batch: ``(W·m,)``
     host arrays per operand, and the ``(W·m,)`` liveness of the samples
-    (a shard with no live row contributes none)."""
-    pos = np.concatenate([sample_positions(int(vc[r]), m, cap) + r * cap
-                          for r in range(w)]).astype(np.int64)
+    (a shard with no live row contributes none).  In a multi-process
+    world each process samples its own shards and the pull gathers the
+    others' samples, so every process picks the same splitters."""
+    ranks = span(w)
+    pos = np.concatenate([sample_positions(int(vc[r]), m, cap)
+                          + (r - ranks.start) * cap
+                          for r in ranks]).astype(np.int64)
     idx = torch.from_numpy(pos).to(by_datas[0].device)
     datas = [take_data(d, idx) for d in by_datas]
     valids = [None if v is None else v[idx] for v in by_valids]
     ko = pack.key_operands(datas, valids, descendings=list(descendings),
                            nulls_position=npos, narrow32=narrow)
     live = np.repeat(np.asarray(vc) > 0, m)
-    return host_arrays(list(ko.ops)), live
+    return host_arrays(list(ko.ops), world=w), live
 
 
 def _pick_splitters(sample_ops, live, w: int):
@@ -195,10 +199,10 @@ def _expand_hashed_string_keys(table: Table, by: list, ascending):
     Past :data:`MAX_ORDER_LANES` lanes the key becomes one lane of the
     dense rank of its distinct values.
 
-    The reference refuses this sort under several controllers, whose
-    per-process value stores cannot bound the common prefix across
-    processes; the port runs in one process, whose store holds every
-    value, so that case does not arise.
+    A multi-process world refuses this sort with ``InvalidError``, as
+    the reference does under several controllers
+    (``cylon_tpu/relational/sort.py:224``): per-process value stores
+    cannot bound the common prefix across processes.
 
     Returns ``(table2, by2, ascending2, original_by)``, or None when no
     key is hashed."""
@@ -207,6 +211,12 @@ def _expand_hashed_string_keys(table: Table, by: list, ascending):
     if not any(isinstance(c.dictionary, HashedStrings) for c in by_cols):
         return None
     env = table.env
+    if env.multi_process:
+        raise InvalidError(
+            "sort on a hashed string key across several processes: each "
+            "process's value store holds only its own strings, so the "
+            "byte-lane depth cannot be bounded globally; sort on a "
+            "non-hashed key or in one process")
     descend = _norm_dirs(by, ascending)
     w, cap = env.world_size, table.capacity
     vc = np.asarray(table.valid_counts, np.int64)

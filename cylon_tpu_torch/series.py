@@ -161,6 +161,8 @@ class Series:
         self.name = name
         self._col = col
         self._env = env
+        from .ctx.context import refuse_multi_process
+        refuse_multi_process(env, "Series")
         self._valid = valid_counts
 
     # -- basics ------------------------------------------------------------

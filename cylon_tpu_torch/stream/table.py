@@ -51,6 +51,8 @@ class StreamTable:
 
     def __init__(self, env, key, name: str = "stream"):
         self.env = env
+        from ..ctx.context import refuse_multi_process
+        refuse_multi_process(env, "StreamTable")
         self.key = [key] if isinstance(key, str) else list(key)
         self.name = str(name)
         self.chunks: list[Table] = []

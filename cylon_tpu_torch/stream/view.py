@@ -49,6 +49,8 @@ class IncrementalView:
                  name: str | None = None, env=None,
                  compact_every: int = 32):
         self.env = env if env is not None else source.env
+        from ..ctx.context import refuse_multi_process
+        refuse_multi_process(self.env, "IncrementalView")
         self.by = [by] if isinstance(by, str) else list(by)
         self.aggs = list(aggs)
         self.ddof = int(ddof)

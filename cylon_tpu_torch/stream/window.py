@@ -37,6 +37,7 @@ from ..core.table import Table
 from ..relational.join import join_tables
 from ..relational.repart import concat_tables, shuffle_table
 from ..status import InvalidError
+from ..parallel.shards import local_counts
 from ..utils.host import host_array
 from .table import _as_table
 
@@ -48,14 +49,16 @@ _T_MIN = np.int64(-(2**62))
 def event_bounds(table: Table, time_col: str) -> tuple[int, int]:
     """(min, max) event time over a table's live rows, or the identities
     ``(2^62, -2^62)`` when it has none: one masked ``(W, cap)`` amin and
-    amax over each shard's live prefix, then one pull."""
+    amax over each shard's live prefix, then one pull.  In a
+    multi-process world the bounds are this process's shards' (no
+    collective): the watermark vote agrees across processes
+    (``cylon_tpu/stream/window.py:55``)."""
     data = table.column(time_col).data
-    w = table.env.world_size
     if data.numel() == 0:
         return int(_T_MAX), int(_T_MIN)
-    t = data.to(torch.int64).view(w, -1)
-    vc = torch.as_tensor(np.asarray(table.valid_counts, np.int64),
-                         device=t.device)
+    vc = local_counts(table.valid_counts).astype(np.int64)
+    t = data.to(torch.int64).view(len(vc), -1)
+    vc = torch.as_tensor(vc, device=t.device)
     live = torch.arange(t.shape[1], device=t.device)[None, :] < vc[:, None]
     lo = torch.where(live, t, int(_T_MAX)).amin(dim=1)
     hi = torch.where(live, t, int(_T_MIN)).amax(dim=1)

@@ -256,7 +256,9 @@ def _year(ts: np.ndarray) -> np.ndarray:
 def generate_tables(scale: float = 0.01, env=None, seed: int = 0) -> dict:
     """Device-resident DataFrames of the eight tables on ``env`` (the
     default env when None)."""
+    from .ctx.context import refuse_multi_process
     from .frame import DataFrame
+    refuse_multi_process(env, "the TPC-H tables")
     return {name: DataFrame(_table=Table.from_host_columns(cols, env))
             for name, cols in generate_columns(scale, seed).items()}
 

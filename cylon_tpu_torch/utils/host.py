@@ -4,6 +4,14 @@ Every pull of a device tensor to the host goes through this module, so the
 places where the host waits for the device are few and named.  A CUDA
 tensor's ``.cpu()`` waits for the work that feeds it; :func:`sync_pull`
 waits for all queued work on the tensor's device.
+
+In a multi-process world (ctx/context.DistributedConfig) a row-sharded
+tensor holds only this process's V rank blocks: :func:`host_array` and
+:func:`host_arrays` given the world size allgather the other processes'
+blocks, so the host sees the whole ``(W·rows, ...)`` array, as the
+reference's ``multihost_utils.process_allgather`` gives it
+(``cylon_tpu/utils/host.py:33``).  :func:`host_shard_blocks` returns
+only this process's blocks, with no collective.
 """
 
 from __future__ import annotations
@@ -12,28 +20,41 @@ import numpy as np
 import torch
 
 
-def host_array(x) -> np.ndarray:
-    """A tensor (or numpy array, passed through) as a host numpy array."""
+def _gathered(x: np.ndarray, world: int | None) -> np.ndarray:
+    """A pulled row block made whole across the processes of a
+    ``world``-rank multi-process world (itself otherwise)."""
+    from ..parallel import transport
+    proc = None if world is None else transport.current(world)
+    if x is None or proc is None or proc.nproc == 1:
+        return x
+    g = transport.allgather_array(x, "host.allgather")
+    return g.reshape((g.shape[0] * g.shape[1],) + g.shape[2:])
+
+
+def host_array(x, world: int | None = None) -> np.ndarray:
+    """A tensor (or numpy array, passed through) as a host numpy array.
+    ``world``: ``x`` is row-sharded over a world of that size, and a
+    multi-process world gathers every process's blocks."""
     if x is None or isinstance(x, np.ndarray):
         return x
-    return x.detach().cpu().numpy()
+    return _gathered(x.detach().cpu().numpy(), world)
 
 
-def host_arrays(xs) -> list:
+def host_arrays(xs, world: int | None = None) -> list:
     """:func:`host_array` over a list; ``None`` entries pass through.  The
     copies are queued non-blocking into pinned buffers and waited on once,
     so N pulls cost one device round trip."""
     cuda = [x for x in xs if isinstance(x, torch.Tensor) and x.is_cuda]
     if not cuda:
-        return [host_array(x) for x in xs]
+        return [host_array(x, world) for x in xs]
     staged = {}
     for x in cuda:
         buf = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
         buf.copy_(x.detach(), non_blocking=True)
         staged[id(x)] = buf
     torch.cuda.synchronize(cuda[0].device)
-    return [staged[id(x)].numpy() if id(x) in staged else host_array(x)
-            for x in xs]
+    return [_gathered(staged[id(x)].numpy(), world) if id(x) in staged
+            else host_array(x, world) for x in xs]
 
 
 def sync_pull(x) -> None:
@@ -45,6 +66,9 @@ def sync_pull(x) -> None:
 def host_shard_blocks(x: torch.Tensor, w: int, out=None) -> list:
     """Copy a ``(W·rows, ...)`` tensor — W shards, each a row block — to
     host memory and return its W row blocks (views of one host tensor).
+    In a multi-process world ``x`` holds this process's V blocks: they
+    fill the local ranks' entries and the others stay ``None``, with no
+    collective.
     From the card the copy lands in pinned memory (``out`` when given, a
     pinned tensor of ``x``'s shape and dtype, reused across pulls) and is
     waited on; on the CPU it is a copy.  The spill tier's eviction pull
@@ -54,4 +78,12 @@ def host_shard_blocks(x: torch.Tensor, w: int, out=None) -> list:
     out.copy_(x.detach(), non_blocking=x.is_cuda)
     if x.is_cuda:
         torch.cuda.synchronize(x.device)
-    return list(out.chunk(w, dim=0)) if x.shape[0] else [out] * w
+    from ..parallel.shards import span
+    sp = span(w)
+    v = len(sp)
+    blocks = list(out.chunk(v, dim=0)) if x.shape[0] else [out] * v
+    if v == w:
+        return blocks
+    res = [None] * w
+    res[sp.start:sp.stop] = blocks
+    return res
