@@ -33,7 +33,7 @@ KEYS = ("phase", "query", "case", "scale", "world", "best_s", "iterations",
 
 #: the child: build, run one phase of the checkout's chip_smoke.py
 CHILD = r"""
-import json, sys
+import json, sys, tempfile
 sys.path.insert(0, ".")
 import chip_smoke as cs
 import cylon_tpu_torch as ct
@@ -75,6 +75,33 @@ elif phase == "dist_path":
         recs.append({"phase": "dist_path", "query": "armed" if armed
                      else "unarmed", "world": 4, "best_s": best,
                      "iterations": [t["total_s"] for t in times]})
+elif phase == "procs_gloo":
+    # the W = 4 monolithic join -> groupby as 2 processes x 2 ranks over
+    # gloo on bench.py's tables: this checkout's children, launched as
+    # its procs_path launches them
+    import os
+    import shutil
+    import time
+    import numpy as np
+    left, right, _mv = cs.baseline_inputs(125_000_000)
+    data = tempfile.mkdtemp(prefix="compare_procs_", dir=".")
+    try:
+        for name, arr in (("lk", left["k"]), ("a", left["a"]),
+                          ("rk", right["k"]), ("b", right["b"])):
+            np.save(os.path.join(data, f"{name}.npy"), arr)
+        del left, right
+        res = cs._procs_collect(
+            "procs_gloo", cs._procs_launch("procs_gloo", 2, 2, "gloo",
+                                           os.path.abspath(data)),
+            time.perf_counter() + cs.PROCS_TIMEOUT_S)
+    finally:
+        shutil.rmtree(data, ignore_errors=True)
+    recs = [{"phase": "procs_gloo", "world": 4, "case": f"p{r['pid']}",
+             "best_s": r["monolithic"]["best_s"],
+             "iterations": [t["total_s"] for t in r["monolithic"][
+                 "iterations"]],
+             "rows_per_s": 2 * 125_000_000 / r["monolithic"]["best_s"]}
+            for r in res]
 elif phase == "repart_path":
     # setops_path's input: the subtraction of bench.py's tables' keys at
     # W = 4, the default --rows a side
@@ -101,7 +128,8 @@ def main() -> int:
                     help="directory of the parent checkout")
     ap.add_argument("--phase", required=True,
                     choices=("tpch_path", "broadcast_path", "strings_path",
-                             "repart_path", "dist_path", "oom_path"))
+                             "repart_path", "dist_path", "procs_gloo",
+                             "oom_path"))
     ap.add_argument("--tpch-scale", type=float, default=5.0)
     ap.add_argument("--serve-last", action="store_true",
                     help="the change's second run also runs serve_path")

@@ -63,6 +63,31 @@ device-local permutation), both routes each time:
   s/iteration, the bytes that crossed processes, the staging (pinned
   D2H and H2D), wire, count-allgather, vote and set-up seconds, the
   peak memory and the launches;
+* ``topo_virtual`` (after ``dist_path_unarmed``, on its tables): W = 4
+  in this process declared as 2 slices of 2 ranks
+  (``CYLON_TPU_TORCH_SLICES``), so the exchange takes the two-hop route
+  (topo/exchange.py) as two device-local hops; the monolithic query, a
+  warm-up and best of 3 with the skew split off, its digest equal to
+  ``dist_path``'s; s/iteration against ``dist_path_unarmed``, the
+  gateway capacity, the peak memory and the tier counters;
+* ``procs_topo`` (after ``procs_nccl``; its children start beside the
+  gloo ones and wait for a go file): 4 processes × 1 rank over gloo with
+  2 slices declared.  Each child times the monolithic query on the
+  two-hop route (a warm-up and best of 3), runs it once on the flat
+  route and once through ``pipelined_join(n_chunks=2)`` into a
+  ``GroupBySink`` on the two-hop route; every digest must equal
+  ``dist_path``'s, the plan hash must be one on every child, the two-hop
+  route's cross-slice messages half the flat route's (R = 2) over the
+  same cross-slice rows, and K1 and K2 launch and equal their plain
+  versions on the child's shards.  Per child: each hop's bytes and
+  staging and wire seconds, the tier counters of one iteration on each
+  route and the peak memory.  Then its operator legs (correctness only,
+  ``ops_legs``: the set operations, ``unique``, ``equals``,
+  ``pipelined_set_op``, a Series filter, ``loc``/``iloc`` and TPC-H Q3
+  and Q8 at SF 0.1 on 1,048,576-row tables) must equal the one-process
+  W = 4 world's, which the parent computes first.  One card shows the
+  route's code paths and its message count, not a two-tier fabric: the
+  wire is loopback TCP;
 * ``dist_pipelined_path``: the same tables through the pipelined route,
   ``n_chunks = max(2, ceil(rows per rank / 21M))``, K2 launched on every
   shard;
@@ -281,12 +306,12 @@ directory), removed at the end:
   write, which must drain into a ``ResumableAbort`` naming the root —
   with the flight recorder armed (``CYLON_TPU_TORCH_TRACE``), leaving a
   ``TRACE_POSTMORTEM.json`` in the root whose last events hold
-  ``ckpt.write`` spans — and its resume; the complete W = 4 stage
-  resumed at W = 2 (every piece re-sharded, the mismatch counted once)
-  and a second W = 2 resume (a plain fast-forward).  The preemption
-  chain (drain, resume) runs on a thread beside the kill chain (kill,
-  resume, the two W = 2 resumes), so two children share the card at a
-  time and each child's seconds are timed beside another's.  Each
+  ``ckpt.write`` spans — and its resume; the armed leg's complete W = 4
+  stage resumed at W = 2 (every piece re-sharded, the mismatch counted
+  once) and a second W = 2 resume (a plain fast-forward).  The three
+  chains (kill and resume; drain and resume; the two W = 2 resumes) run
+  side by side, so three children share the card at a time and each
+  child's seconds are timed beside others'.  Each
   child's result is held
   bit-equal to the uninterrupted run (a digest of its rows sorted by
   key); a child that exits otherwise than expected fails the phase;
@@ -1449,6 +1474,13 @@ def dist_phases(ct, left, right, orc, n: int, need_k1: bool, routes: dict,
           "device_idle_share_of_best": 1.0 - uprof["device_busy_s"] / ubest,
           "armed_device_idle_share_of_best":
               prof["device_idle_share_of_best"], "oracle": "equal"})
+
+    # topo_virtual: the same tables declared as 2 slices of 2 ranks, so
+    # the exchange runs the two-hop route as two device-local hops
+    trec = topo_virtual(ct, lt, rt, orc, n, need_k1, w4)
+    routes["topo_virtual_w4"] = trec["kernel_counts"]
+    emit(trec)
+    del trec
 
     # dist_pipelined_path: the same tables through the pipelined route
     nc = max(2, -(-(n // w) // PIECE_ROWS))
@@ -4839,6 +4871,188 @@ def shard_digest(g) -> dict:
             "sha256": hashlib.sha256(blocks.tobytes()).hexdigest()}
 
 
+#: the exchange's always-on tier counters (parallel/shuffle._tier_counters)
+TIER_COUNTERS = ("ici_rows", "dcn_rows", "ici_bytes", "dcn_bytes",
+                 "ici_wire_bytes", "dcn_wire_bytes", "ici_messages",
+                 "dcn_messages")
+#: the slices procs_topo and topo_virtual declare
+TOPO_SLICES = 2
+#: procs_topo's operator legs: rows of their tables, TPC-H scale
+OPS_ROWS = 1_048_576
+OPS_TPCH_SCALE = 0.1
+
+
+def tier_counters() -> dict:
+    """The tier counters' values now (subtract two readings)."""
+    from cylon_tpu_torch.obs import metrics
+    return {name: metrics.counter(f"exchange_{name}_total").value
+            for name in TIER_COUNTERS}
+
+
+def tier_delta(before: dict) -> dict:
+    now = tier_counters()
+    return {k: now[k] - before[k] for k in TIER_COUNTERS}
+
+
+@contextlib.contextmanager
+def slices_declared(n: int):
+    """``CYLON_TPU_TORCH_SLICES=n`` for this process while the block runs
+    (the topology re-read before and after)."""
+    import os
+    from cylon_tpu_torch.topo import model as tm
+    prev = os.environ.get("CYLON_TPU_TORCH_SLICES")
+    os.environ["CYLON_TPU_TORCH_SLICES"] = str(n)
+    tm._reslice()
+    try:
+        yield
+    finally:
+        if prev is None:
+            del os.environ["CYLON_TPU_TORCH_SLICES"]
+        else:
+            os.environ["CYLON_TPU_TORCH_SLICES"] = prev
+        tm._reslice()
+
+
+def topo_virtual(ct, lt, rt, orc, n: int, need_k1: bool, w4: dict) -> dict:
+    """``topo_virtual`` (module docstring): dist_path's W = 4 tables with
+    two slices declared, the BASELINE monolithic join → groupby on the
+    two-hop route as two device-local hops (the port's skew split off,
+    as ``dist_path_unarmed``), a warm-up and best of 3.  The digest must
+    equal dist_path's; K1 launches once per shard per iteration.  Reports
+    s/iteration against ``dist_path_unarmed``, the gateway capacity
+    ``cap1`` (the largest of the run), the peak memory and the tier
+    counters of one iteration."""
+    from cylon_tpu_torch import config as pconfig
+    from cylon_tpu_torch.ops import windowed_gather as wg
+    from cylon_tpu_torch.topo import exchange as tx
+    from cylon_tpu_torch.topo import model as tm
+    w = lt.env.world_size
+    caps = []
+    prepare = tx.prepare
+
+    def recording(plan, counts):
+        prep = prepare(plan, counts)
+        caps.append(prep.cap1)
+        return prep
+
+    times = []
+    tx.prepare = recording
+    pconfig.SKEW_SPLIT = False
+    try:
+        with slices_declared(TOPO_SLICES):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            wg.reset_counts()
+            for i in range(4):                  # a warm-up, then 3
+                if i == 3:
+                    before = tier_counters()
+                g = step(ct, lt, rt, times)
+            tiers = tier_delta(before)
+            counts = dict(wg.COUNTS)
+            peak = torch.cuda.max_memory_allocated()
+            plan = tm.last_plan()
+            check_dist(g, orc, w, "topo_virtual")
+            digest = shard_digest(g)
+            del g
+    finally:
+        pconfig.SKEW_SPLIT = True
+        tx.prepare = prepare
+    if digest != w4["dist_path"]["digest"]:
+        raise AssertionError(f"topo_virtual: digest {digest} differs from "
+                             f"dist_path's {w4['dist_path']['digest']}")
+    if plan is None or plan.route != "hierarchical":
+        raise AssertionError("topo_virtual: no hierarchical plan was voted")
+    if counts["redispatches"] != 0 or counts["launches"] not in (
+            (4 * w,) if need_k1 else (0, 4 * w)):
+        raise AssertionError(f"topo_virtual windowed gather counts {counts}"
+                             f": expected {w} launches per iteration")
+    if not tiers["dcn_messages"] or not tiers["dcn_rows"]:
+        raise AssertionError(f"topo_virtual: tier counters {tiers}")
+    torch.cuda.empty_cache()
+    best = min(t["total_s"] for t in times[1:])
+    ubest = w4["dist_path_unarmed_best_s"]
+    return {"phase": "topo_virtual", "world": w, "rows_per_side": n,
+            "slices": plan.n_slices, "ranks_per_slice": plan.ranks_per_slice,
+            "plan": plan.summary(), "iterations": times, "best_s": best,
+            "rows_per_s": 2 * n / best, "dist_path_unarmed_best_s": ubest,
+            "vs_dist_path_unarmed_s": best - ubest,
+            "ratio_to_dist_path_unarmed": best / ubest,
+            "cap1": max(caps), "exchanges_per_iteration": len(caps) // 4,
+            "peak_mem_bytes": peak, "tiers_per_iteration": tiers,
+            "kernel_counts": {"windowed_gather": counts},
+            "digest": digest, "oracle": "equal, digest equal to dist_path"}
+
+
+def table_digest(t) -> str:
+    """sha256 of a table's layout and live rows: its valid counts,
+    capacity and column names, then each shard's live rows in row order,
+    column by column (data, and validity where present), in rank order.
+    In a multi-process world each process hashes its own shards and one
+    allgather orders them, so every process gets what one process gets
+    of the same layout."""
+    import hashlib
+    from cylon_tpu_torch.parallel import transport
+    from cylon_tpu_torch.parallel.shards import shard, span
+    w = t.env.world_size
+    vc = np.asarray(t.valid_counts, np.int64)
+    mine = []
+    for r in span(w):
+        h = hashlib.sha256()
+        live = int(vc[r])
+        for name in t.column_names:
+            c = t.column(name)
+            for x in (c.data, c.validity):
+                if x is not None:
+                    h.update(np.ascontiguousarray(
+                        shard(x, w, r)[:live].cpu().numpy()).tobytes())
+        mine.append(np.frombuffer(h.digest(), np.uint8))
+    blocks = np.stack(mine)
+    if transport.current(w) is not None:
+        blocks = transport.allgather_array(blocks, "digest").reshape(w, -1)
+    head = repr((vc.tolist(), int(t.capacity), list(t.column_names)))
+    return hashlib.sha256(head.encode() + blocks.tobytes()).hexdigest()
+
+
+def ops_legs(ct, env, n: int = OPS_ROWS,
+             scale: float = OPS_TPCH_SCALE) -> dict:
+    """procs_topo's operator legs (correctness only), on tables drawn from
+    seed 16: union, intersect, subtract, ``unique_table``, ``equals``,
+    ``pipelined_set_op``, a Series filter and sum, ``loc``/``iloc``, and
+    TPC-H Q3 and Q8 at ``scale``.  Returns each result's
+    :func:`table_digest` (the answer itself for ``equals`` and the sum),
+    which every process of a world must share with the one-process
+    world's."""
+    from cylon_tpu_torch import tpch
+    rng = np.random.default_rng(16)
+    mv = max(n // 8, 1)
+    ka = ct.Table.from_pydict({"k": rng.integers(0, mv, n)}, env)
+    kb = ct.Table.from_pydict({"k": rng.integers(0, mv, n)}, env)
+    keys = rng.integers(0, mv, n)
+    t = ct.Table.from_pydict({"k": keys, "a": rng.integers(0, 1000, n)},
+                             env)
+    out = {}
+    for op in ("union", "intersect", "subtract"):
+        out[op] = table_digest(ct.set_operation(ka, kb, op))
+    out["unique"] = table_digest(ct.unique_table(t, ["k"]))
+    out["equals"] = [ct.equals(t, t),
+                     ct.equals(t, ct.sort_table(t, "a"), ordered=False),
+                     ct.equals(ka, kb)]
+    out["pipelined_set_op"] = table_digest(
+        ct.pipelined_set_op(ka, kb, "intersect", n_chunks=2))
+    df = ct.DataFrame(t)
+    s = df["a"]
+    out["series_filter"] = table_digest(
+        df[(s > 500) & (df["k"] < mv // 2)].table)
+    out["series_sum"] = int(s.sum())
+    labels = [int(x) for x in keys[[0, n // 2, n - 1]]]
+    out["loc"] = table_digest(df.set_index("k").loc[labels].table)
+    out["iloc"] = table_digest(df.iloc[5:n // 10].table)
+    dfs = tpch.generate_tables(scale, env, seed=0)
+    for q in ("q3", "q8"):
+        out[f"tpch_{q}"] = table_digest(getattr(tpch, q)(dfs, env=env).table)
+    return out
+
+
 def procs_child(spec: dict) -> int:
     """One process of ``procs_path``: a DistributedConfig world of
     ``spec["nproc"]`` processes × ``spec["local_world"]`` ranks on this
@@ -4851,9 +5065,14 @@ def procs_child(spec: dict) -> int:
     launch in this process.  Prints one JSON line: seconds per
     iteration, the transport's bytes and seconds (staging, wire, count
     allgathers, votes, set-up), peak memory, the kernel launches and
-    both results' digests."""
+    both results' digests.  A ``procs_topo`` child (two slices declared
+    by its parent) times the monolithic query on the two-hop route, runs
+    it once on the flat route, records the voted plan, each hop's bytes
+    and seconds and the tier counters of one iteration on each route,
+    and after its checks runs :func:`ops_legs`."""
     import os
     import cylon_tpu_torch as ct
+    from cylon_tpu_torch import config as pconfig
     from cylon_tpu_torch.ops import splitter_probe as sp
     from cylon_tpu_torch.ops import windowed_gather as wg
     from cylon_tpu_torch.parallel import transport
@@ -4891,12 +5110,16 @@ def procs_child(spec: dict) -> int:
     transport.reset_stats()
     captured: dict = {}
     times = []
+    topo = spec["leg"] == "procs_topo"
     with capturing(wg, "windowed_take_t", captured, "mono", keep_k1):
         g = step(ct, lt, rt, times)             # warm-up (first sight)
     warm_stats = dict(transport.STATS)
     transport.reset_stats()
-    for _ in range(3):
+    for i in range(3):
+        if i == 2:
+            tiers = tier_counters()
         g = step(ct, lt, rt, times)
+    tiers = tier_delta(tiers)
     mono_stats = {k: v / 3 for k, v in transport.STATS.items()}
     rec["monolithic"] = {
         "iterations": times, "best_s": min(t["total_s"] for t in times[1:]),
@@ -4904,6 +5127,26 @@ def procs_child(spec: dict) -> int:
         "digest": shard_digest(g)}
     del g
     torch.cuda.empty_cache()
+    if topo:
+        from cylon_tpu_torch.topo import model as tm
+        plan = tm.last_plan()
+        rec["plan"] = None if plan is None else plan.summary()
+        rec["monolithic"]["tiers"] = tiers
+        # the flat route once, on the same tables
+        transport.reset_stats()
+        before = tier_counters()
+        ftimes = []
+        pconfig.TOPO_SHUFFLE = False
+        try:
+            g = step(ct, lt, rt, ftimes)
+        finally:
+            pconfig.TOPO_SHUFFLE = True
+        rec["flat"] = {"s": ftimes[0]["total_s"], "iterations": ftimes,
+                       "transport": dict(transport.STATS),
+                       "tiers": tier_delta(before),
+                       "digest": shard_digest(g)}
+        del g
+        torch.cuda.empty_cache()
     transport.reset_stats()
     ptimes = []
     with capturing(sp, "count_ge_splitters", captured, "probe"), \
@@ -4933,6 +5176,10 @@ def procs_child(spec: dict) -> int:
     rec["checks"] = {name: {key: c.get(key) for key in (
         "L", "M", "S", "K", "window", "bit_equal", "max_abs_err")}
         for name, c in checks.items()}
+    if topo:
+        t0 = time.perf_counter()
+        rec["ops"] = ops_legs(ct, env)
+        rec["ops_s"] = time.perf_counter() - t0
     env.barrier()
     env.finalize()
     rec["wall_s"] = time.perf_counter() - t_start
@@ -4940,22 +5187,29 @@ def procs_child(spec: dict) -> int:
     return 0
 
 
-def procs_path(left: dict, right: dict, w4: dict) -> list:
+def procs_path(ct, left: dict, right: dict, w4: dict) -> list:
     """The multi-process transport on this card (module docstring):
     ``procs_gloo``, 2 processes × 2 ranks over gloo (the exchange stages
-    through pinned host memory: NCCL refuses two ranks on one GPU), and
-    ``procs_nccl``, 1 process × 4 ranks over NCCL.  Each child's result
-    digest must equal the one-process W = 4 digest (``dist_path``), K1
-    and K2 must launch on every child's shards and equal their plain
-    versions there.  ``left``/``right``: bench.py's host tables, which
-    the children map from ``.npy`` files written here once.  Returns the
-    two phase records."""
+    through pinned host memory: NCCL refuses two ranks on one GPU),
+    ``procs_nccl``, 1 process × 4 ranks over NCCL, and ``procs_topo``, 4
+    processes × 1 rank over gloo with two slices declared (the two-hop
+    route).  Each child's result digest must equal the one-process W = 4
+    digest (``dist_path``), K1 and K2 must launch on every child's shards
+    and equal their plain versions there; each ``procs_topo`` child's
+    operator legs must equal the one-process W = 4 world's, which this
+    process computes first.  ``left``/``right``: bench.py's host tables,
+    which the children map from ``.npy`` files written here once.
+    Returns the three phase records."""
     import os
     import shutil
-    import socket
     import tempfile
+    from cylon_tpu_torch.ctx.context import VirtualMeshConfig
     want = w4["dist_path"]["digest"]
     n = len(left["k"])
+    t0 = time.perf_counter()
+    ops_want = ops_legs(ct, ct.CylonEnv(VirtualMeshConfig(4)))
+    ops_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
     data = tempfile.mkdtemp(prefix="procs_path_")
     try:
         t0 = time.perf_counter()
@@ -4963,18 +5217,24 @@ def procs_path(left: dict, right: dict, w4: dict) -> list:
                           ("rk", right["k"]), ("b", right["b"])):
             np.save(os.path.join(data, f"{name}.npy"), arr)
         save_s = time.perf_counter() - t0
-        return [dict(rec, tables_save_s=save_s)
-                for rec in _procs_legs(data, n, want, w4)]
+        recs = [dict(rec, tables_save_s=save_s)
+                for rec in _procs_legs(data, n, want, w4, ops_want)]
+        recs[-1]["parent_ops_s"] = ops_s
+        return recs
     finally:
         shutil.rmtree(data, ignore_errors=True)
 
 
 def _procs_launch(leg: str, nproc: int, v: int, backend, data: str,
-                  go: str | None = None) -> list:
+                  go: str | None = None, slices: int | None = None) -> list:
     """Start one leg's child processes; with ``go``, they wait for that
-    file before they touch the card."""
+    file before they touch the card; ``slices`` declares that many
+    slices in their environment."""
     import os
     import socket
+    env = dict(os.environ)
+    if slices is not None:
+        env["CYLON_TPU_TORCH_SLICES"] = str(slices)
     with socket.socket() as sk:
         sk.bind(("127.0.0.1", 0))
         addr = f"127.0.0.1:{sk.getsockname()[1]}"
@@ -4983,7 +5243,7 @@ def _procs_launch(leg: str, nproc: int, v: int, backend, data: str,
          json.dumps({"leg": leg, "pid": i, "nproc": nproc,
                      "local_world": v, "backend": backend, "addr": addr,
                      "data": data, "go": go})],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
         for i in range(nproc)]
 
 
@@ -5018,34 +5278,42 @@ def _procs_collect(leg: str, procs: list, deadline: float) -> list:
     return results
 
 
-def _procs_legs(data: str, n: int, want: dict, w4: dict):
-    """The two legs of :func:`procs_path`, measured one after the other:
-    the NCCL child starts beside the gloo children (its imports overlap
-    their run) and waits for a go file until they have exited."""
+def _procs_legs(data: str, n: int, want: dict, w4: dict, ops_want: dict):
+    """The three legs of :func:`procs_path`, measured one after the other:
+    the NCCL child and the ``procs_topo`` children start beside the gloo
+    children (their imports overlap that run) and each waits for its go
+    file until the leg before it has exited."""
     import os
-    go = os.path.join(data, "go")
+    gos = [None, os.path.join(data, "go_nccl"), os.path.join(data, "go_topo")]
     t0 = time.perf_counter()
     deadline = t0 + PROCS_TIMEOUT_S
-    legs = [("procs_gloo", 2, 2, "gloo"), ("procs_nccl", 1, 4, None)]
-    nccl = _procs_launch(*legs[1], data, go)
+    legs = [("procs_gloo", 2, 2, "gloo"), ("procs_nccl", 1, 4, None),
+            ("procs_topo", 4, 1, "gloo")]
+    waiting = [_procs_launch(*legs[1], data, gos[1]),
+               _procs_launch(*legs[2], data, gos[2], slices=TOPO_SLICES)]
+    results, walls = [], []
     try:
-        gloo = _procs_collect(
-            "procs_gloo", _procs_launch(*legs[0], data), deadline)
-        walls = [time.perf_counter() - t0]
-        open(go, "w").close()
         t1 = time.perf_counter()
-        nres = _procs_collect("procs_nccl", nccl, deadline)
+        results.append(_procs_collect(
+            "procs_gloo", _procs_launch(*legs[0], data), deadline))
         walls.append(time.perf_counter() - t1)
+        for (leg, *_r), go, procs in zip(legs[1:], gos[1:], waiting):
+            open(go, "w").close()
+            t1 = time.perf_counter()
+            results.append(_procs_collect(leg, procs, deadline))
+            walls.append(time.perf_counter() - t1)
     finally:
-        for p in nccl:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+        for procs in waiting:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
     out = []
-    for (leg, nproc, v, _b), results, wall in zip(legs, (gloo, nres),
-                                                   walls):
-        for r in results:
-            for route in ("monolithic", "pipelined"):
+    for (leg, nproc, v, _b), res, wall in zip(legs, results, walls):
+        topo = leg == "procs_topo"
+        for r in res:
+            for route in ("monolithic", "pipelined") + (
+                    ("flat",) if topo else ()):
                 if r[route]["digest"] != want:
                     raise AssertionError(
                         f"{leg} process {r['pid']} {route}: digest "
@@ -5061,10 +5329,10 @@ def _procs_legs(data: str, n: int, want: dict, w4: dict):
                                             "k2"}:
                 raise AssertionError(f"{leg} process {r['pid']}: kernel "
                                      f"checks {r['checks']}")
-        best = max(r["monolithic"]["best_s"] for r in results)
-        out.append({
+        best = max(r["monolithic"]["best_s"] for r in res)
+        rec = {
             "phase": leg, "processes": nproc, "local_world": v,
-            "world": nproc * v, "backend": results[0]["backend"],
+            "world": nproc * v, "backend": res[0]["backend"],
             "rows_per_side": n, "wall_s": wall,
             "best_s_slowest_process": best,
             "dist_path_best_s": w4["dist_path"]["best_s"],
@@ -5073,9 +5341,45 @@ def _procs_legs(data: str, n: int, want: dict, w4: dict):
             "ratio_to_dist_path_unarmed":
                 best / w4["dist_path_unarmed_best_s"],
             "digest": want, "oracle": "digest equal to dist_path",
-            "children": results})
+            "children": res}
+        if topo:
+            rec.update(_procs_topo_verdict(res, ops_want))
+        out.append(rec)
     torch.cuda.empty_cache()
     return out
+
+
+def _procs_topo_verdict(res: list, ops_want: dict) -> dict:
+    """procs_topo's checks across its children: one voted hierarchical
+    plan on every child, the two-hop route's cross-slice messages half
+    the flat route's (R = 2) over the same cross-slice rows, and every
+    operator leg equal to the one-process world's.  Returns the
+    summary."""
+    plans = {json.dumps(r.get("plan"), sort_keys=True) for r in res}
+    plan = res[0].get("plan")
+    if len(plans) != 1 or plan is None or plan["route"] != "hierarchical":
+        raise AssertionError(f"procs_topo: plans {plans}")
+    for r in res:
+        two, flat = r["monolithic"]["tiers"], r["flat"]["tiers"]
+        if not two["dcn_messages"] or two["dcn_messages"] \
+                * plan["ranks_per_slice"] != flat["dcn_messages"] \
+                or two["dcn_rows"] != flat["dcn_rows"]:
+            raise AssertionError(f"procs_topo process {r['pid']}: two-hop "
+                                 f"tiers {two}, flat {flat}")
+        if r["ops"] != ops_want:
+            bad = sorted(k for k in ops_want if r["ops"].get(k)
+                         != ops_want[k])
+            raise AssertionError(f"procs_topo process {r['pid']}: operator "
+                                 f"legs {bad} differ from the one-process "
+                                 "world's")
+    return {"plan": plan,
+            "flat_s_slowest_process": max(r["flat"]["s"] for r in res),
+            "dcn_messages": {"two_hop": res[0]["monolithic"]["tiers"][
+                "dcn_messages"], "flat": res[0]["flat"]["tiers"][
+                "dcn_messages"]},
+            "ops": sorted(ops_want), "ops_oracle":
+                "every child's digest equal to the one-process W = 4 "
+                "world's"}
 
 
 def ckpt_child(spec: dict) -> int:
@@ -5187,7 +5491,8 @@ def ckpt_inprocess(ct, lt, rt, orc, root: str, nc: int):
     same layout and :func:`result_digest`; the unarmed result is released
     before the armed leg, so the peaks compare) and to the oracle, and
     the unarmed leg writes nothing and enters no checkpoint region.
-    Returns the record and the result's digest."""
+    Returns the record and the result's digest; the armed leg's complete
+    W = 4 stage stays under ``root/armed`` for the re-shard chain."""
     import os
     from cylon_tpu_torch.ops import splitter_probe as sp
     from cylon_tpu_torch.ops import windowed_gather as wg
@@ -5248,8 +5553,6 @@ def ckpt_inprocess(ct, lt, rt, orc, root: str, nc: int):
                              f"{os.listdir(root)}")
     legs["armed_overhead_s"] = legs["armed"]["best_s"] - un["best_s"]
     legs["pieces"] = legs["armed"]["iterations"][0]["pieces_committed"]
-    import shutil
-    shutil.rmtree(os.path.join(root, "armed"))
     return legs, digest
 
 
@@ -5335,8 +5638,7 @@ def ckpt_path(ct, left: dict, right: dict, orc: dict, root: str,
 
     def kill_chain():
         """The first chain: a SIGKILL at the third write (two pieces
-        committed), its resume at W = 4, the complete stage re-sharded at
-        W = 2, then a second W = 2 resume (a plain fast-forward)."""
+        committed), then its resume at W = 4."""
         kill = run_child(spec("kill"), -9, "ckpt_path kill",
                          CKPT_DIR=a_root,
                          FAULTS="ckpt.write::3=kill")
@@ -5370,28 +5672,36 @@ def ckpt_path(ct, left: dict, right: dict, orc: dict, root: str,
         if not manifest_of(a_root)["complete"]:
             raise AssertionError("ckpt_path resume: the stage is not "
                                  "complete")
-        # the elastic re-shard: the complete W = 4 stage resumed at W = 2,
-        # then a second W = 2 resume is a plain fast-forward
-        el = run_child(spec("reshard_w2", world=2), 0,
-                       "ckpt_path reshard", CKPT_DIR=a_root, RESUME=1)
-        same(el, "reshard")
-        st = el["stats"]
-        if (st["resume_resharded_pieces"] != pieces
-                or st["resume_world_mismatch"] != 1
-                or st["resume_fast_forwarded_pieces"] != pieces
-                or manifest_of(a_root)["world"] != 2):
-            raise AssertionError(f"ckpt_path reshard: counters {st}")
-        el2 = run_child(spec("resume_w2", world=2), 0,
-                        "ckpt_path second W=2 resume",
-                        CKPT_DIR=a_root, RESUME=1)
-        same(el2, "second W=2 resume")
-        st = el2["stats"]
-        if (st["resume_resharded_pieces"] or st["resume_world_mismatch"]
-                or st["checkpoint_events"]
-                or st["resume_fast_forwarded_pieces"] != pieces):
-            raise AssertionError(f"ckpt_path second W=2 resume: {st}")
-        return (kill, res, el, el2, man, committed_bytes, stray,
-                kill_to_resume_s)
+        return kill, res, man, committed_bytes, stray, kill_to_resume_s
+
+    def reshard_chain():
+        """The third chain, from the in-process armed leg's complete W = 4
+        stage: resumed at W = 2 (the elastic re-shard), then a second
+        W = 2 resume (a plain fast-forward)."""
+        try:
+            c_root = os.path.join(root, "armed")
+            el = run_child(spec("reshard_w2", world=2), 0,
+                           "ckpt_path reshard", CKPT_DIR=c_root, RESUME=1)
+            same(el, "reshard")
+            st = el["stats"]
+            if (st["resume_resharded_pieces"] != pieces
+                    or st["resume_world_mismatch"] != 1
+                    or st["resume_fast_forwarded_pieces"] != pieces
+                    or manifest_of(c_root)["world"] != 2):
+                raise AssertionError(f"ckpt_path reshard: counters {st}")
+            el2 = run_child(spec("resume_w2", world=2), 0,
+                            "ckpt_path second W=2 resume",
+                            CKPT_DIR=c_root, RESUME=1)
+            same(el2, "second W=2 resume")
+            st = el2["stats"]
+            if (st["resume_resharded_pieces"] or st["resume_world_mismatch"]
+                    or st["checkpoint_events"]
+                    or st["resume_fast_forwarded_pieces"] != pieces):
+                raise AssertionError(f"ckpt_path second W=2 resume: {st}")
+            shutil.rmtree(c_root)
+            chain_c.update(el=el, el2=el2)
+        except BaseException as e:  # noqa: BLE001 — raised after the join
+            chain_c["error"] = e
 
     def preempt_chain():
         """The second chain, run beside the kill chain: a SIGTERM at the
@@ -5425,21 +5735,27 @@ def ckpt_path(ct, left: dict, right: dict, orc: dict, root: str,
         except BaseException as e:  # noqa: BLE001 — raised after the join
             chain_b["error"] = e
 
-    # the two chains run side by side, one child process each at a time,
-    # for the script's time limit: every child shares the card (and the
-    # host) with a child of the other chain, so its seconds are not those
-    # of a child alone
+    # the three chains run side by side, one child process each at a
+    # time, for the script's time limit: every child shares the card (and
+    # the host) with the children of the other chains, so its seconds are
+    # not those of a child alone
     chain_b: dict = {}
-    chain = threading.Thread(target=preempt_chain)
-    chain.start()
+    chain_c: dict = {}
+    chains = [threading.Thread(target=preempt_chain),
+              threading.Thread(target=reshard_chain)]
+    for chain in chains:
+        chain.start()
     try:
-        kill, res, el, el2, man, committed_bytes, stray, \
-            kill_to_resume_s = kill_chain()
+        kill, res, man, committed_bytes, stray, kill_to_resume_s = \
+            kill_chain()
     finally:
-        chain.join()
-    if "error" in chain_b:
-        raise chain_b["error"]
+        for chain in chains:
+            chain.join()
+    for box in (chain_b, chain_c):
+        if "error" in box:
+            raise box["error"]
     pre, pres = chain_b["pre"], chain_b["pres"]
+    el, el2 = chain_c["el"], chain_c["el2"]
     postmortem, drained = chain_b["postmortem"], chain_b["drained"]
     children = {"kill": kill, "resume": res, "preempt": pre,
                 "preempt_resume": pres, "reshard_w2": el,
@@ -7207,8 +7523,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- the multi-process transport: 2 processes x 2 ranks over gloo,
-    # 1 process x 4 ranks over NCCL, each result against dist_path's ------
-    for prec in procs_path(left, right, w4):
+    # 1 process x 4 ranks over NCCL, 4 processes x 1 rank over gloo on
+    # the two-hop route, each result against dist_path's ----------------
+    for prec in procs_path(ct, left, right, w4):
         for child in prec["children"]:
             routes[f"{prec['phase']}_p{child['pid']}"] = \
                 child["kernel_counts"]
@@ -7344,7 +7661,8 @@ def main() -> int:
             "scan_join_w4", "spill_path_w4", "ckpt_path_w4", "obs_path_w4",
             "serve_path_w8", "serve_path_preempt_w8", "stream_serve_w8",
             "stream_path_w4", "procs_gloo_p0", "procs_gloo_p1",
-            "procs_nccl_p0")),
+            "procs_nccl_p0", "topo_virtual_w4", "procs_topo_p0",
+            "procs_topo_p1", "procs_topo_p2", "procs_topo_p3")),
         "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
         "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
@@ -7374,7 +7692,8 @@ def main() -> int:
             "spill_path_w4", "ckpt_path_w4", "obs_path_w4",
             "serve_path_w8", "serve_path_preempt_w8", "stream_serve_w8",
             "stream_path_w4", "procs_gloo_p0", "procs_gloo_p1",
-            "procs_nccl_p0")),
+            "procs_nccl_p0", "procs_topo_p0", "procs_topo_p1",
+            "procs_topo_p2", "procs_topo_p3")),
         "max_abs_err": rec2["max_abs_err"], "ms": rec2["ms"],
         "kernel_ms": rec2["kernel_ms"], "scalar_ms": rec2["scalar_ms"],
         "general_ms": rec2["general_ms"],

@@ -92,6 +92,22 @@ SKEW_FANOUT_FACTOR = float(os.environ.get(
     "CYLON_TPU_TORCH_SKEW_FANOUT_FACTOR", "1.25"))
 
 
+# The topology tier (topo/): on a two-tier fabric (ranks inside a slice
+# joined by the device or NVLink, slices joined by the network) the
+# exchange goes hierarchical: a slice-local hop that aligns each row on
+# its destination's gateway, then one aggregated cross-slice hop, bit-
+# and order-equal to the flat route by the slice-major rank numbering.
+#: Master switch for the two-hop route (``0``: the flat one-hop exchange
+#: on any topology).  A single-slice topology always routes flat.
+TOPO_SHUFFLE = _env_flag("CYLON_TPU_TORCH_TOPO_SHUFFLE", True)
+#: The slice declaration: ``CYLON_TPU_TORCH_SLICES=<n>`` splits the
+#: world's ranks into n contiguous slices (read once and cached by
+#: topo/model.declared_slices; a declaration counts only when n divides
+#: the world and 2 <= n <= W).  Without one, a multi-process world's
+#: processes on one host form a slice.
+SLICES_ENV = "CYLON_TPU_TORCH_SLICES"
+
+
 #: High-cardinality string crossover: a column of at least MIN_ROWS rows
 #: whose sampled distinct ratio reaches RATIO takes hashed codes
 #: (``core/column.HashedStrings``) instead of a sorted dictionary, whose

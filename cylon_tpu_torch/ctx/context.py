@@ -33,7 +33,10 @@ The env carries the reference's collective surface (``rank``,
 ``get_next_sequence``, ``add_config``/``get_config``, ``allgather``,
 ``gather``, ``bcast``, ``allreduce``, ``barrier``, ``finalize``):
 ``barrier`` waits for the device and, in a multi-process world, for
-every process; ``finalize`` destroys the process group.
+every process; ``finalize`` destroys the process group and the two-hop
+route's subgroups.  ``env.topology`` is the world's tier model
+(topo/model.py): the slices a ``CYLON_TPU_TORCH_SLICES`` declaration
+makes, or across processes those of the processes' hosts.
 """
 
 from __future__ import annotations
@@ -185,12 +188,28 @@ def _start_group(cfg: DistributedConfig, device: torch.device):
     try:
         # the first collective makes the connections (NCCL's communicator)
         transport.all_reduce_max(0, "env.setup")
+        proc.hosts = _gather_hosts()
     except Exception:
         transport.install(None)
         dist.destroy_process_group()
         raise
     transport.STATS["setup_s"] = time.perf_counter() - t0
     return proc
+
+
+def _gather_hosts() -> tuple:
+    """Every process's host name, in process order (one allgather at
+    set-up): the topology's ``"device"`` source groups the processes of
+    one host into a slice (topo/model.host_slices)."""
+    import socket
+    import numpy as np
+    from ..parallel import transport
+    name = socket.gethostname().encode()[:255]
+    buf = np.zeros(256, np.uint8)
+    buf[:len(name)] = np.frombuffer(name, np.uint8)
+    got = transport.allgather_array(buf, "env.hosts")
+    return tuple(bytes(row).rstrip(b"\0").decode(errors="replace")
+                 for row in got)
 
 
 def refuse_multi_process(env, what: str) -> None:
@@ -201,8 +220,8 @@ def refuse_multi_process(env, what: str) -> None:
     if env is not None and env.multi_process:
         raise NotImplementedError(
             f"{what} in a world of {env.process_count} processes is not "
-            "ported yet (ROADMAP.md, Queue 1: the multi-card transport's "
-            "remnants); run it in one process")
+            "ported yet (ROADMAP.md, Queue 1 item 3: durability, serving "
+            "and streams across processes); run it in one process")
 
 
 def _resolve(dev: torch.device) -> torch.device:
@@ -291,6 +310,13 @@ class CylonEnv:
         return None if self._proc is None else self._proc.backend
 
     @property
+    def topology(self):
+        """The world's tier model (topo/model.topology): its slices, from
+        ``CYLON_TPU_TORCH_SLICES`` or, across processes, the hosts."""
+        from ..topo.model import topology
+        return topology(self)
+
+    @property
     def rank(self) -> int:
         """This process's index, as the reference's
         ``jax.process_index()``: 0 when one controller drives every
@@ -345,6 +371,8 @@ class CylonEnv:
         if self._proc is not None and not self._finalized:
             from ..parallel import transport
             import torch.distributed as dist
+            if dist.is_initialized():
+                transport.destroy_groups()
             transport.install(None)
             if dist.is_initialized():
                 dist.destroy_process_group()

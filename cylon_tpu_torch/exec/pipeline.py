@@ -135,16 +135,18 @@ class _LazyChunks(Sequence):
             i += self._n
         if not 0 <= i < self._n:
             raise IndexError(i)
+        from ..parallel.shards import local_world
         t = self._table
-        w, cap, step = t.env.world_size, t.capacity, self._step
+        cap, step = t.capacity, self._step
+        v = local_world(t.env.world_size)     # this process's row blocks
         start = i * step
 
         def window(x):
             if x is None:
                 return None
             rest = tuple(x.shape[1:])
-            return x.view((w, cap) + rest)[:, start:start + step] \
-                .reshape((w * step,) + rest)
+            return x.view((v, cap) + rest)[:, start:start + step] \
+                .reshape((v * step,) + rest)
 
         # each shard keeps the part of its live prefix inside the window
         vc = np.clip(t.valid_counts - start, 0, step).astype(np.int64)
@@ -183,8 +185,6 @@ def pipelined_set_op(a: Table, b: Table, op: str, n_chunks: int = 4):
 
     Extra memory at the peak is the partials (each at most one chunk)
     plus the final pass's input."""
-    from ..ctx.context import refuse_multi_process
-    refuse_multi_process(a.env, "pipelined_set_op")
     from ..relational.setops import (_align_schemas, _set_operation_impl,
                                      unique_table)
     if op not in ("union", "intersect", "subtract"):
@@ -875,8 +875,6 @@ def pipelined_scan_join(scan, build: Table, scan_on, build_on,
     dictionary-coded keys (strings, decimals: their codes are per batch
     and cannot hash-colocate with the once-shuffled build).  Returns the
     list of sink results, or the batches' joins concatenated."""
-    from ..ctx.context import refuse_multi_process
-    refuse_multi_process(build.env, "pipelined_scan_join")
     if how not in ("inner", "left"):
         raise InvalidError(
             "pipelined_scan_join supports how in ('inner','left'): "

@@ -29,8 +29,8 @@ ladder (port of ``cylon_tpu/exec/recovery.py``).
    kind[@session]"``): each fault is raised at its named site, so every
    rung runs on the CPU.  The grammar takes every site and kind the
    reference takes, so a spec written for it parses here; the sites of
-   modules not ported yet (streams, the compile and integrity tiers)
-   never probe.  An ``@session`` spec fires only on the thread of that
+   modules not ported yet (the compile and integrity tiers) never
+   probe.  An ``@session`` spec fires only on the thread of that
    serving session (exec/scheduler.py tags each session's thread with
    :func:`set_session`), its ``nth`` counted against that session's own
    probes at the site, so a co-tenant's probes never shift it.
@@ -57,8 +57,8 @@ every rank of a ``VirtualMeshConfig`` world takes its local value as the
 agreed one — the reference's single-controller branch.  Only the votes
 that ported code takes are here (the guard, the spill rung, the eviction
 count, the skew plan, the checkpoint commit and resume, the watermark,
-the preemption drain, the scheduler's preempt decision); the others come
-with their callers (the topology route; the integrity audit).  Not
+the preemption drain, the scheduler's preempt decision, the topology
+plan); the integrity audit's comes with its caller.  Not
 ported here: the final rung's
 compiler-crash branch, and ``compiler_crash_signatures``/
 ``prime_compiler_probe``, which classify XLA compiler deaths and wait
@@ -542,26 +542,46 @@ def watermark_consensus(env, n: int) -> int:
     return _min_consensus(env, n, "stream.watermark")
 
 
-def skew_plan_consensus(env, plan_hash: int) -> None:
-    """Adopt-one-plan agreement of the adaptive skew split (relational/
-    skew.py): every rank votes two 20-bit slices of its plan's hash, each
-    as a max and as a min, before the split exchange starts; a rank
-    whose slice is not both raises ``RankDesyncError``.  One process
-    computes the plan once for every rank, so there the vote passes."""
+def _plan_hash_consensus(env, code: Code, plan_hash: int, site: str,
+                         what: str) -> None:
+    """Adopt-one-plan agreement shared by the skew split and the topology
+    route (the reference's ``_plan_hash_consensus``,
+    ``cylon_tpu/exec/recovery.py:891``): every rank votes two 20-bit
+    slices of its plan's hash, each as a max and as a min (four rounds),
+    before the plan's first exchange; a rank whose slice is not both
+    raises ``RankDesyncError`` naming ``code``.  One process computes the
+    plan once for every rank, so there the vote passes."""
     from ..parallel import transport
     if transport.current() is None:
         return
     h = int(plan_hash) & ((1 << 64) - 1)
     for k in range(2):
         mine = (h >> (20 * k)) & (_WIRE - 1)
-        hi = _ns_consensus(env, mine, _WIRE, "skew.plan")
-        lo = _min_consensus(env, mine, "skew.plan")
+        hi = _ns_consensus(env, mine, _WIRE, site)
+        lo = _min_consensus(env, mine, site)
         if hi != mine or lo != mine:
             raise RankDesyncError(
-                f"skew-plan consensus: this rank's plan hash slice {k} is "
-                f"{mine:#x}, the ranks voted [{lo:#x}, {hi:#x}] — ranks "
-                "derived different split plans", site="skew.plan",
+                f"{what} consensus ({code.name}): this rank's plan hash "
+                f"slice {k} is {mine:#x}, the ranks voted [{lo:#x}, "
+                f"{hi:#x}] — ranks derived different plans", site=site,
                 phase=_last_phase())
+
+
+def skew_plan_consensus(env, plan_hash: int) -> None:
+    """Adopt-one-plan agreement of the adaptive skew split (relational/
+    skew.py), ``Code.SkewPlan`` at ``skew.plan``."""
+    _plan_hash_consensus(env, Code.SkewPlan, plan_hash, "skew.plan",
+                         "skew-plan")
+
+
+def topo_plan_consensus(env, plan_hash: int) -> None:
+    """Adopt-one-plan agreement of the two-hop topology route
+    (topo/model.ensure_adopted), ``Code.TopoPlan`` at ``topo.plan``:
+    voted once per env layout and plan before the first hierarchical
+    exchange, so a process whose slice map differs raises before any
+    hop starts."""
+    _plan_hash_consensus(env, Code.TopoPlan, plan_hash, "topo.plan",
+                         "topology-plan")
 
 
 # ---------------------------------------------------------------------------

@@ -319,8 +319,10 @@ class DataFrame:
         if isinstance(value, Series):
             # equal capacity is not enough: a column of a differently
             # partitioned frame would misalign rows across shards
+            from .parallel.shards import local_world
             if (value.column.data.shape[0]
-                    != self._table.capacity * self.env.world_size
+                    != self._table.capacity
+                    * local_world(self.env.world_size)
                     or not np.array_equal(value.valid_counts,
                                           self._table.valid_counts)):
                 raise InvalidError("series layout mismatch")

@@ -5,7 +5,9 @@ A label index is "which column (or columns) is the index"; a label lookup
 is a device compare-and-filter over that column, with no side structure.
 ``loc`` slices take both endpoints (pandas' and the reference's
 contract); ``iloc`` is global position, through ``slice_table`` and
-``filter_table``.
+``filter_table``, whose positions come from the replicated valid
+counts.  In a multi-process world a label's presence is each process's
+answer over its own ranks' rows, gathered.
 """
 
 from __future__ import annotations
@@ -73,6 +75,18 @@ def _series_flag(mask):
     return valid_flag(mask.column)
 
 
+def _gathered_any(flags: np.ndarray) -> np.ndarray:
+    """A per-label bool vector OR-ed over every process of a
+    multi-process world (each answered for its own ranks' rows)."""
+    from ..parallel import transport
+    proc = transport.current()
+    if proc is None or proc.nproc == 1:
+        return flags
+    got = transport.allgather_array(np.asarray(flags, np.uint8),
+                                    "indexer.present")
+    return got.any(axis=0)
+
+
 def _keep_index(out: "DataFrame", df: "DataFrame") -> "DataFrame":
     out._index = df._index
     out._index_drop = df._index_drop
@@ -84,8 +98,6 @@ class LocIndexer:
     ``df.loc[labels, cols]``."""
 
     def __init__(self, df: "DataFrame"):
-        from ..ctx.context import refuse_multi_process
-        refuse_multi_process(df._table.env, "label and position indexing")
         self._df = df
 
     def __getitem__(self, key):
@@ -173,7 +185,7 @@ class LocIndexer:
         if idx:
             codes = _label_codes(col, [labels[i] for i in idx])
             hit = host_array(torch.isin(codes, _data_view(col)[live]))
-            out[idx] = hit
+            out[idx] = _gathered_any(hit)
         return out
 
     # -- multi-index -------------------------------------------------------
@@ -224,6 +236,7 @@ class LocIndexer:
                              masks[0].column.data.device)
             hits = host_arrays([torch.stack(
                 [(_series_flag(m) & live).sum() for m in masks])])[0]
+            hits = _gathered_any(hits > 0)
             for lb, h in zip(labels, hits):
                 if int(h) == 0:
                     raise CylonKeyError(f"label {lb!r} not found in index")
@@ -248,8 +261,6 @@ class ILocIndexer:
     """``df.iloc[pos]``: global positional selection."""
 
     def __init__(self, df: "DataFrame"):
-        from ..ctx.context import refuse_multi_process
-        refuse_multi_process(df._table.env, "label and position indexing")
         self._df = df
 
     def __getitem__(self, key):

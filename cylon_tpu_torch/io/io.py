@@ -139,17 +139,22 @@ def write_json(table: Table, path, **kwargs) -> None:
 
 def _shard_frames(table: Table):
     """``(rank, pandas frame of that shard's live rows)``, one shard on
-    the host at a time, each in one batched pull."""
+    the host at a time, each in one batched pull.  In a multi-process
+    world only this process's ranks yield (the reference's
+    ``_shard_frames`` under multi-controller execution)."""
+    from ..parallel.shards import span
     pd = require("pandas")
     cols = dict(table.columns)
     cap = table.capacity
-    for r in range(table.env.world_size):
+    ranks = span(table.env.world_size)
+    for r in ranks:
         n_live = int(table.valid_counts[r])
+        lo = (r - ranks.start) * cap
         flat = []
         for c in cols.values():
-            flat.append(c.data[r * cap:r * cap + n_live])
+            flat.append(c.data[lo:lo + n_live])
             flat.append(None if c.validity is None
-                        else c.validity[r * cap:r * cap + n_live])
+                        else c.validity[lo:lo + n_live])
         pulled = host_arrays(flat)
         data = {name: Column(pulled[2 * j], c.type, pulled[2 * j + 1],
                              c.dictionary).to_numpy(n_live)
@@ -163,8 +168,6 @@ def _dist_path(path, rank: int) -> str:
 
 
 def _write_dist(table: Table, path, write) -> list[str]:
-    from ..ctx.context import refuse_multi_process
-    refuse_multi_process(table.env, "partitioned writes")
     out = []
     for rank, df in _shard_frames(table):
         p = _dist_path(path, rank)
@@ -196,9 +199,8 @@ def write_json_dist(table: Table, path, **kwargs) -> list[str]:
 
 def read_csv_dist(paths, env: CylonEnv, **kwargs) -> Table:
     """File i goes to rank ``i % W``: each rank's files form its
-    partition."""
-    from ..ctx.context import refuse_multi_process
-    refuse_multi_process(env, "partitioned reads (read_csv_dist)")
+    partition.  Every process reads the file list and ingests its own
+    ranks' rows."""
     from ..relational.repart import repartition
     files = _expand(paths)
     w = env.world_size
@@ -298,8 +300,6 @@ def scan_parquet_dist(paths, env: CylonEnv, batch_rows: int = 1 << 20,
                       columns=None) -> ParquetScanSource:
     """The streaming mode of :func:`read_parquet_dist`: batches, not one
     table (feed it to ``exec.pipelined_scan_join``)."""
-    from ..ctx.context import refuse_multi_process
-    refuse_multi_process(env, "partitioned reads (scan_parquet_dist)")
     return ParquetScanSource(paths, env, batch_rows=batch_rows,
                              columns=columns)
 
@@ -309,8 +309,6 @@ def read_parquet_dist(paths, env: CylonEnv, batch_rows: int | None = None,
     """Row groups assigned to ranks greedily by size (the largest first,
     onto the least-loaded rank).  With ``batch_rows`` the streaming scan
     instead (:func:`scan_parquet_dist`)."""
-    from ..ctx.context import refuse_multi_process
-    refuse_multi_process(env, "partitioned reads (read_parquet_dist)")
     from ..relational.repart import repartition
     if batch_rows is not None:
         if kwargs:

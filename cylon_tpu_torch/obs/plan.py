@@ -334,8 +334,10 @@ def record_exchange(counts, row_bytes: int, site: str = "exchange",
     the comm matrix armed, accumulate its (src, dst) matrix.  The
     exchange calls this only when a profile is active or the matrix is
     armed; a profile alone leaves obs/comm's state untouched, so a later
-    armed report still equals its own counter deltas.  ``tiers`` waits
-    for the topology slice (always None here)."""
+    armed report still equals its own counter deltas.  ``tiers`` (a
+    topology of two or more slices, parallel/shuffle._tier_counters)
+    passes to the comm matrix, and the node's exchange record gets its
+    ``route``."""
     import numpy as np
     from . import comm
     rows = int(np.asarray(counts).sum())

@@ -37,8 +37,16 @@ watchdog.  Every exchange adds to the always-on registry counters
 ``exchange_rows_total``, ``exchange_bytes_total`` and ``exchange_count``
 (host arithmetic on the pulled count matrix); with the comm matrix armed
 or a plan profile active it also records its matrix (obs/plan.
-record_exchange).  Not ported (ROADMAP.md): the two-hop topology route
-and its tier counters, the receive buffers' ledger registration and the
+record_exchange).
+
+On a topology of two or more slices (topo/model.py) every exchange also
+adds to the tier counters (``exchange_ici_*``/``exchange_dcn_*``: rows,
+bytes, padded wire bytes and messages inside and across slices), and
+under a hierarchical plan it runs the voted two-hop route
+(topo/exchange.two_hop), whose hops drive this module's engine
+(:func:`_move`) with their own count matrices.  With one slice the
+route lookup is one cached dict lookup, and nothing else changes.  Not
+ported (ROADMAP.md): the receive buffers' ledger registration and the
 integrity audit.
 """
 
@@ -54,6 +62,7 @@ from ..obs import plan as _plan
 from ..ops import hashing
 from ..relational.common import live_mask
 from ..status import InvalidError
+from .. import topo as _topo
 from ..utils.host import host_array
 from . import transport
 from .shards import local_world, span
@@ -177,18 +186,26 @@ def _guard_applies(env) -> bool:
     return env.on_cuda
 
 
-def _recv_guard(env, out_cap: int, row_bytes: int) -> None:
+def _recv_guard(env, out_cap: int, row_bytes: int, hplan=None,
+                hprep=None) -> None:
     """The receive-budget guard, decided before the exchange allocates:
     the per-destination receive ``out_cap · row_bytes`` above
     ``EXCHANGE_RECV_BUDGET_BYTES`` (where :func:`_guard_applies`) raises
-    ``PredictedResourceExhausted``.
+    ``PredictedResourceExhausted``.  Under a two-hop plan the need is
+    the gateway buffers and the final ones together
+    (topo/exchange.recv_guard_bytes).
     The ledger's colder spillable owners evict first to make room for
     the receive (``scheduler.free_pressure``, the serving tier's facade
     over the ledger).  An injected kind at
     ``shuffle.recv_guard`` raises that kind."""
     from ..exec import recovery, scheduler
     from ..status import PredictedResourceExhausted
-    need = int(out_cap) * int(row_bytes)
+    if hplan is not None:
+        from ..topo import exchange as _topo_exchange
+        need = _topo_exchange.recv_guard_bytes(hplan, hprep, out_cap,
+                                               row_bytes)
+    else:
+        need = int(out_cap) * int(row_bytes)
     scheduler.free_pressure(env, need)
     over = bool(_guard_applies(env)
                 and need > config.EXCHANGE_RECV_BUDGET_BYTES)
@@ -197,9 +214,13 @@ def _recv_guard(env, out_cap: int, row_bytes: int) -> None:
             env, over or kind is not None):
         if kind is not None and kind != "predicted":
             raise recovery.make_fault(kind, "shuffle.recv_guard")
+        hop1 = ("" if hplan is None else
+                f" (two-hop route: {out_cap} final rows + "
+                f"{hprep.cap1} gateway rows incl. the target "
+                "sidecar — both tiers live at once)")
         raise PredictedResourceExhausted(
             f"RESOURCE_EXHAUSTED (predicted): exchange receive allocation "
-            f"{need} B at {row_bytes} B/row exceeds "
+            f"{need} B at {row_bytes} B/row{hop1} exceeds "
             f"CYLON_TPU_TORCH_EXCHANGE_RECV_BUDGET "
             f"({config.EXCHANGE_RECV_BUDGET_BYTES} B); one destination "
             "shard would materialize the bulk of the table",
@@ -227,19 +248,69 @@ def exchange(env, tgt: torch.Tensor, counts: np.ndarray, cols: tuple,
     row_bytes = sum(c.element_size() * int(np.prod(c.shape[1:],
                                                    dtype=np.int64))
                     for c in cols)
+    # the topology route: one cached lookup, None on one slice
+    hplan = _topo.hier_plan(env)
+    hprep = None
+    if hplan is not None:
+        from ..topo import exchange as _topo_exchange
+        hprep = _topo_exchange.prepare(hplan, counts)
     if guard:
-        _recv_guard(env, out_cap, row_bytes)
+        _recv_guard(env, out_cap, row_bytes, hplan, hprep)
     total = int(per_dest.sum())
     _metrics.counter("exchange_rows_total").inc(total)
     _metrics.counter("exchange_bytes_total").inc(total * row_bytes)
     _metrics.counter("exchange_count").inc()
+    topo_t = _topo.topology(env)
+    tiers = None
+    if topo_t.n_slices > 1:
+        tiers = _tier_counters(topo_t, counts, row_bytes, hplan, hprep)
     if _comm.armed() or _plan.active():
-        _plan.record_exchange(counts, row_bytes, site=owner)
+        _plan.record_exchange(counts, row_bytes, site=owner, tiers=tiers)
+    if hplan is not None:
+        _topo.ensure_adopted(env, hplan)
+        return _topo_exchange.two_hop(env, hplan, tgt, counts, tuple(cols),
+                                      out_cap, prep=hprep)
+    return _move(env, tgt, counts, cols, out_cap), per_dest
+
+
+def _tier_counters(topo_t, counts: np.ndarray, row_bytes: int, hplan,
+                   hprep) -> dict:
+    """Add one exchange to the always-on tier counters of a topology of
+    two or more slices, whatever the route: payload rows and bytes inside
+    ("ici") and across ("dcn") slices, and each tier's padded wire bytes
+    and messages (topo/exchange.tier_traffic).  Returns the comm
+    matrix's ``tiers`` record."""
+    from ..topo import exchange as _topo_exchange
+    route = "two_hop" if hplan is not None else "flat"
+    ici_rows, dcn_rows = _topo.tier_split(counts, topo_t)
+    traffic = _topo_exchange.tier_traffic(topo_t, counts, row_bytes, route,
+                                          prep=hprep)
+    for name, value in (("ici_rows", ici_rows), ("dcn_rows", dcn_rows),
+                        ("ici_bytes", ici_rows * row_bytes),
+                        ("dcn_bytes", dcn_rows * row_bytes),
+                        ("ici_wire_bytes", traffic["wire_ici"]),
+                        ("dcn_wire_bytes", traffic["wire_dcn"]),
+                        ("ici_messages", traffic["msgs_ici"]),
+                        ("dcn_messages", traffic["msgs_dcn"])):
+        _metrics.counter(f"exchange_{name}_total").inc(value)
+    return {"slice_ids": topo_t.slice_ids(), "route": route, **traffic}
+
+
+def _move(env, tgt: torch.Tensor, counts: np.ndarray, cols: tuple,
+          out_cap: int, group=None) -> tuple:
+    """The exchange engine under one count matrix: every array of
+    ``cols`` to its rows' targets, destination d's rows in (source rank,
+    source position) order in an ``out_cap``-row block.  In one process
+    a stable sort and one gather per destination; across processes
+    :func:`_exchange_procs` (on ``group``, a two-hop route's subgroup,
+    when given)."""
+    w = counts.shape[0]
+    per_dest = counts.sum(axis=0).astype(np.int64)
     # stable: equal targets keep their global (source-major) order
     order = torch.sort(tgt.to(torch.uint8), stable=True).indices
     proc = transport.current(w)
     if proc is not None and proc.nproc > 1:
-        return _exchange_procs(proc, order, counts, cols, out_cap), per_dest
+        return _exchange_procs(proc, order, counts, cols, out_cap, group)
     starts = np.concatenate([[0], np.cumsum(per_dest)])
     outs = []
     for col in cols:
@@ -251,7 +322,7 @@ def exchange(env, tgt: torch.Tensor, counts: np.ndarray, cols: tuple,
             torch.index_select(col, 0, order[a:b], out=blk[:b - a])
             blk[b - a:] = 0
         outs.append(out)
-    return tuple(outs), per_dest
+    return tuple(outs)
 
 
 def exchange_block_cap(total: int, w: int) -> int:
@@ -263,7 +334,7 @@ def exchange_block_cap(total: int, w: int) -> int:
 
 
 def _exchange_procs(proc, order: torch.Tensor, counts: np.ndarray,
-                    cols: tuple, out_cap: int) -> tuple:
+                    cols: tuple, out_cap: int, group=None) -> tuple:
     """The exchange of a multi-process world.  ``order`` sorts this
     process's rows by destination (stable, so local source order stays
     within one).  Rows bound for this process's own ranks are gathered
@@ -271,24 +342,37 @@ def _exchange_procs(proc, order: torch.Tensor, counts: np.ndarray,
     ``all_to_all_single``, the stream from process p to process q cut
     into rounds of at most one block.  Each local destination d then
     takes, process by process, the rows of p's sources: (global source
-    rank, source position) order."""
-    v, p_n, me = proc.local, proc.nproc, proc.pid
+    rank, source position) order.  With ``group`` (a two-hop route's
+    hop, parallel/transport.hop_groups) only its member processes take
+    part, ``counts`` being the hop's matrix, whose rows from this process
+    all go to members, and the rounds are sized by
+    topo/exchange.hop_block."""
+    v, me = proc.local, proc.pid
+    members = tuple(range(proc.nproc)) if group is None else group.members
+    p_n = len(members)
+    mi = members.index(me)
     w = counts.shape[0]
     mine = slice(me * v, (me + 1) * v)
     # this process's rows per destination, and their offsets in `order`
     csend = counts[mine].sum(axis=0)
     sstart = np.concatenate([[0], np.cumsum(csend)]).astype(np.int64)
-    # rows from process p's sources to process q's ranks
-    pair = counts.reshape(p_n, v, p_n, v).sum(axis=(1, 3))
+    # rows from member p's sources to member q's ranks
+    pair = counts.reshape(proc.nproc, v, proc.nproc, v).sum(axis=(1, 3))
+    pair = pair[np.ix_(members, members)]
     cross = pair.copy()
     np.fill_diagonal(cross, 0)
     max_c = int(cross.max(initial=0))
-    block = config.pow2ceil(min(max(max_c, 1),
-                                exchange_block_cap(int(cross.sum()), p_n)))
+    if group is None:
+        block = config.pow2ceil(min(max(max_c, 1), exchange_block_cap(
+            int(cross.sum()), p_n)))
+    else:
+        from ..topo.exchange import hop_block
+        block, _r = hop_block(cross, int(cross.sum()), p_n, p_n)
     rounds = -(-max_c // block) if max_c else 0
-    # where destination d's rows sit in the stream from process p: the
+    # where destination d's rows sit in the stream from member p: the
     # sender orders by destination, then by its own source rank
-    from_p = counts.reshape(p_n, v, w).sum(axis=1)[:, mine]   # (P, V)
+    from_p = counts.reshape(proc.nproc, v, w).sum(axis=1)[
+        list(members)][:, mine]                                # (P, V)
     soff = np.concatenate([np.zeros((p_n, 1), np.int64),
                            np.cumsum(from_p, axis=1)], axis=1)
     transport.STATS["exchanges"] += 1
@@ -296,29 +380,29 @@ def _exchange_procs(proc, order: torch.Tensor, counts: np.ndarray,
     for col in cols:
         rest = tuple(col.shape[1:])
         streams = [None] * p_n
-        for q in range(p_n):
-            if q != me:
-                streams[q] = torch.empty((int(pair[q, me]),) + rest,
-                                         dtype=col.dtype, device=col.device)
+        for qi in range(p_n):
+            if qi != mi:
+                streams[qi] = torch.empty((int(pair[qi, mi]),) + rest,
+                                          dtype=col.dtype, device=col.device)
         for r in range(rounds):
             lo = r * block
-            send_n = [0 if q == me else int(min(max(cross[me, q] - lo, 0),
-                                                block))
-                      for q in range(p_n)]
-            recv_n = [0 if q == me else int(min(max(cross[q, me] - lo, 0),
-                                                block))
-                      for q in range(p_n)]
+            send_n = [0 if qi == mi else int(min(max(cross[mi, qi] - lo, 0),
+                                                 block))
+                      for qi in range(p_n)]
+            recv_n = [0 if qi == mi else int(min(max(cross[qi, mi] - lo, 0),
+                                                 block))
+                      for qi in range(p_n)]
             idx = torch.cat([order[int(sstart[q * v]) + lo:
-                                   int(sstart[q * v]) + lo + send_n[q]]
-                             for q in range(p_n)])
+                                   int(sstart[q * v]) + lo + send_n[qi]]
+                             for qi, q in enumerate(members)])
             got = transport.all_to_all_rows(col.index_select(0, idx),
-                                            send_n, recv_n)
+                                            send_n, recv_n, group=group)
             del idx
             at = 0
-            for q in range(p_n):
-                if recv_n[q]:
-                    streams[q][lo:lo + recv_n[q]] = got[at:at + recv_n[q]]
-                    at += recv_n[q]
+            for qi in range(p_n):
+                if recv_n[qi]:
+                    streams[qi][lo:lo + recv_n[qi]] = got[at:at + recv_n[qi]]
+                    at += recv_n[qi]
             del got
         out = torch.empty((v * out_cap,) + rest, dtype=col.dtype,
                           device=col.device)
@@ -326,15 +410,15 @@ def _exchange_procs(proc, order: torch.Tensor, counts: np.ndarray,
             d = me * v + i
             blk = out[i * out_cap:(i + 1) * out_cap]
             at = 0
-            for q in range(p_n):
-                if q == me:
+            for qi in range(p_n):
+                if qi == mi:
                     a, b = int(sstart[d]), int(sstart[d + 1])
                     torch.index_select(col, 0, order[a:b],
                                        out=blk[at:at + b - a])
                     at += b - a
                 else:
-                    a, b = int(soff[q, i]), int(soff[q, i + 1])
-                    blk[at:at + b - a] = streams[q][a:b]
+                    a, b = int(soff[qi, i]), int(soff[qi, i + 1])
+                    blk[at:at + b - a] = streams[qi][a:b]
                     at += b - a
             blk[at:] = 0
         del streams

@@ -18,13 +18,18 @@ that talks to the process group:
 * :func:`all_reduce_max` is the consensus wire (exec/recovery.py);
 * :func:`all_to_all_rows` moves the exchange's cross-process rows with
   ``all_to_all_single`` (parallel/shuffle.py);
-* :func:`barrier` waits for every process.
+* :func:`barrier` waits for every process;
+* :func:`hop_groups` makes the two-hop route's process subgroups
+  (topo/exchange.py), one per slice for hop 1 and one per local-index
+  column for hop 2, which :func:`all_to_all_rows` and the allgathers
+  take as ``group``.
 
 Backends: NCCL moves device tensors; gloo moves host tensors, so under
 gloo a CUDA tensor is staged through a pinned host buffer both ways (the
 one-card rig, where NCCL refuses two ranks on one GPU).  :data:`STATS`
 counts what crossed and splits the time into staging (device↔host
-copies) and wire (the collective itself).  Every collective runs under
+copies) and wire (the collective itself); the two-hop route adds each
+hop's bytes and seconds (``hop1_*``, ``hop2_*``).  Every collective runs under
 the exchange watchdog (exec/recovery.exchange_watchdog) with the process
 group's own timeout behind it: a peer that never arrives raises
 ``RankDesyncError``.
@@ -41,7 +46,13 @@ import torch.distributed as dist
 #: what the transport moved and the time it took (reset by callers)
 STATS = {"bytes_sent": 0, "bytes_received": 0, "collectives": 0,
          "exchanges": 0, "staging_s": 0.0, "wire_s": 0.0,
-         "counts_s": 0.0, "votes_s": 0.0, "setup_s": 0.0}
+         "counts_s": 0.0, "votes_s": 0.0, "setup_s": 0.0,
+         "hop1_bytes": 0, "hop1_staging_s": 0.0, "hop1_wire_s": 0.0,
+         "hop2_bytes": 0, "hop2_staging_s": 0.0, "hop2_wire_s": 0.0}
+
+#: bumped by every install of a new world: a plan voted in an earlier
+#: world is voted again (topo/model.ensure_adopted)
+_GENERATION = [0]
 
 
 class Proc:
@@ -57,6 +68,11 @@ class Proc:
         self.backend = backend
         self.device = device
         self.timeout_s = float(timeout_s)
+        #: each process's host name, in process order (set at start-up)
+        self.hosts: tuple = ()
+        self.generation = 0
+        #: (n_slices, ranks_per_slice) -> (hop-1 group, hop-2 group)
+        self.groups: dict = {}
 
     @property
     def ranks(self) -> range:
@@ -82,7 +98,77 @@ def current(world: int | None = None) -> Proc | None:
 
 def install(proc: Proc | None) -> None:
     global _PROC
+    if proc is not None:
+        _GENERATION[0] += 1
+        proc.generation = _GENERATION[0]
     _PROC = proc
+
+
+class Group:
+    """This process's subgroup of one hop: the member processes in
+    ascending order (so ascending global rank) and the process group
+    handle."""
+
+    __slots__ = ("members", "handle")
+
+    def __init__(self, members, handle):
+        self.members = tuple(int(m) for m in members)
+        self.handle = handle
+
+
+def hop_groups(n_slices: int, ranks_per_slice: int) -> tuple:
+    """(hop-1 group, hop-2 group) of this process under a two-hop plan
+    of ``n_slices`` slices of ``ranks_per_slice`` ranks, made once per
+    plan.  Slices hold whole processes (``R % V == 0``, topo/model.py):
+    slice s is processes ``[s·R/V, (s+1)·R/V)``; process p's ranks have
+    the local indices of column ``p mod R/V``, whose processes form its
+    hop-2 group.  Every process makes every group in the same order, as
+    ``torch.distributed.new_group`` requires."""
+    proc = _PROC
+    key = (int(n_slices), int(ranks_per_slice))
+    hit = proc.groups.get(key)
+    if hit is not None:
+        return hit
+    per = int(ranks_per_slice) // proc.local       # processes per slice
+    slices = [list(range(s * per, (s + 1) * per))
+              for s in range(int(n_slices))]
+    columns = [list(range(b, proc.nproc, per)) for b in range(per)]
+    t0 = time.perf_counter()
+    mine = [None, None]
+    for hop, groups in ((0, slices), (1, columns)):
+        for members in groups:
+            handle = dist.new_group(
+                members, timeout=_timedelta(proc.timeout_s))
+            if proc.pid in members:
+                mine[hop] = Group(members, handle)
+    STATS["setup_s"] += time.perf_counter() - t0
+    proc.groups[key] = tuple(mine)
+    return proc.groups[key]
+
+
+def destroy_groups() -> None:
+    """Destroy this world's hop subgroups (env.finalize)."""
+    proc = _PROC
+    if proc is None:
+        return
+    for pair in proc.groups.values():
+        for g in pair:
+            if g is not None and g.handle is not None:
+                dist.destroy_process_group(g.handle)
+    proc.groups.clear()
+
+
+def _timedelta(seconds: float):
+    import datetime
+    return datetime.timedelta(seconds=float(seconds))
+
+
+def _handle(group):
+    return None if group is None else group.handle
+
+
+def _size(proc: Proc, group) -> int:
+    return proc.nproc if group is None else len(group.members)
 
 
 def reset_stats() -> None:
@@ -165,10 +251,11 @@ def all_reduce_max(value: int, site: str = "exchange.consensus") -> int:
     return out
 
 
-def allgather_array(arr: np.ndarray, site: str = "transport.allgather"
-                    ) -> np.ndarray:
+def allgather_array(arr: np.ndarray, site: str = "transport.allgather",
+                    group: Group | None = None) -> np.ndarray:
     """Every process's equal-shaped host array stacked along a new first
-    axis, ``(P, ...)`` in process order."""
+    axis, ``(P, ...)`` in process order (the members of ``group`` in
+    their order, when given)."""
     arr = np.ascontiguousarray(arr)
     proc = _PROC
     if proc is None:
@@ -176,39 +263,42 @@ def allgather_array(arr: np.ndarray, site: str = "transport.allgather"
     x = torch.from_numpy(arr)
     if proc.backend == "nccl":
         x = x.to(proc.device)
-    return allgather_tensor(x, site).cpu().numpy()
+    return allgather_tensor(x, site, group).cpu().numpy()
 
 
-def allgather_tensor(x: torch.Tensor, site: str = "transport.allgather"
-                     ) -> torch.Tensor:
+def allgather_tensor(x: torch.Tensor, site: str = "transport.allgather",
+                     group: Group | None = None) -> torch.Tensor:
     """Every process's equal-shaped tensor stacked along a new first axis
-    ``(P, ...)``, on ``x``'s device."""
+    ``(P, ...)``, on ``x``'s device (``group``: its members only)."""
     proc = _PROC
     if proc is None:
         return x[None]
     send = _to_wire(proc, x)
-    out = _wire_empty(proc, (proc.nproc,) + tuple(x.shape), x.dtype)
+    out = _wire_empty(proc, (_size(proc, group),) + tuple(x.shape),
+                      x.dtype)
+    handle = _handle(group)
 
     def run():
         t0 = time.perf_counter()
         if proc.backend == "nccl":
-            dist.all_gather_into_tensor(out, send)
+            dist.all_gather_into_tensor(out, send, group=handle)
         else:
-            dist.all_gather(list(out.unbind(0)), send)
+            dist.all_gather(list(out.unbind(0)), send, group=handle)
         STATS["wire_s"] += time.perf_counter() - t0
         return out
 
     return _from_wire(_guarded(site, run), x.dtype, x.device)
 
 
-def allgather_rows(x: torch.Tensor, site: str = "transport.allgather"
-                   ) -> torch.Tensor:
+def allgather_rows(x: torch.Tensor, site: str = "transport.allgather",
+                   group: Group | None = None) -> torch.Tensor:
     """Every process's ``(V·k, ...)`` row block concatenated in process
-    order, ``(W·k, ...)``: a row-sharded tensor made whole."""
+    order, ``(W·k, ...)``: a row-sharded tensor made whole (``group``:
+    its members' blocks)."""
     proc = _PROC
-    if proc is None or proc.nproc == 1:
+    if proc is None or _size(proc, group) == 1:
         return x
-    g = allgather_tensor(x, site)
+    g = allgather_tensor(x, site, group)
     return g.reshape((g.shape[0] * g.shape[1],) + tuple(g.shape[2:]))
 
 
@@ -225,13 +315,16 @@ def allgather_counts(local: torch.Tensor) -> np.ndarray:
 
 
 def all_to_all_rows(send: torch.Tensor, send_splits, recv_splits,
-                    site: str = "exchange.all_to_all") -> torch.Tensor:
+                    site: str = "exchange.all_to_all",
+                    group: Group | None = None) -> torch.Tensor:
     """One ``all_to_all_single`` round: ``send`` holds the rows for
     process q in its ``send_splits[q]``-row slice, in process order; the
     result holds process p's rows in its ``recv_splits[p]``-row slice.
-    The caller leaves its own process's splits at 0 (local rows never
-    cross)."""
+    With ``group`` the splits follow its members' order and only they
+    take part.  The caller leaves its own process's splits at 0 (local
+    rows never cross)."""
     proc = _PROC
+    handle = _handle(group)
     dtype, dev = send.dtype, send.device
     n_recv = int(sum(recv_splits))
     w_send = _to_wire(proc, send)
@@ -244,7 +337,8 @@ def all_to_all_rows(send: torch.Tensor, send_splits, recv_splits,
                                output_split_sizes=[int(s) for s in
                                                    recv_splits],
                                input_split_sizes=[int(s) for s in
-                                                  send_splits])
+                                                  send_splits],
+                               group=handle)
         if proc.backend == "nccl":
             torch.cuda.synchronize(proc.device)
         STATS["wire_s"] += time.perf_counter() - t0

@@ -9,7 +9,9 @@ order at one ``pow2ceil`` capacity over the shards, whose counts come
 back in one pull.  At W > 1 the tables first hash-shuffle on the compared
 columns, so equal rows share a shard; the exchange's (source rank, source
 position) receive order makes keep="first"/"last" pick the globally
-first or last occurrence.
+first or last occurrence.  In a multi-process world each process flags
+and compacts its own ranks' blocks; the per-rank counts are gathered
+whole, and ``equals`` agrees its answer with one all-reduce.
 
 Timing regions (utils/timing.py): ``unique.flags`` / ``setop.flags``
 (the dense rank, the flags and the count pull), ``unique.materialize`` /
@@ -33,7 +35,8 @@ from ..ops import pack
 from ..ops import setops as setk
 from ..ops.pack import SIGNED_VIEW
 from ..ops.sort import compact_by_flag, take_data
-from ..parallel.shards import map_shards, shard
+from ..parallel import transport
+from ..parallel.shards import local_world, map_shards, shard
 from ..status import CylonTypeError, InvalidError
 from ..utils import timing
 from ..utils.host import host_array
@@ -43,7 +46,10 @@ from .repart import compact_rows, repad_table, repartition, shuffle_table
 
 
 def _shard_counts(flags: torch.Tensor, w: int) -> np.ndarray:
-    return host_array(flags.view(w, -1).sum(dim=1)).astype(np.int64)
+    """Each rank's flagged rows, the (W,) host vector (every process's
+    local ranks gathered in a multi-process world)."""
+    return host_array(flags.view(local_world(w), -1).sum(dim=1),
+                      world=w).astype(np.int64)
 
 
 # ---------------------------------------------------------------------------
@@ -54,8 +60,6 @@ def unique_table(table: Table, subset=None, keep: str = "first") -> Table:
     """Drop duplicate rows, compared on the ``subset`` columns (default
     all), keeping each value's first or last occurrence in global row
     order."""
-    from ..ctx.context import refuse_multi_process
-    refuse_multi_process(table.env, "unique_table")
     subset = list(subset) if subset is not None else table.column_names
     if keep not in ("first", "last"):
         raise InvalidError("keep must be 'first' or 'last'")
@@ -124,8 +128,6 @@ def set_operation(a: Table, b: Table, op: str,
     ``assume_colocated=True`` skips the shuffle and the schema alignment
     (the pipelined set op aligns and shuffles the resident side once).
     A device OOM streams ``a`` through ``pipelined_set_op``."""
-    from ..ctx.context import refuse_multi_process
-    refuse_multi_process(a.env, "set operations")
     from .common import run_with_oom_fallback
     for t in (a, b):
         for n in t.column_names:
@@ -238,8 +240,6 @@ def equals(a: Table, b: Table, ordered: bool = True) -> bool:
     column first).  ``b`` is repartitioned to ``a``'s row counts and
     both repadded to one capacity before the row compare.  Null equals
     null, NaN equals NaN, -0.0 equals 0.0."""
-    from ..ctx.context import refuse_multi_process
-    refuse_multi_process(a.env, "equals")
     check_same_env(a, b)
     if a.column_names != b.column_names:
         return False
@@ -263,7 +263,8 @@ def equals(a: Table, b: Table, ordered: bool = True) -> bool:
         common = max(a.capacity, b.capacity)
         a = repad_table(a, common)
         b = repad_table(b, common)
-    bad = torch.zeros(a.capacity * a.env.world_size, dtype=torch.bool,
+    w = a.env.world_size
+    bad = torch.zeros(a.capacity * local_world(w), dtype=torch.bool,
                       device=a.env.device)
     for n in names:
         ca, cb = a.column(n), b.column(n)
@@ -282,4 +283,6 @@ def equals(a: Table, b: Table, ordered: bool = True) -> bool:
             differ = (va != vb) | (differ & va)
         bad |= differ
     bad &= live_mask(a.valid_counts, a.capacity, a.env.device)
-    return not bool(bad.any())
+    # every process answers for its own ranks' rows: the max agrees
+    return not transport.all_reduce_max(int(bool(bad.any())),
+                                        "setops.equals")

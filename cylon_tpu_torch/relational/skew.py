@@ -31,13 +31,14 @@ or placement, so it takes the pre-stitch table (:func:`consume_unstitched`);
 the fused join→groupby pushdown combines the heavy keys' per-member
 partial rows instead (:func:`combine_heavy_partials`).
 
-Every predicate here runs over the whole ``(W·cap,)`` row layout at once:
-the comparisons are elementwise, and the per-shard quantities (counts,
-running indices) are reductions over the ``(W, cap)`` view.
+Every predicate here runs over this process's ``(V·cap,)`` row blocks at
+once: the comparisons are elementwise, and the per-shard quantities
+(counts, running indices) are reductions over the ``(V, cap)`` view.
 
 :func:`adopt` votes the plan hash (``exec/recovery.skew_plan_consensus``)
-before the split exchange starts; one process drives every rank here, so
-the vote is its single-controller form, and counts the split in
+before the split exchange starts, across every process of a
+multi-process world (one process driving every rank takes its own
+plan), and counts the split in
 ``timing.counts()["join.skew_split"]`` and the registry's
 ``skew_split_joins``/``skew_split_keys``; the route's choices land on
 the open plan node (obs/plan.py).  Waiting for its slice (ROADMAP.md):

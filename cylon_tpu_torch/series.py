@@ -161,8 +161,6 @@ class Series:
         self.name = name
         self._col = col
         self._env = env
-        from .ctx.context import refuse_multi_process
-        refuse_multi_process(env, "Series")
         self._valid = valid_counts
 
     # -- basics ------------------------------------------------------------
@@ -495,11 +493,15 @@ class Series:
     # -- reductions --------------------------------------------------------
     def _partials(self, kind: str):
         """Per-shard ``(partials, counts)`` on the host: one masked
-        ``(W, cap)`` reduction on the device, one pull.  Live rows that
-        are null (or NaN, pandas' skipna) do not count."""
+        ``(W, cap)`` reduction on the device, one pull (in a multi-process
+        world each process reduces its ``(V, cap)`` blocks and the pull
+        gathers every rank's).  Live rows that are null (or NaN, pandas'
+        skipna) do not count."""
+        from .parallel.shards import local_world
         col, lt = self._col, self._col.type
         w = self._valid.shape[0]
-        cap = len(col) // max(w, 1)
+        v = local_world(w)
+        cap = len(col) // max(v, 1)
         from .relational.common import live_mask
         mask = live_mask(self._valid, cap, col.data.device)
         if col.validity is not None:
@@ -507,9 +509,9 @@ class Series:
         d = col.data
         if lt in _FLOATS:
             mask = mask & ~torch.isnan(d)
-        cnt = mask.view(w, cap).sum(dim=1)
+        cnt = mask.view(v, cap).sum(dim=1)
         if kind == "count":
-            return host_arrays([cnt, cnt])
+            return host_arrays([cnt, cnt], world=w)
         if d.dtype.is_floating_point or d.dtype == torch.bool:
             d = d.to(torch.float64) if d.dtype == torch.bool else d
             zero, big = 0.0, float("inf")
@@ -518,15 +520,15 @@ class Series:
             info = torch.iinfo(d.dtype)
             zero, big = 0, (info.max if kind == "min" else info.min)
         if kind == "sum":
-            m = torch.where(mask, d, zero).view(w, cap)
+            m = torch.where(mask, d, zero).view(v, cap)
             out = m.sum(dim=1, dtype=torch.int64
                         if not d.dtype.is_floating_point else None)
         else:
             fill = big if kind == "min" or not d.dtype.is_floating_point \
                 else -big
-            m = torch.where(mask, d, fill).view(w, cap)
+            m = torch.where(mask, d, fill).view(v, cap)
             out = m.amin(dim=1) if kind == "min" else m.amax(dim=1)
-        return host_arrays([out, cnt])
+        return host_arrays([out, cnt], world=w)
 
     def _reduce(self, kind: str):
         col, lt = self._col, self._col.type

@@ -46,7 +46,8 @@ class Code(enum.IntEnum):
     #: the skew split's plan vote (exec/recovery.skew_plan_consensus);
     #: never raised
     SkewPlan = 49
-    #: the topology plan's vote (the topology slice); never raised
+    #: the topology plan's vote (exec/recovery.topo_plan_consensus);
+    #: never raised
     TopoPlan = 50
     #: a conservation law or content fingerprint failed
     #: (:class:`DataIntegrityError`)

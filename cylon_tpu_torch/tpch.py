@@ -255,10 +255,10 @@ def _year(ts: np.ndarray) -> np.ndarray:
 
 def generate_tables(scale: float = 0.01, env=None, seed: int = 0) -> dict:
     """Device-resident DataFrames of the eight tables on ``env`` (the
-    default env when None)."""
-    from .ctx.context import refuse_multi_process
+    default env when None).  Every process of a multi-process world
+    generates the same host columns from ``seed`` and uploads only its
+    own ranks' blocks (SPMD ingest)."""
     from .frame import DataFrame
-    refuse_multi_process(env, "the TPC-H tables")
     return {name: DataFrame(_table=Table.from_host_columns(cols, env))
             for name, cols in generate_columns(scale, seed).items()}
 

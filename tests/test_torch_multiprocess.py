@@ -317,7 +317,10 @@ def leg_skew(ct, env, out, lt, rt):
 def leg_refusals(ct, env, out, lt, rt):
     """The multi-process refusals, each a typed error: the hashed-string
     sort (InvalidError, as the reference), and the entries whose
-    multi-process form is a later slice (NotImplementedError)."""
+    multi-process form is a later slice (NotImplementedError).  The set
+    operations, partitioned IO, the Series and the TPC-H tables run
+    across processes and must not raise."""
+    import tempfile
     from cylon_tpu_torch import io, tpch
     from cylon_tpu_torch.exec import QueryScheduler
     from cylon_tpu_torch.stream import IncrementalView, StreamTable
@@ -330,12 +333,15 @@ def leg_refusals(ct, env, out, lt, rt):
                                   env)
     finally:
         pconfig.STRING_HASH_MIN_ROWS, pconfig.STRING_HASH_RATIO = prev
+    io_dir = os.environ.get("TORCH_MP_IO_DIR") or tempfile.mkdtemp()
     cases = {
         "hashed_sort": lambda: ct.sort_table(st, "s"),
         "checkpoint": lambda: _armed_checkpoint(ct, lt, rt),
         "scheduler": lambda: QueryScheduler(env),
-        "io_read_dist": lambda: io.read_csv_dist(["x.csv"], env),
-        "io_write_dist": lambda: io.write_csv_dist(lt, "x.csv"),
+        "io_write_dist": lambda: io.write_csv_dist(lt, os.path.join(
+            io_dir, "x.csv")),
+        "io_read_dist": lambda: io.read_csv_dist([os.path.join(
+            io_dir, f"x_{r}.csv") for r in range(env.world_size)], env),
         "set_op": lambda: ct.set_operation(lt, lt, "union"),
         "stream_table": lambda: StreamTable(env, "k"),
         "incremental_view": lambda: IncrementalView(
@@ -346,6 +352,8 @@ def leg_refusals(ct, env, out, lt, rt):
     }
     got = {}
     for name, fn in cases.items():
+        if name == "io_read_dist":
+            env.barrier()           # every process has written its files
         try:
             fn()
             got[name] = "none"
@@ -465,6 +473,7 @@ def start(tmp, nproc, v, legs=None, extra_env=None):
     env = dict(os.environ)
     env.pop("CYLON_TPU_TORCH_FAULTS", None)
     env.update(extra_env or {})
+    env["TORCH_MP_IO_DIR"] = str(tmp)
     paths = [os.path.join(str(tmp), f"p{nproc}v{v}_{i}.npz")
              for i in range(nproc)]
     cmd = [sys.executable, os.path.abspath(__file__)]
@@ -681,8 +690,12 @@ def test_skew_plan_hash_identical(tmp_path_factory):
 
 def test_refusals(tmp_path_factory):
     res = _world(tmp_path_factory, 2, 2)
+    runs = ("io_read_dist", "io_write_dist", "set_op", "series", "tpch")
     for got in _load(res, "refusals"):
         assert got.pop("hashed_sort") == "InvalidError"
+        assert {k: got.pop(k) for k in runs} == dict.fromkeys(runs, "none")
+        assert set(got) == {"checkpoint", "scheduler", "stream_table",
+                            "incremental_view"}, got
         assert set(got.values()) == {"NotImplementedError"}, got
 
 
