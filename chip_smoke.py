@@ -239,7 +239,10 @@ Then the adaptive skew split and TPC-H, BASELINE configurations 5 and 4:
   the same generated tables (integers, dates and strings equal, floats
   to rtol 1e-9 plus 64·eps·Σ(|v| + v²) over the tables' floats);
 * ``tpch_path``: TPC-H at ``--tpch-scale`` (default SF 5; SF 10 before
-  PR 13) at W = 8, the generator's and the upload's seconds, then Q1,
+  PR 13) at W = 8, drawn by a low-priority background process of this
+  script (``--tpch-gen``) started after the build and pickled (the
+  phase's ``gen_s`` is the wait and the load), the upload's seconds,
+  then Q1,
   Q3, Q5 and Q6, each
   best of 3 after a warm-up with its peak memory, phase split, profile,
   idle share and K1/K2 launches, against numpy oracles (the keys are
@@ -315,6 +318,23 @@ directory), removed at the end:
   child's result is held
   bit-equal to the uninterrupted run (a digest of its rows sorted by
   key); a child that exits otherwise than expected fails the phase;
+* ``procs_ckpt`` (after ``ckpt_path``, on its tables; its children start
+  before ``ckpt_path`` and wait for a go file): the same workload as
+  2 processes × 2 ranks over gloo (``--procs-child``), every child under
+  a 20 s exchange watchdog: an armed run (each process writes its own
+  ranks' blocks into ``rank<process>/`` of one root; one manifest epoch
+  on both, the shard digest equal to ``ckpt_path``'s), and beside it a
+  kill chain: process 0 SIGKILLed at its third ``ckpt.write`` (rc -9),
+  process 1 raising ``RankDesyncError`` at its commit vote (exit 4),
+  then a 2 × 2 resume (2 pieces fast-forwarded on both, one epoch, the
+  same digest); the armed run's complete stage is then resumed in this
+  process at ``VirtualMeshConfig(4)`` (one process for two: a new
+  process layout of the same world) and, from a hard-linked copy, at
+  ``VirtualMeshConfig(2)``, both through the re-shard path with the
+  uninterrupted digest.  Per process: each run's seconds, the bytes
+  written and the ``ckpt.d2h``/``encode``/``sha``/``file_write``/
+  ``commit`` regions; K1 and K2 held bit-equal on every armed and
+  resumed child's first launches;
 * ``ckpt_small``: tests/test_checkpoint.py's scenarios at 1M rows a side
   and W = 1, 3, 4 and 8 — sinkless and sink resume, a partial prefix, a
   corrupt page (recomputed), a plan-token mismatch (started over), a
@@ -354,7 +374,18 @@ exec/fleet.py), after ``tpch_small``:
   then a child process relaunched at W = 2 with resume, every tenant
   completed and bit-equal; a child killed by ``ckpt.write::2=kill@t0``
   and its resume, t0's committed pieces fast-forwarded, every tenant
-  bit-equal.
+  bit-equal;
+* ``procs_serve`` (after ``stream_serve``; its children start before
+  ``tpch_path``, load the pickled tables and wait for a go file):
+  ``serve_path``'s four tenants as 2 processes × 4 ranks (W = 8) over
+  gloo, each tenant running its mix once, ``fair`` first, then the
+  preempt leg (``priority``, checkpoints armed under one root for both
+  processes, t3 late at priority 5; at least one preemption and requeue
+  with fast-forwarded pieces); every answer's digest equal to
+  ``serve_path``'s solo answer at W = 8, the schedules the same on both
+  processes; per tenant p50/p99, the evictions, the preemptions and the
+  votes each process took; K2 held bit-equal on each pass's first
+  launch in each process.
 
 Then streaming (stream/: StreamTable, IncrementalView,
 TumblingWindowJoin) on scripts/bench_streaming.py's stream: uniform keys,
@@ -372,7 +403,8 @@ window join against ``dims = {k, dim = 7k + 3}``, one row per key:
   run's; the sessions' slices, the stream's rows/s and
   ``stream_sessions``;
 * ``stream_path`` (after the serving phases): ``--stream-batches``
-  batches (default 40) of 4,194,304 rows over 65,536 keys at W = 4, the
+  batches (default 40, drawn on the card by torch's generator seeded
+  0) of 4,194,304 rows over 65,536 keys at W = 4, the
   bench's loop (append, window append, watermark, ``view.read()`` pulled
   to the host): sustained rows/s, p50/p99 append-to-visible staleness,
   watermark lag, windows closed, late rows dropped, window evictions,
@@ -386,6 +418,14 @@ window join against ``dims = {k, dim = 7k + 3}``, one row per key:
   rows equal to a recompute that replays the drop policy in arrival
   order, and after the teardown the ledger and the card's allocated
   bytes back where they started; K1 and K2 not launched;
+* ``procs_stream`` (after ``stream_path``; its children start beside it
+  and wait for a go file): the stream's first 16 batches as 2 processes
+  × 2 ranks over gloo, each process drawing the same batches on the card
+  and appending each whole (SPMD ingest): every read and every closed
+  window equal to ``stream_path``'s at the same batch (the read's
+  columns but var and std bit for bit, var and std within 1e-9 of it;
+  each window's rows as a multiset hash); rows/s and p50/p99
+  staleness per process; K1 and K2 not launched;
 * ``stream_small``: 8 batches of 125,000 rows at W = 1, 4 and 8, the view
   bit-equal to the from-scratch groupby after every batch, var and std
   included (every sum below 2^53), and to numpy's sums; at W = 4 an
@@ -4079,21 +4119,87 @@ def tpch_oracle(cols: dict) -> dict:
     return out
 
 
+class TpchTables:
+    """TPC-H's host columns drawn in a background process while earlier
+    phases run (``--tpch-gen``: ``tpch.generate_columns(scale, 0)``,
+    pickled into a fresh temporary directory, which :meth:`close`
+    removes): ``tpch_path`` loads them instead of drawing them, and
+    ``procs_serve``'s children load the same file."""
+
+    def __init__(self, scale: float):
+        import os
+        import tempfile
+        self.dir = tempfile.mkdtemp(prefix="cylon_tpch_")
+        self.path = os.path.join(self.dir, "tables.pkl")
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--tpch-gen",
+             json.dumps({"scale": scale, "path": self.path})],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        self.record: dict | None = None
+
+    def wait(self) -> str:
+        """The pickled tables' path, once the drawing process ended."""
+        if self.record is None:
+            so, se = self.proc.communicate(timeout=900)
+            if self.proc.returncode != 0:
+                raise AssertionError(f"TPC-H generation exited "
+                                     f"{self.proc.returncode}\n{se[-4000:]}")
+            self.record = json.loads(so.splitlines()[-1])
+        return self.path
+
+    def load(self) -> dict:
+        import pickle
+        with open(self.wait(), "rb") as f:
+            return pickle.load(f)
+
+    def close(self) -> None:
+        import shutil
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def tpch_gen_child(spec: dict) -> int:
+    """``--tpch-gen``: draw TPC-H at ``spec["scale"]`` (seed 0) at a low
+    CPU priority and pickle it to ``spec["path"]`` (through a temporary
+    file and a rename); prints the seconds."""
+    import os
+    import pickle
+    from cylon_tpu_torch import tpch
+    os.nice(10)
+    t0 = time.perf_counter()
+    cols = tpch.generate_columns(spec["scale"], 0)
+    gen_s = time.perf_counter() - t0
+    tmp = spec["path"] + ".tmp"
+    with open(tmp, "wb") as f:
+        pickle.dump(cols, f, protocol=pickle.HIGHEST_PROTOCOL)
+    os.replace(tmp, spec["path"])
+    print(json.dumps({"gen_s": gen_s, "write_s": time.perf_counter() - t0
+                      - gen_s, "bytes": os.path.getsize(spec["path"])}),
+          flush=True)
+    return 0
+
+
 def tpch_path(ct, scale: float = TPCH_SCALE, device=None,
               profile: bool = True, serve_root: str | None = None,
-              world: int = 8):
+              world: int = 8, tables: TpchTables | None = None):
     """BASELINE configuration 4: TPC-H at ``scale`` on a W = 8 world, Q3
     and Q5 with the scans Q1 and Q6, each best of 3 after a warm-up with
     its peak memory, phase split, profile (idle share) and K1/K2
     launches, against a numpy oracle; yields one record per query.  With
     ``serve_root``, :func:`serve_path` runs next on the same tables (its
-    checkpoints under that root) and yields its records."""
+    checkpoints under that root) and yields its records.  ``tables``: the
+    columns drawn in the background (:class:`TpchTables`); ``gen_s`` is
+    then the wait and the load."""
     from cylon_tpu_torch import tpch
     from cylon_tpu_torch.ctx.context import VirtualMeshConfig
     w = world
     t0 = time.perf_counter()
-    cols = tpch.generate_columns(scale, 0)
+    cols = tpch.generate_columns(scale, 0) if tables is None \
+        else tables.load()
     gen_s = time.perf_counter() - t0
+    background = None if tables is None else tables.record
     env = ct.CylonEnv(VirtualMeshConfig(w), device=device)
     t0 = time.perf_counter()
     dfs = {name: ct.DataFrame(ct.Table.from_host_columns(c, env))
@@ -4131,6 +4237,7 @@ def tpch_path(ct, scale: float = TPCH_SCALE, device=None,
                           "semi": "join.semi"}, profile=profile)
         rec.update({"phase": "tpch_path", "query": q, "world": w,
                     "scale": scale, "table_rows": rows, "gen_s": gen_s,
+                    "drawn_in_background": background,
                     "upload_s": upload_s, "setup_s": gen_s + upload_s,
                     "lineitem_rows_per_s": rows["lineitem"] / rec["best_s"]})
         yield rec
@@ -5054,7 +5161,9 @@ def ops_legs(ct, env, n: int = OPS_ROWS,
 
 
 def procs_child(spec: dict) -> int:
-    """One process of ``procs_path``: a DistributedConfig world of
+    """One process of ``procs_path`` (a ``procs_ckpt``, ``procs_serve`` or
+    ``procs_stream`` spec runs that leg's child instead): a
+    DistributedConfig world of
     ``spec["nproc"]`` processes × ``spec["local_world"]`` ranks on this
     card.  Maps bench.py's tables (seed 42, ``spec["rows"]`` a side) from
     the parent's ``.npy`` files, uploads its own ranks' blocks, runs the
@@ -5071,22 +5180,15 @@ def procs_child(spec: dict) -> int:
     and seconds and the tier counters of one iteration on each route,
     and after its checks runs :func:`ops_legs`."""
     import os
-    import cylon_tpu_torch as ct
+    if spec["leg"] in ("procs_ckpt", "procs_serve", "procs_stream"):
+        return globals()[spec["leg"] + "_child"](spec)
     from cylon_tpu_torch import config as pconfig
     from cylon_tpu_torch.ops import splitter_probe as sp
     from cylon_tpu_torch.ops import windowed_gather as wg
     from cylon_tpu_torch.parallel import transport
-    if spec.get("go"):
-        deadline = time.monotonic() + PROCS_TIMEOUT_S
-        while not os.path.exists(spec["go"]):
-            if time.monotonic() > deadline:
-                raise TimeoutError(f"no go file {spec['go']}")
-            time.sleep(0.05)
+    _procs_go(spec)
     t_start = time.perf_counter()
-    env = ct.CylonEnv(ct.DistributedConfig(
-        spec["addr"], spec["pid"], spec["nproc"],
-        local_world=spec["local_world"], backend=spec.get("backend"),
-        device=spec.get("device")))
+    ct, env = _procs_env(spec)
     rec = {"phase": "procs_child", "leg": spec["leg"], "pid": spec["pid"],
            "nproc": spec["nproc"], "local_world": spec["local_world"],
            "backend": env.backend, "world": env.world_size,
@@ -5530,6 +5632,7 @@ def ckpt_inprocess(ct, lt, rt, orc, root: str, nc: int):
             peak = torch.cuda.max_memory_allocated()
         if leg == "unarmed":
             check_dist(g, orc, w, "ckpt_path unarmed")
+            legs["shard_digest"] = shard_digest(g)
         results[leg] = (np.asarray(g.valid_counts).tolist(), g.capacity,
                         result_digest(g))
         del g
@@ -5609,6 +5712,7 @@ def ckpt_path(ct, left: dict, right: dict, orc: dict, root: str,
            "ckpt_root_needed_bytes": need}
     legs, digest = ckpt_inprocess(ct, lt, rt, orc, root, nc)
     rec.update(legs)
+    rec["digest"] = digest
     pieces = rec["pieces"]
     per_it = rec["unarmed"]["kernel_counts"]
     un_k1 = per_it["windowed_gather"]["launches"] // 4
@@ -5999,13 +6103,22 @@ def ckpt_root(parent=None):
 
 def ckpt_phases(ct, left, right, orc, root, device=None,
                 small_rows: int = 1_000_000):
-    """``ckpt_path`` on ``left``/``right``, then ``ckpt_small`` at
-    ``small_rows`` a side; yields the phase records (the K1/K2 checks of
-    the resumed run after ``ckpt_path``'s)."""
-    crec = ckpt_path(ct, left, right, orc, root, device=device)
-    checks = [crec.pop(key, None) for key in ("k1_resume", "k2_resume")]
-    yield crec
-    yield from (c for c in checks if c is not None)
+    """``ckpt_path`` on ``left``/``right``, then ``procs_ckpt`` on its
+    tables (its children start before ``ckpt_path`` and wait), then
+    ``ckpt_small`` at ``small_rows`` a side; yields the phase records
+    (the K1/K2 checks of the resumed run after ``ckpt_path``'s)."""
+    launched = procs_ckpt_launch(root, device)
+    try:
+        crec = ckpt_path(ct, left, right, orc, root, device=device)
+        checks = [crec.pop(key, None) for key in ("k1_resume", "k2_resume")]
+        yield crec
+        yield from (c for c in checks if c is not None)
+        yield procs_ckpt(ct, left, right, {
+            "digest": crec["digest"], "shard_digest": crec["shard_digest"],
+            "pieces": crec["pieces"]}, launched, device=device)
+    finally:
+        for key in ("armed", "kill", "resume"):
+            _procs_kill(launched[key])
     yield from ckpt_small(ct, root, n=small_rows, device=device)
 
 
@@ -6081,7 +6194,9 @@ def serve_digest(out) -> str:
     order (stable sorts on the device by every column's bit pattern, last
     column first), so that layout and row order do not count; a float
     result by its bits.  Two results with equal digests are equal bit for
-    bit."""
+    bit.  A result that several processes hold is gathered whole first
+    (``Table.host_columns``) and sorted on this process's device, so one
+    result gives one digest whichever processes hold it."""
     import hashlib
     import struct
     from cylon_tpu_torch.utils.host import host_arrays
@@ -6091,15 +6206,22 @@ def serve_digest(out) -> str:
         return h.hexdigest()
     t = getattr(out, "table", out)
     dev = t.column(t.column_names[0]).data.device
-    vc = torch.as_tensor(np.asarray(t.valid_counts), device=dev)
-    live = (torch.arange(t.capacity, device=dev)[None, :]
-            < vc[:, None]).reshape(-1)
     cols = []
-    for name in t.column_names:
-        c = t.column(name)
-        cols.append((name, c.data[live],
-                     None if c.validity is None else c.validity[live]))
-    n = int(vc.sum())
+    if t.env.multi_process:
+        for name, (data, valid) in t.host_columns().items():
+            cols.append((name, torch.from_numpy(data).to(dev),
+                         None if valid is None
+                         else torch.from_numpy(valid).to(dev)))
+        n = int(np.asarray(t.valid_counts).sum())
+    else:
+        vc = torch.as_tensor(np.asarray(t.valid_counts), device=dev)
+        live = (torch.arange(t.capacity, device=dev)[None, :]
+                < vc[:, None]).reshape(-1)
+        for name in t.column_names:
+            c = t.column(name)
+            cols.append((name, c.data[live],
+                         None if c.validity is None else c.validity[live]))
+        n = int(vc.sum())
     perm = torch.arange(n, device=dev)
     for _, data, valid in reversed(cols):
         for x in (valid, data):
@@ -6163,7 +6285,8 @@ def digest_records(records, check=None) -> None:
 def serve_pass(env, plans, run_query, policy: str, budget: int,
                ledger_budget: int, queries: int = SERVE_QUERIES,
                late: int = 0, ckpt: str | None = None) -> dict:
-    """One concurrent pass of ``plans`` under a QueryScheduler: the
+    """One concurrent pass of ``plans`` under a QueryScheduler (a plan's
+    ``queries``, where given, overrides ``queries``): the
     admission budget ``budget``, the ledger's ``ledger_budget``, and with
     ``late`` the last ``late`` tenants held back and submitted at
     priority 5 from the first tenant's loop; with ``ckpt`` the
@@ -6183,7 +6306,8 @@ def serve_pass(env, plans, run_query, policy: str, budget: int,
 
     def submit(p, priority=0, on_start=None):
         sched.submit(p["name"], serve_tenant(
-            p["mix"], queries, run_query, records[p["name"]],
+            p["mix"], p.get("queries", queries), run_query,
+            records[p["name"]],
             on_start=on_start), footprint_bytes=p["footprint"],
             priority=priority)
 
@@ -6381,7 +6505,9 @@ def serve_path(ct, dfs, env, orc: dict, rows: dict, root: str) -> list:
                              f"{conc['recovery_events']}")
     yield {"phase": "serve_path", "policy": "fair", **base, **conc,
            "concurrent_over_solo_sum": conc["elapsed_s"] / solo_sum,
-           "k2": {"solo": k2_solo, "fair": k2_fair}}
+           "k2": {"solo": k2_solo, "fair": k2_fair},
+           # for procs_serve, popped before the record is printed
+           "_solo": {"solo": solo, "ledger_budget": ledger_budget}}
     # the preempt leg: t3 arrives at priority 5 while t0 and t1 hold the
     # admission budget; the lower-ranked qpipe tenant drains at a piece
     # boundary, requeues and resumes in process past its committed pieces
@@ -6692,24 +6818,31 @@ STREAM_ALLOC_SLACK = 64 << 20
 
 
 def stream_batches(n_batches: int, rows: int, keys: int = STREAM_KEYS,
-                   seed: int = STREAM_SEED) -> list:
+                   seed: int = STREAM_SEED, device=None) -> list:
     """bench_streaming's ``make_batches``: uniform keys, ``qty`` int64 in
     1-50, ``amount`` integer cents as float64 in [100, 100000), event
     time ``b·stride + U[0, stride)`` with 5% of the rows pushed 3 windows
-    back."""
-    rng = np.random.default_rng(seed)
+    back.  Drawn on ``device`` (the card when there is one) by torch's
+    generator seeded with ``seed``, batch after batch, then pulled as
+    numpy arrays: every process that draws the same count of batches of
+    the same size on the same kind of device gets the same batches, the
+    first ``k`` of them whatever the count."""
+    dev = torch.device(device if device is not None else (
+        "cuda" if torch.cuda.is_available() else "cpu"))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(lo, hi):
+        return torch.randint(lo, hi, (rows,), generator=gen, device=dev)
+
     out = []
     for b in range(n_batches):
-        t = (b * STREAM_STRIDE
-             + rng.integers(0, STREAM_STRIDE, rows)).astype(np.int64)
-        late = rng.random(rows) < 0.05
-        t = np.where(late & (t >= 3 * STREAM_WINDOW),
-                     t - 3 * STREAM_WINDOW, t)
-        out.append({"k": rng.integers(0, keys, rows).astype(np.int64),
-                    "qty": rng.integers(1, 51, rows).astype(np.int64),
-                    "amount": rng.integers(100, 100_000, rows).astype(
-                        np.float64),
-                    "t": t})
+        t = b * STREAM_STRIDE + draw(0, STREAM_STRIDE)
+        late = torch.rand(rows, generator=gen, device=dev) < 0.05
+        t = torch.where(late & (t >= 3 * STREAM_WINDOW),
+                        t - 3 * STREAM_WINDOW, t)
+        cols = {"k": draw(0, keys), "qty": draw(1, 51),
+                "amount": draw(100, 100_000).to(torch.float64), "t": t}
+        out.append({name: x.cpu().numpy() for name, x in cols.items()})
     return out
 
 
@@ -6737,7 +6870,8 @@ def stream_ingest(st, view, wj, batches, each=None) -> dict:
     append-to-visible staleness stops there); ``each(i)`` after each
     batch, off the clock; then the final watermark.  Returns the rate,
     the staleness and watermark lag and ``closed_at`` (the windows closed
-    when each batch arrived: the drop replay's input)."""
+    when each batch arrived: the drop replay's input).  ``each(i, read)``
+    gets the read's host columns."""
     staleness, lag, closed_at, checks_s = [], [], [], 0.0
     max_event = -1
     t_loop = time.perf_counter()
@@ -6747,13 +6881,13 @@ def stream_ingest(st, view, wj, batches, each=None) -> dict:
         closed_at.append(wj._closed_through)
         wj.append(b)
         wj.watermark()
-        view.read().host_columns()
+        read = view.read().host_columns()
         staleness.append(time.perf_counter() - t0)
         max_event = max(max_event, int(b["t"].max()))
         lag.append(max_event - wj._closed_through * STREAM_WINDOW)
         if each is not None:
             t1 = time.perf_counter()
-            each(i)
+            each(i, read)
             checks_s += time.perf_counter() - t1
     wj.watermark()
     wall = time.perf_counter() - t_loop - checks_s
@@ -6983,10 +7117,12 @@ def stream_path(ct, n_batches: int = STREAM_BATCHES,
     from cylon_tpu_torch.exec import memory
     from cylon_tpu_torch.utils import timing
     t0 = time.perf_counter()
-    batches = stream_batches(n_batches, rows)
+    batches = stream_batches(n_batches, rows, device=device)
     gen_s = time.perf_counter() - t0
     env = ct.CylonEnv(VirtualMeshConfig(world), device=device)
     st, view, wj = stream_objects(ct, env, "stream_path")
+    digests: dict = {"reads": [], "windows": {}, "closed_at_batch": {}}
+    var: list = []
     gc.collect()
     if env.on_cuda:
         torch.cuda.synchronize()
@@ -6998,7 +7134,8 @@ def stream_path(ct, n_batches: int = STREAM_BATCHES,
     timing.reset()
     timing.enable("async")
     try:
-        rec = stream_ingest(st, view, wj, batches)
+        rec = stream_ingest(st, view, wj, batches,
+                            each=stream_tracker(wj, digests, var))
     finally:
         timing.enable(None)
     counts = kernel_counts()
@@ -7042,7 +7179,12 @@ def stream_path(ct, n_batches: int = STREAM_BATCHES,
            "peak_ledger_bytes": mem["peak_ledger_bytes"],
            "regions_s": regions, "check_s": check_s, "stats": stats,
            "kernel_counts": counts, "oracle": "equal", "windows": "equal",
-           "ledger_drained": True}
+           "ledger_drained": True,
+           # every read's and closed window's digest, for procs_stream,
+           # popped before the record is printed
+           "_digests": {"digests": digests, "var": var[:PROCS_STREAM_BATCHES],
+                        "rows_per_s_first": PROCS_STREAM_BATCHES * rows / sum(
+                            rec["staleness_s"][:PROCS_STREAM_BATCHES])}}
     no_kernels(out, "stream_path")
     return out
 
@@ -7068,9 +7210,10 @@ def stream_small(ct, root: str, worlds=(1, 4, 8),
         st, view, wj = stream_objects(ct, env, f"small{w}")
         kernel_counts(reset=True)
         seen = []
-        rec = stream_ingest(st, view, wj, batches, each=lambda i: seen.append(
-            stream_verdict(ct, st, view, batches[:i + 1],
-                           f"{tag} batch {i}")))
+        rec = stream_ingest(st, view, wj, batches,
+                            each=lambda i, _read: seen.append(
+                                stream_verdict(ct, st, view, batches[:i + 1],
+                                               f"{tag} batch {i}")))
         counts = kernel_counts()
         if not all(v["var_std_bit_equal"] for v in seen):
             raise AssertionError(f"{tag}: var/std differ at {seen}")
@@ -7230,23 +7373,765 @@ def stream_serve(ct, dfs, env, n_batches: int = STREAM_SERVE_BATCHES,
             "tenant_bit_equal_to_solo": True}
 
 
-def serve_phases(ct, args, routes: dict, k2_serve: dict) -> None:
-    """``tpch_path`` at ``--tpch-scale``, W = 8, with ``serve_path`` and
-    its preempt leg on the same tables, then ``serve_small``; emits their
-    records, adds their kernel counts to ``routes`` and the serve routes'
-    K2 checks to ``k2_serve``."""
+# ---------------------------------------------------------------------------
+# durability, serving and streams across processes: procs_ckpt,
+# procs_serve, procs_stream (children through --procs-child, gloo)
+# ---------------------------------------------------------------------------
+
+#: the exchange watchdog of the procs_ckpt children: a peer SIGKILLed
+#: mid-run surfaces on the survivor as RankDesyncError within it
+PROCS_WATCHDOG_S = 20
+#: the exit code of a procs_ckpt child that left through RankDesyncError
+DESYNC_RC = 4
+#: procs_stream's batches: stream_path's first ones
+PROCS_STREAM_BATCHES = 16
+
+
+def _procs_go(spec: dict) -> None:
+    """Wait for a ``--procs-child``'s go file, if it has one: the child
+    imports, then waits to touch the card."""
+    import os
+    if spec.get("go"):
+        deadline = time.monotonic() + PROCS_TIMEOUT_S
+        while not os.path.exists(spec["go"]):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"no go file {spec['go']}")
+            time.sleep(0.05)
+
+
+def _procs_env(spec: dict):
+    """A ``--procs-child``'s package and world: its go file awaited, then
+    its DistributedConfig env."""
+    _procs_go(spec)
+    import cylon_tpu_torch as ct
+    env = ct.CylonEnv(ct.DistributedConfig(
+        spec["addr"], spec["pid"], spec["nproc"],
+        local_world=spec["local_world"], backend=spec.get("backend"),
+        device=spec.get("device")))
+    return ct, env
+
+
+def _procs_spawn(spec: dict, nproc: int, v: int,
+                 switches: dict | None = None) -> list:
+    """Start the ``nproc`` ``--procs-child`` processes of one gloo world
+    of ``nproc`` × ``v`` ranks running ``spec``, with ``switches`` as
+    ``CYLON_TPU_TORCH_<name>`` in their environment (every other
+    checkpoint switch unset)."""
+    import os
+    import socket
+    env = {k: x for k, x in os.environ.items() if k not in CKPT_VARS}
+    env.update({f"CYLON_TPU_TORCH_{k}": str(x)
+                for k, x in (switches or {}).items()})
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        addr = f"127.0.0.1:{sk.getsockname()[1]}"
+    return [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--procs-child",
+         json.dumps({**spec, "pid": i, "nproc": nproc, "local_world": v,
+                     "backend": "gloo", "addr": addr})],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+        for i in range(nproc)]
+
+
+def _procs_wait(label: str, procs: list, expect: list,
+                deadline: float) -> list:
+    """Each child's JSON line, with its exit code under ``rc``.  A child
+    whose exit code is not ``expect[i]``, that prints no result (a
+    SIGKILLed one excepted), or that still runs at ``deadline`` (it and
+    its peers are killed) fails the leg."""
+    out = []
+    try:
+        for i, p in enumerate(procs):
+            try:
+                so, se = p.communicate(
+                    timeout=max(deadline - time.perf_counter(), 1))
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    q.kill()
+                so, se = p.communicate()
+            if p.returncode != expect[i]:
+                raise AssertionError(
+                    f"{label}: process {i} exited {p.returncode}, expected "
+                    f"{expect[i]}\n{so[-2000:]}\n{se[-4000:]}")
+            lines = [ln for ln in so.splitlines() if ln.startswith("{")]
+            if not lines and p.returncode != -9:
+                raise AssertionError(f"{label}: process {i} printed no "
+                                     f"result\n{se[-4000:]}")
+            out.append({**(json.loads(lines[-1]) if lines else {}),
+                        "rc": p.returncode})
+    finally:
+        _procs_kill(procs)
+    return out
+
+
+def _procs_kill(procs: list) -> None:
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def _procs_checks(env, wg, sp, captured: dict, label: str) -> dict:
+    """K1 and K2 held bit-equal to their plain versions on the inputs of
+    their first launch in this process (on the card; a CPU child has no
+    kernels)."""
+    checks = {}
+    if env.on_cuda:
+        torch.cuda.empty_cache()
+        if "piece" in captured:
+            checks["k1"] = k1_check(wg, label, *captured.pop("piece"))
+        if "probe" in captured:
+            checks["k2"] = k2_check(sp, label, *captured.pop("probe"))
+    return {name: {key: c.get(key) for key in (
+        "L", "M", "S", "K", "cap", "window", "bit_equal", "max_abs_err")}
+        for name, c in checks.items()}
+
+
+def _manifest_epochs(root: str, pid: int) -> list:
+    """Process ``pid``'s committed manifest epochs, stage by stage."""
+    import glob
+    import os
+    out = []
+    for path in sorted(glob.glob(os.path.join(root, f"rank{pid}", "stage*",
+                                              "MANIFEST.json"))):
+        with open(path, encoding="utf-8") as f:
+            out.append(int(json.load(f)["epoch"]))
+    return out
+
+
+def procs_ckpt_child(spec: dict) -> int:
+    """One process of ``procs_ckpt``: ckpt_path's tables mapped from the
+    parent's ``.npy`` files (this process uploads its own ranks' rows),
+    then ``GroupBySink`` + ``pipelined_join(n_chunks=4)`` + ``finalize``
+    under the checkpoint switches the parent set: an armed run, a run
+    whose process 0 dies at its third ``ckpt.write``, or a resume.
+    Prints one JSON line: the run's seconds, the write side's regions,
+    the bytes this process wrote, the checkpoint counters, every
+    process's manifest epochs (one allgather), the result's shard digest,
+    the launches and K1 and K2 against their plain versions.  The
+    survivor of a killed peer prints its ``RankDesyncError`` and exits
+    ``DESYNC_RC``."""
+    import os
+    from cylon_tpu_torch.exec import checkpoint
+    from cylon_tpu_torch.ops import splitter_probe as sp
+    from cylon_tpu_torch.ops import windowed_gather as wg
+    from cylon_tpu_torch.parallel import transport
+    from cylon_tpu_torch.status import RankDesyncError
+    from cylon_tpu_torch.utils import timing
+    ct, env = _procs_env(spec)
+    t_start = time.perf_counter()
+    rec = {"phase": "procs_child", "leg": "procs_ckpt", "mode": spec["mode"],
+           "pid": spec["pid"], "world": env.world_size,
+           "setup_s": transport.STATS["setup_s"]}
+    cols = {name: np.load(os.path.join(spec["data"], f"{name}.npy"),
+                          mmap_mode="r") for name in ("lk", "a", "rk", "b")}
+    lt = ct.Table.from_pydict({"k": cols["lk"], "a": cols["a"]}, env)
+    rt = ct.Table.from_pydict({"k": cols["rk"], "b": cols["b"]}, env)
+    del cols
+    if env.on_cuda:
+        torch.cuda.synchronize()
+    rec["upload_s"] = time.perf_counter() - t_start
+    env.barrier()
+    kernel_counts(reset=True)
+    checkpoint.reset_stats()
+    transport.reset_stats()
+    captured: dict = {}
+    t0 = time.perf_counter()
+    try:
+        with contextlib.ExitStack() as stack:
+            sc = stack.enter_context(timing.attribution_scope())
+            stack.enter_context(capturing(sp, "count_ge_splitters",
+                                          captured, "probe"))
+            stack.enter_context(capturing(wg, "windowed_take_t", captured,
+                                          "piece", keep_k1))
+            g = pipelined_step(ct, lt, rt, spec["n_chunks"])
+    except RankDesyncError as e:
+        rec.update(run_s=time.perf_counter() - t0, error=type(e).__name__,
+                   site=e.site, message=str(e)[:300],
+                   stats=checkpoint.stats(),
+                   epochs=_manifest_epochs(checkpoint.ckpt_dir(),
+                                           spec["pid"]))
+        # the process group closes after its peer died (no collective
+        # runs on it any more)
+        t1 = time.perf_counter()
+        env.finalize()
+        rec["finalize_s"] = time.perf_counter() - t1
+        print(json.dumps(rec), flush=True)
+        return DESYNC_RC
+    rec["run_s"] = time.perf_counter() - t0
+    st = checkpoint.stats()
+    rec.update(regions_s={r: v for r, v in sc.snapshot().items()
+                          if r in CKPT_REGIONS},
+               bytes_written=st["bytes_checkpointed"], stats=st,
+               events=recovery_events(), kernel_counts=kernel_counts(),
+               transport=dict(transport.STATS), digest=shard_digest(g))
+    mine = np.asarray(_manifest_epochs(checkpoint.ckpt_dir(), spec["pid"]),
+                      np.int64)
+    rec["epochs"] = transport.allgather_array(
+        mine, "procs_ckpt.epochs").tolist()
+    del g, lt, rt
+    rec["checks"] = _procs_checks(
+        env, wg, sp, captured, f"procs_ckpt_{spec['mode']}_p{spec['pid']}")
+    env.barrier()
+    env.finalize()
+    rec["wall_s"] = time.perf_counter() - t_start
+    print(json.dumps(rec), flush=True)
+    return 0
+
+
+def procs_ckpt_launch(root: str, device=None) -> dict:
+    """Start ``procs_ckpt``'s children before ``ckpt_path`` runs, so their
+    imports overlap it: the armed and the kill world wait for one go
+    file, the resume world for a second one (touched when the kill world
+    has ended).  ``root/data`` will hold ckpt_path's tables."""
+    import os
+    base = {"leg": "procs_ckpt", "data": os.path.join(root, "data"),
+            "n_chunks": CKPT_CHUNKS, "device": device}
+    go = os.path.join(root, "pc_go")
+    go_resume = os.path.join(root, "pc_go_resume")
+    roots = {m: os.path.join(root, f"pc_{m}") for m in ("armed", "kill")}
+    wd = {"WATCHDOG_S": PROCS_WATCHDOG_S}
+    return {
+        "go": go, "go_resume": go_resume, "roots": roots,
+        "armed": _procs_spawn({**base, "mode": "armed", "go": go}, 2, 2,
+                              {"CKPT_DIR": roots["armed"], **wd}),
+        "kill": _procs_spawn({**base, "mode": "kill", "go": go}, 2, 2,
+                             {"CKPT_DIR": roots["kill"],
+                              "FAULTS": "ckpt.write:0:3=kill", **wd}),
+        "resume": _procs_spawn({**base, "mode": "resume",
+                                "go": go_resume}, 2, 2,
+                               {"CKPT_DIR": roots["kill"], "RESUME": 1,
+                                **wd})}
+
+
+def procs_ckpt(ct, left: dict, right: dict, want: dict, launched: dict,
+               device=None) -> dict:
+    """ckpt_path's workload as 2 processes × 2 ranks over gloo (module
+    docstring): an armed run; a kill chain (process 0 SIGKILLed at its
+    third ``ckpt.write``, process 1 typed and nonzero within the
+    watchdog, then a 2 × 2 resume fast-forwarding the 2 committed pieces
+    with one manifest epoch on both); and the armed run's complete stage
+    resumed here, in one process, at ``VirtualMeshConfig(4)`` (a new
+    process layout of the same world) and at ``VirtualMeshConfig(2)``
+    (W 4 → 2), both through the re-shard path.  Every result equals
+    ``want`` (ckpt_path's ``digest`` and ``shard_digest``; ``pieces``).
+    ``launched``: :func:`procs_ckpt_launch`'s children."""
+    import os
+    import shutil
+    import threading
+    from cylon_tpu_torch.ctx.context import VirtualMeshConfig
+    from cylon_tpu_torch.utils import timing
+    pieces = want["pieces"]
+    t_leg = time.perf_counter()
+    deadline = t_leg + PROCS_TIMEOUT_S
+    open(launched["go"], "w").close()
+    chain: dict = {}
+
+    def kill_chain():
+        try:
+            t0 = time.perf_counter()
+            chain["kill"] = _procs_wait("procs_ckpt kill", launched["kill"],
+                                        [-9, DESYNC_RC], deadline)
+            chain["kill_wall_s"] = time.perf_counter() - t0
+            open(launched["go_resume"], "w").close()
+            t0 = time.perf_counter()
+            chain["resume"] = _procs_wait("procs_ckpt resume",
+                                          launched["resume"], [0, 0],
+                                          deadline)
+            chain["resume_wall_s"] = time.perf_counter() - t0
+        except BaseException as e:  # noqa: BLE001 — raised after the join
+            chain["error"] = e
+
+    th = threading.Thread(target=kill_chain)
+    th.start()
+    relayout = {}
+    try:
+        t0 = time.perf_counter()
+        armed = _procs_wait("procs_ckpt armed", launched["armed"], [0, 0],
+                            deadline)
+        armed_wall = time.perf_counter() - t0
+        for r in armed:
+            if r["digest"] != want["shard_digest"] \
+                    or r["stats"]["checkpoint_events"] != pieces \
+                    or r["epochs"] != armed[0]["epochs"]:
+                raise AssertionError(
+                    f"procs_ckpt armed process {r['pid']}: digest "
+                    f"{r['digest']}, counters {r['stats']}, epochs "
+                    f"{r['epochs']}")
+        # the complete 2 x 2 stage resumed in this process: a hard-linked
+        # copy for the W = 2 resume (a rewrite replaces files, never
+        # writes into them), the original for W = 4
+        src = launched["roots"]["armed"]
+        shutil.copytree(src, src + "_w2", copy_function=os.link)
+        for w, path in ((4, src), (2, src + "_w2")):
+            with ckpt_env(CKPT_DIR=path, RESUME=1) as checkpoint:
+                env = ct.CylonEnv(VirtualMeshConfig(w), device=device)
+                lt = ct.Table.from_pydict(left, env)
+                rt = ct.Table.from_pydict(right, env)
+                kernel_counts(reset=True)
+                with timing.attribution_scope() as sc:
+                    t0 = time.perf_counter()
+                    g = pipelined_step(ct, lt, rt, CKPT_CHUNKS)
+                    run_s = time.perf_counter() - t0
+                st = checkpoint.stats()
+                digest = result_digest(g)
+                del g, lt, rt
+                relayout[f"w{w}"] = {
+                    "world": w, "run_s": run_s, "stats": st,
+                    "regions_s": {r: v for r, v in sc.snapshot().items()
+                                  if r in CKPT_REGIONS},
+                    "kernel_counts": kernel_counts()}
+            if device is None:
+                torch.cuda.empty_cache()
+            if digest != want["digest"] \
+                    or st["resume_world_mismatch"] != 1 \
+                    or st["resume_resharded_pieces"] != pieces:
+                raise AssertionError(f"procs_ckpt re-shard at W = {w}: "
+                                     f"counters {st}, digest {digest}")
+        shutil.rmtree(src + "_w2")
+    finally:
+        th.join()
+        for key in ("armed", "kill", "resume"):
+            _procs_kill(launched[key])
+    if "error" in chain:
+        raise chain["error"]
+    kill, resume = chain["kill"], chain["resume"]
+    surv = kill[1]
+    if surv.get("error") != "RankDesyncError" \
+            or surv["run_s"] > 2 * PROCS_WATCHDOG_S \
+            or surv["stats"]["checkpoint_events"] != 2:
+        raise AssertionError(f"procs_ckpt kill: the survivor {surv}")
+    for r in resume:
+        st = r["stats"]
+        if r["digest"] != want["shard_digest"] \
+                or st["resume_fast_forwarded_pieces"] != 2 \
+                or st["checkpoint_events"] != pieces - 2 \
+                or len({tuple(e) for e in r["epochs"]}) != 1:
+            raise AssertionError(f"procs_ckpt resume process {r['pid']}: "
+                                 f"{st}, epochs {r['epochs']}")
+    children = armed + resume
+    for r in children:
+        if device is None and set(r["checks"]) != {"k1", "k2"}:
+            raise AssertionError(f"procs_ckpt {r['mode']} process "
+                                 f"{r['pid']}: K1/K2 not captured")
+        if not all(c["bit_equal"] for c in r["checks"].values()):
+            raise AssertionError(f"procs_ckpt: kernel checks {r['checks']}")
+
+    def per_process(runs):
+        return [{key: r.get(key) for key in (
+            "pid", "rc", "setup_s", "upload_s", "run_s", "wall_s",
+            "bytes_written", "regions_s", "stats", "epochs", "checks",
+            "kernel_counts", "error", "site", "finalize_s")} for r in runs]
+
+    launches = {name: sum(r["kernel_counts"][name]["launches"]
+                          for r in children)
+                + sum(x["kernel_counts"][name]["launches"]
+                      for x in relayout.values())
+                for name in ("windowed_gather", "splitter_probe")}
+    return {"phase": "procs_ckpt", "processes": 2, "local_world": 2,
+            "world": 4, "backend": "gloo", "n_chunks": CKPT_CHUNKS,
+            "pieces": pieces, "watchdog_s": PROCS_WATCHDOG_S,
+            "armed": per_process(armed), "armed_wall_s": armed_wall,
+            "kill": per_process(kill), "kill_wall_s": chain["kill_wall_s"],
+            "resume": per_process(resume),
+            "resume_wall_s": chain["resume_wall_s"],
+            "relayout": relayout, "wall_s": time.perf_counter() - t_leg,
+            "kernel_counts": {k: {"launches": v}
+                              for k, v in launches.items()},
+            "digest": want["digest"],
+            "oracle": "every digest equal to ckpt_path's"}
+
+
+def _vote_counter():
+    """Count the scheduler's and the sessions' votes in this process:
+    each consensus entry point wrapped, its calls counted by the thread
+    that made them (the scheduler's loop or a session)."""
+    import threading
+    from cylon_tpu_torch.exec import recovery
+    counts: dict = {}
+    for name in ("count_consensus", "preempt_consensus", "drain_consensus",
+                 "ckpt_commit_consensus", "ckpt_resume_consensus"):
+        orig = getattr(recovery, name)
+
+        def wrapped(*a, _orig=orig, _name=name, **k):
+            who = ("scheduler" if threading.current_thread()
+                   is threading.main_thread() else "sessions")
+            key = f"{_name}.{who}"
+            counts[key] = counts.get(key, 0) + 1
+            return _orig(*a, **k)
+
+        setattr(recovery, name, wrapped)
+    return counts
+
+
+def procs_serve_child(spec: dict) -> int:
+    """One process of ``procs_serve``: the TPC-H tables the parent
+    pickled (this process uploads its own ranks' rows), then
+    ``serve_path``'s four tenants, each running its mix once, under
+    ``fair`` and then under ``priority`` with checkpoints armed and the
+    last tenant submitted late; every answer's digest against the solo
+    digests the parent wrote.  Prints one JSON line per leg's report,
+    the votes taken and K2 against its plain version on its first launch
+    in each pass."""
+    import pickle
+    from cylon_tpu_torch import tpch
+    from cylon_tpu_torch.exec.scheduler import estimate_footprint
+    from cylon_tpu_torch.ops import splitter_probe as sp
+    from cylon_tpu_torch.ops import windowed_gather as wg
+    from cylon_tpu_torch.parallel import transport
+    t_start = time.perf_counter()
+    with open(spec["tables"], "rb") as f:
+        cols = pickle.load(f)
+    load_s = time.perf_counter() - t_start
+    ct, env = _procs_env(spec)
+    t0 = time.perf_counter()
+    dfs = {name: ct.DataFrame(ct.Table.from_host_columns(c, env))
+           for name, c in cols.items()}
+    rows = {name: int(c[next(iter(c))].data.shape[0])
+            for name, c in cols.items()}
+    del cols
+    if env.on_cuda:
+        torch.cuda.synchronize()
+    rec = {"phase": "procs_child", "leg": "procs_serve", "pid": spec["pid"],
+           "world": env.world_size, "tables_load_s": load_s,
+           "upload_s": time.perf_counter() - t0,
+           "setup_s": transport.STATS["setup_s"]}
+    with open(spec["solo"], encoding="utf-8") as f:
+        stash = json.load(f)
+    solo = stash["solo"]
+
+    def run_query(q):
+        return qpipe(ct, dfs) if q == "qpipe" \
+            else getattr(tpch, q)(dfs, env=env)
+
+    plans = [{"name": f"t{i}", "mix": mix, "queries": len(mix),
+              "footprint": estimate_footprint(*[dfs[t] for t in sorted(
+                  {t for q in mix for t in SERVE_TABLES[q]})])}
+             for i, mix in enumerate(SERVE_MIXES)]
+    foots = sorted(p["footprint"] for p in plans)
+    budget = int(1.05 * (foots[0] + foots[1]))
+    votes = _vote_counter()
+    env.barrier()
+    kernel_counts(reset=True)
+    for policy, late, ckpt in (("fair", 0, None),
+                               ("priority", 1, spec["ckpt"])):
+        before = dict(votes)
+        run = serve_pass(env, plans, run_query, policy, budget,
+                         stash["ledger_budget"], late=late, ckpt=ckpt)
+        probe = run.pop("k2_probe")
+        rep = serve_report(run, solo, rows, f"procs_serve {policy}")
+        del run
+        captured = {} if probe is None else {"probe": probe}
+        rep["checks"] = _procs_checks(env, wg, sp, captured,
+                                      f"procs_serve_{policy}_p{spec['pid']}")
+        rep["votes"] = {k: v - before.get(k, 0) for k, v in votes.items()}
+        rec[policy] = rep
+    env.barrier()
+    env.finalize()
+    rec["wall_s"] = time.perf_counter() - t_start
+    print(json.dumps(rec, default=str), flush=True)
+    return 0
+
+
+def procs_serve_launch(tables: str, root: str, device=None) -> dict:
+    """Start ``procs_serve``'s two children (2 processes × 4 ranks, W = 8)
+    before ``tpch_path`` runs, behind a go file; they load the pickled
+    tables ``tables`` meanwhile and read serve_path's solo digests and
+    ledger budget from ``root/procs_serve_solo.json`` after the go."""
+    import os
+    go = os.path.join(root, "ps_go")
+    spec = {"leg": "procs_serve", "tables": tables, "go": go,
+            "solo": os.path.join(root, "procs_serve_solo.json"),
+            "ckpt": os.path.join(root, "procs_serve_preempt"),
+            "device": device}
+    return {"go": go, "spec": spec, "procs": _procs_spawn(spec, 2, 4)}
+
+
+def procs_serve(stash: dict, launched: dict) -> dict:
+    """serve_path's four tenants as 2 processes × 4 ranks over gloo
+    (module docstring): each tenant runs its mix once under ``fair``,
+    then under ``priority`` with checkpoints armed and the last tenant
+    submitted late; every answer equal to serve_path's solo answer at
+    W = 8 (the first queries of each tenant's solo run).  ``stash``:
+    serve_path's solo digests and ledger budget."""
+    spec = launched["spec"]
+    once = {name: recs[:len(SERVE_MIXES[int(name[1:])])]
+            for name, recs in stash["solo"].items()}
+    solo = {name: [{"q": r["q"], "digest": r["digest"]} for r in recs]
+            for name, recs in once.items()}
+    nproc = len(launched["procs"])
+    with open(spec["solo"], "w", encoding="utf-8") as f:
+        # each process's ledger holds its own ranks' bytes: the budget
+        # splits as the tables do
+        json.dump({"solo": solo,
+                   "ledger_budget": stash["ledger_budget"] // nproc}, f)
+    t_leg = time.perf_counter()
+    open(launched["go"], "w").close()
+    res = _procs_wait("procs_serve", launched["procs"], [0, 0],
+                      t_leg + PROCS_TIMEOUT_S)
+    wall = time.perf_counter() - t_leg
+    for r in res:
+        pre = r["priority"]["scheduler"]
+        if pre["preemptions"] < 1 or pre["requeues"] < 1 \
+                or r["priority"]["checkpoint"][
+                    "resume_fast_forwarded_pieces"] < 1:
+            raise AssertionError(f"procs_serve process {r['pid']}: "
+                                 f"preempt leg {pre}")
+        for leg in ("fair", "priority"):
+            if not all(c["bit_equal"] for c in r[leg]["checks"].values()):
+                raise AssertionError(f"procs_serve {leg}: kernel checks "
+                                     f"{r[leg]['checks']}")
+    for leg in ("fair", "priority"):
+        outs = [{n: (t["outcome"], t["preemptions"], t["mix"])
+                 for n, t in r[leg]["tenants"].items()} for r in res]
+        if outs[0] != outs[1]:
+            raise AssertionError(f"procs_serve {leg}: the processes' "
+                                 f"schedules differ: {outs}")
+    solo_sum = sum(r["latency_s"] for recs in once.values() for r in recs)
+    legs = {}
+    for leg in ("fair", "priority"):
+        legs[leg] = {
+            "elapsed_s": [r[leg]["elapsed_s"] for r in res],
+            "over_solo_sum_mix_once": max(r[leg]["elapsed_s"]
+                                          for r in res) / solo_sum,
+            "tenants": {n: {key: t[key] for key in (
+                "mix", "p50_latency_s", "p99_latency_s", "latencies_s",
+                "outcome", "preemptions", "requeues", "admission_waits")}
+                for n, t in res[0][leg]["tenants"].items()},
+            "evictions": [r[leg]["scheduler"]["scheduler_evictions"]
+                          + r[leg]["cross_session_evictions"] for r in res],
+            "preemptions": res[0][leg]["scheduler"]["preemptions"],
+            "votes": [r[leg]["votes"] for r in res],
+            "checks": [r[leg]["checks"] for r in res]}
+    launches = {name: sum(r[leg]["kernel_counts"][name]["launches"]
+                          for r in res for leg in ("fair", "priority"))
+                for name in ("windowed_gather", "splitter_probe")}
+    return {"phase": "procs_serve", "processes": 2, "local_world": 4,
+            "world": 8, "backend": "gloo", "queries": "each mix once",
+            "solo_sum_mix_once_s": solo_sum, "wall_s": wall, **legs,
+            "children": [{key: r.get(key) for key in (
+                "pid", "tables_load_s", "upload_s", "setup_s", "wall_s")}
+                for r in res],
+            "kernel_counts": {k: {"launches": v}
+                              for k, v in launches.items()},
+            "oracle": "every answer's digest equal to serve_path's solo"}
+
+
+def _mix64(x: torch.Tensor) -> torch.Tensor:
+    """splitmix64's finalizer on int64 (wrapping products; the logical
+    shifts masked out of torch's arithmetic ones)."""
+    x = x ^ ((x >> 30) & ((1 << 34) - 1))
+    x = x * -4658895280553007687
+    x = x ^ ((x >> 27) & ((1 << 37) - 1))
+    x = x * -7723592293110705685
+    return x ^ ((x >> 31) & ((1 << 33) - 1))
+
+
+def window_digest(out) -> list:
+    """A closed window's rows as a multiset: ``[rows, Σ mix(row) mod
+    2^64]`` over its live rows (k, t, qty, amount, dim), each process
+    over its own shards, summed across processes (one allgather)."""
+    from cylon_tpu_torch.parallel import transport
+    from cylon_tpu_torch.parallel.shards import local_counts
+    w = out.env.world_size
+    dev = out.column("k").data.device
+    vc = torch.as_tensor(local_counts(out.valid_counts), device=dev)
+    live = (torch.arange(out.capacity, device=dev)[None, :]
+            < vc[:, None]).reshape(-1)
+    c = {n: out.column(n).data[live]
+         for n in ("k", "t", "qty", "amount", "dim")}
+    h = _mix64(stream_pack(c["k"], c["t"], c["qty"],
+                           c["amount"].to(torch.int64)) ^ _mix64(c["dim"]))
+    mine = np.asarray([[int(vc.sum()), int(h.sum())]], np.int64)
+    if transport.current(w) is not None:
+        mine = transport.allgather_array(mine[0], "window_digest")
+    return [int(mine[:, 0].sum()),
+            int(mine[:, 1].view(np.uint64).sum(dtype=np.uint64))]
+
+
+def read_digest(cols: dict) -> tuple:
+    """A view read (host columns, :meth:`Table.host_columns`) sorted by
+    key: the sha256 of every column but var and std, and those two as
+    arrays (held to ``STREAM_VAR_TOL``, not bit for bit)."""
+    import hashlib
+    order = np.argsort(cols["k"][0], kind="stable")
+    h = hashlib.sha256()
+    var = {}
+    for name, (data, valid) in cols.items():
+        if name in STREAM_VAR_COLS:
+            var[name] = np.asarray(data)[order]
+            continue
+        h.update(name.encode())
+        for x in (data, valid):
+            if x is not None:
+                h.update(np.ascontiguousarray(np.asarray(x)[order])
+                         .tobytes())
+    return h.hexdigest(), var
+
+
+def stream_tracker(wj, digests: dict, var: list):
+    """An ``each(i, read)`` for :func:`stream_ingest`: batch i's read
+    digest and var/std, and every window closed by then's digest."""
+    def each(i, read):
+        d, v = read_digest(read)
+        digests["reads"].append(d)
+        var.append(v)
+        for wid, out in wj.closed:
+            if str(wid) not in digests["windows"]:
+                digests["windows"][str(wid)] = window_digest(out)
+                digests["closed_at_batch"][str(wid)] = i
+    return each
+
+
+def procs_stream_child(spec: dict) -> int:
+    """One process of ``procs_stream``: stream_path's first
+    ``spec["batches"]`` batches drawn on this process's device (the same
+    generator, so the same batches), every process appending each whole
+    batch (SPMD ingest) into the stream, its view and its window join.
+    Prints one JSON line: rows/s, p50/p99 staleness, every read's and
+    closed window's digest; var and std of every read go to
+    ``spec["out"]``."""
+    import os
+    from cylon_tpu_torch.parallel import transport
+    ct, env = _procs_env(spec)
+    t_start = time.perf_counter()
+    batches = stream_batches(spec["batches"], spec["rows"],
+                             device=env.device)
+    gen_s = time.perf_counter() - t_start
+    st, view, wj = stream_objects(ct, env, "procs_stream")
+    env.barrier()
+    kernel_counts(reset=True)
+    transport.reset_stats()
+    digests: dict = {"reads": [], "windows": {}, "closed_at_batch": {}}
+    var: list = []
+    rec = stream_ingest(st, view, wj, batches,
+                        each=stream_tracker(wj, digests, var))
+    rec.pop("closed_at")
+    rec.update(phase="procs_child", leg="procs_stream", pid=spec["pid"],
+               world=env.world_size, gen_s=gen_s,
+               kernel_counts=kernel_counts(),
+               transport=dict(transport.STATS), digests=digests,
+               stats={"view": view.stats(), "window": wj.stats()})
+    np.savez(os.path.join(spec["out"], f"var_p{spec['pid']}.npz"),
+             **{f"{i}|{c}": v[c] for i, v in enumerate(var) for c in v})
+    stream_teardown(view, wj, st)
+    env.barrier()
+    env.finalize()
+    rec["wall_s"] = time.perf_counter() - t_start
+    print(json.dumps(rec), flush=True)
+    return 0
+
+
+def procs_stream_launch(out: str, device=None) -> dict:
+    """Start ``procs_stream``'s two children (2 processes × 2 ranks)
+    before ``stream_path`` runs, behind a go file in ``out`` (where they
+    write their var/std arrays)."""
+    import os
+    go = os.path.join(out, "pst_go")
+    return {"go": go, "out": out, "procs": _procs_spawn(
+        {"leg": "procs_stream", "go": go, "out": out,
+         "batches": PROCS_STREAM_BATCHES, "rows": STREAM_ROWS,
+         "device": device}, 2, 2)}
+
+
+def procs_stream(want: dict, launched: dict) -> dict:
+    """stream_path's stream as 2 processes × 2 ranks over gloo (module
+    docstring): its first batches; every read and every closed window
+    equal to the one-process W = 4 run's at the same batch (``want``,
+    recorded by stream_path), var and std of every read within
+    ``STREAM_VAR_TOL`` of it, every other column bit-equal."""
+    import os
+    t_leg = time.perf_counter()
+    open(launched["go"], "w").close()
+    res = _procs_wait("procs_stream", launched["procs"], [0, 0],
+                      t_leg + PROCS_TIMEOUT_S)
+    wall = time.perf_counter() - t_leg
+    n = PROCS_STREAM_BATCHES
+    want_w = {wid: d for wid, d in want["digests"]["windows"].items()
+              if want["digests"]["closed_at_batch"][wid] < n}
+    worst = 0.0
+    for r in res:
+        got = r["digests"]
+        if got["reads"] != want["digests"]["reads"][:n]:
+            bad = [i for i, (a, b) in enumerate(zip(
+                got["reads"], want["digests"]["reads"])) if a != b]
+            raise AssertionError(f"procs_stream process {r['pid']}: reads "
+                                 f"{bad} differ from the one-process run's")
+        if got["windows"] != want_w or {
+                w_: got["closed_at_batch"][w_] for w_ in want_w} != {
+                w_: want["digests"]["closed_at_batch"][w_]
+                for w_ in want_w}:
+            raise AssertionError(f"procs_stream process {r['pid']}: windows "
+                                 f"{got['windows']} against {want_w}")
+        with np.load(os.path.join(launched["out"],
+                                  f"var_p{r['pid']}.npz")) as z:
+            for i in range(n):
+                for c in STREAM_VAR_COLS:
+                    a, b = z[f"{i}|{c}"], want["var"][i][c]
+                    if c == "amount_std":
+                        a, b = a * a, b * b
+                    ok = np.isnan(b)
+                    if not np.array_equal(np.isnan(a), ok):
+                        raise AssertionError(f"procs_stream batch {i} {c}: "
+                                             "NaN where the one-process "
+                                             "run has a value")
+                    err = np.abs(a[~ok] - b[~ok]) / np.maximum(
+                        np.abs(b[~ok]), np.finfo(np.float64).tiny)
+                    worst = max(worst, float(err.max(initial=0.0)))
+        no_kernels(r, f"procs_stream process {r['pid']}")
+    if worst > STREAM_VAR_TOL:
+        raise AssertionError(f"procs_stream: var/std {worst:.3g} from the "
+                             "one-process run's")
+    return {"phase": "procs_stream", "processes": 2, "local_world": 2,
+            "world": 4, "backend": "gloo", "batches": n,
+            "rows_per_batch": STREAM_ROWS, "wall_s": wall,
+            "rows_per_s": [r["rows_per_s"] for r in res],
+            "staleness_p50_s": [r["staleness_p50_s"] for r in res],
+            "staleness_p99_s": [r["staleness_p99_s"] for r in res],
+            "one_process_rows_per_s_first_batches":
+                want["rows_per_s_first"],
+            "reads_equal": n, "windows_equal": len(want_w),
+            "var_std_largest_rel_diff": worst,
+            "children": [{key: r.get(key) for key in (
+                "pid", "gen_s", "ingest_wall_s", "wall_s", "transport",
+                "stats", "windows_closed", "late_dropped")} for r in res],
+            "kernel_counts": {k: {"launches": sum(
+                r["kernel_counts"][k]["launches"] for r in res)}
+                for k in ("windowed_gather", "splitter_probe")},
+            "oracle": "every read and window equal to stream_path's"}
+
+
+def serve_phases(ct, args, routes: dict, k2_serve: dict,
+                 tables: TpchTables) -> None:
+    """``tpch_path`` at ``--tpch-scale``, W = 8 (on ``tables``, drawn in
+    the background), with ``serve_path`` and its preempt leg on the same
+    tables, then ``procs_serve`` (its children start before
+    ``tpch_path`` and wait) and ``serve_small``; emits their records,
+    adds their kernel counts to ``routes`` and the serve routes' K2
+    checks to ``k2_serve``."""
     with ckpt_root(args.ckpt_dir) as root:
         t0 = time.perf_counter()
-        for trec in tpch_path(ct, args.tpch_scale, serve_root=root):
-            if trec["phase"] == "tpch_path":
-                routes[f"tpch_path_{trec['query']}_w8"] = \
-                    trec["kernel_counts"]
-            else:
-                routes[f"{trec['phase']}_w8"] = trec["kernel_counts"]
-                k2_serve.update(trec.pop("k2", {}))
-            emit(trec)
-        del trec
-        torch.cuda.empty_cache()
+        launched = procs_serve_launch(tables.wait(), root)
+        stash = None
+        try:
+            for trec in tpch_path(ct, args.tpch_scale, serve_root=root,
+                                  tables=tables):
+                if trec["phase"] == "tpch_path":
+                    routes[f"tpch_path_{trec['query']}_w8"] = \
+                        trec["kernel_counts"]
+                else:
+                    routes[f"{trec['phase']}_w8"] = trec["kernel_counts"]
+                    k2_serve.update(trec.pop("k2", {}))
+                    stash = trec.pop("_solo", stash)
+                emit(trec)
+            del trec
+            torch.cuda.empty_cache()
+            prec = procs_serve(stash, launched)
+        finally:
+            _procs_kill(launched["procs"])
+        tables.close()
+        routes["procs_serve"] = prec["kernel_counts"]
+        emit(prec)
         t1 = time.perf_counter()
         srec = serve_small(ct, root)
         srec["seconds"] = time.perf_counter() - t1
@@ -7279,11 +8164,14 @@ def main() -> int:
                     "directory)")
     ap.add_argument("--ckpt-child", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--procs-child", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--tpch-gen", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.ckpt_child is not None:
         return ckpt_child(json.loads(args.ckpt_child))
     if args.procs_child is not None:
         return procs_child(json.loads(args.procs_child))
+    if args.tpch_gen is not None:
+        return tpch_gen_child(json.loads(args.tpch_gen))
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this smoke run needs "
               "the card", file=sys.stderr)
@@ -7312,6 +8200,11 @@ def main() -> int:
     libs = kernels.build()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": sorted(libs), "ptxas": kernels.build_logs})
+    # TPC-H's tables for tpch_path, drawn by a low-priority background
+    # process while the card-bound phases run
+    import atexit
+    tpch_tables = TpchTables(args.tpch_scale)
+    atexit.register(tpch_tables.close)
 
     # -- K1 against its plain version on the card -------------------------
     rng = np.random.default_rng(42)
@@ -7609,6 +8502,8 @@ def main() -> int:
         for crec in ckpt_phases(ct, left, right, scan_orc, root):
             if crec["phase"] == "ckpt_path":
                 routes["ckpt_path_w4"] = crec["kernel_counts"]
+            elif crec["phase"] == "procs_ckpt":
+                routes["procs_ckpt"] = crec["kernel_counts"]
             elif crec["phase"] in ("k1", "k2"):
                 w4[f"{crec['phase']}_ckpt_resume"] = crec
             emit(crec)
@@ -7634,14 +8529,25 @@ def main() -> int:
     del trec
     # TPC-H at W = 8 with the serving tier on its tables, then serve_small
     k2_serve: dict = {}
-    serve_phases(ct, args, routes, k2_serve)
+    serve_phases(ct, args, routes, k2_serve, tpch_tables)
     for k2rec in k2_serve.values():
         emit(k2rec)
     # -- streaming: the bench's stream at W = 4, then at 1M rows --------
     with ckpt_root(args.ckpt_dir) as root:
-        srec = stream_path(ct)
-        routes["stream_path_w4"] = srec["kernel_counts"]
-        emit(srec)
+        launched = procs_stream_launch(root)
+        try:
+            srec = stream_path(ct)
+            want = srec.pop("_digests")
+            routes["stream_path_w4"] = srec["kernel_counts"]
+            emit(srec)
+            # the same stream as 2 processes x 2 ranks, its children
+            # started beside stream_path
+            prec = procs_stream(want, launched)
+        finally:
+            _procs_kill(launched["procs"])
+        del want
+        routes["procs_stream"] = prec["kernel_counts"]
+        emit(prec)
         for srec in stream_small(ct, root):
             routes[f"stream_small_w{srec['world']}"] = srec["kernel_counts"]
             emit(srec)
@@ -7662,7 +8568,8 @@ def main() -> int:
             "serve_path_w8", "serve_path_preempt_w8", "stream_serve_w8",
             "stream_path_w4", "procs_gloo_p0", "procs_gloo_p1",
             "procs_nccl_p0", "topo_virtual_w4", "procs_topo_p0",
-            "procs_topo_p1", "procs_topo_p2", "procs_topo_p3")),
+            "procs_topo_p1", "procs_topo_p2", "procs_topo_p3",
+            "procs_ckpt")),
         "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
         "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
@@ -7693,7 +8600,8 @@ def main() -> int:
             "serve_path_w8", "serve_path_preempt_w8", "stream_serve_w8",
             "stream_path_w4", "procs_gloo_p0", "procs_gloo_p1",
             "procs_nccl_p0", "procs_topo_p0", "procs_topo_p1",
-            "procs_topo_p2", "procs_topo_p3")),
+            "procs_topo_p2", "procs_topo_p3", "procs_ckpt",
+            "procs_serve")),
         "max_abs_err": rec2["max_abs_err"], "ms": rec2["ms"],
         "kernel_ms": rec2["kernel_ms"], "scalar_ms": rec2["scalar_ms"],
         "general_ms": rec2["general_ms"],

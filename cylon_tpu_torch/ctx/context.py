@@ -188,7 +188,7 @@ def _start_group(cfg: DistributedConfig, device: torch.device):
     try:
         # the first collective makes the connections (NCCL's communicator)
         transport.all_reduce_max(0, "env.setup")
-        proc.hosts = _gather_hosts()
+        proc.hosts, proc.device_share = _gather_hosts(device)
     except Exception:
         transport.install(None)
         dist.destroy_process_group()
@@ -197,31 +197,32 @@ def _start_group(cfg: DistributedConfig, device: torch.device):
     return proc
 
 
-def _gather_hosts() -> tuple:
-    """Every process's host name, in process order (one allgather at
-    set-up): the topology's ``"device"`` source groups the processes of
-    one host into a slice (topo/model.host_slices)."""
+def _gather_hosts(device: torch.device) -> tuple:
+    """Every process's host name, in process order, and how many
+    processes share this process's device (one allgather at set-up).
+    The topology's ``"device"`` source groups the processes of one host
+    into a slice (topo/model.host_slices); the memory ledger splits one
+    card's budget among the processes that share it
+    (exec/memory.budget_bytes).  A device is its host and its identity:
+    a CUDA card's UUID where torch reports one, else its name."""
     import socket
     import numpy as np
     from ..parallel import transport
+    ident = str(device)
+    if device.type == "cuda":
+        ident = str(getattr(torch.cuda.get_device_properties(device),
+                            "uuid", ident))
     name = socket.gethostname().encode()[:255]
-    buf = np.zeros(256, np.uint8)
-    buf[:len(name)] = np.frombuffer(name, np.uint8)
+    dev = f"{socket.gethostname()}/{ident}".encode()[:255]
+    buf = np.zeros((2, 256), np.uint8)
+    buf[0, :len(name)] = np.frombuffer(name, np.uint8)
+    buf[1, :len(dev)] = np.frombuffer(dev, np.uint8)
     got = transport.allgather_array(buf, "env.hosts")
-    return tuple(bytes(row).rstrip(b"\0").decode(errors="replace")
-                 for row in got)
-
-
-def refuse_multi_process(env, what: str) -> None:
-    """Raise ``NotImplementedError`` when ``env`` spans several processes
-    and ``what`` has no multi-process form yet (ROADMAP.md names the
-    slice that brings it), so no entry answers from one process's rows
-    alone."""
-    if env is not None and env.multi_process:
-        raise NotImplementedError(
-            f"{what} in a world of {env.process_count} processes is not "
-            "ported yet (ROADMAP.md, Queue 1 item 3: durability, serving "
-            "and streams across processes); run it in one process")
+    hosts = tuple(bytes(row[0]).rstrip(b"\0").decode(errors="replace")
+                  for row in got)
+    pid = transport.current().pid
+    share = sum(1 for row in got if bytes(row[1]) == bytes(got[pid][1]))
+    return hosts, share
 
 
 def _resolve(dev: torch.device) -> torch.device:

@@ -69,10 +69,20 @@ ordered them; a requeued session resumes in process
 preemption or a fleet resize drains at its next boundary
 (:func:`drain_requested`; injector site ``sched.preempt``).
 
-Single-controller: one process drives every rank of a
-``VirtualMeshConfig`` world, so it is rank 0 of one process and writes
-every shard's blocks into ``rank0``.  The fingerprint audit of restored
-tables (slice 16) is not ported.  The six counters live in the
+Processes: one process driving every rank of a ``VirtualMeshConfig``
+world is process 0 and writes every shard's blocks into ``rank0``.
+Across the processes of a ``DistributedConfig`` world each process
+writes only its own ranks' blocks (page keys ``b<global rank>``) into
+``rank<process index>``, under one checkpoint root that every process
+sees (a directory on one host, or shared storage), and every manifest
+records ``procs`` beside ``world``.  The commit vote is two rounds
+(``recovery.ckpt_commit_consensus``), so a process whose staged epoch
+differs raises before any process publishes.  A resume under another
+process layout of the same world, or another world, takes the re-shard
+path: every process stitches every old rank directory's blocks and keeps
+its own ranks' share.  ``RESUME_TOKEN.json`` is written by every
+process, through a temporary file and a rename.  The fingerprint audit
+of restored tables (slice 16) is not ported.  The six counters live in the
 metrics registry (``ckpt_*``, obs/metrics.py), and the abort flush
 writes the flight recorder's post-mortem beside the manifests when the
 recorder is armed.
@@ -222,11 +232,17 @@ def plan_token(*parts) -> str:
 
 
 def _rank() -> int:
-    return 0
+    """This process's index: its stage directories are ``rank<index>``."""
+    from ..parallel import transport
+    proc = transport.current()
+    return 0 if proc is None else proc.pid
 
 
 def _procs() -> int:
-    return 1
+    """The processes of the world (recorded in every manifest)."""
+    from ..parallel import transport
+    proc = transport.current()
+    return 1 if proc is None else proc.nproc
 
 
 _RANK_DIR_RE = re.compile(r"rank(\d+)$")
@@ -256,22 +272,28 @@ def _np_dtype(dtype: torch.dtype) -> np.dtype:
 
 
 def _pull_blocks(arr: torch.Tensor, w: int) -> list:
-    """One array's W shard blocks as host numpy arrays.  An unsigned
-    tensor moves through its signed view (torch's CUDA copies of uint
-    dtypes are not all there) and is viewed back on the host."""
+    """One array's W shard blocks as host numpy arrays, ``None`` for the
+    blocks of another process's ranks.  An unsigned tensor moves through
+    its signed view (torch's CUDA copies of uint dtypes are not all
+    there) and is viewed back on the host."""
     from ..ops.pack import SIGNED_VIEW
     from ..utils.host import host_shard_blocks
     sv = SIGNED_VIEW.get(arr.dtype)
     blocks = host_shard_blocks(arr if sv is None else arr.view(sv), w)
     want = _np_dtype(arr.dtype)
-    return [b.numpy().view(want) for b in blocks]
+    return [None if b is None else b.numpy().view(want) for b in blocks]
 
 
 def _push_blocks(blocks: list, device) -> torch.Tensor:
-    """W host blocks -> one device tensor (:func:`memory.put_blocks`),
-    unsigned dtypes through their signed view."""
+    """One array's W host blocks -> this process's device tensor
+    (:func:`memory.put_blocks`): the blocks of its own ranks
+    (``parallel/shards.span``), unsigned dtypes through their signed
+    view."""
     from ..ops.pack import SIGNED_VIEW
+    from ..parallel.shards import span
     from . import memory
+    sp = span(len(blocks))
+    blocks = blocks[sp.start:sp.stop]
     dt = torch.from_numpy(np.empty(0, blocks[0].dtype)).dtype
     sv = SIGNED_VIEW.get(dt)
     if sv is None:
@@ -665,6 +687,7 @@ class Stage:
         from .. import config
         from ..core.column import Column
         from ..core.table import Table
+        from ..parallel.shards import span
         from ..relational.repart import even_partition_counts
         meta = None
         merged: list[list] = []
@@ -705,12 +728,14 @@ class Stage:
         for blocks in merged:
             rows = np.concatenate(
                 [blocks[s][:int(vc_old[s])] for s in range(len(blocks))])
-            new_blocks = []
-            for s in range(w_new):
+            # every process stitches the whole piece and keeps its own
+            # ranks' blocks of the new layout
+            new_blocks = [None] * w_new
+            for s in span(w_new):
                 part = rows[int(dof[s]):int(dof[s]) + int(dest[s])]
                 pad = np.zeros((new_cap - part.shape[0],) + part.shape[1:],
                                part.dtype)
-                new_blocks.append(np.concatenate([part, pad]))
+                new_blocks[s] = np.concatenate([part, pad])
             del rows
             flats.append(_push_blocks(new_blocks, self.env.device))
         flats = iter(flats)
@@ -826,22 +851,32 @@ def drain_abort(label: str) -> None:
         token=token)
 
 
+def atomic_json(path: str, obj) -> None:
+    """Write ``obj`` as JSON to ``path`` through a temporary file of this
+    process's own and a rename, so processes writing one file leave one
+    whole copy, never a torn one."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = f"{path}.tmp{os.getpid()}"
+    with open(tmp, "w", encoding="utf-8") as f:
+        json.dump(obj, f)
+    os.replace(tmp, path)
+
+
 def flush_for_abort(label: str) -> str:
     """The final rung's flush: committed state is already durable (each
     piece commits at its own boundary), so this writes a
-    ``RESUME_TOKEN.json`` naming the stages this process opened (and,
+    ``RESUME_TOKEN.json`` (every process, :func:`atomic_json`) naming the
+    stages this process opened (and,
     with the flight recorder armed, its ``TRACE_POSTMORTEM.json``) and
     returns the token, the checkpoint root's absolute path.  Both writes
     are best effort: a failure is logged, never raised."""
     root = ckpt_dir()
     token = os.path.abspath(root)
     try:
-        os.makedirs(root, exist_ok=True)
-        path = os.path.join(root, "RESUME_TOKEN.json")
-        with open(path, "w", encoding="utf-8") as f:
-            json.dump({"label": label, "pid": os.getpid(),
-                       "stages": list(_OPEN_DIRS),
-                       "resume": "rerun with CYLON_TPU_TORCH_RESUME=1"}, f)
+        atomic_json(os.path.join(root, "RESUME_TOKEN.json"),
+                    {"label": label, "pid": os.getpid(),
+                     "stages": list(_OPEN_DIRS),
+                     "resume": "rerun with CYLON_TPU_TORCH_RESUME=1"})
     except OSError:
         pass  # the committed manifests are the durable state
     # the flight recorder's last events beside the manifests (armed runs);

@@ -20,14 +20,15 @@ to disk, it engages the scheduler's all-or-nothing fleet drain:
   same world fast-forward, stages of another re-shard.
 
 The decision is voted (max target wins) where several processes drive
-one world; one process drives every rank here, so the local decision
-stands.  A ``FLEET_RESIZE.json`` breadcrumb with the target lands in the
-checkpoint root beside ``RESUME_TOKEN.json`` for the relauncher.
+one world (``recovery.count_consensus``): each process reads its own
+ledger, so their pressure differs, and every process engages the drain
+or none does.  A ``FLEET_RESIZE.json`` breadcrumb with the target lands
+in the checkpoint root beside ``RESUME_TOKEN.json`` for the relauncher,
+written by every process through a temporary file and a rename.
 """
 
 from __future__ import annotations
 
-import json
 import os
 
 from ..status import InvalidError
@@ -52,8 +53,6 @@ class ResizeController:
             raise InvalidError(
                 f"resize target world {target_world!r} must be >= 1")
         self.env = env
-        from ..ctx.context import refuse_multi_process
-        refuse_multi_process(env, "the fleet's resize drain")
         self.target_world = int(target_world)
         self.queue_depth_high = queue_depth_high
         self.ledger_frac_high = ledger_frac_high
@@ -114,14 +113,14 @@ class ResizeController:
 
     def _write_breadcrumb(self, target_world: int, info: dict) -> None:
         from . import checkpoint
-        root = checkpoint.ckpt_dir()
         try:
-            os.makedirs(root, exist_ok=True)
-            path = os.path.join(root, "FLEET_RESIZE.json")
-            with open(path, "w", encoding="utf-8") as f:
-                json.dump({"target_world": int(target_world),
-                           "from_world": int(self.env.world_size),
-                           "pid": os.getpid(), **info}, f)
+            # every process writes it, each through its own temporary
+            # file: the rename leaves one whole breadcrumb
+            checkpoint.atomic_json(
+                os.path.join(checkpoint.ckpt_dir(), "FLEET_RESIZE.json"),
+                {"target_world": int(target_world),
+                 "from_world": int(self.env.world_size),
+                 "pid": os.getpid(), **info})
         except OSError:
             pass  # the committed manifests are the durable state; the
             # breadcrumb is best effort, as RESUME_TOKEN.json is

@@ -7,7 +7,8 @@
    ``GroupBySink`` partial, each scan batch — registers its bytes under a
    deterministic owner name ``base#<n>``, against a budget: ``CYLON_TPU_
    TORCH_HBM_BUDGET`` when set, else one card's total memory (every rank
-   of a ``VirtualMeshConfig`` world lives on that card), else no limit on
+   of a ``VirtualMeshConfig`` world lives on that card; the processes of
+   a multi-process world that share a card split it), else no limit on
    the CPU.
 
 2. **The host spill tier**: an admission over the budget
@@ -37,12 +38,12 @@
    configuration (exec/recovery.run_with_recovery).
 
 Eviction and demotion counts go through ``recovery.count_consensus``
-as in the reference; one process drives every rank, so the count is the
-local one.  Each registration carries the serving session whose turn
-made it (exec/scheduler.py); an eviction under another session's
-pressure, or the scheduler's own admission pass, counts as a
-``cross_session_evictions``.  Operators reach the admission and the
-eviction through the scheduler's facades (``admit_allocation``,
+as in the reference: across processes the count is voted, so every
+process evicts as many owners.  Each registration carries the serving
+session whose turn made it (exec/scheduler.py); an eviction under
+another session's pressure, or the scheduler's own admission pass,
+counts as a ``cross_session_evictions``.  Operators reach the admission
+and the eviction through the scheduler's facades (``admit_allocation``,
 ``free_pressure``, ``spill_retry``).  Not ported: the reference's
 ``reuse`` admission credit for buffers donated into the allocating
 program (the port donates nothing).
@@ -512,11 +513,17 @@ def ledger() -> Ledger:
 def budget_bytes(env) -> int:
     """The ledger's device budget for ``env``: ``CYLON_TPU_TORCH_HBM_
     BUDGET`` when set, else the card's total memory, else 0 (no limit) on
-    the CPU."""
+    the CPU.  In a multi-process world whose processes share one card
+    (the set-up's host and device allgather counts them,
+    ctx/context._gather_hosts) each process takes its share of the
+    card's memory, so their admissions together never exceed it."""
     if config.HBM_BUDGET_BYTES > 0:
         return config.HBM_BUDGET_BYTES
     if env.on_cuda:
-        return int(torch.cuda.get_device_properties(env.device).total_memory)
+        total = int(torch.cuda.get_device_properties(env.device).total_memory)
+        from ..parallel import transport
+        proc = transport.current(env.world_size)
+        return total // (1 if proc is None else max(proc.device_share, 1))
     return 0
 
 

@@ -60,8 +60,8 @@ checkpoint stage (exec/checkpoint.py): each completed piece — a sinkless
 piece output, or a ``GroupBySink``'s partial at its adoption — is saved
 and committed, a resume (``CYLON_TPU_TORCH_RESUME=1``) starts the loop
 past the committed prefix (or re-shards a whole stage committed at
-another world), and with a preemption grace armed a SIGTERM drains at the
-next piece boundary.
+another world or process layout), and with a preemption grace armed a
+SIGTERM drains at the next piece boundary.
 
 Each entry opens its plan node (obs/plan.py: ``pipelined_join`` with its
 route, ranges and piece caps, ``pipelined_set_op``,
@@ -672,9 +672,6 @@ def _pipelined_join_impl(left: Table, right: Table, left_on, right_on,
     # the durable checkpoint stage (exec/checkpoint.py): armed only when
     # CYLON_TPU_TORCH_CKPT_DIR is set; otherwise no file, region or vote
     stage = None
-    if checkpoint.enabled():
-        from ..ctx.context import refuse_multi_process
-        refuse_multi_process(env, "durable checkpoints")
     if (checkpoint.enabled() and live_ranges
             and (sink is None or isinstance(sink, GroupBySink))):
         # the consumption mode is part of the plan: a sink stage keeps

@@ -20,8 +20,10 @@ Contract:
 * Grace armed but ``CYLON_TPU_TORCH_CKPT_DIR`` unset: the handler still
   only sets the flag, and no drain fires (nothing durable to resume
   from): no file is written and nothing changes.
-* The drain decision goes through ``recovery.drain_consensus``; one
-  process drives every rank here, so the local flag is the agreed one.
+* The drain decision goes through ``recovery.drain_consensus``: across
+  the processes of a ``DistributedConfig`` world a notice to any one of
+  them drains every process at the same piece boundary; one process
+  driving every rank takes its local flag.
 
 Signal handlers are main-thread-only in CPython: :func:`install` runs at
 env creation (``ctx/context.CylonEnv``) and declines off the main thread.

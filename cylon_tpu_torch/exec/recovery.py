@@ -421,17 +421,19 @@ def reset_events() -> None:
 _WIRE = 1 << 20
 
 
-def _consensus_wire(env, wire: int) -> int:
+def _consensus_wire(env, wire: int,
+                    site: str = "exchange.consensus") -> int:
     """Max-reduce one int64 across the processes of the distributed world
     (``torch.distributed`` all-reduce under the exchange watchdog,
     parallel/transport.py) — the transport of every vote
     (``cylon_tpu/exec/recovery.py:637``).  One process drives every rank
     of a one-process world, so there the local value is the agreed one.
-    Every process must call it at the same point: it is a collective."""
+    Every process must call it at the same point: it is a collective;
+    ``site`` names the vote in a ``RankDesyncError``."""
     from ..parallel import transport
     if transport.current() is None:
         return int(wire)
-    return transport.all_reduce_max(int(wire))
+    return transport.all_reduce_max(int(wire), site)
 
 
 def _voted(what: str, wire: int) -> int:
@@ -448,7 +450,8 @@ def _ns_consensus(env, payload: int, base: int, what: str) -> int:
     and raises ``RankDesyncError`` (one-sided, as the reference's: the
     rank holding the highest namespace proceeds)."""
     ns = _session_ns()
-    agreed = _voted(what, _consensus_wire(env, ns * base + int(payload)))
+    agreed = _voted(what, _consensus_wire(env, ns * base + int(payload),
+                                          what))
     if agreed // base != ns:
         raise RankDesyncError(
             f"cross-session consensus collision at {what}: this rank "
@@ -509,16 +512,40 @@ def drain_consensus(env, local_flag: bool) -> bool:
 _CKPT_EPOCH_BASE = 1 << 20
 
 
+#: namespace base of the checkpoint commit's wire (code, epoch) below it
+_CKPT_NS_BASE = 1 << 26
+
+
 def ckpt_commit_consensus(env, epoch: int) -> int:
-    """Phase 2 of the checkpoint's two-phase manifest commit: every rank
-    has staged its manifest and votes ``Code.CkptCommit`` with its staged
-    epoch; only then does any rank publish it.  One process stages every
-    rank's epoch, so the vote passes (checkpoints are refused in a
-    multi-process world, exec/checkpoint.py)."""
+    """Phase 2 of the checkpoint's two-phase manifest commit: every
+    process has staged its manifest and votes ``Code.CkptCommit`` with its
+    staged epoch; only then does any process publish it.  The vote is the
+    reference's two rounds (``cylon_tpu/exec/recovery.py:844-863``): the
+    wire max-agreed, then the epoch's complement max-agreed (the max of
+    the complement is the complement of the min), both in the session's
+    namespace, so the process holding the highest epoch sees a lower one
+    too.  Any divergence raises ``RankDesyncError`` before any rename.
+    One process stages every rank's epoch, so there the vote is its own
+    epoch."""
     epoch = int(epoch)
     if not 0 <= epoch < _CKPT_EPOCH_BASE:
         raise ValueError(f"checkpoint epoch {epoch} out of wire range")
-    return _voted("ckpt.commit", epoch)
+    from ..parallel import transport
+    if transport.current() is None:
+        return _voted("ckpt.commit", epoch)
+    head = int(Code.CkptCommit) * _CKPT_EPOCH_BASE
+    wire = head + epoch
+    agreed = _ns_consensus(env, wire, _CKPT_NS_BASE, "ckpt.commit")
+    inv = _ns_consensus(env, head + (_CKPT_EPOCH_BASE - 1 - epoch),
+                        _CKPT_NS_BASE, "ckpt.commit")
+    lo = _CKPT_EPOCH_BASE - 1 - (inv % _CKPT_EPOCH_BASE)
+    if agreed != wire or lo != epoch:
+        raise RankDesyncError(
+            f"checkpoint commit diverged: this process staged epoch "
+            f"{epoch}, the vote saw [{lo}, {agreed % _CKPT_EPOCH_BASE}] — "
+            "processes are checkpointing different pieces",
+            site="ckpt.commit", phase=_last_phase())
+    return epoch
 
 
 def ckpt_resume_consensus(env, n: int) -> int:

@@ -54,9 +54,16 @@ through :func:`free_pressure` and the retry ladder's spill rung through
 :func:`spill_retry`, so per-tenant bytes and cross-tenant evictions are
 attributed in one place (the reference's lint rule TS109).
 
-One process drives every rank here, so the reference's cross-process
-agreements (the pick, the admission pick, the expiry vote) are skipped:
-:meth:`QueryScheduler._multi` is always False, as in the reference on one
+**Across processes** (a ``DistributedConfig`` world of several
+processes, :meth:`QueryScheduler._multi`), every process runs the same
+scheduler over the same submissions, and whatever reads a wall clock or
+a process's own ledger is voted over the consensus wire
+(exec/recovery.py), so the baton moves the same way everywhere and the
+sessions' collectives meet in the same order: the running pick and the
+admission pick with a requeued tenant pending (max ordinal), the expiry
+(the max expired ordinal, one session a loop turn), the preempt victim,
+the eviction count, the drain and the fleet's resize.  One process
+driving every rank takes its own choices, as the reference on one
 controller.  With no scheduler running, :func:`maybe_yield` is one
 module-global load and the facades one thread-local read more than the
 ledger calls they wrap.  Not ported: ``stats()["compile"]`` (the compile
@@ -237,8 +244,6 @@ class QueryScheduler:
                 f"unknown scheduling policy {policy!r}; one of "
                 f"{sorted(POLICIES)}")
         self.env = env
-        from ..ctx.context import refuse_multi_process
-        refuse_multi_process(env, "the serving tier's QueryScheduler")
         self.policy = policy
         self._key = POLICIES[policy]
         self.budget_bytes = budget_bytes
@@ -354,8 +359,9 @@ class QueryScheduler:
     # -- the preemption-grace drain ----------------------------------------
     def _draining(self) -> bool:
         """Whether a SIGTERM drain gates new admissions: grace and
-        checkpoints armed and a notice received (the drain vote across
-        processes is the reference's; one process here)."""
+        checkpoints armed and a notice received; across processes the
+        notice is voted (``recovery.drain_consensus``), so a SIGTERM to
+        one process drains them all."""
         from . import checkpoint, preempt
         if not (preempt.armed() and checkpoint.enabled()):
             return False
@@ -411,9 +417,9 @@ class QueryScheduler:
         return committed + self._admission_footprint(sess) <= b
 
     def _multi(self) -> bool:
-        """Several processes vote on the schedule: never here (one
-        process drives every rank of the world)."""
-        return False
+        """Several processes vote on the schedule: a multi-process world
+        (one process driving every rank of a world decides alone)."""
+        return bool(getattr(self.env, "multi_process", False))
 
     def _evict_for(self, sess: QuerySession) -> None:
         """Clear realized residue before a session starts: evict the
@@ -449,6 +455,13 @@ class QueryScheduler:
                 return
             running = [s for s in self.sessions if s.state == RUNNING]
             cand = min(pend, key=self._key)
+            if self._multi() and any(s.requeues for s in pend):
+                # a requeued tenant's fair-share clocks are wall time and
+                # differ between processes, so the head-of-line pick is
+                # voted (the running pick's wire); sessions that never
+                # ran tie at 0 and need no vote
+                cand = self._agreed(cand, pend, "scheduler.admit",
+                                    "pending")
             if (self.max_concurrency is not None
                     and len(running) >= self.max_concurrency):
                 self._maybe_preempt(cand, running)
@@ -486,11 +499,22 @@ class QueryScheduler:
             return
         waiting = [s for s in self.sessions
                    if s.state == PENDING and s._wait_mark is not None]
+        if not waiting:
+            return
         now = time.perf_counter()
-        for s in waiting:
+        expired = [s for s in waiting if now - s._wait_mark > t]
+        if self._multi():
+            # wall clocks differ between processes: the max expired
+            # ordinal is voted and that one session expires this turn
+            # (the loop comes back for the rest); the vote is entered
+            # whenever a deadline is set and a session waits, both the
+            # same on every process
+            from . import recovery
+            want = max((s.ordinal + 1 for s in expired), default=0)
+            agreed = recovery.count_consensus(self.env, want)
+            expired = [s for s in waiting if s.ordinal + 1 == agreed]
+        for s in expired:
             waited = now - s._wait_mark
-            if waited <= t:
-                continue
             s.admission_wait_s += waited
             s._wait_mark = None
             s.state = FAILED
@@ -652,6 +676,9 @@ class QueryScheduler:
     def _force_admit(self) -> None:
         pend = [s for s in self.sessions if s.state == PENDING]
         cand = min(pend, key=self._key)
+        if self._multi() and any(s.requeues for s in pend):
+            # the admission pick's vote, for the same reason
+            cand = self._agreed(cand, pend, "scheduler.admit", "pending")
         self._forced_admissions += 1
         _metrics.counter("sched_forced_admissions").inc()
         _metrics.counter("sched_admission_force_serial").inc()
@@ -737,19 +764,27 @@ class QueryScheduler:
     def _pick(self, running: list[QuerySession]) -> QuerySession:
         sess = min(running, key=self._key)
         if self._multi():
-            # fair-share clocks are wall time: several processes would
-            # agree the pick (max ordinal wins)
-            from . import recovery
-            from ..status import RankDesyncError
-            agreed = recovery.count_consensus(self.env, sess.ordinal)
-            for s in running:
-                if s.ordinal == agreed:
-                    return s
-            raise RankDesyncError(
-                f"scheduler pick consensus chose session ordinal "
-                f"{agreed}, which is not running on this rank",
-                site="scheduler.pick")
+            # fair-share clocks are wall time and differ between
+            # processes: the pick is voted (max ordinal wins)
+            sess = self._agreed(sess, running, "scheduler.pick", "running")
         return sess
+
+    def _agreed(self, mine: QuerySession, among: list[QuerySession],
+                site: str, what: str) -> QuerySession:
+        """The session every process takes: the max of the processes'
+        choices' ordinals (``recovery.count_consensus``).  An agreed
+        ordinal that is not ``what`` here means the session states
+        diverged: ``RankDesyncError``."""
+        from . import recovery
+        from ..status import RankDesyncError
+        agreed = recovery.count_consensus(self.env, mine.ordinal)
+        for s in among:
+            if s.ordinal == agreed:
+                return s
+        raise RankDesyncError(
+            f"{site} consensus chose session ordinal {agreed}, which is "
+            f"not {what} in this process — session states diverged",
+            site=site)
 
     def _grant_slice(self, sess: QuerySession) -> None:
         self._control.clear()

@@ -70,6 +70,9 @@ class Proc:
         self.timeout_s = float(timeout_s)
         #: each process's host name, in process order (set at start-up)
         self.hosts: tuple = ()
+        #: the processes (this one included) that drive this process's
+        #: device (set at start-up): they split its memory budget
+        self.device_share = 1
         self.generation = 0
         #: (n_slices, ranks_per_slice) -> (hop-1 group, hop-2 group)
         self.groups: dict = {}

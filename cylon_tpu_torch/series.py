@@ -519,10 +519,16 @@ class Series:
             d = _order_image(d) if kind != "sum" else _int64_image(d)
             info = torch.iinfo(d.dtype)
             zero, big = 0, (info.max if kind == "min" else info.min)
-        if kind == "sum":
+        if kind == "sum" and d.dtype.is_floating_point:
+            # each shard's float sum alone: a (V, cap) row reduction's
+            # association depends on V, so a multi-process world's
+            # partials would differ in their last bits from one process's
             m = torch.where(mask, d, zero).view(v, cap)
-            out = m.sum(dim=1, dtype=torch.int64
-                        if not d.dtype.is_floating_point else None)
+            out = torch.stack([row.sum() for row in m.unbind(0)]) if v \
+                else m.sum(dim=1)
+        elif kind == "sum":
+            m = torch.where(mask, d, zero).view(v, cap)
+            out = m.sum(dim=1, dtype=torch.int64)
         else:
             fill = big if kind == "min" or not d.dtype.is_floating_point \
                 else -big

@@ -8,6 +8,11 @@ labelled ``stream.recv``) → the scheduler's admission → one more chunk,
 then the subscribers.  The chunks are ordinary Tables: ``snapshot()`` is
 their concatenation, and no chunk is sliced or copied until a consumer
 reads it.
+
+Across the processes of a ``DistributedConfig`` world ingest is SPMD:
+every process appends the same global batch, uploads its own ranks'
+rows, and after the shuffle keeps the rows its ranks own; the admission
+and the ledger count this process's bytes.
 """
 
 from __future__ import annotations
@@ -51,8 +56,6 @@ class StreamTable:
 
     def __init__(self, env, key, name: str = "stream"):
         self.env = env
-        from ..ctx.context import refuse_multi_process
-        refuse_multi_process(env, "StreamTable")
         self.key = [key] if isinstance(key, str) else list(key)
         self.name = str(name)
         self.chunks: list[Table] = []

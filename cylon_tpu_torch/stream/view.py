@@ -19,6 +19,12 @@ partials and fast-forwarding as many appends: the replayed batches are
 counted, not absorbed again.  At another world size the committed prefix
 is adopted, re-sharded onto the live world.
 
+Across processes each process absorbs, folds and checkpoints its own
+ranks' partials (its pages in its own ``rank<process>`` directory), a
+read's combine is the sort-based groupby across the processes, the
+resume's fast-forward count is min-agreed, and a resume under another
+process layout adopts the committed prefix as another world's would be.
+
 Not ported: the reference's armed integrity audit of each absorbed batch
 (``exec/integrity``, the integrity tier).
 """
@@ -49,8 +55,6 @@ class IncrementalView:
                  name: str | None = None, env=None,
                  compact_every: int = 32):
         self.env = env if env is not None else source.env
-        from ..ctx.context import refuse_multi_process
-        refuse_multi_process(self.env, "IncrementalView")
         self.by = [by] if isinstance(by, str) else list(by)
         self.aggs = list(aggs)
         self.ddof = int(ddof)

@@ -8,8 +8,10 @@ This file is both the pytest module and the per-process driver:
 Each driver process joins a gloo world on ``127.0.0.1`` with
 ``device="cpu"``, builds the same seeded host tables (SPMD ingest: every
 process uploads only its own ranks' blocks), runs the legs of
-``tests/multihost_driver.py`` that the port has (not the topology,
-integrity-audit, ``kill_resume`` and ``elastic_resume`` legs) and saves
+``tests/multihost_driver.py`` that the port has (not the topology and
+integrity-audit legs; ``kill_resume`` and ``elastic_resume`` are
+tests/test_torch_multiprocess_ckpt.py's, the topology
+tests/test_torch_multiprocess_ops.py's) and saves
 what it saw: every result table's layout gathered whole (valid counts,
 capacity, each shard's rows and padding) plus each leg's agreement
 facts.  The parent test holds each process's layouts bit-equal to the
@@ -315,11 +317,11 @@ def leg_skew(ct, env, out, lt, rt):
 
 
 def leg_refusals(ct, env, out, lt, rt):
-    """The multi-process refusals, each a typed error: the hashed-string
-    sort (InvalidError, as the reference), and the entries whose
-    multi-process form is a later slice (NotImplementedError).  The set
-    operations, partitioned IO, the Series and the TPC-H tables run
-    across processes and must not raise."""
+    """The one multi-process refusal, a typed error: the hashed-string
+    sort (InvalidError, as the reference).  Every other case runs across
+    processes and must not raise: armed checkpoints, the scheduler, the
+    stream table, the incremental view, the set operations, partitioned
+    IO, the Series and the TPC-H tables."""
     import tempfile
     from cylon_tpu_torch import io, tpch
     from cylon_tpu_torch.exec import QueryScheduler
@@ -344,9 +346,8 @@ def leg_refusals(ct, env, out, lt, rt):
             io_dir, f"x_{r}.csv") for r in range(env.world_size)], env),
         "set_op": lambda: ct.set_operation(lt, lt, "union"),
         "stream_table": lambda: StreamTable(env, "k"),
-        "incremental_view": lambda: IncrementalView(
-            ct.Table.from_pydict({"k": np.arange(4)}, env), "k",
-            [("k", "count")]),
+        "incremental_view": lambda: _view_read(env, StreamTable,
+                                               IncrementalView),
         "series": lambda: ct.DataFrame({"a": np.arange(8)}, env=env)["a"],
         "tpch": lambda: tpch.generate_tables(0.001, env),
     }
@@ -360,6 +361,14 @@ def leg_refusals(ct, env, out, lt, rt):
         except Exception as e:  # noqa: BLE001 — the class is the result
             got[name] = type(e).__name__
     _json(out, "refusals", got)
+
+
+def _view_read(env, StreamTable, IncrementalView):
+    """A view over a stream of one batch, read once."""
+    st = StreamTable(env, "k")
+    view = IncrementalView(st, "k", [("k", "count")])
+    st.append({"k": np.arange(8, dtype=np.int64)})
+    return view.read()
 
 
 def _armed_checkpoint(ct, lt, rt):
@@ -467,8 +476,9 @@ def _free_port() -> int:
     return port
 
 
-def start(tmp, nproc, v, legs=None, extra_env=None):
-    """Launch ``nproc`` driver processes (not waited on)."""
+def start(tmp, nproc, v, legs=None, extra_env=None, driver=None):
+    """Launch ``nproc`` driver processes (not waited on): this file's, or
+    the file ``driver`` names."""
     addr = f"127.0.0.1:{_free_port()}"
     env = dict(os.environ)
     env.pop("CYLON_TPU_TORCH_FAULTS", None)
@@ -476,7 +486,7 @@ def start(tmp, nproc, v, legs=None, extra_env=None):
     env["TORCH_MP_IO_DIR"] = str(tmp)
     paths = [os.path.join(str(tmp), f"p{nproc}v{v}_{i}.npz")
              for i in range(nproc)]
-    cmd = [sys.executable, os.path.abspath(__file__)]
+    cmd = [sys.executable, driver or os.path.abspath(__file__)]
     procs = [subprocess.Popen(
         cmd + [str(i), str(nproc), addr, str(v), paths[i]]
         + ([",".join(legs)] if legs else []),
@@ -689,14 +699,16 @@ def test_skew_plan_hash_identical(tmp_path_factory):
 
 
 def test_refusals(tmp_path_factory):
+    """The hashed-string sort still raises across processes; armed
+    checkpoints, the scheduler, the stream table and the incremental
+    view, refused until their multi-process forms came, now run."""
     res = _world(tmp_path_factory, 2, 2)
-    runs = ("io_read_dist", "io_write_dist", "set_op", "series", "tpch")
+    runs = ("io_read_dist", "io_write_dist", "set_op", "series", "tpch",
+            "checkpoint", "scheduler", "stream_table", "incremental_view")
     for got in _load(res, "refusals"):
         assert got.pop("hashed_sort") == "InvalidError"
         assert {k: got.pop(k) for k in runs} == dict.fromkeys(runs, "none")
-        assert set(got) == {"checkpoint", "scheduler", "stream_table",
-                            "incremental_view"}, got
-        assert set(got.values()) == {"NotImplementedError"}, got
+        assert got == {}, got
 
 
 def test_desync_raises_without_hang(tmp_path_factory):

@@ -21,6 +21,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 import jax
 import numpy as np
@@ -408,28 +409,48 @@ def _nested(timing, sleep):
     return so, si
 
 
-def test_exclusion_and_nested_scopes_match_reference():
+class _FakeClock:
+    """A ``perf_counter`` that only :meth:`sleep` advances."""
+
+    def __init__(self):
+        self.t = 1000.0
+
+    def perf_counter(self) -> float:
+        return self.t
+
+    def sleep(self, seconds: float) -> None:
+        self.t += seconds
+
+
+def test_exclusion_and_nested_scopes_match_reference(monkeypatch):
     """Excluded seconds net out of the inner and outer region, in the
     scope's table and the process-wide one; nested scopes are disjoint.
-    Both packages give the same tables' names, counts and nettings."""
+    Both packages give the same tables' names, counts and nettings.
+    Both packages' timing modules read one fake clock that the sleeps
+    advance, so every netting is exact whatever the host's load."""
+    clock = _FakeClock()
+    fake_time = types.SimpleNamespace(perf_counter=clock.perf_counter)
+    monkeypatch.setattr(rtiming, "time", fake_time)
+    monkeypatch.setattr(ptiming, "time", fake_time)
     rconfig.BENCH_TIMINGS = True
     ptiming.enable("async")
-    r = _nested(rtiming, time.sleep)
-    p = _nested(ptiming, time.sleep)
+    r = _nested(rtiming, clock.sleep)
+    p = _nested(ptiming, clock.sleep)
     for (rs, ps) in zip(r, p):
         rd, pd = rs.snapshot(), ps.detail()
         assert sorted(rd) == sorted(pd)
         for k in rd:
             assert rd[k]["n"] == pd[k]["n"], k
             # rounded to 4 places in the reference's table
-            assert abs(rd[k]["s"] - pd[k]["s"]) < 0.015, k
+            assert abs(rd[k]["s"] - pd[k]["s"]) < 1e-4, k
     so, si = p
-    assert so.snapshot()["t.outer"] < 0.02
-    assert so.snapshot()["t.only_outer"] >= 0.015
+    assert so.snapshot()["t.outer"] == pytest.approx(0.0, abs=1e-9)
+    assert so.snapshot()["t.only_outer"] == pytest.approx(0.02, abs=1e-9)
     assert "t.only_inner" not in so.snapshot()
-    assert si.snapshot()["t.only_inner"] < 0.01
+    assert si.snapshot()["t.only_inner"] == pytest.approx(0.0, abs=1e-9)
     g = ptiming.snapshot()
-    assert g["t.inner"] < 0.02 and g["t.outer"] < 0.02
+    assert g["t.inner"] == pytest.approx(0.0, abs=1e-9)
+    assert g["t.outer"] == pytest.approx(0.0, abs=1e-9)
     assert sorted(ptiming.detail()) == sorted(rtiming.snapshot())
     # absorb merges a scope's table, counts and bytes included
     so.absorb(si)
