@@ -29,7 +29,7 @@ import tempfile
 KEYS = ("phase", "query", "case", "scale", "world", "best_s", "iterations",
         "rows_per_s", "lineitem_rows_per_s", "peak_mem_bytes",
         "failed_attempt_s", "recovery_s", "total_s", "kernel_counts",
-        "profile")
+        "phase_split_s", "cap_prediction", "profile")
 
 #: the child: build, run one phase of the checkout's chip_smoke.py
 CHILD = r"""
@@ -102,6 +102,11 @@ elif phase == "procs_gloo":
                  "iterations"]],
              "rows_per_s": 2 * 125_000_000 / r["monolithic"]["best_s"]}
             for r in res]
+elif phase == "left_join_path":
+    # the W = 4 left join -> groupby through the DataFrame entry on
+    # bench.py's tables, the default --rows a side
+    left, right, mv = cs.baseline_inputs(125_000_000)
+    recs = [cs.left_join_path(ct, left, right, mv)]
 elif phase == "repart_path":
     # setops_path's input: the subtraction of bench.py's tables' keys at
     # W = 4, the default --rows a side
@@ -129,7 +134,7 @@ def main() -> int:
     ap.add_argument("--phase", required=True,
                     choices=("tpch_path", "broadcast_path", "strings_path",
                              "repart_path", "dist_path", "procs_gloo",
-                             "oom_path"))
+                             "left_join_path", "oom_path"))
     ap.add_argument("--tpch-scale", type=float, default=5.0)
     ap.add_argument("--serve-last", action="store_true",
                     help="the change's second run also runs serve_path")

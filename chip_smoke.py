@@ -22,6 +22,18 @@ numpy's at 1M rows first):
   + ``finalize``, whose splitter probe is K2 and whose pieces' run-start
   gather is K1.
 
+``compile_small`` (its children beside ``joins_small``, below) drives the
+compile tier
+(exec/compiler.py) with a fresh ``CYLON_TPU_TORCH_COMPILE_CACHE_DIR``:
+this process builds K1 and K2 cold through the facade (two ``nvcc``
+builds, their seconds, two manifest entries); ``--compile-child``
+processes then load them as hits with no build (K1 and K2 bit-equal to
+their plain versions at the main path's shapes, on seeded card inputs),
+drop and rebuild a copy whose K1 manifest entry is poisoned and one byte
+of whose K2 library is flipped (both bit-equal again), die under ``compile.build=kill`` with their intent on disk (the
+next child raises ``CompileQuarantinedError``), and raise
+``CompileTimeoutError`` under ``compile.build=stall`` with a 2 s budget.
+
 Each kernel is also held against its plain version on the inputs its
 routes handed it, captured in one more run of each: K1 at the monolithic
 route's gather and at one pipelined piece's, K2 at the pipelined probe.
@@ -111,6 +123,21 @@ device-local permutation), both routes each time:
   2x of the truth; then the env's ``gather`` (rank 0, in global order),
   ``bcast`` (rank 0's block on every shard), ``allreduce`` (sum, min,
   max against numpy) and ``barrier`` on the left table, timed;
+* ``integrity_path``: the integrity tier (exec/integrity.py) on the same
+  tables with ``CYLON_TPU_TORCH_AUDIT=1``: the monolithic route armed (a
+  warm-up, then 3) in turns with 3 unarmed iterations, the armed digest
+  equal to ``dist_path``'s and the audit counters of an iteration (every
+  exchange's fingerprint checked and voted, no violation); the pipelined
+  route armed, its digest equal to its unarmed run's; the
+  ``exchange.corrupt`` drills: a one-shot flip recomputed through the
+  4-chunk rung (the groups equal to the unarmed run's), a persistent
+  one raising ``DataIntegrityError`` at ``shuffle.recv`` after that one
+  retry; an armed configuration-5 split (8,388,608 rows a side, the
+  stitch audited, the stitched table equal to the unarmed one); a
+  checkpointed pipelined join at 1M rows a side whose last piece's
+  recorded fingerprint is tampered, the resume recomputing that piece;
+  armed against unarmed seconds and the fingerprint's time, byte bound
+  and top aten ops on the 125M-row left table;
 * ``exchange``: ``hash_rows`` and ``shuffle_table`` of one side at W = 4,
   timed with CUDA events against their byte bounds, beside one stable
   ``torch.sort`` of the same int32 targets; the count sidecar also at
@@ -327,16 +354,17 @@ directory), removed at the end:
   kill chain: process 0 SIGKILLed at its third ``ckpt.write`` (rc -9),
   process 1 raising ``RankDesyncError`` at its commit vote (exit 4),
   then a 2 × 2 resume (2 pieces fast-forwarded on both, one epoch, the
-  same digest); the armed run's complete stage is then resumed in this
+  same digest); the armed run's complete stage is then resumed in one
   process at ``VirtualMeshConfig(4)`` (one process for two: a new
   process layout of the same world) and, from a hard-linked copy, at
   ``VirtualMeshConfig(2)``, both through the re-shard path with the
-  uninterrupted digest.  Per process: each run's seconds, the bytes
+  uninterrupted digest, two ``--ckpt-child`` processes side by side
+  (started with the others, behind a go file).  Per process: each run's seconds, the bytes
   written and the ``ckpt.d2h``/``encode``/``sha``/``file_write``/
   ``commit`` regions; K1 and K2 held bit-equal on every armed and
   resumed child's first launches;
 * ``ckpt_small``: tests/test_checkpoint.py's scenarios at 1M rows a side
-  and W = 1, 3, 4 and 8 — sinkless and sink resume, a partial prefix, a
+  and W = 1 and 3 (``SMALL_WORLDS``) — sinkless and sink resume, a partial prefix, a
   corrupt page (recomputed), a plan-token mismatch (started over), a
   staged-only manifest (ignored), a persistent injected ``device_oom``
   after two commits (the ladder's final rung, a ``ResumableAbort``, then
@@ -846,12 +874,32 @@ def np_partition_of(keys: np.ndarray, world: int) -> np.ndarray:
     return (h % np.uint32(world)).astype(np.int64)
 
 
+#: keys from which :func:`stable_order` sorts on the card
+STABLE_ORDER_CARD_ROWS = 1 << 20
+
+
+def stable_order(k) -> np.ndarray:
+    """``np.argsort(k, kind="stable")``: the same permutation, both sorts
+    being stable.  Signed-integer keys from ``STABLE_ORDER_CARD_ROWS`` on
+    are sorted on the card, where numpy's stable sort takes seconds per
+    10^7 keys; others, or a card without room, on the host."""
+    k = np.asarray(k)
+    if k.dtype.kind == "i" and len(k) >= STABLE_ORDER_CARD_ROWS \
+            and torch.cuda.is_available():
+        try:
+            t = torch.from_numpy(np.ascontiguousarray(k)).cuda()
+            return torch.sort(t, stable=True).indices.cpu().numpy()
+        except torch.cuda.OutOfMemoryError:
+            torch.cuda.empty_cache()
+    return np.argsort(k, kind="stable")
+
+
 def check_dist(g, orc, world: int, label: str) -> int:
     """A W-shard groupby result against the oracle: the same groups and
     sums once sorted by key, each shard's keys ascending, and every group
     on the shard the reference's hash assigns it."""
     out = g.to_pydict()
-    order = np.argsort(out["k"], kind="stable")
+    order = stable_order(out["k"])
     for name in ("k", "a_sum", "b_sum"):
         if not np.array_equal(out[name][order], orc[name]):
             raise AssertionError(f"{label}: column {name} differs from the "
@@ -1381,6 +1429,296 @@ def obs_path(ct, lt, rt, left: dict, orc: dict, n: int, nc: int,
     return rec
 
 
+#: rows per side of integrity_path's skew split (configuration 5's
+#: shape) and of its checkpoint drill
+INTEGRITY_SKEW_ROWS = 8_388_608
+INTEGRITY_CKPT_ROWS = 1_000_000
+#: the audit counters integrity_path reports per armed iteration
+AUDIT_KEYS = ("conservation_checks", "fingerprint_checks",
+              "fingerprint_votes", "violations", "manifest_fps",
+              "manifest_audits", "corruptions_injected")
+
+
+@contextlib.contextmanager
+def audit_armed(on: bool = True):
+    """``CYLON_TPU_TORCH_AUDIT`` set for the block (the switch is cached:
+    read again on both edges)."""
+    import os
+    from cylon_tpu_torch.exec import integrity
+    old = os.environ.get("CYLON_TPU_TORCH_AUDIT")
+    os.environ["CYLON_TPU_TORCH_AUDIT"] = "1" if on else "0"
+    integrity.rearm()
+    try:
+        yield integrity
+    finally:
+        if old is None:
+            os.environ.pop("CYLON_TPU_TORCH_AUDIT", None)
+        else:
+            os.environ["CYLON_TPU_TORCH_AUDIT"] = old
+        integrity.rearm()
+
+
+def audit_delta(before: dict) -> dict:
+    from cylon_tpu_torch.exec import integrity
+    now = integrity.stats()
+    return {k: now[k] - before[k] for k in AUDIT_KEYS}
+
+
+def columns_digest(t) -> str:
+    """sha256 over a table's columns (sorted by name), data and validity,
+    shard by shard in layout order: equal digests, equal tables."""
+    import hashlib
+    h = hashlib.sha256()
+    h.update(np.asarray(t.valid_counts, np.int64).tobytes())
+    for name, (d, v) in sorted(t.host_columns().items()):
+        h.update(name.encode())
+        h.update(np.ascontiguousarray(d).tobytes())
+        if v is not None:
+            h.update(np.ascontiguousarray(v).tobytes())
+    return h.hexdigest()
+
+
+def integrity_path(ct, lt, rt, orc, n: int, nc: int, need_k1: bool,
+                   w4: dict, device=None, profile: bool = True) -> dict:
+    """``integrity_path`` (module docstring): dist_path's W = 4 tables with
+    the audit armed (``CYLON_TPU_TORCH_AUDIT=1``).  The monolithic route a
+    warm-up then 3 iterations armed, alternating with 3 unarmed ones: the
+    armed digest must equal dist_path's, the audit counters per iteration
+    are reported (fingerprints checked and voted, no violation).  The
+    pipelined route armed, its digest equal to its unarmed run's.  The
+    ``exchange.corrupt`` drills on the monolithic route: a one-shot flip
+    is recomputed (one integrity retry, the result's groups equal to the
+    unarmed run's), a persistent one raises ``DataIntegrityError`` at
+    ``shuffle.recv`` after one retry.  An armed configuration-5 split at
+    ``INTEGRITY_SKEW_ROWS`` a side (the stitch audited, its table equal
+    to the unarmed one's), and an armed checkpointed pipelined join at
+    ``INTEGRITY_CKPT_ROWS`` a side whose last piece's recorded
+    fingerprint is tampered: the resume recomputes that piece, never
+    adopts it.  Reports armed against unarmed seconds and the
+    fingerprint's time and top aten ops on the 125M-row left table."""
+    import os
+    from cylon_tpu_torch.ctx.context import VirtualMeshConfig
+    from cylon_tpu_torch.exec import integrity
+    from cylon_tpu_torch.exec import recovery
+    from cylon_tpu_torch.relational import skew
+    from cylon_tpu_torch.status import DataIntegrityError
+    w = lt.env.world_size
+    rec = {"phase": "integrity_path", "world": w, "rows_per_side": n}
+    recovery_events()
+    # the monolithic route, armed against unarmed, in turns
+    times = {"armed": [], "unarmed": []}
+    kernel_counts(reset=True)
+    per_iter = []
+    with audit_armed():
+        g = step(ct, lt, rt)                    # the armed warm-up
+        del g
+    turns = (False, True, True, False, False, True)
+    for i, armed in enumerate(turns):
+        with audit_armed(armed):
+            before = integrity.stats()
+            g = step(ct, lt, rt, times["armed" if armed else "unarmed"])
+            if armed:
+                per_iter.append(audit_delta(before))
+            if i == 0:
+                ref_groups = result_digest(g)
+            elif i == len(turns) - 1:
+                check_dist(g, orc, w, "integrity_path armed")
+                digest = shard_digest(g)
+            del g
+    mono = kernel_counts()
+    if digest != w4["dist_path"]["digest"]:
+        raise AssertionError(f"integrity_path: the armed digest {digest} "
+                             "differs from dist_path's")
+    if any(d["fingerprint_checks"] < 1 or d["violations"]
+           or d["fingerprint_votes"] != d["fingerprint_checks"]
+           for d in per_iter) or any(d != per_iter[0] for d in per_iter):
+        raise AssertionError(f"integrity_path: audit counters {per_iter}")
+    if mono["windowed_gather"]["launches"] not in (
+            (7 * w,) if need_k1 else (0, 7 * w)):
+        raise AssertionError(f"integrity_path kernel counts {mono}")
+    no_recovery("integrity_path monolithic")
+    best = {k: min(t["total_s"] for t in v) for k, v in times.items()}
+    rec.update(iterations=times, armed_best_s=best["armed"],
+               unarmed_best_s=best["unarmed"],
+               armed_cost_s=best["armed"] - best["unarmed"],
+               audit_per_iteration=per_iter[0])
+    torch.cuda.empty_cache()
+
+    # the pipelined route, armed, against its own unarmed run
+    ptimes = {"armed": [], "unarmed": []}
+    pdig = {}
+    for i, armed in enumerate((False, True, True, False)):
+        with audit_armed(armed):
+            before = integrity.stats()
+            g = pipelined_step(ct, lt, rt, nc,
+                               ptimes["armed" if armed else "unarmed"])
+            if i in (0, 2):
+                pdig[armed] = shard_digest(g)
+            if armed:
+                pdelta = audit_delta(before)
+            del g
+    if pdig[True] != pdig[False] or pdelta["fingerprint_checks"] < 1 \
+            or pdelta["violations"]:
+        raise AssertionError(f"integrity_path pipelined: digests {pdig}, "
+                             f"audit {pdelta}")
+    no_recovery("integrity_path pipelined")
+    counts = kernel_counts()
+    if counts["splitter_probe"]["launches"] != 4 * w:
+        raise AssertionError(f"integrity_path kernel counts {counts}")
+    rec["kernel_counts"] = counts
+    rec["pipelined"] = {
+        "n_chunks": nc, "iterations": ptimes,
+        "armed_s": min(t["total_s"] for t in ptimes["armed"]),
+        "unarmed_s": min(t["total_s"] for t in ptimes["unarmed"]),
+        "audit_per_iteration": pdelta, "digest": "equal to unarmed"}
+    torch.cuda.empty_cache()
+
+    # the exchange.corrupt drills
+    drills = {}
+    with audit_armed():
+        recovery.install_faults("exchange.corrupt=corrupt")
+        try:
+            before = integrity.stats()
+            t0 = time.perf_counter()
+            g = step(ct, lt, rt)
+            got = result_digest(g)
+            drills["once_s"] = time.perf_counter() - t0
+            del g
+            # read before the injector is disarmed, which clears the log
+            ev = recovery_events()
+        finally:
+            recovery.install_faults("")
+        drills["once_events"] = ev
+        drills["once_audit"] = audit_delta(before)
+        if got != ref_groups or [e for e in ev if e[1] == "integrity"] != [
+                ("join", "integrity", "retry_chunks_4")] \
+                or drills["once_audit"]["corruptions_injected"] != 1:
+            raise AssertionError(f"integrity_path one-shot drill: {got}, "
+                                 f"events {ev}, audit {drills}")
+        torch.cuda.empty_cache()
+        recovery.install_faults("exchange.corrupt::*=corrupt")
+        try:
+            t0 = time.perf_counter()
+            step(ct, lt, rt)
+            raise AssertionError("integrity_path: the persistent drill "
+                                 "returned a result")
+        except DataIntegrityError as e:
+            drills["always"] = {"error": type(e).__name__, "site": e.site,
+                                "phase": e.phase,
+                                "s": time.perf_counter() - t0}
+            ev = recovery_events()
+        finally:
+            recovery.install_faults("")
+        drills["always_events"] = ev
+        if drills["always"]["site"] != "shuffle.recv" or [
+                e[2] for e in ev if e[1] == "integrity"] != [
+                "retry_chunks_4", "abort"]:
+            raise AssertionError(f"integrity_path persistent drill: {drills}")
+    rec["drills"] = drills
+    torch.cuda.empty_cache()
+
+    # one armed configuration-5 split: the stitch audited
+    left, right, _mv, _hot = skew_inputs(INTEGRITY_SKEW_ROWS)
+    env = ct.CylonEnv(VirtualMeshConfig(w), device=device)
+    slt = ct.Table.from_pydict(left, env)
+    srt = ct.Table.from_pydict(right, env)
+    del left, right
+    sk = {}
+    for armed in (False, True):
+        with audit_armed(armed):
+            before = integrity.stats()
+            j = ct.join_tables(slt, srt, "k", "k")
+            t0 = time.perf_counter()
+            sk[armed] = columns_digest(j)
+            sk[f"s{int(armed)}"] = time.perf_counter() - t0
+            if armed:
+                sdelta = audit_delta(before)
+                plan = skew.last_plan()
+            del j
+    if sk[True] != sk[False] or plan is None \
+            or sdelta["fingerprint_checks"] < 1 or sdelta["violations"]:
+        raise AssertionError(f"integrity_path skew: {sk}, audit {sdelta}")
+    no_recovery("integrity_path skew")
+    rec["skew"] = {"rows_per_side": INTEGRITY_SKEW_ROWS,
+                   "plan": plan.summary(), "audit": sdelta,
+                   "materialize_unarmed_s": sk["s0"],
+                   "materialize_armed_s": sk["s1"],
+                   "table": "equal to unarmed"}
+    del slt, srt
+    torch.cuda.empty_cache()
+
+    # a checkpointed run whose recorded fingerprint is tampered
+    left, right, mv = baseline_inputs(INTEGRITY_CKPT_ROWS, seed=37)
+    corc = oracle(left, right, mv)
+    clt = ct.Table.from_pydict(left, env)
+    crt = ct.Table.from_pydict(right, env)
+    import shutil
+    import tempfile
+    croot = tempfile.mkdtemp(prefix="cylon_integrity_")
+    try:
+        with audit_armed(), ckpt_env(CKPT_DIR=croot) as checkpoint:
+            g = pipelined_step(ct, clt, crt, CKPT_CHUNKS)
+            want = result_digest(g)
+            check_dist(g, corc, w, "integrity_path checkpointed")
+            del g
+            pieces = checkpoint.stats()["checkpoint_events"]
+        man = manifest_of(croot)
+        last = sorted(man["pieces"], key=int)[-1]
+        fps = [man["pieces"][p]["fp"] for p in man["pieces"]]
+        if any(fp is None for fp in fps):
+            raise AssertionError(f"integrity_path: an armed manifest "
+                                 f"recorded no fingerprint: {fps}")
+        path = os.path.join(man.pop("dir"), "MANIFEST.json")
+        man["pieces"][last]["fp"] ^= 1
+        with open(path, "w", encoding="utf-8") as f:
+            json.dump(man, f)
+        recovery_events()
+        with audit_armed(), ckpt_env(CKPT_DIR=croot, RESUME=1) as checkpoint:
+            before = integrity.stats()
+            t0 = time.perf_counter()
+            g = pipelined_step(ct, clt, crt, CKPT_CHUNKS)
+            resume_s = time.perf_counter() - t0
+            got = result_digest(g)
+            del g
+            st = checkpoint.stats()
+            cdelta = audit_delta(before)
+            ev = recovery_events()      # before ckpt_env clears the log
+    finally:
+        shutil.rmtree(croot, ignore_errors=True)
+    if got != want or st["resume_fast_forwarded_pieces"] != pieces - 1 \
+            or ("ckpt.load", "corrupt", "recompute") not in ev \
+            or cdelta["violations"] != 1:
+        raise AssertionError(f"integrity_path tampered resume: {got} vs "
+                             f"{want}, counters {st}, events {ev}, audit "
+                             f"{cdelta}")
+    rec["ckpt_tampered_resume"] = {
+        "rows_per_side": INTEGRITY_CKPT_ROWS, "pieces": pieces,
+        "fast_forwarded": st["resume_fast_forwarded_pieces"],
+        "recomputed": pieces - st["resume_fast_forwarded_pieces"],
+        "events": ev, "audit": cdelta, "resume_s": resume_s,
+        "digest": "equal to the uninterrupted run"}
+    del clt, crt
+    torch.cuda.empty_cache()
+
+    # the fingerprint itself on the 125M-row left table: its time, the
+    # bytes it must read, and its top aten ops
+    fp_bytes = sum(c.data.numel() * c.data.element_size()
+                   for c in lt.columns.values())
+    rec["fingerprint"] = {
+        "rows": int(lt.column("k").data.shape[0]), "bytes": fp_bytes,
+        "ms": time_ms(lambda: integrity.table_fingerprint(lt), reps=3),
+        "bound_ms": fp_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    if profile:
+        prof = profile_step(ct, lt, rt, top=10, step_fn=lambda c, a, b:
+                            integrity.table_fingerprint(a))
+        rec["fingerprint"]["aten_ops_ms"] = prof["aten_ops_ms"]
+        rec["fingerprint"]["kernels_ms"] = prof["kernels_ms"][:6]
+    torch.cuda.empty_cache()
+    rec["oracle"] = ("equal; armed digests equal to unarmed; drills "
+                     "recomputed and typed")
+    return rec
+
+
 def dist_phases(ct, left, right, orc, n: int, need_k1: bool, routes: dict,
                 device=None) -> dict:
     """The W > 1 phases (module docstring): ``dist_small`` at W = 8 and 3,
@@ -1582,6 +1920,13 @@ def dist_phases(ct, left, right, orc, n: int, need_k1: bool, routes: dict,
     emit(orec)
     del orec
 
+    # integrity_path: the audit armed on the same tables, the drills
+    irec = integrity_path(ct, lt, rt, orc, n, nc, need_k1, w4,
+                          device=device)
+    routes["integrity_path_w4"] = irec["kernel_counts"]
+    emit(irec)
+    del irec
+
     # exchange: hash_rows and shuffle_table of one side at W = 4
     from cylon_tpu_torch.ops import hashing
     from cylon_tpu_torch.parallel import shuffle as pshuf
@@ -1780,7 +2125,7 @@ def check_small_groupby(g, orc, aggs, label: str) -> int:
     host = g.host_columns()
     kd, kv = host["k"]
     pg = np.where(kv if kv is not None else True, kd, -1)
-    order = np.argsort(pg, kind="stable")
+    order = stable_order(pg)
     if not np.array_equal(pg[order], keys):
         raise AssertionError(f"{label}: group keys differ from the oracle")
     for a in aggs:
@@ -1890,7 +2235,7 @@ def groupby_small(ct, worlds=(1, 3, 4, 8), n: int = 1_000_000,
             raise AssertionError("groupby_small: a sink on g took the "
                                  "disjoint combine")
         out = sink.finalize().to_pydict()
-        o = np.argsort(out["g"], kind="stable")
+        o = stable_order(out["g"])
         for name, want in zip(("g", "a_sum", "b_sum"), sink_orc):
             if not np.array_equal(out[name][o], want):
                 raise AssertionError(f"groupby_small W={w}: sink column "
@@ -2222,7 +2567,7 @@ def check_join_sums(g, orc, label: str, names=("a_sum", "b_sum")) -> int:
     group sums to 0, a valid 0, as the reference sums it)."""
     host = g.host_columns()
     k = host["k"][0]
-    order = np.argsort(k, kind="stable")
+    order = stable_order(k)
     if not np.array_equal(k[order], np.nonzero(orc["rows"] > 0)[0]):
         raise AssertionError(f"{label}: group keys differ from the oracle")
     for name, want in zip(names, ("sa", "sb")):
@@ -2419,7 +2764,7 @@ def joins_small_world(ct, d: dict, w: int, device=None) -> dict:
     aggs = [(f"u{bits}", op) for bits in (16, 32, 64)
             for op in ("min", "max")]
     host = ct.groupby_aggregate(ut, "g", aggs).host_columns()
-    order = np.argsort(host["g"][0], kind="stable")
+    order = stable_order(host["g"][0])
     gv = d["g"][d["uvalid"]]
     for col, op in aggs:
         u = d[col]
@@ -3383,7 +3728,7 @@ def breadth_small_world(ct, d: dict, w: int, device=None) -> dict:
     g = ct.groupby_aggregate(j, "m", [("p", "sum"), ("b", "sum")]) \
         .host_columns()
     keep = (L > 0) & (R > 0)
-    order = np.argsort(g["m"][0], kind="stable")
+    order = stable_order(g["m"][0])
     if not (np.array_equal(g["m"][0][order], np.nonzero(keep)[0] * 250)
             and np.array_equal(g["p_sum"][0][order], (sp * R)[keep])
             and np.array_equal(g["b_sum"][0][order], (sb * L)[keep])):
@@ -3414,7 +3759,7 @@ def breadth_small_world(ct, d: dict, w: int, device=None) -> dict:
     if not np.array_equal(np.sort(both), np.nonzero(keep)[0] * 250):
         raise AssertionError(f"breadth W={w}: decimal intersect differs")
     g = ct.groupby_aggregate(lt, "m", [("p", "sum")]).host_columns()
-    o = np.argsort(g["m"][0], kind="stable")
+    o = stable_order(g["m"][0])
     if not (np.array_equal(g["m"][0][o], np.nonzero(L)[0] * 25)
             and np.array_equal(g["p_sum"][0][o], sp[L > 0])):
         raise AssertionError(f"breadth W={w}: decimal groupby differs")
@@ -3701,7 +4046,7 @@ def skew_small_world(ct, d: dict, w: int, device=None) -> dict:
                              [("a", "min"), ("a", "max"), ("b", "sum")])
     host = g.host_columns()
     keys = np.nonzero(orc["rows"] > 0)[0]
-    order = np.argsort(host["k"][0], kind="stable")
+    order = stable_order(host["k"][0])
     amin = np.full(mv, np.iinfo(np.int64).max)
     amax = np.full(mv, np.iinfo(np.int64).min)
     np.minimum.at(amin, d["lk"], d["a"])
@@ -4112,7 +4457,7 @@ def tpch_oracle(cols: dict) -> dict:
     rev = np.bincount(sn[m], (li["l_extendedprice"]
                               * (1.0 - li["l_discount"]))[m], minlength=25)
     nk = np.nonzero(np.bincount(sn[m], minlength=25) > 0)[0]
-    nk = nk[np.argsort(-rev[nk], kind="stable")]
+    nk = nk[stable_order(-rev[nk])]
     nd = cols["nation"]["n_name"].dictionary
     out["q5"] = {"n_name": nd[h("nation", "n_name")[nk]].astype(str),
                  "revenue": rev[nk]}
@@ -4803,7 +5148,7 @@ def oom_path(ct, n: int = OOM_ROWS, device=None) -> dict:
               "splitter_probe": dict(sp.COUNTS)}
     events = recovery_events()
     out = g.to_pydict()
-    order = np.argsort(out["k"], kind="stable")
+    order = stable_order(out["k"])
     for name in ("k", "a_sum", "b_sum"):
         if not np.array_equal(out[name][order], orc[name]):
             raise AssertionError(f"oom_path: {name} differs from the "
@@ -5504,6 +5849,14 @@ def ckpt_child(spec: dict) -> int:
     from cylon_tpu_torch.ops import splitter_probe as sp
     from cylon_tpu_torch.ops import windowed_gather as wg
     from cylon_tpu_torch.utils import timing
+    if spec.get("go"):
+        # started early (its imports beside the phase before): wait for
+        # the parent's go file
+        deadline = time.monotonic() + 900
+        while not os.path.exists(spec["go"]):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"no go file {spec['go']}")
+            time.sleep(0.05)
     data = spec["data"]
     cols = {name: np.load(os.path.join(data, f"{name}.npy"))
             for name in ("lk", "a", "rk", "b")}
@@ -5558,30 +5911,48 @@ def ckpt_child(spec: dict) -> int:
     return 0
 
 
-def run_child(spec: dict, expect_rc: int, label: str, **switches) -> dict:
-    """Run :func:`ckpt_child` in a fresh process under the checkpoint
-    switches (``CYLON_TPU_TORCH_<name>``); fails unless it exits
-    ``expect_rc``.  Returns its JSON line (empty for a killed child), with
-    the process's wall seconds and exit code."""
+def spawn_child(spec: dict, **switches) -> tuple:
+    """Start :func:`ckpt_child` in a fresh process under the checkpoint
+    switches (``CYLON_TPU_TORCH_<name>``, every other one unset):
+    ``(process, start time)`` for :func:`collect_child`."""
     import os
     env = {k: v for k, v in os.environ.items() if k not in CKPT_VARS}
     env.update({f"CYLON_TPU_TORCH_{k}": str(v) for k, v in switches.items()})
-    t0 = time.perf_counter()
-    p = subprocess.run([sys.executable, os.path.abspath(__file__),
-                        "--ckpt-child", json.dumps(spec)], env=env,
-                       capture_output=True, text=True, timeout=900)
+    return (subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                              "--ckpt-child", json.dumps(spec)], env=env,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True), time.perf_counter())
+
+
+def collect_child(child: tuple, expect_rc: int, label: str) -> dict:
+    """Wait for a :func:`spawn_child` process; fails unless it exits
+    ``expect_rc``.  Returns its JSON line (empty for a killed child), with
+    the process's wall seconds and exit code."""
+    p, t0 = child
+    try:
+        out, err = p.communicate(timeout=900)
+    except subprocess.TimeoutExpired:
+        p.kill()
+        p.communicate()
+        raise
     wall = time.perf_counter() - t0
     if p.returncode != expect_rc:
         raise AssertionError(
             f"{label}: the child exited {p.returncode}, expected "
-            f"{expect_rc}\n{p.stdout[-2000:]}\n{p.stderr[-4000:]}")
-    lines = [ln for ln in p.stdout.splitlines() if ln.startswith("{")]
+            f"{expect_rc}\n{out[-2000:]}\n{err[-4000:]}")
+    lines = [ln for ln in out.splitlines() if ln.startswith("{")]
     rec = json.loads(lines[-1]) if lines else {}
     if expect_rc in (0, DRAIN_RC) and not lines:
         raise AssertionError(f"{label}: the child printed no "
-                             f"result\n{p.stderr[-4000:]}")
+                             f"result\n{err[-4000:]}")
     rec.update(process_wall_s=wall, rc=p.returncode)
     return rec
+
+
+def run_child(spec: dict, expect_rc: int, label: str, **switches) -> dict:
+    """Run :func:`ckpt_child` in a fresh process (:func:`spawn_child`) and
+    wait for it (:func:`collect_child`)."""
+    return collect_child(spawn_child(spec, **switches), expect_rc, label)
 
 
 def ckpt_inprocess(ct, lt, rt, orc, root: str, nc: int):
@@ -6113,13 +6484,15 @@ def ckpt_phases(ct, left, right, orc, root, device=None,
         checks = [crec.pop(key, None) for key in ("k1_resume", "k2_resume")]
         yield crec
         yield from (c for c in checks if c is not None)
-        yield procs_ckpt(ct, left, right, {
+        yield procs_ckpt({
             "digest": crec["digest"], "shard_digest": crec["shard_digest"],
             "pieces": crec["pieces"]}, launched, device=device)
     finally:
         for key in ("armed", "kill", "resume"):
             _procs_kill(launched[key])
-    yield from ckpt_small(ct, root, n=small_rows, device=device)
+        _procs_kill([p for p, _t0 in launched["reshard"].values()])
+    yield from ckpt_small(ct, root, worlds=SMALL_WORLDS, n=small_rows,
+                          device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -6175,7 +6548,7 @@ def qpipe_oracle(cols: dict) -> dict:
 def by_key(out, key: str) -> dict:
     """A result's columns sorted by ``key`` (unique per row)."""
     cols = out.to_pydict()
-    order = np.argsort(cols[key], kind="stable")
+    order = stable_order(cols[key])
     return {name: np.asarray(v)[order] for name, v in cols.items()}
 
 
@@ -7589,10 +7962,21 @@ def procs_ckpt_launch(root: str, device=None) -> dict:
             "n_chunks": CKPT_CHUNKS, "device": device}
     go = os.path.join(root, "pc_go")
     go_resume = os.path.join(root, "pc_go_resume")
+    go_reshard = os.path.join(root, "pc_go_reshard")
     roots = {m: os.path.join(root, f"pc_{m}") for m in ("armed", "kill")}
     wd = {"WATCHDOG_S": PROCS_WATCHDOG_S}
+    # the armed stage's re-shards into one process, at W = 4 and (from a
+    # hard-linked copy) W = 2, side by side once the armed world is done
+    reshard = {w: spawn_child({"mode": f"reshard_w{w}", "world": w,
+                               "data": base["data"],
+                               "n_chunks": CKPT_CHUNKS, "device": device,
+                               "go": go_reshard},
+                              CKPT_DIR=roots["armed"] + ("_w2" if w == 2
+                                                         else ""),
+                              RESUME=1) for w in (4, 2)}
     return {
-        "go": go, "go_resume": go_resume, "roots": roots,
+        "go": go, "go_resume": go_resume, "go_reshard": go_reshard,
+        "roots": roots, "reshard": reshard,
         "armed": _procs_spawn({**base, "mode": "armed", "go": go}, 2, 2,
                               {"CKPT_DIR": roots["armed"], **wd}),
         "kill": _procs_spawn({**base, "mode": "kill", "go": go}, 2, 2,
@@ -7604,23 +7988,21 @@ def procs_ckpt_launch(root: str, device=None) -> dict:
                                 **wd})}
 
 
-def procs_ckpt(ct, left: dict, right: dict, want: dict, launched: dict,
-               device=None) -> dict:
+def procs_ckpt(want: dict, launched: dict, device=None) -> dict:
     """ckpt_path's workload as 2 processes × 2 ranks over gloo (module
     docstring): an armed run; a kill chain (process 0 SIGKILLed at its
     third ``ckpt.write``, process 1 typed and nonzero within the
     watchdog, then a 2 × 2 resume fast-forwarding the 2 committed pieces
     with one manifest epoch on both); and the armed run's complete stage
-    resumed here, in one process, at ``VirtualMeshConfig(4)`` (a new
-    process layout of the same world) and at ``VirtualMeshConfig(2)``
-    (W 4 → 2), both through the re-shard path.  Every result equals
-    ``want`` (ckpt_path's ``digest`` and ``shard_digest``; ``pieces``).
-    ``launched``: :func:`procs_ckpt_launch`'s children."""
+    resumed in one process at ``VirtualMeshConfig(4)`` (a new process
+    layout of the same world) and at ``VirtualMeshConfig(2)`` (W 4 → 2),
+    both through the re-shard path, two ``--ckpt-child`` processes side
+    by side.  Every result equals ``want`` (ckpt_path's ``digest`` and
+    ``shard_digest``; ``pieces``).  ``launched``:
+    :func:`procs_ckpt_launch`'s children."""
     import os
     import shutil
     import threading
-    from cylon_tpu_torch.ctx.context import VirtualMeshConfig
-    from cylon_tpu_torch.utils import timing
     pieces = want["pieces"]
     t_leg = time.perf_counter()
     deadline = t_leg + PROCS_TIMEOUT_S
@@ -7658,41 +8040,32 @@ def procs_ckpt(ct, left: dict, right: dict, want: dict, launched: dict,
                     f"procs_ckpt armed process {r['pid']}: digest "
                     f"{r['digest']}, counters {r['stats']}, epochs "
                     f"{r['epochs']}")
-        # the complete 2 x 2 stage resumed in this process: a hard-linked
-        # copy for the W = 2 resume (a rewrite replaces files, never
-        # writes into them), the original for W = 4
+        # the complete 2 x 2 stage resumed in one process, two children
+        # side by side: a hard-linked copy for the W = 2 resume (a rewrite
+        # replaces files, never writes into them), the original for W = 4
         src = launched["roots"]["armed"]
         shutil.copytree(src, src + "_w2", copy_function=os.link)
-        for w, path in ((4, src), (2, src + "_w2")):
-            with ckpt_env(CKPT_DIR=path, RESUME=1) as checkpoint:
-                env = ct.CylonEnv(VirtualMeshConfig(w), device=device)
-                lt = ct.Table.from_pydict(left, env)
-                rt = ct.Table.from_pydict(right, env)
-                kernel_counts(reset=True)
-                with timing.attribution_scope() as sc:
-                    t0 = time.perf_counter()
-                    g = pipelined_step(ct, lt, rt, CKPT_CHUNKS)
-                    run_s = time.perf_counter() - t0
-                st = checkpoint.stats()
-                digest = result_digest(g)
-                del g, lt, rt
-                relayout[f"w{w}"] = {
-                    "world": w, "run_s": run_s, "stats": st,
-                    "regions_s": {r: v for r, v in sc.snapshot().items()
-                                  if r in CKPT_REGIONS},
-                    "kernel_counts": kernel_counts()}
-            if device is None:
-                torch.cuda.empty_cache()
-            if digest != want["digest"] \
+        open(launched["go_reshard"], "w").close()
+        for w in (4, 2):
+            r = collect_child(launched["reshard"][w], 0,
+                              f"procs_ckpt re-shard at W = {w}")
+            st = r["stats"]
+            relayout[f"w{w}"] = {
+                "world": w, "run_s": r["run_s"], "stats": st,
+                "regions_s": r["regions_s"],
+                "process_wall_s": r["process_wall_s"],
+                "kernel_counts": r["kernel_counts"]}
+            if r["digest"] != want["digest"] \
                     or st["resume_world_mismatch"] != 1 \
                     or st["resume_resharded_pieces"] != pieces:
                 raise AssertionError(f"procs_ckpt re-shard at W = {w}: "
-                                     f"counters {st}, digest {digest}")
+                                     f"counters {st}, digest {r['digest']}")
         shutil.rmtree(src + "_w2")
     finally:
         th.join()
         for key in ("armed", "kill", "resume"):
             _procs_kill(launched[key])
+        _procs_kill([p for p, _t0 in launched["reshard"].values()])
     if "error" in chain:
         raise chain["error"]
     kill, resume = chain["kill"], chain["resume"]
@@ -7954,7 +8327,7 @@ def read_digest(cols: dict) -> tuple:
     key: the sha256 of every column but var and std, and those two as
     arrays (held to ``STREAM_VAR_TOL``, not bit for bit)."""
     import hashlib
-    order = np.argsort(cols["k"][0], kind="stable")
+    order = stable_order(cols["k"][0])
     h = hashlib.sha256()
     var = {}
     for name, (data, valid) in cols.items():
@@ -8101,6 +8474,254 @@ def procs_stream(want: dict, launched: dict) -> dict:
             "oracle": "every read and window equal to stream_path's"}
 
 
+#: the compile watchdog's budget of compile_small's stall child, seconds
+COMPILE_STALL_S = 2.0
+#: the compile tier's switches a compile_small child is given
+COMPILE_VARS = ("CYLON_TPU_TORCH_COMPILE_CACHE_DIR",
+                "CYLON_TPU_TORCH_COMPILE_TIMEOUT_S",
+                "CYLON_TPU_TORCH_FAULTS")
+
+
+#: the main path's K1 and K2 shapes (the BASELINE W = 4 monolithic step,
+#: 125,829,120 rows a side): compile_small's children hold the libraries
+#: they loaded or rebuilt at them
+K1_MAIN = {"L": 7, "M": 251_658_241, "S": 52_428_800, "window": 2048}
+K2_MAIN_CAP = 125_829_120
+
+
+def compile_kernel_checks(dev) -> dict:
+    """K1 and K2 held bit-equal to their plain versions (through whatever
+    libraries the compile tier loaded) at the main path's shapes, on
+    inputs drawn on the card from a seed: every 256-row tile of the
+    sorted K1 indices spans about 1,230 rows, inside the 2,048-row
+    window.  A rehearsal on the host uses small shapes."""
+    from cylon_tpu_torch.ops import splitter_probe as sp
+    from cylon_tpu_torch.ops import windowed_gather as wg
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(18)
+    L, M, S, window = (K1_MAIN[k] for k in ("L", "M", "S", "window"))
+    cap = K2_MAIN_CAP
+    if dev.type == "cpu":
+        M, S, cap = 4097, 1024, 1 << 16
+    mat = torch.randint(0, 1 << 30, (L, M), generator=gen, device=dev,
+                        dtype=torch.int32)
+    idx = torch.sort(torch.randint(0, M, (S,), generator=gen, device=dev,
+                                   dtype=torch.int32)).values
+    k1 = k1_check(wg, "compile_small", mat, idx, window)
+    del mat, idx
+    key = torch.randint(-(1 << 30), 1 << 30, (cap,), generator=gen,
+                        device=dev, dtype=torch.int32)
+    live = torch.zeros(cap, dtype=torch.int32, device=dev)
+    pick = torch.randint(0, cap, (5,), generator=gen, device=dev)
+    split = torch.sort(key[pick]).values
+    k2 = k2_check(sp, "compile_small", (live, key),
+                  (torch.zeros(5, dtype=torch.int32, device=dev), split))
+    return {"k1": {k: k1[k] for k in ("bit_equal", "ok", "max_abs_err", "M",
+                                      "S")},
+            "k2": {k: k2[k] for k in ("bit_equal", "max_abs_err", "cap",
+                                      "S")}}
+
+
+def compile_child(spec: dict) -> int:
+    """One process of ``compile_small``: the compile tier armed by the
+    switches the parent set; builds (or loads) both kernels through the
+    facade and, with ``check``, holds K1 and K2 bit-equal to their plain
+    versions on the card.  Prints one JSON line: the exception the build
+    raised (its class name) or None, the facade's counters, the build
+    seconds per kernel and the kernel checks."""
+    import os
+    t0 = time.perf_counter()
+    import cylon_tpu_torch  # noqa: F401
+    from cylon_tpu_torch import kernels
+    from cylon_tpu_torch.exec import compiler
+    rec = {"phase": "compile_child", "mode": spec["mode"],
+           "pid": os.getpid(), "error": None}
+    try:
+        kernels.build()
+        for name in kernels.SOURCES:
+            kernels.load(name)
+    except Exception as e:  # noqa: BLE001 — reported, judged by the parent
+        rec.update(error=type(e).__name__, message=str(e)[:400],
+                   signature=getattr(e, "signature", None))
+    rec["build_s"] = time.perf_counter() - t0
+    if rec["error"] is None and spec.get("check"):
+        dev = torch.device(spec.get("device") or "cuda:0")
+        if dev.type == "cpu":
+            # a rehearsal on the host: the checks' device waits are moot
+            torch.cuda.synchronize = lambda *a, **k: None
+        rec["checks"] = compile_kernel_checks(dev)
+    rec["stats"] = compiler.stats()
+    rec["build_seconds"] = dict(compiler.build_seconds)
+    rec["quarantined"] = list(compiler.quarantined_signatures())
+    rec["wall_s"] = time.perf_counter() - t0
+    print(json.dumps(rec), flush=True)
+    return 0
+
+
+def _compile_spawn(mode: str, d: str, check: bool = False, device=None,
+                   **switches) -> subprocess.Popen:
+    import os
+    env = {k: v for k, v in os.environ.items() if k not in COMPILE_VARS}
+    env["CYLON_TPU_TORCH_COMPILE_CACHE_DIR"] = d
+    env.update({f"CYLON_TPU_TORCH_{k}": str(v) for k, v in switches.items()})
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--compile-child",
+         json.dumps({"mode": mode, "check": check, "device": device})],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+
+
+def _compile_wait(p: subprocess.Popen, label: str, rc: int = 0) -> dict:
+    out, err = p.communicate(timeout=300)
+    if p.returncode != rc:
+        raise AssertionError(f"compile_small {label}: the child exited "
+                             f"{p.returncode}, expected {rc}\n{out[-2000:]}"
+                             f"\n{err[-4000:]}")
+    lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+    if rc == 0 and not lines:
+        raise AssertionError(f"compile_small {label}: no result\n"
+                             f"{err[-4000:]}")
+    return json.loads(lines[-1]) if lines else {"rc": p.returncode}
+
+
+def compile_small_start(device=None) -> dict:
+    """``compile_small`` (module docstring), its first half: the compile
+    tier's persistent layer in fresh directories under a new temporary
+    root.  This process builds K1 and K2 cold into the first (two builds,
+    two manifest entries); then the children start, side by side: one
+    loads them as hits with no build and holds both kernels bit-equal; one
+    finds a copy of the directory with K1's manifest entry poisoned and
+    one byte of K2's library flipped, drops both, rebuilds both and holds
+    both bit-equal; one under ``compile.build=kill`` dies with its intent
+    on disk; one under ``compile.build=stall`` with a 2 s budget raises
+    ``CompileTimeoutError``.  :func:`compile_small_finish` waits for them
+    (the phases between run beside them).  ``device``: the children's
+    kernel checks run on the card unless a rehearsal passes the CPU."""
+    import shutil
+    import tempfile
+    t_leg = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="cylon_compile_")
+    try:
+        return _compile_small_start(root, device, t_leg)
+    except BaseException:
+        shutil.rmtree(root, ignore_errors=True)
+        raise
+
+
+def _compile_small_start(root: str, device, t_leg: float) -> dict:
+    import os
+    import shutil
+    from cylon_tpu_torch import config as pconfig
+    from cylon_tpu_torch import kernels
+    from cylon_tpu_torch.exec import compiler
+    warm, crash, stall = (os.path.join(root, d)
+                          for d in ("warm", "crash", "stall"))
+    for d in (warm, crash, stall):
+        os.makedirs(d)
+    prev = pconfig.COMPILE_CACHE_DIR
+    pconfig.COMPILE_CACHE_DIR = warm
+    compiler.rearm()
+    compiler.reset_stats()
+    try:
+        t0 = time.perf_counter()
+        kernels.build()
+        cold_s = time.perf_counter() - t0
+        cold = compiler.stats()
+        cold_secs = dict(compiler.build_seconds)
+        paths = {n: kernels.library_path(n) for n in kernels.SOURCES}
+    finally:
+        pconfig.COMPILE_CACHE_DIR = prev
+        compiler.rearm()
+    with open(os.path.join(warm, "manifest.json"), encoding="utf-8") as f:
+        man = json.load(f)
+    if cold["cache_misses"] != 2 or cold["compile_events"] != 2 \
+            or sorted(e["kernel"] for e in man.values()) \
+            != sorted(kernels.SOURCES):
+        raise AssertionError(f"compile_small cold build: {cold}, "
+                             f"manifest {man}")
+    # a copy of the warm directory whose K1 manifest entry is poisoned
+    # and one byte of whose K2 library is flipped
+    bad_dir = os.path.join(root, "poisoned")
+    shutil.copytree(warm, bad_dir)
+    k1_name = os.path.basename(paths["windowed_gather"])
+    man[k1_name]["sha256"] = "0" * 64
+    with open(os.path.join(bad_dir, "manifest.json"), "w",
+              encoding="utf-8") as f:
+        json.dump(man, f)
+    k2_lib = os.path.join(bad_dir, "kernels",
+                          os.path.basename(paths["splitter_probe"]))
+    with open(k2_lib, "r+b") as f:
+        f.seek(4096)
+        b = f.read(1)
+        f.seek(4096)
+        f.write(bytes([b[0] ^ 1]))
+    procs = {"hits": _compile_spawn("hits", warm, check=True,
+                                    device=device),
+             "poisoned": _compile_spawn("poisoned", bad_dir, check=True,
+                                        device=device),
+             "kill": _compile_spawn("kill", crash,
+                                    FAULTS="compile.build=kill"),
+             "stall": _compile_spawn("stall", stall,
+                                     FAULTS="compile.build=stall",
+                                     COMPILE_TIMEOUT_S=COMPILE_STALL_S)}
+    return {"root": root, "crash": crash, "procs": procs, "t_leg": t_leg,
+            "rec": {"phase": "compile_small", "cold_build_s": cold_s,
+                    "nvcc_seconds": cold_secs, "cold": cold}}
+
+
+def compile_small_finish(state: dict) -> dict:
+    """``compile_small``'s second half: wait for the children
+    (:func:`compile_small_start`), start the one that finds the killed
+    child's intent (it must raise ``CompileQuarantinedError``), hold every
+    outcome and remove the temporary root.  Any other outcome fails the
+    phase."""
+    import os
+    import shutil
+    procs, crash = state["procs"], state["crash"]
+    res = {}
+    try:
+        res["kill"] = _compile_wait(procs["kill"], "kill", rc=-9)
+        intents = [f for f in os.listdir(crash) if f.startswith("intent.")]
+        # the dead predecessor's intent: the next build is quarantined
+        procs["quarantine"] = _compile_spawn("quarantine", crash)
+        for mode in ("quarantine", "hits", "poisoned", "stall"):
+            res[mode] = _compile_wait(procs[mode], mode)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+        shutil.rmtree(state["root"], ignore_errors=True)
+    h, p_, q, st = (res[k] for k in ("hits", "poisoned", "quarantine",
+                                     "stall"))
+    bad = []
+    if h["error"] or h["stats"]["cache_misses"] or \
+            h["stats"]["compile_events"] or h["stats"]["cache_hits"] < 2:
+        bad.append(("hits", h))
+    if p_["error"] or p_["stats"]["manifest_drops"] != 2 or \
+            p_["stats"]["cache_misses"] != 2:
+        bad.append(("poisoned", p_))
+    if len(intents) != 1:
+        bad.append(("kill", intents))
+    if q["error"] != "CompileQuarantinedError" or \
+            q["stats"]["quarantine_adoptions"] != 2:
+        bad.append(("quarantine", q))
+    if st["error"] != "CompileTimeoutError" or \
+            st["stats"]["watchdog_timeouts"] != 1:
+        bad.append(("stall", st))
+    for r in (h, p_):
+        checks = r.get("checks", {})
+        if not (checks.get("k1", {}).get("bit_equal")
+                and checks.get("k2", {}).get("bit_equal")):
+            bad.append(("checks", r))
+    if bad:
+        raise AssertionError(f"compile_small: {bad}")
+    return {**state["rec"], "children": res,
+            "wall_s": time.perf_counter() - state["t_leg"],
+            "oracle": "hits without a build; poisoned and flipped "
+                      "libraries dropped and rebuilt; quarantined after a "
+                      "kill; a stall typed; K1 and K2 bit-equal"}
+
+
 def serve_phases(ct, args, routes: dict, k2_serve: dict,
                  tables: TpchTables) -> None:
     """``tpch_path`` at ``--tpch-scale``, W = 8 (on ``tables``, drawn in
@@ -8165,7 +8786,10 @@ def main() -> int:
     ap.add_argument("--ckpt-child", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--procs-child", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--tpch-gen", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--compile-child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.compile_child is not None:
+        return compile_child(json.loads(args.compile_child))
     if args.ckpt_child is not None:
         return ckpt_child(json.loads(args.ckpt_child))
     if args.procs_child is not None:
@@ -8252,6 +8876,7 @@ def main() -> int:
     for rec in k2_cases(sp, dev):
         emit(rec)
     torch.cuda.empty_cache()
+
 
     env = ct.CylonEnv()
 
@@ -8455,9 +9080,17 @@ def main() -> int:
     for w in (4, 1):
         emit(config3_path(ct, k, a, c3orc, w))
     del k, a, c3orc
-    for jrec in joins_small(ct, SMALL_WORLDS):
-        emit({"phase": "joins_small", "rows_per_side": 1_000_000,
-              "oracle": "equal", **jrec})
+    # the compile tier: K1 and K2 built, loaded, poisoned, quarantined and
+    # stalled under a persistent directory, its children beside joins_small
+    compile_state = compile_small_start()
+    try:
+        for jrec in joins_small(ct, SMALL_WORLDS):
+            emit({"phase": "joins_small", "rows_per_side": 1_000_000,
+                  "oracle": "equal", **jrec})
+    finally:
+        # waits for (and, failing, kills) every child it started
+        crec = compile_small_finish(compile_state)
+    emit(crec)
     jrec = broadcast_path(ct, args.fact_rows)
     routes["broadcast_w4"] = jrec["kernel_counts"]
     emit(jrec)
@@ -8569,7 +9202,7 @@ def main() -> int:
             "stream_path_w4", "procs_gloo_p0", "procs_gloo_p1",
             "procs_nccl_p0", "topo_virtual_w4", "procs_topo_p0",
             "procs_topo_p1", "procs_topo_p2", "procs_topo_p3",
-            "procs_ckpt")),
+            "procs_ckpt", "integrity_path_w4")),
         "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
         "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
@@ -8601,7 +9234,7 @@ def main() -> int:
             "stream_path_w4", "procs_gloo_p0", "procs_gloo_p1",
             "procs_nccl_p0", "procs_topo_p0", "procs_topo_p1",
             "procs_topo_p2", "procs_topo_p3", "procs_ckpt",
-            "procs_serve")),
+            "procs_serve", "integrity_path_w4")),
         "max_abs_err": rec2["max_abs_err"], "ms": rec2["ms"],
         "kernel_ms": rec2["kernel_ms"], "scalar_ms": rec2["scalar_ms"],
         "general_ms": rec2["general_ms"],

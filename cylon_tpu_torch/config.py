@@ -168,11 +168,40 @@ def sort_samples(world: int) -> int:
     return max(64, 16 * world)
 
 
+#: [None = unread, else the cached bool] of ``CYLON_TPU_TORCH_AUDIT``
+_AUDIT: list = [None]
+
+
 def audit_armed() -> bool:
-    """``CYLON_TPU_TORCH_AUDIT=1`` arms the int64 saturation guard on
-    groupby results (ops/groupby.guard_saturation).  Read on every call so
-    tests can arm it with ``monkeypatch.setenv``."""
-    return os.environ.get("CYLON_TPU_TORCH_AUDIT", "") not in ("", "0")
+    """``CYLON_TPU_TORCH_AUDIT=1`` arms the audit: the integrity tier's
+    fingerprints (exec/integrity.py) and the int64 saturation guard on
+    groupby results (ops/groupby.guard_saturation).  The environment is
+    read once and cached, so the unarmed path costs one list load;
+    :func:`rearm_audit` reads it again (tests, and a process that arms
+    the audit between legs)."""
+    a = _AUDIT[0]
+    if a is None:
+        a = _AUDIT[0] = os.environ.get("CYLON_TPU_TORCH_AUDIT",
+                                       "") not in ("", "0")
+    return a
+
+
+def rearm_audit() -> None:
+    """Read ``CYLON_TPU_TORCH_AUDIT`` again at the next check."""
+    _AUDIT[0] = None
+
+
+#: The compile tier's persistent directory (exec/compiler.py): kernel
+#: libraries build into ``<dir>/kernels`` beside a sha256 manifest, a
+#: quarantine ledger and a compile intent journal.  Empty: the kernels
+#: build into ``cylon_tpu_torch/kernels/_build`` and the facade writes
+#: nothing.
+COMPILE_CACHE_DIR = os.environ.get("CYLON_TPU_TORCH_COMPILE_CACHE_DIR", "")
+
+#: Seconds an ``nvcc`` build may run before the compile watchdog kills it
+#: and raises ``CompileTimeoutError`` (0 = no watchdog).
+COMPILE_TIMEOUT_S = float(os.environ.get(
+    "CYLON_TPU_TORCH_COMPILE_TIMEOUT_S", "0"))
 
 
 def pow2ceil(n: int) -> int:

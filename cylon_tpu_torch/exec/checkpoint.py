@@ -81,8 +81,13 @@ differs raises before any process publishes.  A resume under another
 process layout of the same world, or another world, takes the re-shard
 path: every process stitches every old rank directory's blocks and keeps
 its own ranks' share.  ``RESUME_TOKEN.json`` is written by every
-process, through a temporary file and a rename.  The fingerprint audit
-of restored tables (slice 16) is not ported.  The six counters live in the
+process, through a temporary file and a rename.  Armed
+(``CYLON_TPU_TORCH_AUDIT=1``), each manifest entry records the piece's
+content fingerprint (exec/integrity.manifest_fingerprint), and a
+restore or a re-shard recomputes it over the voted prefix
+(:func:`audit_restored`): a mismatch recomputes the piece, never adopts
+it.  Unarmed saves record
+None.  The six counters live in the
 metrics registry (``ckpt_*``, obs/metrics.py), and the abort flush
 writes the flight recorder's post-mortem beside the manifests when the
 recorder is armed.
@@ -101,7 +106,8 @@ import time
 import numpy as np
 import torch
 
-from ..status import CheckpointCorruptError, InvalidError, ResumableAbort
+from ..status import (CheckpointCorruptError, DataIntegrityError,
+                      InvalidError, ResumableAbort)
 from ..utils import timing
 
 
@@ -340,6 +346,9 @@ class Stage:
         self.gen = 0
         self.complete_flag = False
         self.committed: dict[int, dict] = {}
+        #: the fingerprint each restored piece's manifest recorded, for
+        #: the armed audit of the voted prefix (:func:`audit_restored`)
+        self.restored_fp: dict[int, int | None] = {}
         self.resuming = False
         #: a checkpoint of this stage from another world: {"world",
         #: "procs", "gen", "complete", "pieces", "manifests"}
@@ -528,15 +537,19 @@ class Stage:
         hashed meta sidecar, committed under the two-phase manifest.  The
         piece is durable once :meth:`_commit` returns; a kill before that
         leaves files the manifest does not name."""
-        from . import recovery
+        from . import integrity, recovery
         corrupt = recovery.maybe_inject(
             "ckpt.write", intercept=("corrupt",)) == "corrupt"
         i = int(i)
+        # armed (CYLON_TPU_TORCH_AUDIT=1): the piece's content fingerprint
+        # rides its manifest entry, so a resume audits what was written
+        # beyond the page shas; unarmed, None
+        fp = integrity.manifest_fingerprint(table)
         with timing.region("ckpt.write"):
             nbytes, meta_sha, meta_file = self._write_pages(i, table,
                                                             corrupt)
             self.committed[i] = {"meta": meta_file, "sha": meta_sha,
-                                 "nbytes": nbytes, "fp": None}
+                                 "nbytes": nbytes, "fp": fp}
             self._commit()
         _STATS["checkpoint_events"] += 1
         _STATS["bytes_checkpointed"] += nbytes
@@ -632,6 +645,7 @@ class Stage:
                                       cm["dictionary"], bounds=cm["bounds"])
         out = Table(cols, self.env, meta["valid_counts"])
         out.grouped_by = meta["grouped_by"]
+        self.restored_fp[int(i)] = entry.get("fp")
         _STATS["resume_fast_forwarded_pieces"] += 1
         timing.bump("ckpt.piece_restored")
         return out
@@ -690,6 +704,7 @@ class Stage:
         from ..parallel.shards import span
         from ..relational.repart import even_partition_counts
         meta = None
+        fp_rec = None
         merged: list[list] = []
         for rd, man in self.foreign["manifests"].items():
             entry = man["pieces"][str(i)]
@@ -699,6 +714,7 @@ class Stage:
                                     dir=stage_dir))
             if meta is None:
                 meta = meta_d
+                fp_rec = entry.get("fp")
                 merged = [[] for _ in meta["pages"]]
             for j, page in enumerate(meta_d["pages"]):
                 raw = self._read_verified(page["file"], page["sha"],
@@ -750,6 +766,9 @@ class Stage:
                                       cm["dictionary"], bounds=nb)
         # per-shard key contiguity does not survive the re-block: the
         # grouped contract is dropped, consumers re-derive it
+        # the fingerprint does not depend on the layout, so the old world's
+        # recorded value audits the table re-blocked onto this one
+        self.restored_fp[int(i)] = fp_rec
         return Table(cols, self.env, dest)
 
     def _read_verified(self, fname: str, want_sha: str,
@@ -787,6 +806,38 @@ def open_stage(env, label: str, token: str,
     stage = Stage(env, label, token, seq, base_token=base_token)
     _OPEN_DIRS.append(stage.dir)
     return stage
+
+
+def audit_restored(stage: Stage, restored: list, n: int) -> int:
+    """The armed resume audit of the voted prefix ``restored[:n]``: each
+    piece's fingerprint against the one its manifest recorded
+    (exec/integrity.audit_restored_table; a re-shard audits under
+    ``ckpt.reshard``).  It runs after the restore vote, never inside a
+    process's own restore loop, so every process fingerprints the same
+    ``n`` pieces and makes the same collectives whatever its pages held.
+    The pieces before the first miss are then min-voted like the restore
+    itself: a miss anywhere recomputes from that piece, never adopts it.
+    Unarmed, ``n``."""
+    from . import integrity, recovery
+    if n == 0 or not integrity.armed():
+        return n
+    site = "ckpt.audit" if stage.resuming else "ckpt.reshard"
+    good = n
+    for i in range(n):
+        fp_rec = stage.restored_fp.get(i)
+        if fp_rec is None:
+            # nothing recorded here: fingerprinted all the same, so a
+            # manifest that lost its value on one process only keeps the
+            # processes' collectives in step
+            integrity.table_fingerprint(restored[i])
+            continue
+        try:
+            integrity.audit_restored_table(restored[i], fp_rec, site=site)
+        except DataIntegrityError as e:
+            if good == n:
+                good = i
+                corrupt_fallback(stage, i, e)
+    return recovery.ckpt_resume_consensus(stage.env, good)
 
 
 def corrupt_fallback(stage: Stage, piece: int, err: Exception) -> None:

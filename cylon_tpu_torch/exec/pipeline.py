@@ -787,6 +787,12 @@ def _pipelined_join_impl(left: Table, right: Table, left_on, right_on,
     if sink is not None:
         return outs
     out = concat_tables(outs)
+    from . import integrity
+    if integrity.armed():
+        # the armed audit: the assembled output's fingerprint, voted at
+        # the stage boundary
+        integrity.audit_table(out, site="pipe.stitch",
+                              phase="post_pipeline")
     if left_on == right_on and not adopted_whole:
         # pieces are key-grouped, in key-range order, and keys co-located:
         # the per-shard concatenation keeps the grouped contract.  Pieces
@@ -821,6 +827,9 @@ def _resume_stage(stage, env, sink, n_live: int):
             checkpoint.corrupt_fallback(stage, 0, e)
             restored = []
     start = ckpt_resume_consensus(env, len(restored))
+    # armed: the voted prefix's fingerprints against the manifests', then
+    # the pieces before the first miss voted again
+    start = checkpoint.audit_restored(stage, restored, start)
     adopted_whole = False
     if foreign:
         # all or nothing: old-layout pieces cannot splice into a

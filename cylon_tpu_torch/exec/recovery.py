@@ -28,18 +28,28 @@ ladder (port of ``cylon_tpu/exec/recovery.py``).
 3. **Fault injection** (``CYLON_TPU_TORCH_FAULTS="site[:rank][:nth]=
    kind[@session]"``): each fault is raised at its named site, so every
    rung runs on the CPU.  The grammar takes every site and kind the
-   reference takes, so a spec written for it parses here; the sites of
-   modules not ported yet (the compile and integrity tiers) never
-   probe.  An ``@session`` spec fires only on the thread of that
+   reference takes, so a spec written for it parses here, and every site
+   probes: ``exchange.corrupt`` fires just after an exchange delivered
+   (kind ``corrupt`` is intercepted there and flips one received
+   element, the drill the armed fingerprints must catch),
+   ``audit.verify`` wraps the fingerprint's pull (``stall`` hangs it
+   inside the watchdog) and ``compile.build`` guards every kernel build
+   (exec/compiler.py: ``stall`` hangs it inside the compile watchdog,
+   ``kill`` SIGKILLs the process once the compile intent is on disk,
+   ``corrupt`` poisons the manifest entry just written).  An
+   ``@session`` spec fires only on the thread of that
    serving session (exec/scheduler.py tags each session's thread with
    :func:`set_session`), its ``nth`` counted against that session's own
    probes at the site, so a co-tenant's probes never shift it.
 
 4. **The final rung** (:func:`_resumable`): with durable checkpoints
-   armed (exec/checkpoint.py), a ``DeviceOOMError`` no rung cured
-   flushes the checkpoint session and becomes a typed ``ResumableAbort``
-   carrying the resume token; a fresh process run with
+   armed (exec/checkpoint.py), a ``DeviceOOMError`` no rung cured, or a
+   compiler crash (:func:`is_compiler_crash`: a kernel build whose
+   ``nvcc`` died by a signal, or a quarantined build), flushes the
+   checkpoint session and becomes a typed ``ResumableAbort`` carrying
+   the resume token; a fresh process run with
    ``CYLON_TPU_TORCH_RESUME=1`` fast-forwards past the committed pieces.
+   Unarmed, the fault propagates typed.
 
 5. **Exchange watchdog** (:func:`exchange_watchdog`): with
    ``CYLON_TPU_TORCH_WATCHDOG_S`` set, a blocking transfer runs under a
@@ -58,11 +68,7 @@ agreed one — the reference's single-controller branch.  Only the votes
 that ported code takes are here (the guard, the spill rung, the eviction
 count, the skew plan, the checkpoint commit and resume, the watermark,
 the preemption drain, the scheduler's preempt decision, the topology
-plan); the integrity audit's comes with its caller.  Not
-ported here: the final rung's
-compiler-crash branch, and ``compiler_crash_signatures``/
-``prime_compiler_probe``, which classify XLA compiler deaths and wait
-for the compile tier (slice 16).
+plan, the integrity audit's fingerprint).
 """
 
 from __future__ import annotations
@@ -148,6 +154,23 @@ def classify(e: Exception) -> CylonError | None:
         fault.__cause__ = e
         return fault
     return None
+
+
+# ---------------------------------------------------------------------------
+# compiler-crash classification
+# ---------------------------------------------------------------------------
+
+def is_compiler_crash(e: Exception) -> bool:
+    """True when a kernel's compiler died rather than the program being
+    invalid: a quarantined build (``CompileQuarantinedError``), or a
+    build whose compiler a signal killed (a ``KernelError`` from
+    exec/compiler.build_all carrying the signal).  The reference matches
+    its XLA backend's crash texts, probed once per process; the port's
+    only compilers are its own ``nvcc`` and ``g++`` runs, whose deaths
+    it raises by type, so there is nothing to probe or match."""
+    from ..status import CompileQuarantinedError, KernelError
+    return isinstance(e, CompileQuarantinedError) or (
+        isinstance(e, KernelError) and e.signal is not None)
 
 
 # ---------------------------------------------------------------------------
@@ -500,6 +523,19 @@ def preempt_consensus(env, victim_plus1: int) -> int:
                          _WIRE, "sched.preempt")
 
 
+#: namespace base of the admission footprint's wire: bytes below 1 PiB
+_BYTES_BASE = 1 << 50
+
+
+def footprint_consensus(env, nbytes: int) -> int:
+    """Max-agree a session's admission footprint in bytes (exec/
+    scheduler: the declared footprint clamped by the shape family's
+    observed peak, which is each process's own history): every process
+    then charges the same bytes and admits alike."""
+    return _ns_consensus(env, min(max(int(nbytes), 0), _BYTES_BASE - 1),
+                         _BYTES_BASE, "scheduler.footprint")
+
+
 def drain_consensus(env, local_flag: bool) -> bool:
     """Preemption drain agreement (exec/checkpoint.drain_requested): True
     when any rank received a preemption notice, so every rank drains at
@@ -611,6 +647,18 @@ def topo_plan_consensus(env, plan_hash: int) -> None:
                          "topology-plan")
 
 
+def fingerprint_consensus(env, fp: int) -> None:
+    """Rank-coherent check of an audited content fingerprint
+    (exec/integrity.py, its only caller): every process votes two 20-bit
+    slices of its 64-bit value as a max and as a min, ``Code.
+    IntegrityFault`` at ``audit.verify``, so a process whose data differs
+    raises ``RankDesyncError`` before any process commits the stage.  In
+    one process the fingerprint covers every rank already, so the vote
+    passes."""
+    _plan_hash_consensus(env, Code.IntegrityFault, fp, "audit.verify",
+                         "fingerprint-audit")
+
+
 # ---------------------------------------------------------------------------
 # exchange watchdog
 # ---------------------------------------------------------------------------
@@ -715,20 +763,22 @@ RETRY_RUNGS = {Code.OutOfMemory: (4, 16), Code.CapacityError: (8,),
 
 def _resumable(exc, label: str):
     """The ladder's final rung: with durable checkpoints armed
-    (``CYLON_TPU_TORCH_CKPT_DIR``), a ``DeviceOOMError`` no in-process
-    rung cured (the CUDA context may not be trusted) flushes the
-    checkpoint session and becomes a :class:`ResumableAbort` carrying the
-    resume token, the fault on ``__cause__``, recorded as
-    ``resumable_abort``.  Anything else, or unarmed, comes back
-    unchanged.  The reference also takes an exhausted compiler-crash
-    ladder here; that branch comes with the compile tier (slice 16)."""
+    (``CYLON_TPU_TORCH_CKPT_DIR``), a fault no in-process rung can cure —
+    a ``DeviceOOMError`` (the CUDA context may not be trusted) or a
+    compiler crash (:func:`is_compiler_crash`) — flushes the checkpoint
+    session and becomes a :class:`ResumableAbort` carrying the resume
+    token, the fault on ``__cause__``, recorded as ``resumable_abort``.
+    Anything else, or unarmed, comes back unchanged."""
     from . import checkpoint
-    if not checkpoint.enabled() or not isinstance(exc, DeviceOOMError):
+    if not checkpoint.enabled():
+        return exc
+    if not (isinstance(exc, DeviceOOMError) or is_compiler_crash(exc)):
         return exc
     token = checkpoint.flush_for_abort(label)
-    _record(label, exc.kind, "resumable_abort")
+    kind = getattr(exc, "kind", "compiler_crash")
+    _record(label, kind, "resumable_abort")
     ra = ResumableAbort(
-        f"{label}: unrecoverable {exc.kind} fault with durable checkpoints "
+        f"{label}: unrecoverable {kind} fault with durable checkpoints "
         f"armed — committed piece state flushed; rerun the same workload "
         f"in a FRESH process with CYLON_TPU_TORCH_RESUME=1 to fast-forward "
         f"past committed pieces (resume token: {token})", token=token)

@@ -62,12 +62,15 @@ a process's own ledger is voted over the consensus wire
 sessions' collectives meet in the same order: the running pick and the
 admission pick with a requeued tenant pending (max ordinal), the expiry
 (the max expired ordinal, one session a loop turn), the preempt victim,
-the eviction count, the drain and the fleet's resize.  One process
+the eviction count, the drain, the fleet's resize and a shape family's
+clamped admission footprint (each process's own observed peaks, the max
+agreed).  One process
 driving every rank takes its own choices, as the reference on one
 controller.  With no scheduler running, :func:`maybe_yield` is one
 module-global load and the facades one thread-local read more than the
-ledger calls they wrap.  Not ported: ``stats()["compile"]`` (the compile
-tier's program counters, exec/compiler, slice 16) — the key is absent.
+ledger calls they wrap.  ``stats()["compile"]`` is the compile tier's
+block (exec/compiler.stats: the kernel libraries live, loads served by a
+library already built, ``nvcc`` builds and their seconds).
 """
 
 from __future__ import annotations
@@ -396,12 +399,20 @@ class QueryScheduler:
 
     def _admission_footprint(self, sess: QuerySession) -> int:
         """The declared footprint, clamped by the shape family's observed
-        peak: min(declared, observed peak x safety factor)."""
-        peak = observed_peak(sess.shape_family)
-        if peak is None:
+        peak: min(declared, observed peak x safety factor).  Each process
+        observes its own peaks, so across processes a session with a
+        shape family charges the voted (max) clamp, and every process
+        admits it alike; a session without one charges its declared
+        footprint everywhere, with no vote."""
+        if sess.shape_family is None:
             return sess.footprint_bytes
-        return min(sess.footprint_bytes,
-                   int(peak * self.history_safety_factor))
+        peak = observed_peak(sess.shape_family)
+        fp = sess.footprint_bytes if peak is None else min(
+            sess.footprint_bytes, int(peak * self.history_safety_factor))
+        if self._multi():
+            from . import recovery
+            fp = recovery.footprint_consensus(self.env, fp)
+        return fp
 
     def _fits(self, sess: QuerySession) -> bool:
         """The running sessions' declared footprints plus the
@@ -804,8 +815,9 @@ class QueryScheduler:
     def stats(self) -> dict:
         """The serving tier's counters (each session's own are in its
         ``summary()``)."""
-        from . import memory
+        from . import compiler, memory
         mem = memory.stats()
+        comp = compiler.stats()
         outcomes: dict[str, int] = {}
         for s in self.sessions:
             if s.state in (DONE, FAILED):
@@ -838,4 +850,7 @@ class QueryScheduler:
             "cross_session_evictions": mem["cross_session_evictions"],
             "spill_events": mem["spill_events"],
             "slices": sum(s.slices for s in self.sessions),
+            "compile": {k: comp[k] for k in
+                        ("programs_live", "cache_hits", "cache_misses",
+                         "cache_evictions", "compile_seconds")},
         }

@@ -1,15 +1,21 @@
 """Hand-written CUDA kernels for Hopper: build at first use, load with ctypes.
 
 Each ``<name>.cu`` in this directory compiles with ``nvcc`` into a shared
-library with a plain C interface, ``_build/lib<name>-<digest>.so``, where
-the digest covers the source and the flags: a changed source rebuilds, an
-unchanged one loads the library already built.  Nothing here runs when the
-package is imported; :func:`build` starts one ``nvcc`` per source, all at
-once, and waits for them all.
+library with a plain C interface, ``lib<name>-<digest>.so``, where the
+digest covers the source and the flags: a changed source rebuilds, an
+unchanged one loads the library already built.  The libraries live in
+``_build/`` here, or in ``<dir>/kernels`` when the compile tier's
+persistent layer is armed (``CYLON_TPU_TORCH_COMPILE_CACHE_DIR``).
+Nothing here runs when the package is imported; :func:`build` starts one
+``nvcc`` per source, all at once, and waits for them all.
 
-A build or load failure raises :class:`~cylon_tpu_torch.status.KernelError`;
-there is no fallback.  :func:`load` gives each C entry its ctypes
-signature (:data:`SIGNATURES`) once, when it loads the library.
+Every build and load goes through the compile tier (exec/compiler.py):
+its counters, its ledger of loaded libraries, and, armed, the sha256
+manifest, the intent journal and quarantine, and the watchdog.  A build
+or load failure raises :class:`~cylon_tpu_torch.status.KernelError`
+(``CompileQuarantinedError`` or ``CompileTimeoutError`` under the
+tier); there is no fallback.  :func:`load` gives each C entry its ctypes
+signature (:data:`SIGNATURES`) when it loads the library.
 """
 
 from __future__ import annotations
@@ -18,7 +24,6 @@ import ctypes
 import hashlib
 import os
 import shutil
-import subprocess
 import threading
 
 from ..status import KernelError
@@ -43,7 +48,6 @@ SIGNATURES = {
 }
 
 _lock = threading.Lock()
-_libs: dict = {}
 #: name -> ptxas report (registers, spills) of the build in this process
 build_logs: dict = {}
 
@@ -57,55 +61,68 @@ def _nvcc() -> str:
     return path
 
 
-def library_path(name: str) -> str:
+def digest(name: str) -> str:
+    """The source-and-flags digest of kernel ``name`` (the library's name
+    suffix, and the compile tier's quarantine key)."""
     src = os.path.join(KERNEL_DIR, f"{name}.cu")
     with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
+        d = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    return d.hexdigest()[:16]
+
+
+def library_path(name: str) -> str:
+    from ..exec import compiler
+    return os.path.join(compiler.build_dir(BUILD_DIR),
+                        f"lib{name}-{digest(name)}.so")
 
 
 def build(names=SOURCES) -> dict:
-    """Compile every named kernel that is not built yet, one ``nvcc`` per
-    source, all running at once.  Returns {name: library path}."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    procs = {}
+    """Compile every named kernel that has no usable library yet, one
+    ``nvcc`` per source, all at once (exec/compiler.build_all).  Returns
+    {name: library path}."""
+    from ..exec import compiler
+    jobs = []
     for name in names:
         target = library_path(name)
-        if os.path.exists(target):
+        if compiler.usable(target):
             continue
         tmp = f"{target}.{os.getpid()}.tmp"
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
                os.path.join(KERNEL_DIR, f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, target)
-    failed = []
-    for name, (proc, tmp, target) in procs.items():
-        log, _ = proc.communicate()
-        build_logs[name] = log
-        if proc.returncode != 0:
-            failed.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
-            continue
-        os.replace(tmp, target)
-    if failed:
-        raise KernelError("kernel build failed: " + "\n".join(failed))
+        jobs.append(compiler.Job(name, digest(name), cmd, tmp, target))
+    try:
+        compiler.build_all(jobs)
+    finally:
+        for j in jobs:
+            if j.log is not None:
+                build_logs[j.label] = j.log
     return {name: library_path(name) for name in names}
 
 
+def _open(name: str, path: str) -> ctypes.CDLL:
+    try:
+        lib = ctypes.CDLL(path)
+    except OSError as e:
+        raise KernelError(f"cannot load {path}: {e}") from e
+    for entry, argtypes in SIGNATURES[name].items():
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed, its C
+    """The loaded library of kernel ``name`` (the compile ledger's live
+    handle, else its library loaded, built first if needed), its C
     entries' signatures set."""
+    from ..exec import compiler
     with _lock:
-        lib = _libs.get(name)
+        lib = compiler.live(name)
         if lib is None:
-            path = build((name,))[name]
-            try:
-                lib = ctypes.CDLL(path)
-            except OSError as e:
-                raise KernelError(f"cannot load {path}: {e}") from e
-            for entry, argtypes in SIGNATURES[name].items():
-                fn = getattr(lib, entry)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _libs[name] = lib
+            path = library_path(name)
+            built = not compiler.usable(path)
+            if built:
+                build((name,))
+            lib = compiler.admit(name, path, lambda p: _open(name, p),
+                                 built)
         return lib

@@ -5,7 +5,8 @@ MurmurHash64A and builds the prefix lanes of the lexical sort of hashed
 string keys.  It is host code, not a device kernel: it compiles with
 ``g++`` at first use into ``cylon_tpu_torch/kernels/_build/`` (to a
 temporary name, then ``os.replace``d into place, so a failed build never
-leaves a partial library) and loads through ctypes.
+leaves a partial library) and loads through ctypes, both through the
+compile tier (exec/compiler.py), as the CUDA kernels do.
 
 The values travel as Arrow's ``large_string`` layout — one ``uint8``
 data buffer and ``n + 1`` int64 offsets — built here with numpy (UTF-8
@@ -22,7 +23,6 @@ import ctypes
 import hashlib
 import os
 import shutil
-import subprocess
 import threading
 
 import numpy as np
@@ -34,26 +34,9 @@ _SOURCE = os.path.join(_HERE, "strhash.cpp")
 _BUILD_DIR = os.path.join(os.path.dirname(_HERE), "kernels", "_build")
 _FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 _lock = threading.Lock()
-_lib: list = []
 
 
-def _build_and_load() -> ctypes.CDLL:
-    cxx = shutil.which("g++")
-    if cxx is None:
-        raise KernelError("g++ not found: the string hash (native/"
-                          "strhash.cpp) cannot be built")
-    with open(_SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(_FLAGS).encode())
-    so = os.path.join(_BUILD_DIR, f"libstrhash-{digest.hexdigest()[:16]}.so")
-    if not os.path.exists(so):
-        os.makedirs(_BUILD_DIR, exist_ok=True)
-        tmp = f"{so}.{os.getpid()}.tmp"
-        proc = subprocess.run([cxx, *_FLAGS, _SOURCE, "-o", tmp],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise KernelError(f"g++ failed on native/strhash.cpp (exit "
-                              f"{proc.returncode}):\n{proc.stderr}")
-        os.replace(tmp, so)
+def _open(so: str) -> ctypes.CDLL:
     try:
         lib = ctypes.CDLL(so)
     except OSError as e:
@@ -69,10 +52,30 @@ def _build_and_load() -> ctypes.CDLL:
 
 
 def _load() -> ctypes.CDLL:
+    """The loaded library: the compile ledger's live handle, else built
+    (through the compile tier, exec/compiler.build_all) if needed and
+    loaded."""
+    from ..exec import compiler
     with _lock:
-        if not _lib:
-            _lib.append(_build_and_load())
-        return _lib[0]
+        lib = compiler.live("strhash")
+        if lib is not None:
+            return lib
+        cxx = shutil.which("g++")
+        if cxx is None:
+            raise KernelError("g++ not found: the string hash (native/"
+                              "strhash.cpp) cannot be built")
+        with open(_SOURCE, "rb") as f:
+            digest = hashlib.sha256(f.read() + " ".join(_FLAGS).encode())
+        sig = digest.hexdigest()[:16]
+        so = os.path.join(compiler.build_dir(_BUILD_DIR),
+                          f"libstrhash-{sig}.so")
+        built = not compiler.usable(so)
+        if built:
+            tmp = f"{so}.{os.getpid()}.tmp"
+            compiler.build_all([compiler.Job(
+                "strhash", sig, [cxx, *_FLAGS, _SOURCE, "-o", tmp], tmp,
+                so)])
+        return compiler.admit("strhash", so, _open, built)
 
 
 def utf8_buffers(values) -> tuple:

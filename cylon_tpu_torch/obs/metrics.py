@@ -466,18 +466,29 @@ BENCH_SPILL_KEYS = ("spill_events", "bytes_spilled", "peak_ledger_bytes",
 BENCH_CKPT_KEYS = ("checkpoint_events", "bytes_checkpointed",
                    "resume_fast_forwarded_pieces", "resume_resharded_pieces",
                    "resume_world_mismatch")
+#: the compile tier's counters a bench run reports (exec/compiler.stats):
+#: the kernel libraries live, the loads a built library served, the
+#: ``nvcc`` builds and their seconds
+BENCH_COMPILE_KEYS = ("programs_live", "cache_hits", "cache_misses",
+                      "cache_evictions", "compile_seconds")
+#: the integrity tier's counters a bench run reports (exec/integrity.
+#: stats): nonzero fingerprint checks say the armed audit's cost is in
+#: the number
+BENCH_AUDIT_KEYS = ("conservation_checks", "fingerprint_checks",
+                    "violations")
 
 
 def bench_detail(*, spill_keys=BENCH_SPILL_KEYS, ckpt_keys=BENCH_CKPT_KEYS,
+                 compile_keys=BENCH_COMPILE_KEYS,
+                 audit_keys=BENCH_AUDIT_KEYS,
                  events: str | None = "drain", plan=None) -> dict:
     """The counter block of a bench run: the recovery events
     (``events="drain"`` empties the log, ``"keep"`` reads it, None omits
-    it), the selected spill counters and the selected checkpoint
-    counters, under their ``stats()`` names.  ``plan`` (a
-    :class:`~cylon_tpu_torch.obs.plan.QueryPlan` or its dict) adds a
-    ``plan`` section.  The reference's compile and audit blocks wait for
-    the compile and integrity tiers."""
-    from ..exec import checkpoint, memory, recovery
+    it), the selected spill and checkpoint counters under their
+    ``stats()`` names, and the ``compile`` and ``audit`` blocks.
+    ``plan`` (a :class:`~cylon_tpu_torch.obs.plan.QueryPlan` or its
+    dict) adds a ``plan`` section."""
+    from ..exec import checkpoint, compiler, integrity, memory, recovery
     out: dict = {}
     if events == "drain":
         out["recovery_events"] = recovery.drain_events()
@@ -487,6 +498,12 @@ def bench_detail(*, spill_keys=BENCH_SPILL_KEYS, ckpt_keys=BENCH_CKPT_KEYS,
     out.update({k: mem[k] for k in spill_keys})
     ck = checkpoint.stats()
     out.update({k: ck[k] for k in ckpt_keys})
+    if compile_keys:
+        comp = compiler.stats()
+        out["compile"] = {k: comp[k] for k in compile_keys}
+    if audit_keys:
+        au = integrity.stats()
+        out["audit"] = {k: au[k] for k in audit_keys}
     if plan is not None:
         out["plan"] = plan.to_dict() if hasattr(plan, "to_dict") else plan
     return out

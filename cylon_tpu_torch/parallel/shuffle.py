@@ -33,11 +33,16 @@ A hash shuffle's exchange runs the receive-budget guard first
 known from the count sidecar, above ``EXCHANGE_RECV_BUDGET_BYTES`` raises
 ``PredictedResourceExhausted`` before anything is allocated, and the
 retry ladder streams instead.  The count pull runs under the exchange
-watchdog.  Every exchange adds to the always-on registry counters
-``exchange_rows_total``, ``exchange_bytes_total`` and ``exchange_count``
-(host arithmetic on the pulled count matrix); with the comm matrix armed
+watchdog.  Every exchange that delivers adds to the always-on registry
+counters ``exchange_rows_total``, ``exchange_bytes_total`` and
+``exchange_count`` (host arithmetic on the pulled count matrix); with
+the comm matrix armed
 or a plan profile active it also records its matrix (obs/plan.
-record_exchange).
+record_exchange).  After the route delivers, every exchange runs the
+integrity tier (exec/integrity.py): the ``exchange.corrupt`` drill, the
+always-on conservation laws over the count matrix and, armed
+(``CYLON_TPU_TORCH_AUDIT=1``), the fingerprint of the inputs against
+the outputs.
 
 On a topology of two or more slices (topo/model.py) every exchange also
 adds to the tier counters (``exchange_ici_*``/``exchange_dcn_*``: rows,
@@ -46,8 +51,7 @@ under a hierarchical plan it runs the voted two-hop route
 (topo/exchange.two_hop), whose hops drive this module's engine
 (:func:`_move`) with their own count matrices.  With one slice the
 route lookup is one cached dict lookup, and nothing else changes.  Not
-ported (ROADMAP.md): the receive buffers' ledger registration and the
-integrity audit.
+ported (ROADMAP.md): the receive buffers' ledger registration.
 """
 
 from __future__ import annotations
@@ -257,9 +261,6 @@ def exchange(env, tgt: torch.Tensor, counts: np.ndarray, cols: tuple,
     if guard:
         _recv_guard(env, out_cap, row_bytes, hplan, hprep)
     total = int(per_dest.sum())
-    _metrics.counter("exchange_rows_total").inc(total)
-    _metrics.counter("exchange_bytes_total").inc(total * row_bytes)
-    _metrics.counter("exchange_count").inc()
     topo_t = _topo.topology(env)
     tiers = None
     if topo_t.n_slices > 1:
@@ -268,9 +269,31 @@ def exchange(env, tgt: torch.Tensor, counts: np.ndarray, cols: tuple,
         _plan.record_exchange(counts, row_bytes, site=owner, tiers=tiers)
     if hplan is not None:
         _topo.ensure_adopted(env, hplan)
-        return _topo_exchange.two_hop(env, hplan, tgt, counts, tuple(cols),
-                                      out_cap, prep=hprep)
-    return _move(env, tgt, counts, cols, out_cap), per_dest
+        outs, _pd = _topo_exchange.two_hop(env, hplan, tgt, counts,
+                                           tuple(cols), out_cap, prep=hprep)
+    else:
+        outs = _move(env, tgt, counts, cols, out_cap)
+    # counted once the route has delivered, so a route that raises (an
+    # OOM the ladder retries, a desync) leaves the registry in step with
+    # the conservation tier's mirror of it
+    _metrics.counter("exchange_rows_total").inc(total)
+    _metrics.counter("exchange_bytes_total").inc(total * row_bytes)
+    _metrics.counter("exchange_count").inc()
+    # the integrity tier (exec/integrity.py), on every route: the
+    # corruption drill first (so the audit below is what catches it),
+    # the always-on conservation laws, then, armed, the fingerprint of
+    # the valid input rows against the delivered ones
+    from ..exec import integrity, recovery
+    if recovery.maybe_inject("exchange.corrupt",
+                             intercept=("corrupt",)) == "corrupt":
+        recovery._record("exchange.corrupt", "corrupt", "flipped")
+        outs = integrity.flip_one(env, outs, per_dest, out_cap)
+    integrity.conserve_exchange(counts, per_dest, total, row_bytes,
+                                site=owner)
+    if integrity.armed():
+        integrity.verify_exchange(env, tgt, cols, outs, per_dest, out_cap,
+                                  site=owner)
+    return outs, per_dest
 
 
 def _tier_counters(topo_t, counts: np.ndarray, row_bytes: int, hplan,

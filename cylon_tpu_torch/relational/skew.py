@@ -41,8 +41,9 @@ multi-process world (one process driving every rank takes its own
 plan), and counts the split in
 ``timing.counts()["join.skew_split"]`` and the registry's
 ``skew_split_joins``/``skew_split_keys``; the route's choices land on
-the open plan node (obs/plan.py).  Waiting for its slice (ROADMAP.md):
-the stitch's integrity audit (slice 16).
+the open plan node (obs/plan.py).  Armed (``CYLON_TPU_TORCH_AUDIT=1``),
+the stitched output's fingerprint is voted (exec/integrity.audit_table,
+site ``skew.stitch``).
 """
 
 from __future__ import annotations
@@ -640,4 +641,11 @@ def stitch_join_output(out: Table, key_out_names, plan: SkewPlan,
                                                 device=dev))
         del pos_b, pos_heavy, pos_light, heavy, zone_b, zone_a, kidx, my, p
     with timing.region("skew.stitch_place"):
-        return place_by_global_pos(out, pos, total)
+        stitched = place_by_global_pos(out, pos, total)
+    from ..exec import integrity
+    if integrity.armed():
+        # the armed audit: the stitched table's fingerprint, voted, so a
+        # corrupted or misplaced stitch surfaces typed at this boundary
+        integrity.audit_table(stitched, site="skew.stitch",
+                              phase="post_stitch")
+    return stitched

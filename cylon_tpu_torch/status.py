@@ -267,6 +267,39 @@ class RequeueOverflowError(CylonError):
         self.session = session
 
 
+class CompileQuarantinedError(CapacityOverflowError):
+    """A kernel build is quarantined (exec/compiler.py): the compile
+    intent journal shows that a predecessor process died while building
+    this exact kernel (its source-and-flags digest), so building it
+    again would walk back into the same crash.  A capacity fault on
+    purpose, as in the reference: the ladder's ``Code.CapacityError``
+    rung re-plans instead of re-crashing (here the digest does not
+    change with the shape, so the retry meets the same quarantine and
+    ends typed)."""
+
+    kind = "quarantined"
+
+    def __init__(self, msg: str = "", site: str | None = None,
+                 signature: str | None = None):
+        super().__init__(msg, site=site)
+        self.signature = signature
+
+
+class CompileTimeoutError(CylonError):
+    """A kernel build ran past the compile watchdog's budget
+    (``CYLON_TPU_TORCH_COMPILE_TIMEOUT_S``): its ``nvcc`` was killed and
+    the caller surfaces typed instead of waiting on a hung compiler."""
+
+    code = Code.ExecutionError
+    kind = "compile_timeout"
+
+    def __init__(self, msg: str = "", site: str | None = None,
+                 signature: str | None = None):
+        super().__init__(msg)
+        self.site = site
+        self.signature = signature
+
+
 class DeviceUnavailableError(CylonError):
     """A CUDA device was requested (the default) but none is visible.  The
     port never drops to the CPU on its own: pass ``device="cpu"``."""
@@ -275,9 +308,16 @@ class DeviceUnavailableError(CylonError):
 
 
 class KernelError(CylonError):
-    """A hand-written CUDA kernel failed to build, load or launch."""
+    """A hand-written CUDA kernel failed to build, load or launch.
+    ``signal``: the name of the signal that killed a kernel's compiler
+    (a compiler crash, exec/recovery.is_compiler_crash), else None."""
 
     code = Code.ExecutionError
+
+    def __init__(self, msg: str = "", code: Code | None = None, *,
+                 signal: str | None = None):
+        super().__init__(msg, code)
+        self.signal = signal
 
 
 class Status:

@@ -25,8 +25,9 @@ read's combine is the sort-based groupby across the processes, the
 resume's fast-forward count is min-agreed, and a resume under another
 process layout adopts the committed prefix as another world's would be.
 
-Not ported: the reference's armed integrity audit of each absorbed batch
-(``exec/integrity``, the integrity tier).
+Armed (``CYLON_TPU_TORCH_AUDIT=1``), each absorbed batch's fingerprint is
+voted before it folds into the partials (exec/integrity.audit_table, site
+``stream.absorb``).
 """
 
 from __future__ import annotations
@@ -117,6 +118,9 @@ class IncrementalView:
                     ckpt.corrupt_fallback(stage, len(restored), e)
                     restored = []
             n = recovery.ckpt_resume_consensus(self.env, len(restored))
+            # armed: the voted prefix audited against the manifests'
+            # fingerprints, the pieces before the first miss voted again
+            n = ckpt.audit_restored(stage, restored, n)
             if foreign:
                 restored = restored[:n]
                 if restored:
@@ -146,6 +150,12 @@ class IncrementalView:
         if self._skip > 0:
             self._skip -= 1
             return
+        from ..exec import integrity
+        if integrity.armed():
+            # the armed audit: the batch's fingerprint, voted before it
+            # folds into the long-lived partials
+            integrity.audit_table(batch, site="stream.absorb",
+                                  phase="stream_absorb")
         self.sink.absorb(batch)
         if (self.compact_every
                 and len(self.sink._parts) >= self.compact_every):

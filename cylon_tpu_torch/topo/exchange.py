@@ -25,8 +25,9 @@ process subgroup (parallel/transport.hop_groups) in bounded rounds sized
 by :func:`hop_block`.  Both hop matrices are host arithmetic on the
 count matrix the exchange already pulled (:func:`hop_counts`): the route
 adds no host sync.  :class:`HopPrep` checks the four conservation
-identities of the reference's ``exec/integrity.conserve_hops`` on every
-exchange and raises ``DataIntegrityError`` with its message.
+identities on every exchange through the integrity tier
+(exec/integrity.conserve_hops), which counts them and raises
+``DataIntegrityError``.
 """
 
 from __future__ import annotations
@@ -35,7 +36,6 @@ import numpy as np
 import torch
 
 from .. import config
-from ..status import DataIntegrityError
 
 
 # ---------------------------------------------------------------------------
@@ -81,30 +81,6 @@ def hop_block(counts_hop: np.ndarray, total: int, w: int,
     return block, max(rounds, 1)
 
 
-def conserve_hops(counts, c1, c2, site: str = "topo.exchange",
-                  phase: str = "post_exchange") -> None:
-    """The two-hop route's conservation identities (the reference's
-    ``exec/integrity.conserve_hops``): no hop count is negative, hop 1
-    sends what each source holds, hop 2 delivers what each destination
-    is owed, and every row hop 1 parks at a gateway leaves on hop 2."""
-    c = np.asarray(counts)
-    a = np.asarray(c1)
-    b = np.asarray(c2)
-    bad = None
-    if (a < 0).any() or (b < 0).any():
-        bad = "negative hop count"
-    elif not np.array_equal(a.sum(axis=1), c.sum(axis=1)):
-        bad = "hop-1 row sums != sidecar row sums (rows lost before ICI)"
-    elif not np.array_equal(b.sum(axis=0), c.sum(axis=0)):
-        bad = "hop-2 column sums != sidecar column sums (rows lost on DCN)"
-    elif not np.array_equal(a.sum(axis=0), b.sum(axis=1)):
-        bad = "gateway imbalance: hop-1 arrivals != hop-2 departures"
-    if bad is not None:
-        raise DataIntegrityError(
-            f"two-hop conservation law violated at {site}: {bad}",
-            site=site, phase=phase)
-
-
 class HopPrep:
     """One exchange's two-hop schedule, derived once: both hop count
     matrices, their blocks and rounds, the rows each gateway receives and
@@ -128,7 +104,8 @@ class HopPrep:
         #: whole slice's rows for one local index
         self.cap1 = config.pow2ceil(int(self.per_gw.max())
                                     if self.per_gw.size else 1)
-        conserve_hops(counts, self.c1, self.c2)
+        from ..exec import integrity
+        integrity.conserve_hops(counts, self.c1, self.c2)
 
 
 def prepare(plan, counts: np.ndarray) -> HopPrep:

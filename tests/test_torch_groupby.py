@@ -192,7 +192,10 @@ def test_guard_saturation(monkeypatch):
     from cylon_tpu_torch.status import NumericOverflowError
     big = torch.tensor([1, (1 << 62) + 1], dtype=torch.int64)
     pg.guard_saturation("sum", big)            # unarmed: no check
+    from cylon_tpu_torch import config as pconfig
     monkeypatch.setenv("CYLON_TPU_TORCH_AUDIT", "1")
+    # the switch is read once and cached: a fresh cache reads it again
+    monkeypatch.setattr(pconfig, "_AUDIT", [None])
     with pytest.raises(NumericOverflowError) as ei:
         pg.guard_saturation("sum", big, column="a_sum")
     assert ei.value.column == "a_sum"

@@ -9,7 +9,8 @@ Each driver process joins a gloo world on ``127.0.0.1`` with
 ``device="cpu"``, builds the same seeded host tables (SPMD ingest: every
 process uploads only its own ranks' blocks), runs the legs of
 ``tests/multihost_driver.py`` that the port has (not the topology and
-integrity-audit legs; ``kill_resume`` and ``elastic_resume`` are
+integrity-audit legs, but for the armed join with its corrupt drill;
+``kill_resume`` and ``elastic_resume`` are
 tests/test_torch_multiprocess_ckpt.py's, the topology
 tests/test_torch_multiprocess_ops.py's) and saves
 what it saw: every result table's layout gathered whole (valid counts,
@@ -385,9 +386,56 @@ def _armed_checkpoint(ct, lt, rt):
             os.environ["CYLON_TPU_TORCH_CKPT_DIR"] = prev
 
 
+def audit_fingerprints(ct, env, lt, rt) -> np.ndarray:
+    """The armed BASELINE join → groupby: the fingerprints of its result
+    and of the left input (exec/integrity.table_fingerprint), which do
+    not depend on the process layout."""
+    from cylon_tpu_torch.exec import integrity
+    g = ct.groupby_aggregate(ct.join_tables(lt, rt, "k", "k"), "k", AGGS)
+    return np.asarray([integrity.table_fingerprint(g),
+                       integrity.table_fingerprint(lt)], np.uint64)
+
+
+def leg_audit(ct, env, out, lt, rt):
+    """Armed (``CYLON_TPU_TORCH_AUDIT=1``): the BASELINE fingerprints and
+    the audit counters; then ``exchange.corrupt`` on process 1 only, once
+    (every process recomputes, the result unchanged) and on every
+    occurrence (every process aborts typed)."""
+    from cylon_tpu_torch.exec import integrity, recovery
+    from cylon_tpu_torch.status import DataIntegrityError
+    os.environ["CYLON_TPU_TORCH_AUDIT"] = "1"
+    integrity.rearm()
+    try:
+        s0 = integrity.stats()
+        out["audit|fp"] = audit_fingerprints(ct, env, lt, rt)
+        s1 = integrity.stats()
+        out["audit|counts"] = np.asarray(
+            [s1[k] - s0[k] for k in ("conservation_checks",
+                                     "fingerprint_checks",
+                                     "fingerprint_votes", "violations")])
+        base = _rows(ct.join_tables(lt, rt, "k", "k", how="left"))
+        for tag, spec in (("once", "exchange.corrupt:1=corrupt"),
+                          ("always", "exchange.corrupt:1:*=corrupt")):
+            recovery.install_faults(spec)
+            try:
+                got = _rows(ct.join_tables(lt, rt, "k", "k", how="left"))
+                res = "same" if np.array_equal(got, base) else "differs"
+            except DataIntegrityError as e:
+                res = f"{type(e).__name__}:{e.site}"
+            finally:
+                _json(out, f"audit|{tag}_events", [
+                    e for e in recovery.recovery_events()
+                    if e["kind"] == "integrity"])
+                recovery.install_faults("")
+            out[f"audit|{tag}"] = np.asarray([res])
+    finally:
+        os.environ.pop("CYLON_TPU_TORCH_AUDIT", None)
+        integrity.rearm()
+
+
 PORT_LEGS = ("main", "semi_anti", "sorts", "pipelined", "repart")
 PROC_LEGS = ("barrier", "guard", "spill", "obs", "stream", "skew",
-             "refusals", "desync")
+             "refusals", "audit", "desync")
 
 
 def run_port_legs(ct, env, legs) -> dict:
@@ -657,6 +705,41 @@ def test_guard_fault_on_one_process(tmp_path_factory):
              "action": "retry_chunks_4"}]
     assert _load(res, "guard|events") == [want, want]
     assert all(bool(r["guard|same"][0]) for r in res)
+
+
+def test_audit_fingerprints_and_corrupt_drill(tmp_path_factory):
+    """Armed at 2 × 2: both processes hold the one-process world's
+    fingerprints and the same audit counts; a one-shot corruption on
+    process 1 is recomputed on both, a persistent one aborts both,
+    typed, after the same single retry."""
+    from cylon_tpu_torch.exec import integrity
+    res = _world(tmp_path_factory, 2, 2)
+    env = pct.CylonEnv(pct.VirtualMeshConfig(4), device="cpu")
+    ct = port_api(4)
+    left, right = _inputs()
+    os.environ["CYLON_TPU_TORCH_AUDIT"] = "1"
+    integrity.rearm()
+    try:
+        want = audit_fingerprints(ct, env, ct.Table.from_pydict(left, env),
+                                  ct.Table.from_pydict(right, env))
+    finally:
+        os.environ.pop("CYLON_TPU_TORCH_AUDIT", None)
+        integrity.rearm()
+    for r in res:
+        np.testing.assert_array_equal(r["audit|fp"], want)
+        assert r["audit|once"].tolist() == ["same"]
+        assert r["audit|always"].tolist() == [
+            "DataIntegrityError:shuffle.recv"]
+    np.testing.assert_array_equal(res[0]["audit|counts"],
+                                  res[1]["audit|counts"])
+    assert int(res[0]["audit|counts"][1]) > 0
+    assert int(res[0]["audit|counts"][3]) == 0
+    once, always = (_load(res, f"audit|{t}_events") for t in
+                    ("once", "always"))
+    assert once[0] == once[1] and len(once[0]) == 1
+    assert once[0][0]["action"].startswith("retry")
+    assert always[0] == always[1]
+    assert [e["action"] for e in always[0]] == ["retry_chunks_4", "abort"]
 
 
 def test_spill_same_evictions(tmp_path_factory):

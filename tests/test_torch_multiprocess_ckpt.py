@@ -31,6 +31,12 @@ ranks unless named otherwise:
 * ``drain``: a ``term`` sent to process 0 drains both processes at the
   same piece boundary (``ResumableAbort``), each writing
   ``RESUME_TOKEN.json``; the resume equals the uninterrupted run.
+* ``audit``: the kill-resume join written with the audit armed
+  (``CYLON_TPU_TORCH_AUDIT=1``), then resumed armed after process 0's
+  last piece lost a page and process 1's second piece lost its recorded
+  fingerprint: the processes restore different prefixes and audit
+  different misses, yet make the same collectives and adopt the same
+  one-piece prefix.
 
 Results are compared as sorted rows (the pipelined join lays out its
 pieces differently in the two packages, ROADMAP.md "Deviations that
@@ -129,7 +135,8 @@ def grow_workload(ct, env):
 
 WORKLOADS = {"kill_resume": kill_workload, "elastic_resume":
              elastic_workload, "grow": grow_workload,
-             "tamper": kill_workload, "drain": kill_workload}
+             "tamper": kill_workload, "drain": kill_workload,
+             "audit": kill_workload}
 
 
 # ---------------------------------------------------------------------------
@@ -160,6 +167,29 @@ def _tamper(pid: int) -> None:
         return orig(self)
 
     checkpoint.Stage._commit = ahead
+
+
+def _spoil(root: str) -> None:
+    """Process 0's last piece gets a bad meta page (its sha fails on
+    load); process 1's piece 1 records another fingerprint (its pages
+    still verify)."""
+    for pid, piece in ((0, str(KILL_CHUNKS - 1)), (1, "1")):
+        man_path, = glob.glob(os.path.join(root, f"rank{pid}", "stage*",
+                                           "MANIFEST.json"))
+        with open(man_path, encoding="utf-8") as f:
+            man = json.load(f)
+        entry = man["pieces"][piece]
+        if pid == 0:
+            meta = os.path.join(os.path.dirname(man_path), entry["meta"])
+            with open(meta, "r+b") as f:
+                f.seek(-1, os.SEEK_END)
+                last = f.read(1)
+                f.seek(-1, os.SEEK_END)
+                f.write(bytes([last[0] ^ 1]))
+        else:
+            entry["fp"] ^= 1
+            with open(man_path, "w", encoding="utf-8") as f:
+                json.dump(man, f)
 
 
 def _driver(argv) -> None:
@@ -316,6 +346,7 @@ def _run_all(tmp):
         "drain_a": _start(d("w"), "drain", d("drain"),
                           faults="ckpt.write:0:2=term",
                           preempt_grace_s=30),
+        "audit_a": _start(d("w"), "audit", d("audit"), audit=1),
     }
     try:
         # one process writes the complete W = 4 stage the grow adopts
@@ -330,6 +361,10 @@ def _run_all(tmp):
         r["grow_b"] = _finish(first.pop("grow_b"))
         nxt["grow_c"] = _start(d("w"), "grow", d("grow"), resume=1)
         r["tamper"] = _finish(first.pop("tamper"))
+        r["audit_a"] = _finish(first.pop("audit_a"))
+        _spoil(d("audit"))
+        nxt["audit_b"] = _start(d("w"), "audit", d("audit"), resume=1,
+                                audit=1)
         r["elastic_a"] = _finish(first.pop("elastic_a"))
         # the expectations, while the second launches run
         r["virtual_kill"] = _one_process(kill_workload, 4)[0]
@@ -338,7 +373,7 @@ def _run_all(tmp):
         # the 2 x 2 stage resumed in one process at W = 2
         r["elastic_one"] = _one_process(elastic_workload, 2,
                                         ckpt_dir=d("elastic"), resume=1)
-        for k in ("kill_b", "drain_b", "grow_c"):
+        for k in ("kill_b", "drain_b", "grow_c", "audit_b"):
             r[k] = _finish(nxt.pop(k))
         # rank dirs that disagree on procs: the stage starts over
         for path in glob.glob(os.path.join(d("grow"), "rank1", "stage*",
@@ -472,6 +507,19 @@ def test_term_drains_both_processes(worlds):
         np.testing.assert_array_equal(r["rows"], worlds["virtual_kill"])
 
 
+def test_armed_resume_audits_in_step(worlds):
+    """An armed resume where process 0 loses a page of its last piece and
+    process 1 a recorded fingerprint of its second: the restore vote and
+    the audit's own vote agree on one piece on both processes, which
+    recompute the rest to the uninterrupted answer."""
+    for r in _ok(worlds["audit_a"]):
+        assert r["stats"]["checkpoint_events"] == KILL_CHUNKS
+    for r in _ok(worlds["audit_b"]):
+        assert bool(r["agree"][0])
+        assert r["stats"]["resume_fast_forwarded_pieces"] == 1
+        np.testing.assert_array_equal(r["rows"], worlds["virtual_kill"])
+
+
 def teardown_module():
     if "jax" in sys.modules:
         sys.modules["jax"].clear_caches()
@@ -479,3 +527,4 @@ def teardown_module():
 
 if __name__ == "__main__":
     _driver(sys.argv[1:])
+

@@ -21,7 +21,11 @@ local choice differs from its peer's:
 * ``evict``: process 1 holds 2 MiB more in its ledger: only it wants to
   evict before the admission;
 * ``fleet``: process 1's resize controller fires at any ledger fraction,
-  process 0's never: only process 1 wants the fleet drain.
+  process 0's never: only process 1 wants the fleet drain;
+* ``family``: only process 0 has an observed peak for the tenant's shape
+  family (``scheduler.note_family_peak``), which clamps its footprint
+  below the budget, where process 1 charges the declared footprint,
+  above it: the clamped footprint is voted.
 
 Each vote is recorded with this process's wish and the agreed value.
 The parent checks that every vote differed from a peer's wish at least
@@ -52,7 +56,8 @@ import test_torch_multiprocess as mp  # noqa: E402
 #: (seed, rows, pieces) of each tenant of the fair scenario
 FAIR = ((11, 1800, 6), (22, 1200, 4), (33, 1800, 6), (44, 900, 3))
 #: the vote each scenario forces to diverge
-VOTES = ("pick", "preempt", "admit", "expiry", "evict", "fleet")
+VOTES = ("pick", "preempt", "admit", "expiry", "evict", "fleet",
+         "family")
 
 
 def tenant(ct, env, seed: int, n: int, chunks: int):
@@ -97,9 +102,11 @@ class _Taps:
                 (sched, "_expire_admissions", "expiry"),
                 (sched, "_evict_for", "evict"),
                 (sched, "_maybe_preempt", "preempt"),
+                (sched, "_admission_footprint", "family"),
                 (fleet.ResizeController, "maybe_resize", "fleet")):
             self._label(cls, name, label)
-        for name in ("count_consensus", "preempt_consensus"):
+        for name in ("count_consensus", "preempt_consensus",
+                     "footprint_consensus"):
             self._vote(recovery, name)
 
     def _label(self, cls, name, label):
@@ -203,6 +210,24 @@ def scenario_evict(ct, env, pid, out):
     memory.release(pad)
 
 
+def scenario_family(ct, env, pid, out):
+    from cylon_tpu_torch.exec import QueryScheduler, scheduler
+    scheduler.reset_family_history()
+    if pid == 0:
+        # 100 B observed x the 1.5 safety factor fits the 1000 B budget;
+        # the declared 5000 B does not
+        scheduler.note_family_peak("fam", 100)
+    sched = QueryScheduler(env, policy="fifo", budget_bytes=1000)
+    t = sched.submit("t0", lambda: tenant(ct, env, *FAIR[1]),
+                     footprint_bytes=5000, shape_family="fam")
+    sched.run(raise_errors=True)
+    st = sched.stats()
+    out["family|s22"] = t.result
+    out["family|admission"] = np.asarray(
+        [st["forced_admissions"], st["admission_waits"]], np.int64)
+    scheduler.reset_family_history()
+
+
 def scenario_fleet(ct, env, pid, out, root):
     from cylon_tpu_torch.exec import QueryScheduler, checkpoint
     from cylon_tpu_torch.exec.fleet import ResizeController
@@ -245,7 +270,7 @@ def _driver(argv) -> None:
     taps = _Taps()
     out = {}
     base = os.environ["TORCH_MP_CKPT"]
-    for name in ("expiry", "evict", "fleet", "fair"):
+    for name in ("family", "expiry", "evict", "fleet", "fair"):
         env.barrier()
         armed = name in ("fleet", "fair")
         if armed:
@@ -327,7 +352,8 @@ def test_vote_diverges_and_agrees(world, vote):
     assert any(a[1] != b[1] for a, b in zip(*logs)), logs
 
 
-@pytest.mark.parametrize("scenario", ("fair", "expiry", "evict", "fleet"))
+@pytest.mark.parametrize("scenario", ("fair", "expiry", "evict", "fleet",
+                                      "family"))
 def test_answers_equal_solo(world, scenario):
     """Every tenant's answer on both processes equals its solo run, in
     one process and on the reference."""
@@ -347,13 +373,17 @@ def test_outcomes_agree(world):
     fleet drain with its resume."""
     a, b = world
     for k in ("fair|grants", "fair|counts", "expiry|b", "evict|evicted",
-              "fleet|first", "fleet|crumb", "fleet|ffwd"):
+              "fleet|first", "fleet|crumb", "fleet|ffwd",
+              "family|admission"):
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
     assert int(a["fair|counts"][0]) >= 1 and int(a["fair|counts"][1]) >= 1
     assert a["expiry|b"].tolist() == ["failed", "AdmissionTimeoutError"]
     assert a["evict|evicted"].tolist() == [1, 1]
     assert a["fleet|first"][0] == 2 and int(a["fleet|crumb"][0]) == 2
     assert int(a["fleet|ffwd"][0]) > 0
+    # the voted footprint is the declared one: neither process fits it,
+    # both run the tenant by the serial force-admission
+    assert a["family|admission"].tolist()[0] == 1
 
 
 def test_processes_sharing_a_device_split_its_budget(world, monkeypatch):

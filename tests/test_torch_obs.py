@@ -213,7 +213,9 @@ def test_snapshot_poll_and_bench_detail(tmp_path, monkeypatch):
     assert not os.path.exists(path)
     bd = pobs.bench_detail()
     assert set(bd) == {"recovery_events", *pmetrics.BENCH_SPILL_KEYS,
-                       *pmetrics.BENCH_CKPT_KEYS}
+                       *pmetrics.BENCH_CKPT_KEYS, "compile", "audit"}
+    assert set(bd["compile"]) == set(rmetrics.BENCH_COMPILE_KEYS)
+    assert set(bd["audit"]) == set(rmetrics.BENCH_AUDIT_KEYS)
     assert set(pmetrics.BENCH_CKPT_KEYS) == set(rmetrics.BENCH_CKPT_KEYS)
     assert set(pmetrics.BENCH_SPILL_KEYS) == \
         set(rmetrics.BENCH_SPILL_KEYS) - {"donated_bytes_reused"}

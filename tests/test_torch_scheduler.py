@@ -328,8 +328,8 @@ class TestPolicies:
 
 
 def _stats(sched) -> dict:
-    """``stats()`` without the reference's compile block and the
-    wall-clock seconds."""
+    """``stats()`` without the compile block (the reference counts XLA
+    programs, the port kernel libraries) and the wall-clock seconds."""
     st = dict(sched.stats())
     st.pop("compile", None)
     st.pop("admission_wait_s")

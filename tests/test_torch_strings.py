@@ -110,7 +110,10 @@ def test_native_helpers_bit_equal():
 
 
 def test_native_needs_a_toolchain(monkeypatch):
-    monkeypatch.setattr(pnative, "_lib", [])
+    from cylon_tpu_torch.exec import compiler as pcompiler
+    # the loaded library lives in the compile tier's ledger: start
+    # without it, so the load has to build
+    monkeypatch.setattr(pcompiler, "_LEDGER", {})
     monkeypatch.setattr(pnative.shutil, "which", lambda name: None)
     with pytest.raises(KernelError, match="g\\+\\+"):
         pnative.hash_strings(np.asarray(["a"], dtype=object))

@@ -282,9 +282,10 @@ class TestHostMath:
             c2[5, 1] += 1
         else:
             c1[0, 1], c1[0, 2] = -1, c1[0, 2] + c1[0, 1] + 1
+        from cylon_tpu_torch.exec import integrity
         with pytest.raises(DataIntegrityError,
                            match="two-hop conservation law violated"):
-            ptx.conserve_hops(c, c1, c2)
+            integrity.conserve_hops(c, c1, c2)
 
 
 # ---------------------------------------------------------------------------
