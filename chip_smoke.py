@@ -33,6 +33,9 @@ drop and rebuild a copy whose K1 manifest entry is poisoned and one byte
 of whose K2 library is flipped (both bit-equal again), die under ``compile.build=kill`` with their intent on disk (the
 next child raises ``CompileQuarantinedError``), and raise
 ``CompileTimeoutError`` under ``compile.build=stall`` with a 2 s budget.
+``analysis_gate`` runs beside them too: the port's analysis gate,
+``python -m cylon_tpu_torch.analysis --strict --fail-stale-suppressions``,
+as a child on this machine's Python, which must exit 0.
 
 Each kernel is also held against its plain version on the inputs its
 routes handed it, captured in one more run of each: K1 at the monolithic
@@ -74,7 +77,10 @@ device-local permutation), both routes each time:
   their plain versions on their first launch's inputs there.  Per child:
   s/iteration, the bytes that crossed processes, the staging (pinned
   D2H and H2D), wire, count-allgather, vote and set-up seconds, the
-  peak memory and the launches;
+  peak memory and the launches; each gloo child then runs one more
+  monolithic iteration with the runtime sentinel armed
+  (analysis/runtime.py), and both children's collective logs must hold
+  the same length and digest (``collective_logs``);
 * ``topo_virtual`` (after ``dist_path_unarmed``, on its tables): W = 4
   in this process declared as 2 slices of 2 ranks
   (``CYLON_TPU_TORCH_SLICES``), so the exchange takes the two-hop route
@@ -138,6 +144,14 @@ device-local permutation), both routes each time:
   recorded fingerprint is tampered, the resume recomputing that piece;
   armed against unarmed seconds and the fingerprint's time, byte bound
   and top aten ops on the 125M-row left table;
+* ``analysis_path``: the runtime sentinel (analysis/runtime.py) on the
+  same tables: one unarmed and one armed monolithic iteration, one
+  unarmed and one armed pipelined one (n_chunks 2), each armed digest
+  equal to its unarmed run's; per armed iteration the funnel's pulls
+  (utils/host.py) by kind and site, the stray syncs by site (torch's
+  CUDA sync debug mode at "warn", the funnel's own apart; no fallback
+  if the mode cannot be set), the collective log's length, no kernel
+  build in the phase, armed − unarmed seconds and the K1/K2 launches;
 * ``exchange``: ``hash_rows`` and ``shuffle_table`` of one side at W = 4,
   timed with CUDA events against their byte bounds, beside one stable
   ``torch.sort`` of the same int32 targets; the count sidecar also at
@@ -146,10 +160,10 @@ device-local permutation), both routes each time:
 Then the sort-based groupby, the sample sort and the DataFrame entry,
 each against a numpy oracle:
 
-* ``groupby_small``: 1M rows at W = 1 and 3 (``SMALL_WORLDS``) — every
-  groupby op on int64 and float64 values (NaN, -0.0) under a nullable
-  key, through the
-  raw route, the combine route and the grouped fast path; ``sort_table``
+* ``groupby_small``: 2^18 rows (``SMALL_ROWS``; it was 1M) at
+  W = 1 and 3 (``SMALL_WORLDS``) — every groupby op on int64 and
+  float64 values (NaN, -0.0) under a nullable key, through the raw
+  route, the combine route and the grouped fast path; ``sort_table``
   with both methods, both directions and both null positions, row by row;
   a pipelined join into a ``GroupBySink`` keyed on a payload column;
 * ``config3_path``: BASELINE configuration 3, ``DataFrame(...).groupby
@@ -172,7 +186,7 @@ Then the join types, the broadcast route and the N-way join:
   how="outer", n_chunks=2)`` into a ``GroupBySink`` on ``k``, timed the
   same way; K2 launches once per shard per iteration and is held
   bit-equal to its plain version on shard 0's inputs;
-* ``joins_small``: 1M rows per side at W = 1 and 3 (``SMALL_WORLDS``)
+* ``joins_small``: 2^18 rows per side at W = 1 and 3 (``SMALL_WORLDS``)
   — every ``how`` through ``join_tables``; left, right and outer through
   ``pipelined_join`` (n_chunks 3) with and without a ``GroupBySink``; a
   nullable key and a two-column key; the broadcast route with a small
@@ -203,7 +217,7 @@ Then the set operations, the redistributions and hashed string keys:
 * ``repart_path``: ``repartition()`` of the subtraction's uneven output
   onto the even split (timed), then ``head(1000)``, ``tail(1000)`` and
   the middle third, in global order against the host copy;
-* ``setops_small``: 1M rows at W = 1 and 3 — every set operation
+* ``setops_small``: 2^18 rows at W = 1 and 3 — every set operation
   on two nullable columns (and pipelined at n_chunks 3), unique keep
   first/last on a subset and on all columns, ordered and unordered
   ``equals``, even and specified repartitions, slices across shard
@@ -233,7 +247,7 @@ the API, on bench.py's tables at ``--scan-rows`` per side (default
   K1 held bit-equal to its plain version (and timed) on the first batch's
   shard 0 inputs, captured in a run with the fused pushdown's density
   gate opened;
-* ``breadth_small``: 1M rows at W = 1 and 3 — decimal keys and
+* ``breadth_small``: 2^18 rows at W = 1 and 3 — decimal keys and
   payloads of mixed scales through a join, a groupby sum, a sort, a
   concat and a set op; a list payload through a join and a filter, and
   its typed refusal as a key; Series ops with nulls, ``loc``, ``iloc``
@@ -241,7 +255,9 @@ the API, on bench.py's tables at ``--scan-rows`` per side (default
 
 Then the adaptive skew split and TPC-H, BASELINE configurations 5 and 4:
 
-* ``skew_small``: 1M rows a side, 90% of the probe rows on one key, at
+* ``skew_small`` (with ``tpch_small``, in a ``--side-child`` process
+  beside ``breadth_small`` and ``recovery_small``): 2^18 rows a side,
+  90% of the probe rows on one key, at
   W = 1 (the route off) and 3 (``SMALL_WORLDS``) — every join type, a
   two-column key, a float64 key, a heavy NULL key and a dictionary-string
   key, each held
@@ -273,7 +289,10 @@ Then the adaptive skew split and TPC-H, BASELINE configurations 5 and 4:
   Q3, Q5 and Q6, each
   best of 3 after a warm-up with its peak memory, phase split, profile,
   idle share and K1/K2 launches, against numpy oracles (the keys are
-  aranges, so each join is an index lookup).
+  aranges, so each join is an index lookup); then ``tpch_sentinel``: Q3
+  and Q5 once unarmed and once with the runtime sentinel armed, the
+  armed answer's digest equal to the unarmed one's, the funnel's pulls
+  and the stray syncs by site.
 
 Then recovery: the spill tiers, the retry ladder and a real device OOM:
 
@@ -292,7 +311,7 @@ Then recovery: the spill tiers, the retry ladder and a real device OOM:
   holds two window pairs, so the next piece's windows upload before the
   current piece joins (prefetch depth 2): best of 3, peak, the uploads'
   overlap, bit-equal to the unspilled result, the same bytes uploaded;
-* ``recovery_small`` (after ``breadth_small``): 1M rows a side at W = 1
+* ``recovery_small`` (after ``breadth_small``): 2^18 rows a side at W = 1
   and 3 — pipelined inner, left and outer joins (n_chunks 3) with
   and without a ``GroupBySink`` and ``pipelined_set_op``, under a 4 KiB
   device budget (every source evicts) and then with a 4 KiB host budget
@@ -363,7 +382,7 @@ directory), removed at the end:
   written and the ``ckpt.d2h``/``encode``/``sha``/``file_write``/
   ``commit`` regions; K1 and K2 held bit-equal on every armed and
   resumed child's first launches;
-* ``ckpt_small``: tests/test_checkpoint.py's scenarios at 1M rows a side
+* ``ckpt_small``: tests/test_checkpoint.py's scenarios at 2^18 rows a side
   and W = 1 and 3 (``SMALL_WORLDS``) — sinkless and sink resume, a partial prefix, a
   corrupt page (recomputed), a plan-token mismatch (started over), a
   staged-only manifest (ignored), a persistent injected ``device_oom``
@@ -394,7 +413,7 @@ exec/fleet.py), after ``tpch_small``:
   loop: at least one preemption, a requeue, the victim's committed
   pieces fast-forwarded in process (outcome ``preempted_requeued``), and
   every answer bit-equal to its solo run;
-* ``serve_small`` (1M rows a side): an ``AdmissionTimeoutError`` and a
+* ``serve_small`` (2^18 rows a side): an ``AdmissionTimeoutError`` and a
   ``RequeueOverflowError`` (W = 1); at W = 4 an eviction by tenant t1
   of tenant t0's resident source while t0 holds a prepared piece (its
   window uploaded, not yet consumed), t0 bit-equal to its solo run; a
@@ -454,7 +473,8 @@ window join against ``dims = {k, dim = 7k + 3}``, one row per key:
   columns but var and std bit for bit, var and std within 1e-9 of it;
   each window's rows as a multiset hash); rows/s and p50/p99
   staleness per process; K1 and K2 not launched;
-* ``stream_small``: 8 batches of 125,000 rows at W = 1, 4 and 8, the view
+* ``stream_small`` (in a ``--side-child`` process beside
+  ``serve_small``): 8 batches of 125,000 rows at W = 1, 4 and 8, the view
   bit-equal to the from-scratch groupby after every batch, var and std
   included (every sum below 2^53), and to numpy's sums; at W = 4 an
   open window evicted under a 4 KiB ledger budget that comes back
@@ -504,6 +524,9 @@ PROCS_TIMEOUT_S = 300
 #: at W = 1, 3, 4 and 8 against the reference, and the full-size phases
 #: run W = 4 and 8 on the card)
 SMALL_WORLDS = (1, 3)
+#: rows (per side) of those correctness-only phases and of ckpt_small and
+#: serve_small: 2^18 (it was 1M), for the script's time limit
+SMALL_ROWS = 1 << 18
 
 
 def emit(obj) -> None:
@@ -1561,6 +1584,9 @@ def integrity_path(ct, lt, rt, orc, n: int, nc: int, need_k1: bool,
             or pdelta["violations"]:
         raise AssertionError(f"integrity_path pipelined: digests {pdig}, "
                              f"audit {pdelta}")
+    # the unarmed pipelined digest, which analysis_path holds its armed
+    # run to
+    w4["pipelined_digest"] = pdig[False]
     no_recovery("integrity_path pipelined")
     counts = kernel_counts()
     if counts["splitter_probe"]["launches"] != 4 * w:
@@ -1716,6 +1742,101 @@ def integrity_path(ct, lt, rt, orc, n: int, nc: int, need_k1: bool,
     torch.cuda.empty_cache()
     rec["oracle"] = ("equal; armed digests equal to unarmed; drills "
                      "recomputed and typed")
+    return rec
+
+
+@contextlib.contextmanager
+def sentinel_armed(on_cuda: bool):
+    """The runtime sentinel (analysis/runtime.py) armed for the block,
+    counting the funnel's pulls and, on the card, the stray syncs.
+    Yields ``(pulls, syncs)``; the sentinel's log and builds are read
+    inside the block."""
+    from cylon_tpu_torch.analysis import runtime
+    was = runtime.enabled()
+    runtime.enable()
+    runtime.reset()
+    try:
+        with runtime.transfer_scope() as pulls, \
+                (runtime.sync_scope() if on_cuda else
+                 contextlib.nullcontext(runtime.SyncCounts())) as syncs:
+            yield pulls, syncs
+    finally:
+        if not was:
+            runtime.disable()
+
+
+def sentinel_counts(pulls, syncs) -> dict:
+    """A sentinel block's counts: funnel pulls by kind and by kind and
+    site, stray syncs by site and the funnel's own syncs by site."""
+    return {"pulls": dict(pulls),
+            "pull_sites": {f"{k}@{site}": v
+                           for (k, site), v in sorted(pulls.sites.items())},
+            "stray_syncs": dict(sorted(syncs.items())),
+            "stray_syncs_total": sum(syncs.values()),
+            "funnel_syncs": dict(sorted(syncs.funnel.items())),
+            "funnel_syncs_total": sum(syncs.funnel.values())}
+
+
+def analysis_path(ct, lt, rt, n: int, nc: int, need_k1: bool,
+                  w4: dict) -> dict:
+    """``analysis_path`` (module docstring): the runtime sentinel on
+    dist_path's W = 4 tables.  Per route (monolithic; pipelined at
+    ``nc`` chunks) a warm-up, one unarmed and one armed iteration, the
+    armed digest equal to the unarmed runs' of this process
+    (``dist_path``'s, ``integrity_path``'s unarmed pipelined one); per
+    armed iteration the funnel's pulls by kind and site, the stray syncs
+    by site (the card's sync debug mode, the funnel's own apart), the
+    collective log (empty in one process), the kernel builds of the phase
+    (0) and armed − unarmed seconds."""
+    from cylon_tpu_torch.analysis import runtime
+    from cylon_tpu_torch.exec import compiler
+    w = lt.env.world_size
+    on_cuda = lt.env.on_cuda
+    rec = {"phase": "analysis_path", "world": w, "rows_per_side": n,
+           "n_chunks": nc}
+    recovery_events()
+    builds0 = compiler.stats()["cache_misses"]
+    kernel_counts(reset=True)
+    for route, run, want in (
+            ("monolithic", lambda times: step(ct, lt, rt, times),
+             w4["dist_path"]["digest"]),
+            ("pipelined", lambda times: pipelined_step(ct, lt, rt, nc,
+                                                       times),
+             w4["pipelined_digest"])):
+        times = []
+        for _ in range(2):                      # a warm-up, then unarmed
+            run(times)
+        with sentinel_armed(on_cuda) as (pulls, syncs):
+            g = run(times)
+            log = runtime.collective_log()
+            budgets = runtime.check_budgets()
+            built = sum(runtime.state().builds.values())
+        armed = shard_digest(g)
+        del g
+        if armed != want:
+            raise AssertionError(f"analysis_path {route}: armed digest "
+                                 f"{armed}, unarmed {want}")
+        if budgets or built:
+            raise AssertionError(f"analysis_path {route}: {built} kernel "
+                                 f"builds armed, budgets {budgets}")
+        rec[route] = {"iterations": times,
+                      "unarmed_s": times[1]["total_s"],
+                      "armed_s": times[2]["total_s"],
+                      "armed_minus_unarmed_s":
+                          times[2]["total_s"] - times[1]["total_s"],
+                      "collective_log_len": len(log), "digest": armed,
+                      **sentinel_counts(pulls, syncs)}
+    counts = kernel_counts()
+    if need_k1 and (counts["windowed_gather"]["launches"] < 1
+                    or counts["splitter_probe"]["launches"] < 1):
+        raise AssertionError(f"analysis_path kernel counts {counts}")
+    rec["kernel_counts"] = counts
+    rec["kernel_builds"] = compiler.stats()["cache_misses"] - builds0
+    if rec["kernel_builds"]:
+        raise AssertionError(f"analysis_path built {rec['kernel_builds']} "
+                             "kernel libraries")
+    no_recovery("analysis_path")
+    rec["oracle"] = "armed digests equal to unarmed; no kernel build"
     return rec
 
 
@@ -1926,6 +2047,12 @@ def dist_phases(ct, left, right, orc, n: int, need_k1: bool, routes: dict,
     routes["integrity_path_w4"] = irec["kernel_counts"]
     emit(irec)
     del irec
+
+    # analysis_path: the runtime sentinel armed on the same tables
+    arec = analysis_path(ct, lt, rt, n, nc, need_k1, w4)
+    routes["analysis_path_w4"] = arec["kernel_counts"]
+    emit(arec)
+    del arec
 
     # exchange: hash_rows and shuffle_table of one side at W = 4
     from cylon_tpu_torch.ops import hashing
@@ -4586,6 +4713,9 @@ def tpch_path(ct, scale: float = TPCH_SCALE, device=None,
                     "upload_s": upload_s, "setup_s": gen_s + upload_s,
                     "lineitem_rows_per_s": rows["lineitem"] / rec["best_s"]})
         yield rec
+    for rec in tpch_sentinel(dfs, env, orc):
+        rec.update({"scale": scale, "table_rows": rows})
+        yield rec
     if serve_root is not None:
         for rec in serve_path(ct, dfs, env, orc, rows, serve_root):
             rec.update({"scale": scale, "table_rows": rows})
@@ -4595,6 +4725,38 @@ def tpch_path(ct, scale: float = TPCH_SCALE, device=None,
         yield rec
     del dfs, env
     torch.cuda.empty_cache()
+
+
+def tpch_sentinel(dfs, env, orc: dict):
+    """Q3 and Q5 on ``tpch_path``'s tables and world, once unarmed and
+    once with the runtime sentinel armed: the armed answer's digest equal
+    to the unarmed one's (and to the oracle), the funnel's pulls and the
+    stray syncs by site.  Yields one record per query."""
+    from cylon_tpu_torch import tpch
+    for q in ("q3", "q5"):
+        query = getattr(tpch, q)
+        t0 = time.perf_counter()
+        out = query(dfs, env=env)
+        wait_result(out)
+        unarmed_s = time.perf_counter() - t0
+        want = serve_digest(out)
+        del out
+        with sentinel_armed(env.on_cuda) as (pulls, syncs):
+            t0 = time.perf_counter()
+            out = query(dfs, env=env)
+            wait_result(out)
+            armed_s = time.perf_counter() - t0
+        same_tpch(out, orc[q], f"tpch_sentinel {q}")
+        got = serve_digest(out)
+        if got != want:
+            raise AssertionError(f"tpch_sentinel {q}: armed digest {got}, "
+                                 f"unarmed {want}")
+        del out
+        yield {"phase": "tpch_sentinel", "query": q,
+               "world": env.world_size, "unarmed_s": unarmed_s,
+               "armed_s": armed_s, "digest": got,
+               "oracle": "armed digest equal to unarmed; equal to numpy",
+               **sentinel_counts(pulls, syncs)}
 
 
 # ---------------------------------------------------------------------------
@@ -5607,6 +5769,8 @@ def procs_child(spec: dict) -> int:
     rec["kernel_counts"] = {"windowed_gather": dict(wg.COUNTS),
                             "splitter_probe": dict(sp.COUNTS)}
     rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    if spec["leg"] == "procs_gloo":
+        rec["sentinel"] = procs_sentinel(ct, lt, rt)
     del lt, rt
     torch.cuda.empty_cache()
     checks = {}
@@ -5632,6 +5796,24 @@ def procs_child(spec: dict) -> int:
     rec["wall_s"] = time.perf_counter() - t_start
     print(json.dumps(rec), flush=True)
     return 0
+
+
+def procs_sentinel(ct, lt, rt) -> dict:
+    """One more monolithic iteration in a ``procs_gloo`` child with the
+    runtime sentinel armed: its collective log's length, digest and kinds
+    (every process must log the same sequence), the funnel's pulls and
+    stray syncs, and the result's digest."""
+    from collections import Counter
+    from cylon_tpu_torch.analysis import runtime
+    times = []
+    with sentinel_armed(lt.env.on_cuda) as (pulls, syncs):
+        g = step(ct, lt, rt, times)
+        log = runtime.collective_log()
+        digest = runtime.collective_digest()
+    return {"s": times[0]["total_s"], "log_len": len(log),
+            "log_digest": digest, "kinds": dict(Counter(e[1] for e in log)),
+            "sites": dict(Counter(e[0] for e in log)),
+            "digest": shard_digest(g), **sentinel_counts(pulls, syncs)}
 
 
 def procs_path(ct, left: dict, right: dict, w4: dict) -> list:
@@ -5776,6 +5958,15 @@ def _procs_legs(data: str, n: int, want: dict, w4: dict, ops_want: dict):
                                             "k2"}:
                 raise AssertionError(f"{leg} process {r['pid']}: kernel "
                                      f"checks {r['checks']}")
+        logs = None
+        if leg == "procs_gloo":
+            sen = [r["sentinel"] for r in res]
+            logs = {"lengths": [x["log_len"] for x in sen],
+                    "digests": [x["log_digest"] for x in sen]}
+            if len(set(logs["digests"])) != 1 or not sen[0]["log_len"] \
+                    or any(x["digest"] != want for x in sen):
+                raise AssertionError(f"procs_gloo: the processes' "
+                                     f"collective logs differ: {sen}")
         best = max(r["monolithic"]["best_s"] for r in res)
         rec = {
             "phase": leg, "processes": nproc, "local_world": v,
@@ -5789,6 +5980,8 @@ def _procs_legs(data: str, n: int, want: dict, w4: dict, ops_want: dict):
                 best / w4["dist_path_unarmed_best_s"],
             "digest": want, "oracle": "digest equal to dist_path",
             "children": res}
+        if logs is not None:
+            rec["collective_logs"] = dict(logs, equal=True)
         if topo:
             rec.update(_procs_topo_verdict(res, ops_want))
         out.append(rec)
@@ -6517,7 +6710,7 @@ SERVE_TABLES = {
     "q14": ("lineitem", "part"), "q15": ("lineitem", "supplier"),
     "q17": ("lineitem", "part"), "qpipe": ("orders", "lineitem")}
 #: serve_small's rows a side and its tenants' pipelined chunks
-SERVE_SMALL_ROWS = 1_000_000
+SERVE_SMALL_ROWS = SMALL_ROWS
 SERVE_CHUNKS = 4
 
 
@@ -8722,14 +8915,110 @@ def compile_small_finish(state: dict) -> dict:
                       "kill; a stall typed; K1 and K2 bit-equal"}
 
 
+#: the analysis gate child's time limit
+GATE_TIMEOUT_S = 300
+#: the side child's time limit
+SIDE_TIMEOUT_S = 600
+
+
+def side_child(spec: dict) -> int:
+    """``--side-child``: correctness-only phases (``skew_small``,
+    ``tpch_small``, ``stream_small``) in a process of their own, on the
+    card, one JSON line per phase record."""
+    import cylon_tpu_torch as ct
+    device = spec.get("device")
+    for name in spec["phases"]:
+        if name == "skew_small":
+            recs = [{"phase": "skew_small", "oracle": "equal", **r}
+                    for r in skew_small(ct, SMALL_WORLDS, SMALL_ROWS,
+                                        device)]
+        elif name == "stream_small":
+            with ckpt_root(spec.get("ckpt_dir")) as root:
+                recs = stream_small(ct, root, device=device)
+        else:
+            recs = tpch_small(ct, scale=spec["scale"], device=device)
+        for rec in recs:
+            no_recovery(f"phase {rec['phase']}")
+            print(json.dumps(rec), flush=True)
+    return 0
+
+
+def side_start(spec: dict, device=None) -> dict:
+    """Start a ``--side-child`` process (its phases beside this one's)."""
+    import os
+    if device is not None:
+        spec = dict(spec, device=str(device))
+    return {"spec": spec, "proc": subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--side-child",
+         json.dumps(spec)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)}
+
+
+def side_finish(state: dict) -> list:
+    """Wait for the side child (killed past :data:`SIDE_TIMEOUT_S`) and
+    return its records; it must exit 0 with one record per phase run."""
+    p = state["proc"]
+    try:
+        so, se = p.communicate(timeout=SIDE_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        p.kill()
+        so, se = p.communicate()
+    recs = [json.loads(ln) for ln in so.splitlines() if ln.startswith("{")]
+    if p.returncode != 0 or {r["phase"] for r in recs} != set(
+            state["spec"]["phases"]):
+        raise AssertionError(f"side child {state['spec']['phases']} exited "
+                             f"{p.returncode}\n{se[-4000:]}")
+    return recs
+
+
+def gate_start() -> dict:
+    """``analysis_gate`` (module docstring), started: the port's gate,
+    ``python -m cylon_tpu_torch.analysis --strict``, as a child process
+    from this checkout."""
+    import os
+    args = ["--strict", "--fail-stale-suppressions", "--no-cache"]
+    # at nice 10, as the TPC-H generator: the phases beside it keep the
+    # host
+    code = ("import os, runpy, sys\nos.nice(10)\n"
+            f"sys.argv = ['cylon_tpu_torch.analysis'] + {args!r}\n"
+            "runpy.run_module('cylon_tpu_torch.analysis', "
+            "run_name='__main__', alter_sys=True)")
+    return {"t0": time.perf_counter(),
+            "cmd": ["-m", "cylon_tpu_torch.analysis"] + args,
+            "proc": subprocess.Popen(
+                [sys.executable, "-c", code],
+                cwd=os.path.dirname(os.path.abspath(__file__)),
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)}
+
+
+def gate_finish(state: dict) -> dict:
+    """Wait for the gate child (killed past :data:`GATE_TIMEOUT_S`); its
+    exit code must be 0."""
+    p = state["proc"]
+    try:
+        so, se = p.communicate(timeout=GATE_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        p.kill()
+        so, se = p.communicate()
+    rec = {"phase": "analysis_gate", "cmd": " ".join(state["cmd"]),
+           "rc": p.returncode, "wall_s": time.perf_counter() - state["t0"],
+           "python": sys.version.split()[0],
+           "stderr": se.strip().splitlines()[-4:],
+           "findings": so.strip().splitlines()[:20]}
+    if p.returncode != 0:
+        raise AssertionError(f"analysis_gate: {rec}")
+    return rec
+
+
 def serve_phases(ct, args, routes: dict, k2_serve: dict,
                  tables: TpchTables) -> None:
     """``tpch_path`` at ``--tpch-scale``, W = 8 (on ``tables``, drawn in
     the background), with ``serve_path`` and its preempt leg on the same
     tables, then ``procs_serve`` (its children start before
-    ``tpch_path`` and wait) and ``serve_small``; emits their records,
-    adds their kernel counts to ``routes`` and the serve routes' K2
-    checks to ``k2_serve``."""
+    ``tpch_path`` and wait) and ``serve_small``, ``stream_small`` beside
+    it in a side process; emits their records, adds their kernel counts
+    to ``routes`` and the serve routes' K2 checks to ``k2_serve``;
+    returns ``stream_small``'s records."""
     with ckpt_root(args.ckpt_dir) as root:
         t0 = time.perf_counter()
         launched = procs_serve_launch(tables.wait(), root)
@@ -8740,7 +9029,7 @@ def serve_phases(ct, args, routes: dict, k2_serve: dict,
                 if trec["phase"] == "tpch_path":
                     routes[f"tpch_path_{trec['query']}_w8"] = \
                         trec["kernel_counts"]
-                else:
+                elif trec["phase"] != "tpch_sentinel":
                     routes[f"{trec['phase']}_w8"] = trec["kernel_counts"]
                     k2_serve.update(trec.pop("k2", {}))
                     stash = trec.pop("_solo", stash)
@@ -8754,11 +9043,17 @@ def serve_phases(ct, args, routes: dict, k2_serve: dict,
         routes["procs_serve"] = prec["kernel_counts"]
         emit(prec)
         t1 = time.perf_counter()
-        srec = serve_small(ct, root)
+        side = side_start({"phases": ["stream_small"],
+                           "ckpt_dir": args.ckpt_dir})
+        try:
+            srec = serve_small(ct, root)
+        finally:
+            side_recs = side_finish(side)
         srec["seconds"] = time.perf_counter() - t1
         srec["tpch_and_serve_path_s"] = t1 - t0
         emit(srec)
         torch.cuda.empty_cache()
+    return side_recs
 
 
 def main() -> int:
@@ -8787,7 +9082,10 @@ def main() -> int:
     ap.add_argument("--procs-child", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--tpch-gen", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--compile-child", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--side-child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.side_child is not None:
+        return side_child(json.loads(args.side_child))
     if args.compile_child is not None:
         return compile_child(json.loads(args.compile_child))
     if args.ckpt_child is not None:
@@ -9072,8 +9370,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- the sort-based groupby, the sample sort, the DataFrame entry -----
-    for w, small in groupby_small(ct, SMALL_WORLDS).items():
-        emit({"phase": "groupby_small", "world": w, "rows": 1_000_000,
+    for w, small in groupby_small(ct, SMALL_WORLDS, SMALL_ROWS).items():
+        emit({"phase": "groupby_small", "world": w, "rows": SMALL_ROWS,
               "oracle": "equal", **small})
     k, a, mv = config3_inputs(args.config3_rows)
     c3orc = config3_oracle(k, a, mv)
@@ -9082,21 +9380,27 @@ def main() -> int:
     del k, a, c3orc
     # the compile tier: K1 and K2 built, loaded, poisoned, quarantined and
     # stalled under a persistent directory, its children beside joins_small
-    compile_state = compile_small_start()
+    # and the analysis gate, a child beside them
+    gate = gate_start()
     try:
-        for jrec in joins_small(ct, SMALL_WORLDS):
-            emit({"phase": "joins_small", "rows_per_side": 1_000_000,
-                  "oracle": "equal", **jrec})
+        compile_state = compile_small_start()
+        try:
+            for jrec in joins_small(ct, SMALL_WORLDS, SMALL_ROWS):
+                emit({"phase": "joins_small", "rows_per_side": SMALL_ROWS,
+                      "oracle": "equal", **jrec})
+        finally:
+            # waits for (and, failing, kills) every child it started
+            crec = compile_small_finish(compile_state)
     finally:
-        # waits for (and, failing, kills) every child it started
-        crec = compile_small_finish(compile_state)
+        grec = gate_finish(gate)
     emit(crec)
+    emit(grec)
     jrec = broadcast_path(ct, args.fact_rows)
     routes["broadcast_w4"] = jrec["kernel_counts"]
     emit(jrec)
     del jrec
     torch.cuda.empty_cache()
-    for srec in setops_small(ct, SMALL_WORLDS):
+    for srec in setops_small(ct, SMALL_WORLDS, SMALL_ROWS):
         emit({"phase": "setops_small", "oracle": "equal", **srec})
     srec = strings_path(ct, args.string_rows)
     routes["strings_path"] = srec["kernel_counts"]
@@ -9105,7 +9409,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- the Series, the index and the streamed scan join on bench.py's
-    # tables at SCAN_ROWS rows, W = 4; breadth at 1M rows -------------------
+    # tables at SCAN_ROWS rows, W = 4; breadth at SMALL_ROWS ----------------
     left, right, mv = baseline_inputs(args.scan_rows)
     srec = series_path(ct, left, mv)
     routes["series_w4"] = srec["kernel_counts"]
@@ -9132,7 +9436,8 @@ def main() -> int:
     # -- durable checkpoints on the same tables: kill, resume, preempt,
     # re-shard (W = 4), then the small scenarios ---------------------------
     with ckpt_root(args.ckpt_dir) as root:
-        for crec in ckpt_phases(ct, left, right, scan_orc, root):
+        for crec in ckpt_phases(ct, left, right, scan_orc, root,
+                                small_rows=SMALL_ROWS):
             if crec["phase"] == "ckpt_path":
                 routes["ckpt_path_w4"] = crec["kernel_counts"]
             elif crec["phase"] == "procs_ckpt":
@@ -9142,27 +9447,34 @@ def main() -> int:
             emit(crec)
     del left, right, scan_orc
     torch.cuda.empty_cache()
-    for brec in breadth_small(ct, SMALL_WORLDS):
-        no_kernels(brec, f"breadth_small W={brec['world']}")
-        emit({"phase": "breadth_small", "oracle": "equal", **brec})
-    for rrec in recovery_small(ct, SMALL_WORLDS):
-        emit(rrec)
+    # correctness only: skew_small and tpch_small in a child process
+    # beside breadth_small and recovery_small
+    side = side_start({"phases": ["skew_small", "tpch_small"],
+                       "scale": min(TPCH_SMALL_SCALE, args.tpch_scale)})
+    try:
+        for brec in breadth_small(ct, SMALL_WORLDS, SMALL_ROWS):
+            no_kernels(brec, f"breadth_small W={brec['world']}")
+            emit({"phase": "breadth_small", "oracle": "equal", **brec})
+        for rrec in recovery_small(ct, SMALL_WORLDS, SMALL_ROWS):
+            emit(rrec)
+    finally:
+        side_recs = side_finish(side)
+    for side_rec in side_recs:
+        emit(side_rec)
 
     # -- the adaptive skew split and TPC-H: BASELINE configurations 5
     # (W = 4) and 4 (W = 8) --------------------------------------------------
-    for srec in skew_small(ct, SMALL_WORLDS):
-        emit({"phase": "skew_small", "oracle": "equal", **srec})
     srec = skew_path(ct, args.skew_rows)
     routes["skew_path_w4"] = srec["kernel_counts"]
     emit(srec)
     del srec
     torch.cuda.empty_cache()
-    for trec in tpch_small(ct, scale=min(TPCH_SMALL_SCALE, args.tpch_scale)):
-        emit(trec)
-    del trec
     # TPC-H at W = 8 with the serving tier on its tables, then serve_small
+    # with stream_small beside it
     k2_serve: dict = {}
-    serve_phases(ct, args, routes, k2_serve, tpch_tables)
+    for srec in serve_phases(ct, args, routes, k2_serve, tpch_tables):
+        routes[f"stream_small_w{srec['world']}"] = srec["kernel_counts"]
+        emit(srec)
     for k2rec in k2_serve.values():
         emit(k2rec)
     # -- streaming: the bench's stream at W = 4, then at 1M rows --------
@@ -9181,9 +9493,6 @@ def main() -> int:
         del want
         routes["procs_stream"] = prec["kernel_counts"]
         emit(prec)
-        for srec in stream_small(ct, root):
-            routes[f"stream_small_w{srec['world']}"] = srec["kernel_counts"]
-            emit(srec)
     del srec
     torch.cuda.empty_cache()
     # -- a real device OOM, recovered by the retry ladder ----------------
@@ -9202,7 +9511,7 @@ def main() -> int:
             "stream_path_w4", "procs_gloo_p0", "procs_gloo_p1",
             "procs_nccl_p0", "topo_virtual_w4", "procs_topo_p0",
             "procs_topo_p1", "procs_topo_p2", "procs_topo_p3",
-            "procs_ckpt", "integrity_path_w4")),
+            "procs_ckpt", "integrity_path_w4", "analysis_path_w4")),
         "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
         "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
@@ -9234,7 +9543,7 @@ def main() -> int:
             "stream_path_w4", "procs_gloo_p0", "procs_gloo_p1",
             "procs_nccl_p0", "procs_topo_p0", "procs_topo_p1",
             "procs_topo_p2", "procs_topo_p3", "procs_ckpt",
-            "procs_serve", "integrity_path_w4")),
+            "procs_serve", "integrity_path_w4", "analysis_path_w4")),
         "max_abs_err": rec2["max_abs_err"], "ms": rec2["ms"],
         "kernel_ms": rec2["kernel_ms"], "scalar_ms": rec2["scalar_ms"],
         "general_ms": rec2["general_ms"],

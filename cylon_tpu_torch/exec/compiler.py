@@ -20,7 +20,9 @@ keeps the reference's surface and counter names:
   unloaded (``ctypes`` does not close one), so there is no program
   budget to evict under, and no per-mesh program table.
 * **the ledger** — the loaded libraries by label, a handful per process
-  (the two kernels and the string hash).
+  (the two kernels and the string hash).  Armed, the runtime sentinel
+  (analysis/runtime.note_build) counts every build by its
+  source-and-flags digest (RT301, RT302).
 * **the persistent layer** (``CYLON_TPU_TORCH_COMPILE_CACHE_DIR``) —
   libraries build into ``<dir>/kernels``, beside three files written
   through a temporary file, a rename and ``recovery.retry_io``: a warm
@@ -61,6 +63,7 @@ import threading
 import time
 
 from .. import config
+from ..analysis import runtime as _sentinel
 from ..obs import metrics
 from ..status import (CompileQuarantinedError, CompileTimeoutError,
                       KernelError)
@@ -488,6 +491,8 @@ def build_all(jobs) -> None:
             continue
         os.replace(j.tmp, j.target)
         _MISS.inc()
+        if _sentinel._state is not None:
+            _sentinel.note_build(j.label, j.sig)
         if st is not None:
             _manifest_add(j.label, j.target, poison=(j.kind == "corrupt"))
     if failed:

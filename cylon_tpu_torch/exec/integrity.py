@@ -242,10 +242,11 @@ def _pull_fp(pair: torch.Tensor) -> int:
     as ``RankDesyncError``)."""
     from . import recovery
     from ..parallel import transport
+    from ..utils.host import host_array
     stalled = recovery.injected("audit.verify") == "stall"
 
     def pull():
-        words = pair.cpu().numpy().astype(np.int64)
+        words = host_array(pair).astype(np.int64)
         if transport.current() is not None:
             words = np.bitwise_xor.reduce(
                 transport.allgather_array(words, "audit.verify"), axis=0)

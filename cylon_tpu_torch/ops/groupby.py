@@ -424,7 +424,8 @@ def _sqrt(x: torch.Tensor) -> torch.Tensor:
     IEEE-exact; torch's vectorized CPU one (SLEEF, within 0.5001 ulp) is
     not, so on the host numpy's takes its place."""
     if x.device.type == "cpu":
-        return torch.from_numpy(np.sqrt(x.numpy()))
+        # a CPU tensor: the view waits for nothing
+        return torch.from_numpy(np.sqrt(x.numpy()))  # tracecheck: off[TS101]
     return torch.sqrt(x)
 
 

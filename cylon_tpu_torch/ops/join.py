@@ -45,7 +45,8 @@ def runs_of(first: torch.Tensor) -> Runs:
     the run arrays waits for the device once."""
     n = first.shape[0]
     gid = cumsum32(first.to(_I32)) - 1
-    starts = torch.nonzero(first).squeeze(1)
+    # the run arrays' size is data: the one documented wait
+    starts = torch.nonzero(first).squeeze(1)  # tracecheck: off[TS101]
     ends = torch.cat([starts[1:] - 1, starts.new_full((min(n, 1),), n - 1)])
     return Runs(gid, starts, ends)
 

@@ -29,10 +29,13 @@ gloo a CUDA tensor is staged through a pinned host buffer both ways (the
 one-card rig, where NCCL refuses two ranks on one GPU).  :data:`STATS`
 counts what crossed and splits the time into staging (device↔host
 copies) and wire (the collective itself); the two-hop route adds each
-hop's bytes and seconds (``hop1_*``, ``hop2_*``).  Every collective runs under
+hop's bytes and seconds (``hop1_*``, ``hop2_*``).  Its values live in the
+metrics registry (``transport_*`` counters, obs/metrics.group); the view
+reads and writes like a dict.  Every collective runs under
 the exchange watchdog (exec/recovery.exchange_watchdog) with the process
 group's own timeout behind it: a peer that never arrives raises
-``RankDesyncError``.
+``RankDesyncError``.  Armed, the runtime sentinel logs each one
+(analysis/runtime.note_collective).
 """
 
 from __future__ import annotations
@@ -43,12 +46,18 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-#: what the transport moved and the time it took (reset by callers)
-STATS = {"bytes_sent": 0, "bytes_received": 0, "collectives": 0,
+from ..analysis import runtime as _sentinel
+from ..obs import metrics as _metrics
+
+#: each counter's zero: bytes and counts are ints, times float seconds
+_ZERO = {"bytes_sent": 0, "bytes_received": 0, "collectives": 0,
          "exchanges": 0, "staging_s": 0.0, "wire_s": 0.0,
          "counts_s": 0.0, "votes_s": 0.0, "setup_s": 0.0,
          "hop1_bytes": 0, "hop1_staging_s": 0.0, "hop1_wire_s": 0.0,
          "hop2_bytes": 0, "hop2_staging_s": 0.0, "hop2_wire_s": 0.0}
+
+#: what the transport moved and the time it took (reset by callers)
+STATS = _metrics.group("transport", _ZERO)
 
 #: bumped by every install of a new world: a plan voted in an earlier
 #: world is voted again (topo/model.ensure_adopted)
@@ -175,13 +184,18 @@ def _size(proc: Proc, group) -> int:
 
 
 def reset_stats() -> None:
-    for k in STATS:
-        STATS[k] = 0.0 if isinstance(STATS[k], float) else 0
+    for k, zero in _ZERO.items():
+        STATS[k] = zero
 
 
-def _guarded(site: str, thunk):
+reset_stats()
+
+
+def _guarded(site: str, thunk, kind: str, dtype, group: int):
     """A collective under the exchange watchdog; a collective error (the
-    process group's timeout, a peer gone) becomes ``RankDesyncError``."""
+    process group's timeout, a peer gone) becomes ``RankDesyncError``.
+    ``kind``, ``dtype`` and ``group`` (its process count) name it in the
+    sentinel's collective log."""
     from ..exec.recovery import exchange_watchdog
     from ..status import RankDesyncError
 
@@ -195,6 +209,8 @@ def _guarded(site: str, thunk):
                 site=site) from e
 
     STATS["collectives"] += 1
+    if _sentinel._state is not None:
+        _sentinel.note_collective(site, kind, dtype, group)
     return exchange_watchdog(site, run)
 
 
@@ -249,7 +265,7 @@ def all_reduce_max(value: int, site: str = "exchange.consensus") -> int:
         dist.all_reduce(x, op=dist.ReduceOp.MAX)
         return int(x[0].item())
 
-    out = _guarded(site, run)
+    out = _guarded(site, run, "all_reduce", x.dtype, proc.nproc)
     STATS["votes_s"] += time.perf_counter() - t0
     return out
 
@@ -290,7 +306,8 @@ def allgather_tensor(x: torch.Tensor, site: str = "transport.allgather",
         STATS["wire_s"] += time.perf_counter() - t0
         return out
 
-    return _from_wire(_guarded(site, run), x.dtype, x.device)
+    return _from_wire(_guarded(site, run, "all_gather", x.dtype,
+                               _size(proc, group)), x.dtype, x.device)
 
 
 def allgather_rows(x: torch.Tensor, site: str = "transport.allgather",
@@ -347,7 +364,7 @@ def all_to_all_rows(send: torch.Tensor, send_splits, recv_splits,
         STATS["wire_s"] += time.perf_counter() - t0
         return w_recv
 
-    got = _guarded(site, run)
+    got = _guarded(site, run, "all_to_all", dtype, _size(proc, group))
     STATS["bytes_sent"] += int(sum(send_splits)) * row
     STATS["bytes_received"] += n_recv * row
     return _from_wire(got, dtype, dev)
@@ -370,7 +387,8 @@ def broadcast(x: torch.Tensor, src: int,
         STATS["wire_s"] += time.perf_counter() - t0
         return buf
 
-    return _from_wire(_guarded(site, run), x.dtype, x.device)
+    return _from_wire(_guarded(site, run, "broadcast", x.dtype, proc.nproc),
+                      x.dtype, x.device)
 
 
 def barrier(site: str = "env.barrier") -> None:
@@ -386,4 +404,4 @@ def barrier(site: str = "env.barrier") -> None:
         # ids, and this one waits for every rank just the same
         all_reduce_max(0, site)
         return
-    _guarded(site, lambda: dist.barrier())
+    _guarded(site, lambda: dist.barrier(), "barrier", None, proc.nproc)

@@ -170,7 +170,7 @@ def _value_lanes(vs: np.ndarray, device) -> np.ndarray:
             pack.KeyOps(tuple(mat), ("i",) * len(mat)))))
         del mat
     else:
-        listed = vs.tolist()
+        listed = vs.tolist()  # tracecheck: off[TS101] — vs is numpy
         order = np.asarray(sorted(range(len(listed)),
                                   key=listed.__getitem__), np.int64)
         del listed

@@ -12,12 +12,17 @@ blocks, so the host sees the whole ``(W·rows, ...)`` array, as the
 reference's ``multihost_utils.process_allgather`` gives it
 (``cylon_tpu/utils/host.py:33``).  :func:`host_shard_blocks` returns
 only this process's blocks, with no collective.
+
+Each pull is noted for the runtime sentinel (analysis/runtime.py,
+RT303) while it is active: one check of ``ACTIVE`` otherwise.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..analysis import runtime as _sentinel
 
 
 def _gathered(x: np.ndarray, world: int | None) -> np.ndarray:
@@ -37,16 +42,28 @@ def host_array(x, world: int | None = None) -> np.ndarray:
     multi-process world gathers every process's blocks."""
     if x is None or isinstance(x, np.ndarray):
         return x
+    if _sentinel.ACTIVE:
+        _sentinel.note_transfer("host_array")
+    return _pull(x, world)
+
+
+def _pull(x: torch.Tensor, world: int | None) -> np.ndarray:
     return _gathered(x.detach().cpu().numpy(), world)
+
+
+def _host(x, world: int | None):
+    return x if x is None or isinstance(x, np.ndarray) else _pull(x, world)
 
 
 def host_arrays(xs, world: int | None = None) -> list:
     """:func:`host_array` over a list; ``None`` entries pass through.  The
     copies are queued non-blocking into pinned buffers and waited on once,
     so N pulls cost one device round trip."""
+    if _sentinel.ACTIVE and any(isinstance(x, torch.Tensor) for x in xs):
+        _sentinel.note_transfer("host_arrays")
     cuda = [x for x in xs if isinstance(x, torch.Tensor) and x.is_cuda]
     if not cuda:
-        return [host_array(x, world) for x in xs]
+        return [_host(x, world) for x in xs]
     staged = {}
     for x in cuda:
         buf = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
@@ -54,12 +71,14 @@ def host_arrays(xs, world: int | None = None) -> list:
         staged[id(x)] = buf
     torch.cuda.synchronize(cuda[0].device)
     return [_gathered(staged[id(x)].numpy(), world) if id(x) in staged
-            else host_array(x, world) for x in xs]
+            else _host(x, world) for x in xs]
 
 
 def sync_pull(x) -> None:
     """Wait until everything feeding tensor ``x`` has run."""
     if isinstance(x, torch.Tensor) and x.is_cuda:
+        if _sentinel.ACTIVE:
+            _sentinel.note_transfer("sync_pull")
         torch.cuda.synchronize(x.device)
 
 
@@ -73,6 +92,8 @@ def host_shard_blocks(x: torch.Tensor, w: int, out=None) -> list:
     pinned tensor of ``x``'s shape and dtype, reused across pulls) and is
     waited on; on the CPU it is a copy.  The spill tier's eviction pull
     (exec/memory.py)."""
+    if _sentinel.ACTIVE:
+        _sentinel.note_transfer("host_shards")
     if out is None:
         out = torch.empty(x.shape, dtype=x.dtype, pin_memory=x.is_cuda)
     out.copy_(x.detach(), non_blocking=x.is_cuda)

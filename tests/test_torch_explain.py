@@ -14,6 +14,7 @@ comm-matrix sums against the exchange counters, and the unarmed
 contract (no node, no comm record, no file).
 """
 
+import json
 import os
 
 import jax
@@ -442,3 +443,42 @@ def test_unarmed_contract_and_nesting(tmp_path, monkeypatch):
     assert pplan.current() is None
     with pytest.raises(InvalidError):
         pobs.explain(lambda: pobs.explain(p_mono, lt, rt))
+
+
+@pytest.mark.parametrize("mode", ["render", "diff"])
+def test_explain_cli_text_matches_reference_script(tmp_path, capsys, mode):
+    """``python -m cylon_tpu_torch.obs.explain`` prints, for a port plan's
+    saved ``to_dict()`` (W = 4, analyzed with the comm matrix armed), the
+    same text as the reference's scripts/explain.py run as a subprocess:
+    the rendered tree, or the diff of two runs (the monolithic route
+    against the pipelined one: a structure divergence and node deltas)."""
+    import importlib
+    import subprocess
+    import sys
+    pexplain = importlib.import_module("cylon_tpu_torch.obs.explain")
+    left, right = bench_inputs(4000)
+    pe = penv(4)
+    lt, rt = pct.Table.from_pydict(left, pe), pct.Table.from_pydict(right,
+                                                                   pe)
+    pcomm.arm(True)
+    paths = []
+    for i, f in enumerate((p_mono, p_piped)[:1 if mode == "render" else 2]):
+        qp = pobs.explain_analyze(f, lt, rt)
+        path = tmp_path / f"plan{i}.json"
+        path.write_text(json.dumps(qp.to_dict()))
+        paths.append(str(path))
+    assert pexplain.main(["explain", *paths]) == 0
+    got = capsys.readouterr().out
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    ref = subprocess.run(
+        [sys.executable, os.path.join(root, "scripts", "explain.py"),
+         *paths], capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, JAX_PLATFORMS="cpu"))
+    assert ref.returncode == 0, ref.stderr
+    assert got == ref.stdout
+    assert ("join" in got) if mode == "render" else \
+        ("structure diverges" in got or "only in" in got)
+    # the package's explain() still works with the module imported
+    assert pobs.explain is pexplain
+    assert pobs.explain(p_mono, lt, rt).static_dict() == \
+        pplan.explain(p_mono, lt, rt).static_dict()

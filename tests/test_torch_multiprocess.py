@@ -15,7 +15,8 @@ tests/test_torch_multiprocess_ckpt.py's, the topology
 tests/test_torch_multiprocess_ops.py's) and saves
 what it saw: every result table's layout gathered whole (valid counts,
 capacity, each shard's rows and padding) plus each leg's agreement
-facts.  The parent test holds each process's layouts bit-equal to the
+facts (the sentinel leg: its collective log, armed for one
+iteration).  The parent test holds each process's layouts bit-equal to the
 port's ``VirtualMeshConfig(W, device="cpu")`` and to the reference's
 ``CPUMeshConfig(W)`` in-process, and checks that every voted leg agreed
 on every process.  At module level only torch, numpy and the port are
@@ -433,9 +434,24 @@ def leg_audit(ct, env, out, lt, rt):
         integrity.rearm()
 
 
+def leg_sentinel(ct, env, out, lt, rt):
+    """The runtime sentinel armed for one monolithic join → groupby: this
+    process's collective log and its running digest."""
+    from cylon_tpu_torch.analysis import runtime
+    runtime.enable()
+    runtime.reset()
+    try:
+        _rows(ct.groupby_aggregate(ct.join_tables(lt, rt, "k", "k"), "k",
+                                   AGGS))
+        out["sentinel|digest"] = np.asarray([runtime.collective_digest()])
+        _json(out, "sentinel|log", runtime.collective_log())
+    finally:
+        runtime.disable()
+
+
 PORT_LEGS = ("main", "semi_anti", "sorts", "pipelined", "repart")
 PROC_LEGS = ("barrier", "guard", "spill", "obs", "stream", "skew",
-             "refusals", "audit", "desync")
+             "refusals", "audit", "sentinel", "desync")
 
 
 def run_port_legs(ct, env, legs) -> dict:
@@ -740,6 +756,20 @@ def test_audit_fingerprints_and_corrupt_drill(tmp_path_factory):
     assert once[0][0]["action"].startswith("retry")
     assert always[0] == always[1]
     assert [e["action"] for e in always[0]] == ["retry_chunks_4", "abort"]
+
+
+def test_collective_logs_agree(tmp_path_factory):
+    """Armed for one monolithic iteration at 2 × 2: both processes log
+    the same collectives in the same order (CL202 finds nothing) and hold
+    the same digest."""
+    from cylon_tpu_torch.analysis import compare_logs
+    res = _world(tmp_path_factory, 2, 2)
+    logs = _load(res, "sentinel|log")
+    assert logs[0] and compare_logs(dict(enumerate(logs))) == []
+    assert {e[1] for e in logs[0]} >= {"all_gather", "all_to_all",
+                                       "all_reduce"}
+    digests = [r["sentinel|digest"].tolist() for r in res]
+    assert digests[0] == digests[1] and digests[0][0]
 
 
 def test_spill_same_evictions(tmp_path_factory):
