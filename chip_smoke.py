@@ -324,6 +324,21 @@ Then recovery: the spill tiers, the retry ladder and a real device OOM:
   ``RankDesyncError``), ``groupby.device_oom=desync`` (no rung: the
   typed abort) and, at W > 1, ``shuffle.recv_guard=predicted`` with a
   spillable source resident (the spill rung);
+* ``chaos_soak`` (a child process beside ``breadth_small`` and
+  ``recovery_small``): the port's soak, ``python -m
+  cylon_tpu_torch.exec.chaos_soak --rows 67108864 --chunks 4 --world 4
+  --seed 5 --schedules 4`` — its four pinned fault schedules (the two
+  drawn ones of ``--schedules 6`` cut for the time limit), each in child
+  processes that are SIGKILLed and resumed, sharing one compile
+  directory; the baseline equal to a numpy
+  oracle (an int64 sort and ``np.add.reduceat``), launching K1 and K2,
+  the first launch of each bit-equal to its plain version; every
+  schedule converged: each one's outcome and seconds, and the children's
+  K1 and K2 launches (added to the kernels line).  Beside it, in this
+  process (``local_rank``): ``LOCAL_RANK`` set to the card count, with no
+  device named, makes ``DistributedConfig`` raise
+  ``DeviceUnavailableError`` before any rendezvous, and the last card's
+  ``LOCAL_RANK`` picks that card;
 * ``oom_path`` (last): the monolithic join → groupby at W = 1 and
   ``--oom-rows`` a side (default 402,653,184; BASELINE-shaped tables
   drawn on the card, not bench.py's draw), which the card cannot
@@ -8971,6 +8986,121 @@ def side_finish(state: dict) -> list:
     return recs
 
 
+#: the soak's schedules here: the four pinned ones.  The two drawn ones
+#: (``--schedules 6``) took the script to 1101 s, past its 1100 s budget,
+#: and were cut first
+SOAK_SCHEDULES = 4
+#: the soak's command line on the card: 67.1M lineitem rows, so a
+#: piece's shard holds about 2^20 orders, K1's segment-space gate (at
+#: 33.5M rows, 2^19, K1 never launched)
+SOAK_ARGS = ("--rows", "67108864", "--chunks", "4", "--world", "4",
+             "--seed", "5", "--schedules", str(SOAK_SCHEDULES))
+#: the soak child's time limit
+SOAK_TIMEOUT_S = 900
+
+
+def soak_start() -> dict:
+    """``chaos_soak`` (module docstring), started: the port's soak as a
+    child process from this checkout."""
+    import os
+    cmd = ["-m", "cylon_tpu_torch.exec.chaos_soak", *SOAK_ARGS]
+    # a session of its own: a soak killed at its limit takes the child it
+    # is running with it
+    return {"t0": time.perf_counter(), "cmd": cmd,
+            "proc": subprocess.Popen(
+                [sys.executable, *cmd],
+                cwd=os.path.dirname(os.path.abspath(__file__)),
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                start_new_session=True)}
+
+
+def soak_finish(state: dict) -> dict:
+    """Wait for the soak child (killed past :data:`SOAK_TIMEOUT_S`): it
+    must exit 0 with no failure, its baseline equal to the numpy oracle,
+    both kernels launched by the baseline and their first launches
+    bit-equal, and every schedule converged."""
+    import os
+    import signal
+    p = state["proc"]
+    try:
+        so, se = p.communicate(timeout=SOAK_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        so, se = p.communicate()
+    lines = so.strip().splitlines()
+    try:
+        last = json.loads(lines[-1]) if lines else {}
+    except ValueError:
+        last = {}
+    base = last.get("baseline") or {}
+    first = base.get("first_launch") or {}
+    launches = last.get("kernel_launches") or {}
+    rec = {"phase": "chaos_soak", "cmd": " ".join(state["cmd"]),
+           "rc": p.returncode, "wall_s": time.perf_counter() - state["t0"],
+           "seconds": last.get("seconds"), "failures": last.get("failures"),
+           "children": last.get("children"),
+           "children_s": last.get("children_s"),
+           "baseline": {k: base.get(k) for k in (
+               "rows", "seconds", "kernel_launches", "first_launch",
+               "oracle", "oracle_s")},
+           "outcomes": [{k: o.get(k) for k in (
+               "schedule", "faults", "resume_faults", "outcome", "ok",
+               "seconds")} for o in last.get("outcomes") or []],
+           "kernel_launches": launches,
+           "progress": [ln for ln in lines if ln.startswith("#")]}
+    base_launches = base.get("kernel_launches") or {}
+    bad = []
+    if p.returncode != 0 or last.get("failures") != 0:
+        bad.append(f"rc {p.returncode}, failures {last.get('failures')}: "
+                   f"{last.get('detail')}")
+    if base.get("oracle") != "equal":
+        bad.append("the baseline differs from the numpy oracle")
+    if not base_launches.get("windowed_gather") \
+            or not base_launches.get("splitter_probe"):
+        bad.append(f"the baseline's launches {base_launches}")
+    for name in ("k1", "k2"):
+        if not (first.get(name) or {}).get("bit_equal"):
+            bad.append(f"{name}'s first launch: {first.get(name)}")
+    if len(rec["outcomes"]) != SOAK_SCHEDULES \
+            or not all(o["ok"] for o in rec["outcomes"]):
+        bad.append(f"outcomes {rec['outcomes']}")
+    if bad:
+        raise AssertionError(f"chaos_soak: {bad}\n{so[-3000:]}\n"
+                             f"{se[-3000:]}")
+    return rec
+
+
+def local_rank_check(ct) -> dict:
+    """``local_rank`` (module docstring): ``LOCAL_RANK`` past the cards
+    raises ``DeviceUnavailableError`` at the config, with no rendezvous
+    (the address names no listener); the last card's picks that card."""
+    import os
+    n = torch.cuda.device_count()
+    old = os.environ.get("LOCAL_RANK")
+    try:
+        os.environ["LOCAL_RANK"] = str(n)
+        try:
+            ct.DistributedConfig("127.0.0.1:1", 0, 1)
+        except ct.DeviceUnavailableError as e:
+            message = str(e)
+        else:
+            raise AssertionError(f"local_rank: LOCAL_RANK={n} on {n} "
+                                 "card(s) did not raise")
+        os.environ["LOCAL_RANK"] = str(n - 1)
+        dev = ct.DistributedConfig("127.0.0.1:1", 0, 1).devices[0]
+        if dev != torch.device("cuda", n - 1):
+            raise AssertionError(f"local_rank: LOCAL_RANK={n - 1} gave "
+                                 f"{dev}")
+    finally:
+        if old is None:
+            os.environ.pop("LOCAL_RANK", None)
+        else:
+            os.environ["LOCAL_RANK"] = old
+    return {"phase": "local_rank", "cards": n, "past_the_cards": n,
+            "raised": "DeviceUnavailableError", "message": message,
+            "last_card": str(dev)}
+
+
 def gate_start() -> dict:
     """``analysis_gate`` (module docstring), started: the port's gate,
     ``python -m cylon_tpu_torch.analysis --strict``, as a child process
@@ -9447,20 +9577,31 @@ def main() -> int:
             emit(crec)
     del left, right, scan_orc
     torch.cuda.empty_cache()
-    # correctness only: skew_small and tpch_small in a child process
-    # beside breadth_small and recovery_small
-    side = side_start({"phases": ["skew_small", "tpch_small"],
-                       "scale": min(TPCH_SMALL_SCALE, args.tpch_scale)})
+    # correctness only: skew_small and tpch_small in a child process,
+    # and the chaos soak in another, beside breadth_small and
+    # recovery_small
+    soak = soak_start()
     try:
-        for brec in breadth_small(ct, SMALL_WORLDS, SMALL_ROWS):
-            no_kernels(brec, f"breadth_small W={brec['world']}")
-            emit({"phase": "breadth_small", "oracle": "equal", **brec})
-        for rrec in recovery_small(ct, SMALL_WORLDS, SMALL_ROWS):
-            emit(rrec)
+        side = side_start({"phases": ["skew_small", "tpch_small"],
+                           "scale": min(TPCH_SMALL_SCALE, args.tpch_scale)})
+        try:
+            emit(local_rank_check(ct))
+            for brec in breadth_small(ct, SMALL_WORLDS, SMALL_ROWS):
+                no_kernels(brec, f"breadth_small W={brec['world']}")
+                emit({"phase": "breadth_small", "oracle": "equal", **brec})
+            for rrec in recovery_small(ct, SMALL_WORLDS, SMALL_ROWS):
+                emit(rrec)
+        finally:
+            side_recs = side_finish(side)
     finally:
-        side_recs = side_finish(side)
+        # waits for (and, failing, kills) the soak and its children
+        soak_rec = soak_finish(soak)
     for side_rec in side_recs:
         emit(side_rec)
+    emit(soak_rec)
+    routes["chaos_soak"] = {
+        name: {"launches": soak_rec["kernel_launches"].get(name, 0)}
+        for name in ("windowed_gather", "splitter_probe")}
 
     # -- the adaptive skew split and TPC-H: BASELINE configurations 5
     # (W = 4) and 4 (W = 8) --------------------------------------------------
@@ -9511,7 +9652,8 @@ def main() -> int:
             "stream_path_w4", "procs_gloo_p0", "procs_gloo_p1",
             "procs_nccl_p0", "topo_virtual_w4", "procs_topo_p0",
             "procs_topo_p1", "procs_topo_p2", "procs_topo_p3",
-            "procs_ckpt", "integrity_path_w4", "analysis_path_w4")),
+            "procs_ckpt", "integrity_path_w4", "analysis_path_w4",
+            "chaos_soak")),
         "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
         "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
@@ -9543,7 +9685,8 @@ def main() -> int:
             "stream_path_w4", "procs_gloo_p0", "procs_gloo_p1",
             "procs_nccl_p0", "procs_topo_p0", "procs_topo_p1",
             "procs_topo_p2", "procs_topo_p3", "procs_ckpt",
-            "procs_serve", "integrity_path_w4", "analysis_path_w4")),
+            "procs_serve", "integrity_path_w4", "analysis_path_w4",
+            "chaos_soak")),
         "max_abs_err": rec2["max_abs_err"], "ms": rec2["ms"],
         "kernel_ms": rec2["kernel_ms"], "scalar_ms": rec2["scalar_ms"],
         "general_ms": rec2["general_ms"],

@@ -27,7 +27,8 @@ World sizes above 1 come from two configs:
 
 A config whose ``devices`` name more than one distinct device in one
 process raises ``NotImplementedError``: several cards are driven by
-several processes.
+several processes, one per card (torchrun's ``LOCAL_RANK`` picks a
+process's card, :func:`local_rank_device`).
 
 The env carries the reference's collective surface (``rank``,
 ``get_next_sequence``, ``add_config``/``get_config``, ``allgather``,
@@ -96,10 +97,15 @@ class DistributedConfig(CommConfig):
     ``RANK``, ``WORLD_SIZE``).  ``local_world``: V ranks per process
     (default 1).  ``backend``: ``None`` picks ``"nccl"`` on a CUDA
     device and ``"gloo"`` on the CPU; ``"gloo"`` on the card must be
-    named.  ``device``: this process's device (default ``cuda:0``).
-    ``timeout_s``: the process group's collective timeout (default the
-    exchange watchdog's ``CYLON_TPU_TORCH_WATCHDOG_S`` when set, else
-    600 s)."""
+    named.  ``device``: this process's device.  Without one, a process
+    that torchrun started with ``LOCAL_RANK`` takes ``cuda:<LOCAL_RANK>``
+    (one process per card), and ``DeviceUnavailableError`` is raised
+    here, before any rendezvous, when that card is not there: there is
+    no modulo and no fallback to ``cuda:0``; otherwise ``cuda:0``.  An
+    explicit ``device`` always wins (the one-card gloo worlds name
+    theirs).  ``timeout_s``: the process group's collective timeout
+    (default the exchange watchdog's ``CYLON_TPU_TORCH_WATCHDOG_S`` when
+    set, else 600 s)."""
 
     comm_type = "distributed"
 
@@ -116,6 +122,8 @@ class DistributedConfig(CommConfig):
             process_id = int(envv.get("RANK", "0"))
         if num_processes is None:
             num_processes = int(envv.get("WORLD_SIZE", "1"))
+        if device is None and envv.get("LOCAL_RANK", "") != "":
+            device = local_rank_device(int(envv["LOCAL_RANK"]))
         if coordinator_address is None:
             raise InvalidError("DistributedConfig needs a coordinator "
                                "address (or MASTER_ADDR/MASTER_PORT)")
@@ -135,6 +143,18 @@ class DistributedConfig(CommConfig):
         self.timeout_s = timeout_s
         self.world_size = self.local_world * self.num_processes
         self.devices = (device,)
+
+
+def local_rank_device(local_rank: int) -> torch.device:
+    """``cuda:<local_rank>``, the card of a process that torchrun started
+    with ``LOCAL_RANK``; :class:`DeviceUnavailableError` when the host
+    has no such card (never another card in its place)."""
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if not 0 <= local_rank < n:
+        raise DeviceUnavailableError(
+            f"LOCAL_RANK={local_rank} names card {local_rank}, but torch "
+            f"sees {n} CUDA device(s); pass device= to choose one")
+    return torch.device("cuda", local_rank)
 
 
 def _start_group(cfg: DistributedConfig, device: torch.device):

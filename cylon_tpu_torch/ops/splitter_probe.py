@@ -195,9 +195,12 @@ def run(probe: Probe) -> torch.Tensor:
     out = torch.empty(p.cap, dtype=torch.int32, device=dev)
     from .. import kernels
     fn = kernels.load("splitter_probe").cylon_count_ge_splitters
-    rc = fn(probe.desc.data_ptr(), p.k, p.cap, p.n_split, int(p.vec),
-            p.image_bytes, int(p.image_rows > 0), out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+    # the launch and its shared-memory attribute (allow_smem) act on the
+    # current device: make it the operands' card
+    with torch.cuda.device(dev):
+        rc = fn(probe.desc.data_ptr(), p.k, p.cap, p.n_split, int(p.vec),
+                p.image_bytes, int(p.image_rows > 0), out.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise KernelError(
             f"splitter_probe launch failed: cudaError {rc} (K={p.k} "

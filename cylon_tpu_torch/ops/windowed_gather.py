@@ -135,9 +135,12 @@ def _launch(lanes: tuple, idx: torch.Tensor, window: int):
     from .. import kernels
     fn = kernels.load("windowed_gather").cylon_windowed_take
     m128 = -(-M // 128) * 128
-    rc = fn(desc.data_ptr(), M, L, idx.data_ptr(), S, m128, window,
-            out.data_ptr(), ok.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+    # the launch runs on the current device: make it the lanes' card, or
+    # the stream handle names another device's stream
+    with torch.cuda.device(dev):
+        rc = fn(desc.data_ptr(), M, L, idx.data_ptr(), S, m128, window,
+                out.data_ptr(), ok.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise KernelError(f"windowed_gather launch failed: cudaError {rc}")
     COUNTS["launches"] += 1

@@ -10,10 +10,13 @@ Held equal: the results (sorted rows, bit for bit; NaN equal to NaN), the
 the meta sidecars pickle each package's own classes), the recovery
 events and the plan tokens the manifests record.  The operator cases run at W = 4 unless a
 case says otherwise (the reference's CPU mesh, the port's
-``VirtualMeshConfig`` on the CPU).  Not mirrored: the two serving-tier
-drains (the scheduler is slice 13), the compiler-crash final rung (the
-compile tier, slice 16) and the chaos soak, for which a port child
-process is killed at ``ckpt.write`` and resumed."""
+``VirtualMeshConfig`` on the CPU).  Not mirrored here: the two
+serving-tier drains (the scheduler is slice 13), the compiler-crash final
+rung (the compile tier, slice 16) and the chaos soak, whose port,
+``python -m cylon_tpu_torch.exec.chaos_soak`` (the trimmed soak and
+``--elastic``), is held by tests/test_torch_chaos_soak.py (slow-marked,
+as the reference's); here a port child process is killed at
+``ckpt.write`` and resumed."""
 
 import json
 import os

@@ -9,10 +9,13 @@ under its own checkpoint root.  Held equal: results (bit for bit),
 session states and outcome buckets, ``stats()`` counters (without the
 reference's compile block), recovery events, stage directory names,
 the resize breadcrumb's fields (all but the pid) and the typed errors.
-Not mirrored: the slow drivers ``scripts/chaos_soak.py --fleet`` and
-``bench_serving`` with 64 preemptive tenants, whose card counterparts are
-``chip_smoke.serve_small`` (the resize relaunch, the kill inside a
-session) and ``serve_path``'s preempt leg."""
+Not mirrored here: the slow harnesses.  ``scripts/chaos_soak.py --fleet``
+has its port, ``python -m cylon_tpu_torch.exec.chaos_soak --fleet``,
+held by tests/test_torch_chaos_soak.py (slow-marked, as the reference's);
+``bench_serving`` with 64 preemptive tenants waits for the port's
+benchmark, and its card counterparts are ``chip_smoke.serve_small`` (the
+resize relaunch, the kill inside a session) and ``serve_path``'s preempt
+leg."""
 
 import json
 import os

@@ -852,5 +852,52 @@ def test_config_backends():
         pct.DistributedConfig("127.0.0.1:1", 0, 1, backend="mpi")
 
 
+def _cards(monkeypatch, n: int) -> None:
+    """Pretend the host has ``n`` CUDA cards, and fail any rendezvous."""
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: n > 0)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: n)
+
+    def no_rendezvous(*a, **k):
+        raise AssertionError("a rendezvous was attempted")
+    monkeypatch.setattr(torch.distributed, "init_process_group",
+                        no_rendezvous)
+
+
+def test_local_rank_picks_the_card(monkeypatch):
+    """Under torchrun, ``LOCAL_RANK=2`` of 4 cards is ``cuda:2``: every
+    process its own card, not all on card 0."""
+    import torch
+    _cards(monkeypatch, 4)
+    monkeypatch.setenv("LOCAL_RANK", "2")
+    cfg = pct.DistributedConfig("127.0.0.1:1", 2, 4)
+    assert cfg.devices == (torch.device("cuda", 2),)
+
+
+def test_local_rank_without_its_card_raises(monkeypatch):
+    """``LOCAL_RANK=1`` on a host of one card raises
+    ``DeviceUnavailableError`` at the config, before any rendezvous: no
+    modulo onto card 0, no fallback."""
+    _cards(monkeypatch, 1)
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    with pytest.raises(pct.DeviceUnavailableError):
+        pct.DistributedConfig("127.0.0.1:1", 1, 2)
+    with pytest.raises(pct.DeviceUnavailableError):
+        pct.CylonEnv(pct.DistributedConfig("127.0.0.1:1", 1, 2))
+
+
+def test_explicit_device_ignores_local_rank(monkeypatch):
+    """An explicit ``device`` wins over ``LOCAL_RANK`` (the one-card gloo
+    worlds name theirs), whatever the card count."""
+    import torch
+    _cards(monkeypatch, 0)
+    monkeypatch.setenv("LOCAL_RANK", "3")
+    cfg = pct.DistributedConfig("127.0.0.1:1", 0, 1, device="cpu")
+    assert cfg.devices == ("cpu",)
+    monkeypatch.delenv("LOCAL_RANK")
+    cfg = pct.DistributedConfig("127.0.0.1:1", 0, 1)
+    assert cfg.devices == (None,)
+
+
 if __name__ == "__main__":
     _driver(sys.argv[1:])

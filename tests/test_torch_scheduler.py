@@ -12,9 +12,12 @@ events (site, kind, action, session), the checkpoint stage directory
 names and the typed errors.  Grant order is compared under ``fifo`` and
 ``priority`` only: ``fair`` keys on wall-clock seconds.  Not mirrored:
 ``test_program_cache_shared_across_tenants`` (the port has no program
-cache before the compile tier) and the two slow drivers
-(``scripts/bench_serving.py``, ``scripts/chaos_soak.py``), whose card
-counterparts are ``chip_smoke.serve_path`` and ``serve_small``
+cache before the compile tier) and the two slow harnesses:
+``scripts/chaos_soak.py --concurrent`` has its port, ``python -m
+cylon_tpu_torch.exec.chaos_soak --concurrent``, held by
+tests/test_torch_chaos_soak.py (slow-marked, as the reference's);
+``scripts/bench_serving.py`` waits for the port's benchmark, and its
+card counterparts are ``chip_smoke.serve_path`` and ``serve_small``
 (rehearsed in tests/test_torch_serve_rehearsal.py).
 
 Also here: a deferred inner join → ``groupby_aggregate`` on the join key

@@ -13,8 +13,10 @@ sorted rows; the ``stats()`` dicts; ``window_evictions`` and the
 drained ledger; the typed errors at ``stream.append``,
 ``stream.watermark`` and on bad arguments; a resume's ``fast_forwarded``,
 the W = 4 → W = 2 prefix adoption and its corrupt-tail trim.  Not
-mirrored: the bench smoke and the chaos soak (slow-marked in the
-reference; the port has no streaming bench script yet).
+mirrored here: the bench smoke (the port has no streaming bench script
+yet) and the chaos soak, whose port, ``python -m
+cylon_tpu_torch.exec.chaos_soak --stream``, is held by
+tests/test_torch_chaos_soak.py (slow-marked, as the reference's).
 """
 
 import gc
